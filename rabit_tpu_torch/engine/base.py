@@ -1,0 +1,185 @@
+"""Abstract engine interface — the Python face of the reference's
+``IEngine`` (engine.h:32-183). One engine instance per process; the
+reference keeps a thread-local singleton (engine.cc:33-43), which in
+Python is the module-global in ``rabit_tpu_torch.__init__`` (the API is
+documented not thread-safe, rabit.h:177-178).
+
+The port's copy of ``rabit_tpu/engine/base.py``, without its telemetry
+spans, ``init_after_exception`` and ``resize`` (robust-engine features the
+port has no engine for yet), and with ``restore_checkpoint``."""
+
+from __future__ import annotations
+
+import socket
+from abc import ABC, abstractmethod
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+
+from ..ops.reducers import SUM
+
+
+class AllreduceHandle:
+    """Awaitable engine-level collective (:meth:`Engine.allreduce_async`).
+
+    ``wait()`` blocks until the buffer passed at issue holds the reduced
+    result, then returns it; idempotent. ``ready()`` is a non-blocking
+    completion probe (False when the engine can't tell). Engines without
+    a true async path complete the op at issue and hand back an
+    already-done handle."""
+
+    __slots__ = ("_wait_fn", "_ready_fn", "_value", "_done")
+
+    def __init__(self, wait_fn=None, value=None, ready_fn=None):
+        self._wait_fn = wait_fn
+        self._ready_fn = ready_fn
+        self._value = value
+        self._done = wait_fn is None
+
+    def ready(self) -> bool:
+        if self._done:
+            return True
+        if self._ready_fn is not None:
+            return bool(self._ready_fn())
+        return False
+
+    def wait(self):
+        if self._done:
+            return self._value
+        wait_fn, self._wait_fn = self._wait_fn, None
+        try:
+            self._value = wait_fn()
+        finally:
+            self._done = True
+            self._ready_fn = None
+        return self._value
+
+
+class Engine(ABC):
+    """Collective engine. Buffers are 1-D contiguous numpy arrays mutated
+    in place, matching the reference's in-place sendrecvbuf contract
+    (engine.h:74-96)."""
+
+    @abstractmethod
+    def init(self, args: List[str]) -> None:
+        """Bootstrap: parse config, rendezvous, establish links
+        (IEngine construction + AllreduceBase::Init,
+        allreduce_base.cc:53-120)."""
+
+    @abstractmethod
+    def shutdown(self) -> None:
+        """Tear down links (AllreduceBase::Shutdown,
+        allreduce_base.cc:125-142)."""
+
+    # -- collectives ------------------------------------------------------
+    @abstractmethod
+    def allreduce(self, buf: np.ndarray, op: int,
+                  prepare_fun: Optional[Callable[[], None]] = None,
+                  key: str = "") -> None:
+        """In-place elementwise allreduce of ``buf`` across ranks
+        (IEngine::Allreduce, engine.h:74-96). ``prepare_fun`` runs lazily
+        right before the reduction. ``key`` is the caller-signature cache
+        key used by the bootstrap cache (rabit.h:26-39)."""
+
+    def allreduce_async(self, buf: np.ndarray, op: int,
+                        prepare_fun: Optional[Callable[[], None]] = None,
+                        key: str = "") -> AllreduceHandle:
+        """Issue an in-place allreduce of ``buf`` and return an
+        awaitable :class:`AllreduceHandle`. Default implementation
+        completes the collective synchronously (zero overlap, same
+        result)."""
+        self.allreduce(buf, op, prepare_fun=prepare_fun, key=key)
+        return AllreduceHandle(value=buf)
+
+    @abstractmethod
+    def broadcast(self, data: Optional[bytes], root: int) -> bytes:
+        """Broadcast a byte string from ``root``; returns the payload on
+        every rank (IEngine::Broadcast, engine.h:98-105). Non-root ranks
+        pass ``None``. Handles the size pre-broadcast internally
+        (rabit-inl.h:130-165)."""
+
+    def reduce_scatter(self, buf: np.ndarray, op: int) -> np.ndarray:
+        """Reduce ``buf`` elementwise across ranks and return this
+        rank's chunk — ``n/p`` elements starting at ``rank*n/p`` (rank i
+        owns chunk i, allreduce_base.cc:829-918). ``buf.size`` must
+        divide by the world size. Default composition: a full allreduce
+        (``buf`` is mutated to the complete reduction) followed by a
+        slice copy."""
+        p = self.world_size
+        if buf.size % p:
+            raise ValueError(
+                f"reduce_scatter payload of {buf.size} elements must "
+                f"divide by the world size {p} (rank i owns chunk i)")
+        self.allreduce(buf, op)
+        m = buf.size // p
+        return buf[self.rank * m:(self.rank + 1) * m].copy()
+
+    def allgather(self, buf: np.ndarray) -> np.ndarray:
+        """Concatenate every rank's ``buf`` in rank order; every rank
+        returns the full length ``p*m`` result (TryAllgatherRing,
+        allreduce_base.cc:751-815). Default composition: zero-pad into
+        the owned slot and SUM-allreduce (exact — every other slot is
+        zero)."""
+        p = self.world_size
+        m = buf.size
+        out = np.zeros(p * m, dtype=buf.dtype)
+        out[self.rank * m:(self.rank + 1) * m] = buf.reshape(-1)
+        self.allreduce(out, SUM)
+        return out
+
+    # -- checkpointing ----------------------------------------------------
+    def load_checkpoint(self, with_local: bool = False
+                        ) -> Tuple[int, Optional[bytes], Optional[bytes]]:
+        """Returns (version, global_bytes, local_bytes); version 0 means
+        fresh start (IEngine::LoadCheckPoint, engine.h:107-137)."""
+        return (0, None, None)
+
+    def checkpoint(self, global_bytes: bytes,
+                   local_bytes: Optional[bytes] = None) -> None:
+        """Two-phase commit checkpoint; bumps version
+        (IEngine::CheckPoint, engine.h:139-153)."""
+        self._version += 1
+
+    def lazy_checkpoint(self, make_global: Callable[[], bytes]) -> None:
+        """Defer serialization until a failure needs it
+        (IEngine::LazyCheckPoint, engine.h:155-166)."""
+        self._version += 1
+
+    def restore_checkpoint(self, version: int, global_bytes: Optional[bytes],
+                           local_bytes: Optional[bytes] = None) -> None:
+        """Take over a checkpoint written elsewhere (``convert.py``): the
+        next ``load_checkpoint`` returns it."""
+        if version < 0:
+            raise ValueError(f"checkpoint version must be >= 0, got "
+                             f"{version}")
+        self._global, self._local = global_bytes, local_bytes
+        self._version = int(version)
+
+    # -- properties -------------------------------------------------------
+    _version: int = 0
+
+    @property
+    def version_number(self) -> int:
+        return self._version
+
+    @property
+    @abstractmethod
+    def rank(self) -> int: ...
+
+    @property
+    @abstractmethod
+    def world_size(self) -> int: ...
+
+    @property
+    def is_distributed(self) -> bool:
+        return self.world_size > 1
+
+    @property
+    def host(self) -> str:
+        return socket.gethostname()
+
+    def tracker_print(self, msg: str) -> None:
+        """Default: rank-0 stdout, like the empty/MPI engines
+        (engine_empty.cc TrackerPrint)."""
+        if self.rank == 0:
+            print(msg, flush=True)
