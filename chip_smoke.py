@@ -1,36 +1,52 @@
-"""Chip smoke test of rabit_tpu_torch: builds the CUDA kernels and drives the
-port's main path -- the gradient-histogram allreduce -- on one NVIDIA GPU.
+"""Chip smoke test of rabit_tpu_torch: builds the CUDA kernels and drives
+the port's two paths on one NVIDIA GPU -- the gradient-histogram
+allreduce and the flagship transformer's training step.
 
     python3 chip_smoke.py
 
 Phases (each prints a line; any failure exits non-zero):
 
-1. build      nvcc every ``rabit_tpu_torch/csrc/*.cu`` into
-              ``build/rabit_tpu_torch/`` (all sources at once).
-2. kernel     each kernel against its plain PyTorch version on the card, at
-              the main path's shapes and an edge case of padding ids,
-              negative ids, a ragged row count and unaligned pointers.
-3. main path  ``distributed_histogram`` through a world-1 NCCL group at the
-              two full-width shapes, against the f64 host histogram.
-4. rounds     ``init(engine="torch")`` on the card, then three boosting
-              rounds at each boosted-round shape (g/h, histogram, allreduce,
-              split, margin update, checkpoint), each histogram against numpy
-              ``bincount`` in f64; ``load_checkpoint`` ends at version 3.
-5. timing     CUDA-event medians of the kernel, its plain version and the
-              PyTorch library call that computes the same function, beside
-              the least time the card could take (bytes over 3.35 TB/s).
-6. kernels    one JSON line of every kernel with its main-path launches.
+1. build        nvcc every ``rabit_tpu_torch/csrc/*.cu`` into
+                ``build/rabit_tpu_torch/`` (one nvcc a source, all
+                started together); ptxas's registers and spills of every
+                kernel.
+2. kernel       each kernel against its plain PyTorch version on the card:
+                the histogram at the main path's shapes and an edge case;
+                the flash block forward and backward at the training shape
+                (B*H 64, T = S 512, D 32, causal), the ring chain's block
+                (H 8, T = S 1024, D 128, no mask), a causal mask whose
+                first row is fully masked at m = NEG_INF (where masked
+                tiles may not be skipped), the fully masked first-step row
+                with an exact tie, and a ragged case (T 100, S 72, D 16).
+3. main path    ``distributed_histogram`` through a world-1 NCCL group at
+                the two full-width shapes, against the f64 host histogram.
+4. rounds       ``init(engine="torch")`` on the card, then three boosting
+                rounds at each boosted-round shape, each histogram against
+                numpy ``bincount`` in f64; ``load_checkpoint`` ends at
+                version 3.
+5. transformer  ``train_flagship``: the full-width flagship (vocab 256, 2 x
+                d_model 256, 8 x 32 heads, d_ff 1024, seq 512, batch 8)
+                takes 16 SGD steps on a world-1 NCCL mesh and its loss
+                falls; then one step through the kernels against the same
+                step through the plain block update (loss and parameters
+                within 5e-4), and a profile of three steps.
+6. timing       CUDA-event medians of each kernel, its plain version and
+                one PyTorch call that computes the same function, beside
+                the least time the card could take; the training step.
+7. kernels      one JSON line of every kernel with its main-path launches.
 
-Launch counters are set to 0 just before phase 3 and read just after
-phase 4, so the counts are the main path's alone. The last line is the
-device JSON. Without CUDA, or without the package beside this file, the
-script exits non-zero and prints no result.
+Launch counters are set to 0 just before each path (phases 3-4, phase 5)
+and read just after it, so a kernel's count is its own path's alone. The
+last line is the device JSON. Without CUDA, or without the package beside
+this file, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -40,8 +56,12 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12        # f32 outside the tensor cores, same source
-REPLACES = {"histogram": "rabit_tpu/ops/pallas_kernels.py:133"}
-SOURCES = {"histogram": "rabit_tpu_torch/csrc/histogram.cu"}
+REPLACES = {"histogram": "rabit_tpu/ops/pallas_kernels.py:133",
+            "flash_block": "rabit_tpu/ops/pallas_kernels.py:398",
+            "flash_block_bwd": "rabit_tpu/ops/pallas_kernels.py:345"}
+SOURCES = {"histogram": "rabit_tpu_torch/csrc/histogram.cu",
+           "flash_block": "rabit_tpu_torch/csrc/flash_block.cu",
+           "flash_block_bwd": "rabit_tpu_torch/csrc/flash_block_bwd.cu"}
 
 # (rows, nbins): bench.py's headline, and the HIGGS gpu_hist contribution
 # count (131,072 rows x 28 features) over 28 x 256 bins
@@ -58,6 +78,20 @@ N_ROUNDS = 3
 # sums near zero.
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-3)
 TIMING_REPS = 20
+# flash block shapes (B*H, T, S, D, causal): the training step's (batch 8
+# x 8 heads, seq 512, d_head 32) and the ring chain's block of
+# tools/kernel_hw_proof.py:156 (8 heads, 1024, d_head 128)
+FLASH_MAIN = (64, 512, 512, 32, True)
+FLASH_CHAIN = (8, 1024, 1024, 128, False)
+# the forward against its plain version (tests/test_ring_attention.py's
+# tolerance); each backward gradient within max|diff| / max|ref| (the
+# bound tools/kernel_hw_proof.py:131-135 holds the TPU kernel to)
+FLASH_FWD_TOL = dict(rtol=1e-4, atol=1e-4)
+FLASH_BWD_REL = 1e-3
+# one training step through the kernels vs through the plain block update
+# (tests/test_transformer.py:69-73)
+STEP_TOL = 5e-4
+FLAGSHIP_STEPS = 16
 
 
 def phase(name: str, msg: str) -> None:
@@ -94,6 +128,43 @@ def phase_build() -> None:
     phase("build", f"{sorted(_build.sources())} ready in "
           f"{time.perf_counter() - t0:.2f} s (per kernel, s: "
           f"{ {k: round(v, 2) for k, v in built.items()} })")
+    for name in sorted(_build.sources()):
+        phase("build", f"ptxas {name}: " + "; ".join(
+            ptxas_summary(_build.ptxas_log(name).read_text())))
+
+
+def demangled(symbol: str) -> str:
+    """'name<args>' of a kernel template's mangled symbol (integer and
+    bool arguments): the identifier whose length prefix ends where its
+    template arguments begin."""
+    args = re.search(r"I((?:L[a-z]\d+E)+)E", symbol)
+    if not args:
+        return symbol
+    values = ", ".join(re.findall(r"L[a-z](\d+)E", args.group(1)))
+    end = args.start()
+    for start in range(end - 1, 0, -1):
+        if symbol[:start].endswith(str(end - start)):
+            return f"{symbol[start:end]}<{values}>"
+    return symbol
+
+
+def ptxas_summary(log: str) -> list:
+    """'kernel<D>: N registers, B B spilled' for each kernel in ptxas's
+    -v output."""
+    out, kernel = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kernel = demangled(entry.group(1))
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill and kernel:
+            spilled = spill.group(1)
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and kernel:
+            out.append(f"{kernel} {regs.group(1)} registers, "
+                       f"{spilled} B spilled")
+            kernel = None
+    return out
 
 
 def _hist_case(n: int, nbins: int, seed: int, dev, edge: bool = False):
@@ -132,6 +203,216 @@ def phase_kernel(dev) -> float:
                   f"{err:.3g} (rtol {KERNEL_TOL['rtol']}, atol "
                   f"{KERNEL_TOL['atol']})")
     return worst
+
+
+def flash_case(bh: int, t: int, s: int, d: int, mask_kind, seed: int, dev,
+               first_step: bool = False):
+    """Inputs (q, k, v, m, l, o, mask) and cotangents (cm, cl, co) of one
+    block step, from a seed. ``first_step``: the ring's first step (m =
+    NEG_INF, l = o = 0); otherwise a running state. ``mask_kind`` is None,
+    "causal", "causal, row 0 masked" (the kernels skip the tiles above the
+    diagonal, but not for the first row block, whose row 0 keeps m =
+    NEG_INF) or "tie": a random mask whose row 0 is fully masked with m =
+    NEG_INF (both max ops tie exactly there), and an exact tie across two
+    unmasked lanes of row 1."""
+    from rabit_tpu_torch.ops.flash import NEG_INF
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    q, k, v = normal(bh, t, d), normal(bh, s, d), normal(bh, s, d)
+    if first_step:
+        m = torch.full((bh, t), NEG_INF, device=dev)
+        l, o = torch.zeros(bh, t, device=dev), torch.zeros(bh, t, d,
+                                                           device=dev)
+    else:
+        m, o = normal(bh, t), normal(bh, t, d)
+        l = torch.rand((bh, t), generator=gen, device=dev) + 0.5
+    mask = None
+    if mask_kind == "causal":
+        mask = torch.ones(t, s, dtype=torch.bool, device=dev).triu(1)
+    elif mask_kind == "causal, row 0 masked":
+        mask = torch.ones(t, s, dtype=torch.bool, device=dev).triu(1)
+        mask[0] = True
+    elif mask_kind == "tie":
+        mask = torch.rand((t, s), generator=gen, device=dev) < 0.3
+        mask[0] = True
+        m[:, 0] = NEG_INF
+        k[:, 5] = k[:, 3]
+        mask[1, 3] = mask[1, 5] = False
+    return (q, k, v, m, l, o, mask), (normal(bh, t), normal(bh, t),
+                                      normal(bh, t, d))
+
+
+FLASH_CASES = [
+    ("training shape", FLASH_MAIN[:4], "causal", True),
+    ("chain block", FLASH_CHAIN[:4], None, False),
+    ("fully masked first row", (4, 192, 192, 32), "causal, row 0 masked",
+     True),
+    ("tie row", (2, 64, 64, 32), "tie", False),
+    ("ragged", (3, 100, 72, 16), "tie", False),
+]
+
+
+def phase_flash_kernel(dev) -> dict:
+    """Both flash kernels against their plain versions; returns the
+    largest absolute difference of each."""
+    from rabit_tpu_torch.ops import flash as F
+    worst = {"flash_block": 0.0, "flash_block_bwd": 0.0}
+    for i, (label, (bh, t, s, d), mask_kind, first) in \
+            enumerate(FLASH_CASES):
+        ins, cts = flash_case(bh, t, s, d, mask_kind, 20 + i, dev, first)
+        sm = d ** -0.5
+        got = F.flash_block(*ins, sm)
+        want = F.block_update_reference(*ins, sm)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("m'", "l'", "o'"), got, want):
+            err = assert_close(g.cpu(), w.cpu(), f"flash_block {label} {name}",
+                               **FLASH_FWD_TOL)
+            worst["flash_block"] = max(worst["flash_block"], err)
+        got = F.flash_block_bwd(*ins, sm, *cts)
+        want = F.block_update_bwd_reference(*ins, sm, *cts)
+        torch.cuda.synchronize()
+        rels = {}
+        for name, g, w in zip(("dq", "dk", "dv", "dm", "dl", "do"), got,
+                              want):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"flash_block_bwd {label} {name}: "
+                                     f"non-finite values")
+            diff = float((g - w).abs().max())
+            rels[name] = diff / max(float(w.abs().max()), 1e-30)
+            worst["flash_block_bwd"] = max(worst["flash_block_bwd"], diff)
+            if rels[name] > FLASH_BWD_REL:
+                raise AssertionError(
+                    f"flash_block_bwd {label} {name}: max|diff|/max|ref| "
+                    f"{rels[name]:.3g} > {FLASH_BWD_REL}")
+        phase("kernel", f"flash {label} (B*H {bh}, T {t}, S {s}, D {d}, "
+              f"mask {mask_kind}): forward within rtol/atol "
+              f"{FLASH_FWD_TOL['rtol']}; backward max|diff|/max|ref| "
+              + ", ".join(f"{n} {r:.2g}" for n, r in rels.items()))
+    return worst
+
+
+def reset_launches() -> None:
+    from rabit_tpu_torch.ops import flash as F
+    from rabit_tpu_torch.ops import histogram as K
+    K.histogram.launches = 0
+    F.flash_block.launches = 0
+    F.flash_block_bwd.launches = 0
+
+
+def read_launches() -> dict:
+    from rabit_tpu_torch.ops import flash as F
+    from rabit_tpu_torch.ops import histogram as K
+    return {"histogram": K.histogram.launches,
+            "flash_block": F.flash_block.launches,
+            "flash_block_bwd": F.flash_block_bwd.launches}
+
+
+def phase_transformer(dev) -> dict:
+    """The flagship training run (the main path), then the checks and the
+    profile. Returns the launches of the run and the step times."""
+    from rabit_tpu_torch import entry as E
+    from rabit_tpu_torch.models import transformer as tf
+    from rabit_tpu_torch.ops import flash as F
+    from rabit_tpu_torch.parallel.mesh import make_mesh
+    import torch.distributed as dist
+    reset_launches()
+    t0 = time.perf_counter()
+    out = E.train_flagship(FLAGSHIP_STEPS, dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_layers = E.FLAGSHIP_SIZES["n_layers"]
+    for name in ("flash_block", "flash_block_bwd"):
+        if launches[name] != FLAGSHIP_STEPS * n_layers:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times in "
+                f"{FLAGSHIP_STEPS} steps of {n_layers} layers")
+    losses = out["losses"]
+    step_ms = float(np.median(out["step_ms"][1:]))
+    phase("transformer", f"train_flagship {FLAGSHIP_STEPS} steps on "
+          f"{out['device']}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (tail "
+          f"mean {np.mean(losses[-4:]):.4f}, must be < {losses[0] - 0.8:.4f})"
+          f"; step {step_ms:.3f} ms median on CUDA events (first "
+          f"{out['step_ms'][0]:.1f} ms, build included); {wall:.1f} s wall; "
+          f"launches {launches}")
+
+    # one step through the kernels against the same step through the
+    # plain block update, on the card
+    params = tf.init_params(1, **E.FLAGSHIP_SIZES)
+    x, y = (torch.from_numpy(a).to(dev) for a in E.flagship_data(1))
+    mesh = make_mesh((1, 1, 1), dev)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"expected an NCCL group, got "
+                                 f"{dist.get_backend()}")
+        models, step_losses = [], []
+        for plain in (False, True):
+            model = tf.model_on(params, dev)
+            step = tf.make_train_step(mesh, lr=E.FLAGSHIP_LR)
+            with F.plain_block_step() if plain else contextlib.nullcontext():
+                step_losses.append(float(step(model, x, y)))
+            models.append(model.params())
+        dloss = abs(step_losses[0] - step_losses[1])
+        if dloss >= STEP_TOL:
+            raise AssertionError(f"step loss kernel {step_losses[0]} vs "
+                                 f"plain {step_losses[1]}")
+        worst = 0.0
+        for name, w in models[1].items():
+            worst = max(worst, assert_close(
+                models[0][name].detach().cpu(), w.detach().cpu(),
+                f"step parameter {name}", STEP_TOL, STEP_TOL))
+        phase("transformer", f"one step, kernels vs plain block update: "
+              f"|d loss| {dloss:.3g}, parameters max |diff| {worst:.3g} "
+              f"(within {STEP_TOL})")
+        model = tf.model_on(params, dev)
+        step = tf.make_train_step(mesh, lr=E.FLAGSHIP_LR)
+        profile = phase_profile(lambda: step(model, x, y))
+    finally:
+        dist.destroy_process_group()
+    return {"launches": launches, "step_ms": step_ms,
+            "first_step_ms": out["step_ms"][0], "losses": losses,
+            "profile": profile}
+
+
+def phase_profile(run_step, steps: int = 3) -> dict:
+    """``torch.profiler`` over a few training steps: device time by kernel
+    and the device's busy share of the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run_step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # the device's own events (kernels, copies), not the host ops that
+    # launched them
+    rows = sorted(((float(evt.self_device_time_total), evt.key,
+                    int(evt.count)) for evt in prof.key_averages()
+                   if evt.device_type == DeviceType.CUDA
+                   and evt.self_device_time_total > 0), reverse=True)
+    total = sum(r[0] for r in rows)
+    if total == 0:
+        phase("profile", "torch.profiler saw no device time: not measured")
+        return {"device_us_per_step": None}
+    flash = sum(r[0] for r in rows if "flash_" in r[1])
+    phase("profile", f"{steps} steps: device busy {total / steps:.1f} us a "
+          f"step of {wall_us / steps:.1f} us host wall under the profiler "
+          f"({total / wall_us:.1%}); flash kernels {flash / steps:.1f} us "
+          f"({flash / total:.1%} of the device time)")
+    for dev_us, key, count in rows[:12]:
+        phase("profile", f"  {dev_us / steps:9.1f} us/step "
+              f"{dev_us / total:6.1%}  x{count // steps:<4d} {key[:90]}")
+    return {"device_us_per_step": total / steps,
+            "flash_us_per_step": flash / steps,
+            "wall_us_per_step": wall_us / steps,
+            "top": [{"us_per_step": d / steps, "kernel": k[:120],
+                     "calls_per_step": c // steps} for d, k, c in rows[:12]]}
 
 
 def phase_main_path(dev) -> None:
@@ -270,13 +551,89 @@ def phase_timing(dev, power: str):
     return rows
 
 
+def flash_bound(bh: int, t: int, s: int, d: int, mask, backward: bool):
+    """(bound ms, what bounds it, flops, bytes) of one call: 4 D flops
+    forward and 10 D backward (two and five products) for each (query,
+    key) pair that the mask leaves (about half of T S under a causal mask:
+    a masked pair adds exactly 0 once its row's max is finite), at the f32
+    rate, against each input read once and each output written once at the
+    memory rate."""
+    pairs = bh * (t * s if mask is None else int((~mask).sum()))
+    rows, keys = bh * t * (2 + d), bh * s * 2 * d   # m, l, o; k, v
+    nbytes = 4 * (bh * t * d + keys + rows) + (0 if mask is None else t * s)
+    if backward:
+        nbytes += 4 * (bh * t * (2 + d)        # cm, cl, co
+                       + bh * t * d + keys + rows)  # dq; dk, dv; dm, dl, do
+        flops = 10 * pairs * d
+    else:
+        nbytes += 4 * rows                     # m', l', o'
+        flops = 4 * pairs * d
+    by_ops, by_bytes = flops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(by_ops, by_bytes) * 1e3,
+            "operations" if by_ops >= by_bytes else "bytes", flops, nbytes)
+
+
+def phase_flash_timing(dev, power: str) -> dict:
+    """Each flash kernel, its plain version and a PyTorch yardstick the
+    port never calls (``scaled_dot_product_attention`` forward, and
+    forward + backward, on the same q/k/v and mask in f32) at the training
+    shape and the chain block."""
+    import torch.nn.functional as TF
+    from rabit_tpu_torch.ops import flash as F
+    out = {"flash_block": [], "flash_block_bwd": []}
+    for bh, t, s, d, causal in (FLASH_MAIN, FLASH_CHAIN):
+        ins, cts = flash_case(bh, t, s, d, "causal" if causal else None, 3,
+                              dev, first_step=True)
+        per_set = sum(x.numel() * 4 for x in (*ins[:6], *cts))
+        copies = max(2, math.ceil(150e6 / per_set))
+        sets = [tuple(None if x is None else x.clone()
+                      for x in (*ins, *cts)) for _ in range(copies)]
+        sm = d ** -0.5
+        fwd = time_ms(lambda *a: F.flash_block(*a[:7], sm), sets)
+        fwd_plain = time_ms(lambda *a: F.block_update_reference(*a[:7], sm),
+                            sets)
+        bwd = time_ms(lambda *a: F.flash_block_bwd(*a[:7], sm, *a[7:]),
+                      sets)
+        bwd_plain = time_ms(
+            lambda *a: F.block_update_bwd_reference(*a[:7], sm, *a[7:]),
+            sets)
+        lib_sets = [(q.clone().requires_grad_(), k.clone().requires_grad_(),
+                     v.clone().requires_grad_(),
+                     None if mask is None else ~mask, co)
+                    for q, k, v, m, l, o, mask, cm, cl, co in sets]
+
+        def sdpa(q, k, v, keep, co):
+            return TF.scaled_dot_product_attention(q, k, v, attn_mask=keep,
+                                                   scale=sm)
+
+        def sdpa_fwd_bwd(q, k, v, keep, co):
+            sdpa(q, k, v, keep, co).backward(co)
+
+        with torch.no_grad():
+            lib_fwd = time_ms(sdpa, lib_sets)
+        lib_bwd = time_ms(sdpa_fwd_bwd, lib_sets)
+        for name, ms, plain, lib, backward in (
+                ("flash_block", fwd, fwd_plain, lib_fwd, False),
+                ("flash_block_bwd", bwd, bwd_plain, lib_bwd, True)):
+            bound, bound_by, flops, nbytes = flash_bound(bh, t, s, d, ins[6],
+                                                         backward)
+            out[name].append(dict(shape=[bh, t, s, d], causal=causal, ms=ms,
+                                  plain_ms=plain, library_ms=lib,
+                                  bound_ms=bound, bound_by=bound_by,
+                                  flops=flops, bytes=nbytes))
+            phase("timing", f"{name} B*H {bh} T {t} S {s} D {d} "
+                  f"{'causal' if causal else 'no mask'}: kernel {ms:.4f} ms,"
+                  f" bound {bound:.4f} ms ({bound_by}; {bound / ms:.1%} of "
+                  f"it), plain {plain:.4f} ms, sdpa "
+                  f"{'fwd+bwd' if backward else 'fwd'} {lib:.4f} ms [{power}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from rabit_tpu_torch.ops import histogram as K
-
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     power = subprocess.run(
@@ -287,28 +644,48 @@ def main() -> int:
           f"{torch.cuda.device_count()}, torch {torch.__version__}, cuda "
           f"{torch.version.cuda}")
 
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    max_err = phase_kernel(dev)
+    max_err = {"histogram": phase_kernel(dev)}
+    max_err.update(phase_flash_kernel(dev))
 
-    K.histogram.launches = 0
+    reset_launches()
     phase_main_path(dev)
     phase_rounds(dev)
-    launches = {"histogram": K.histogram.launches}
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
-    phase("main path", f"kernel launches on the main path: {launches}")
+    hist_launches = read_launches()
+    if hist_launches["histogram"] < 1:
+        raise AssertionError("kernel histogram was not launched on the "
+                             "histogram path")
+    phase("main path", f"kernel launches on the histogram path: "
+          f"{hist_launches}")
+    tf_run = phase_transformer(dev)
+    launches = dict(tf_run["launches"], histogram=hist_launches["histogram"])
+    phase("main path", f"kernel launches, each on its own path: {launches}")
 
-    timing = phase_timing(dev, power)
-    head = timing[0]
-    kernels = [{
-        "name": "histogram", "route": "cuda", "source": SOURCES["histogram"],
-        "replaces": REPLACES["histogram"], "launches": launches["histogram"],
-        "max_abs_err": max_err, "ms": head["ms"],
-        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "shape": [head["rows"], head["nbins"]], "by_shape": timing}]
+    timing = {"histogram": phase_timing(dev, power)}
+    timing.update(phase_flash_timing(dev, power))
+    phase("timing", f"training step (flagship, batch 8 x seq 512): "
+          f"{tf_run['step_ms']:.3f} ms median of steps 2-"
+          f"{FLAGSHIP_STEPS} on CUDA events [{power}]")
+    kernels = []
+    for name in ("histogram", "flash_block", "flash_block_bwd"):
+        head = timing[name][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max_err[name], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "by_shape": timing[name]})
+    kernels[0]["shape"] = [timing["histogram"][0]["rows"],
+                           timing["histogram"][0]["nbins"]]
+    for k in kernels[1:]:
+        k["shape"] = k["by_shape"][0]["shape"]
+    print(json.dumps({"train_step": {
+        "step_ms": tf_run["step_ms"], "first_step_ms": tf_run["first_step_ms"],
+        "losses": tf_run["losses"], "profile": tf_run["profile"]}}),
+        flush=True)
     print(power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,9 @@
   tensors on the device — the data counterpart of ``shard_over``.
 * ``tensor_from_numpy`` / ``numpy_from_tensor`` move host buffers,
   bfloat16 ones (numpy's ``ml_dtypes`` type) included.
+* ``transformer_params_from_jax`` / ``transformer_params_to_jax`` turn
+  the JAX transformer's parameter dict (numpy) into the port's module
+  state for a tensor-parallel rank, and back.
 * ``adopt_checkpoint`` hands checkpoint bytes written by ``rabit_tpu`` to
   the port's engine. Both packages pickle Python and numpy objects, so the
   bytes load unchanged.
@@ -12,7 +15,7 @@
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,3 +70,42 @@ def adopt_checkpoint(version: int, global_bytes: Optional[bytes],
     ``rabit_tpu_torch.load_checkpoint()`` returns it."""
     from . import _require_engine
     _require_engine().restore_checkpoint(version, global_bytes, local_bytes)
+
+
+def transformer_params_from_jax(params: Mapping[str, np.ndarray],
+                                tp_rank: int = 0, tp: int = 1,
+                                device: DeviceLike = None
+                                ) -> Dict[str, torch.Tensor]:
+    """The JAX package's transformer parameter dict (numpy arrays, JAX
+    layouts) as the port's module state for tensor-parallel rank
+    ``tp_rank`` of ``tp``: each sharded parameter cut along its axis as
+    ``param_specs`` cuts it, on ``device`` (the card by default)."""
+    from .models.transformer import param_specs  # that module imports this
+    if not 0 <= tp_rank < tp:
+        raise ValueError(f"tp_rank {tp_rank} out of range for tp={tp}")
+    dev = resolve_device(device)
+    out = {}
+    for name, axis in param_specs(params).items():
+        a = np.asarray(params[name])
+        if axis is not None:
+            n = a.shape[axis]
+            if n % tp:
+                raise ValueError(f"{name}: axis {axis} of size {n} does not "
+                                 f"divide over tp={tp}")
+            a = np.take(a, np.arange(tp_rank * n // tp,
+                                     (tp_rank + 1) * n // tp), axis=axis)
+        out[name] = tensor_from_numpy(a).to(dev)
+    return out
+
+
+def transformer_params_to_jax(states: Sequence[Mapping[str, torch.Tensor]]
+                              ) -> Dict[str, np.ndarray]:
+    """The way back: the module states of tp ranks 0..tp-1 (one state for
+    tp = 1) joined into the JAX package's full parameter dict."""
+    from .models.transformer import param_specs
+    out = {}
+    for name, axis in param_specs(states[0]).items():
+        parts = [s[name].detach().cpu().numpy() for s in states]
+        out[name] = parts[0] if axis is None else \
+            np.concatenate(parts, axis=axis)
+    return out

@@ -8,9 +8,12 @@ plain C interface (no PyTorch headers, so a build takes seconds):
          rabit_tpu_torch/csrc/<name>.cu
 
 The library lands in ``build/rabit_tpu_torch/`` beside the package, named
-by a hash of its source and flags, so an edited source builds anew and an
-unchanged one is reused. Builds happen at first use; ``build()`` starts
-one nvcc per source, all at once, and waits for them together.
+by a hash of its source, the shared headers ``csrc/*.cuh`` and the flags,
+so an edited source builds anew and an unchanged one is reused. Builds
+happen at first use; ``build()`` starts one nvcc per source, all at once,
+and waits for them together. nvcc's output, with ptxas's registers and
+spills of every kernel (``-Xptxas -v``), is kept beside the library
+(``ptxas_log``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rabit_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -54,10 +57,20 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = sources()[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, named by a hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256(sources()[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def ptxas_log(name: str) -> Path:
+    """nvcc's output of the library's build: ptxas's registers, spills and
+    stack of each kernel."""
+    return library_path(name).with_suffix(".ptxas.txt")
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
@@ -90,6 +103,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
                 failed.append(f"{n}: nvcc exit {proc.returncode}\n"
                               f"{out.decode(errors='replace')}")
             else:
+                ptxas_log(n).write_bytes(out)
                 os.replace(tmp, library_path(n))  # atomic: no torn library
     finally:
         for tmp, proc in procs.values():

@@ -13,6 +13,9 @@ the JAX versions run per shard inside ``shard_map`` over a mesh axis:
   (``dist.batch_isend_irecv``) with the JAX ring's chunk offsets, so rank
   i owns chunk i and float sums are taken in the JAX ring's order.
 * ``bcast_from_root`` and ``shard_over``.
+* ``psum_identity_grad`` / ``ident_psum_grad`` (Megatron's conjugate
+  pair) and ``ring_shift`` (one differentiable ring rotation): autograd
+  Functions for the transformer's tensor- and sequence-parallel regions.
 
 Unsigned payloads: PyTorch's uint16/32/64 support few operations and no
 backend reduces them, so they travel as the signed type of the same
@@ -201,3 +204,80 @@ def shard_over(xs: np.ndarray, rank: int,
     if not 0 <= rank < xs.shape[0]:
         raise ValueError(f"rank {rank} out of range for {xs.shape[0]} rows")
     return tensor_from_numpy(xs[rank]).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable pieces for the model-parallel regions of the transformer.
+# torch tracks no varying-manual axes, so the port always uses the explicit
+# conjugate pair (the formulation of JAX's unchecked shard_map): each
+# function's backward is written out, not derived.
+# ---------------------------------------------------------------------------
+
+class _PsumIdentityGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return tree_allreduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _IdentPsumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tree_allreduce(g, ctx.group), None
+
+
+def psum_identity_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over ``group`` whose backward is the identity: where partial
+    results leave a tensor-parallel region (Megatron's g). The port of
+    ``rabit_tpu/parallel/collectives.py::psum_identity_grad``."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _PsumIdentityGrad.apply(x, group)
+
+
+def ident_psum_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity whose backward sums the gradient over ``group``: where a
+    replicated activation enters a tensor-parallel region (Megatron's f),
+    so every shard's upstream gradient comes out complete. The port of
+    ``ident_psum_grad``."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _IdentPsumGrad.apply(x, group)
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        _, _, nxt, prv = _ring_peers(group)
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        _exchange(x, out, nxt, prv, group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # the transpose of a rotation to the next rank: to the previous one
+        _, _, nxt, prv = _ring_peers(ctx.group)
+        g = g.contiguous()
+        out = torch.empty_like(g)
+        _exchange(g, out, prv, nxt, ctx.group)
+        return out, None
+
+
+def ring_shift(x: torch.Tensor, group) -> torch.Tensor:
+    """Rank i's ``x`` to rank i+1 (mod p) of ``group``: one ``ppermute``
+    step of the JAX ring, differentiable. The backward rotates the
+    gradient to the previous rank; ``batch_isend_irecv`` alone has no
+    autograd and would leave K/V without gradients across ranks."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _RingShift.apply(x, group)

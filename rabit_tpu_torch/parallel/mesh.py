@@ -4,12 +4,16 @@ In JAX one program sees every device of the mesh; in PyTorch each process
 holds its own shard and the ranks meet in a ``torch.distributed`` process
 group. ``make_group`` sets up (or adopts) that group and resolves the
 device this rank computes on: NCCL on the card, gloo on the CPU.
+``make_mesh`` lays a (dp, tp, sp) mesh over that world and holds the
+three subgroups of this rank.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -61,3 +65,63 @@ def make_group(device: DeviceLike = None, rank: int = 0,
     dist.init_process_group(backend, init_method=init_method, store=store,
                             rank=rank, world_size=world_size, **kwargs)
     return dist.group.WORLD, dev
+
+
+AXES = ("dp", "tp", "sp")
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A (dp, tp, sp) mesh over a ``torch.distributed`` world: this rank's
+    coordinates and the three subgroups it belongs to. The counterpart of
+    ``make_mesh(n, ("dp", "tp", "sp"), shape)`` with ``jax.sharding.Mesh``'s
+    rank layout, row-major over (dp, tp, sp): rank = (d * tp + t) * sp + s.
+    """
+
+    shape: Tuple[int, int, int]
+    coords: Tuple[int, int, int]
+    groups: Tuple[dist.ProcessGroup, dist.ProcessGroup, dist.ProcessGroup]
+    device: torch.device
+
+    def size(self, axis: str) -> int:
+        return self.shape[AXES.index(axis)]
+
+    def index(self, axis: str) -> int:
+        return self.coords[AXES.index(axis)]
+
+    def group(self, axis: str) -> dist.ProcessGroup:
+        return self.groups[AXES.index(axis)]
+
+
+def make_mesh(shape: Tuple[int, int, int] = (1, 1, 1),
+              device: DeviceLike = None, rank: int = 0,
+              init_method: Optional[str] = None) -> Mesh:
+    """The (dp, tp, sp) mesh of this rank. The world (dp * tp * sp ranks)
+    is set up or adopted as ``make_group`` does: NCCL on the card, gloo on
+    the CPU. Every rank creates every subgroup, in the same order,
+    including those it is not in (NCCL hangs otherwise); a world of one
+    has three trivial groups."""
+    shape = tuple(int(n) for n in shape)
+    if len(shape) != 3 or min(shape) < 1:
+        raise ValueError(f"mesh shape must be three positive sizes "
+                         f"(dp, tp, sp), got {shape}")
+    world = shape[0] * shape[1] * shape[2]
+    _, dev = make_group(device, rank, world, init_method)
+    if dist.get_world_size() != world:
+        raise ValueError(f"mesh {shape} needs a world of {world}, the "
+                         f"process group has {dist.get_world_size()}")
+    me = dist.get_rank()
+    layout = np.arange(world).reshape(shape)
+    coords = tuple(int(c) for c in np.argwhere(layout == me)[0])
+    groups = []
+    for axis in range(3):
+        # the rank lists along this axis, the other two coordinates fixed
+        lines = np.moveaxis(layout, axis, -1).reshape(-1, shape[axis])
+        mine = None
+        for line in lines:
+            ranks = [int(r) for r in line]
+            g = dist.new_group(ranks)
+            if me in ranks:
+                mine = g
+        groups.append(mine)
+    return Mesh(shape, coords, tuple(groups), dev)

@@ -1,7 +1,7 @@
 """The port's collectives, histogram allreduce and torch engine against
 numpy and the JAX package, in real gloo worlds of 2 and 4 processes.
 
-One ``torch.multiprocessing`` spawn per world size runs every check of
+One spawn per world size (``tests/torch_world.py``) runs every check of
 that world (the ranks meet in a ``FileStore`` under ``tmp_path``, so no
 port can race); each rank saves its results and the tests below compare
 them with numpy and with the JAX functions on the same inputs (a p-device
@@ -18,17 +18,14 @@ no JAX (so without ``tests/conftest.py``):
 """
 
 import pickle
-import time
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from rabit_tpu_torch.ops.reducers import BITOR, MAX, MIN, SUM, numpy_reduce
-
-SPAWN_TIMEOUT_S = 240
+from torch_world import spawn_world
 N_TREE = 37            # tree payload length
 N_RING = 1003          # ring payload: divides by neither 2 nor 4
 ROWS = 2048            # histogram rows per rank
@@ -73,9 +70,8 @@ def _case_inputs(p: int) -> dict:
     return inputs
 
 
-def _rank_main(rank: int, p: int, store_path: str, out_dir: str,
-               inputs: dict, backend: str) -> None:
-    """One rank of the world: run every check, save what it got. gloo
+def _rank_main(rank: int, p: int, inputs: dict, backend: str) -> dict:
+    """One rank of the world: run every check, return what it got. gloo
     runs on the CPU with the ``"scatter"`` histogram (what the JAX
     comparison uses); NCCL on card ``rank`` with the CUDA kernel."""
     import rabit_tpu_torch as rabit
@@ -84,87 +80,71 @@ def _rank_main(rank: int, p: int, store_path: str, out_dir: str,
 
     if backend == "nccl":
         dev, method = torch.device("cuda", rank), "auto"
-        torch.cuda.set_device(dev)
-        kwargs = {"device_id": dev}
     else:
-        dev, method, kwargs = torch.device("cpu"), "scatter", {}
-    dist.init_process_group(backend, store=dist.FileStore(store_path, p),
-                            rank=rank, world_size=p, **kwargs)
+        dev, method = torch.device("cpu"), "scatter"
     got = {}
-    try:
-        def mine(key):
-            return torch.from_numpy(inputs[key][rank].copy()).to(dev)
 
-        def host(t):
-            return t.cpu().numpy()
+    def mine(key):
+        return torch.from_numpy(inputs[key][rank].copy()).to(dev)
 
-        for d, op in CASES:
-            key = f"tree_{d}_{op}"
-            x = mine(key)
-            got[key] = host(C.tree_allreduce(x, None, op))
-            got[f"ring_{d}_{op}"] = host(C.ring_allreduce(x, None, op))
-            assert host(x).tobytes() == inputs[key][rank].tobytes(), \
-                "input was modified"
-        got["ring_f32"] = host(C.ring_allreduce(mine("ring_f32")))
-        got["ring_u32_max"] = host(C.ring_allreduce(
-            mine("ring_u32_max"), None, MAX))
-        got["rs"] = host(C.ring_reduce_scatter(mine("rs")))
-        got["ag"] = host(C.ring_all_gather(mine("ag")))
-        got["bcast"] = host(C.bcast_from_root(mine("bcast"), None,
-                                              root=p - 1))
-        for name, nbins in (("dh_tree", NBINS_TREE),
-                            ("dh_ring", NBINS_RING)):
-            got[name] = host(distributed_histogram(
-                mine(f"{name}_grad"), mine(f"{name}_hess"),
-                mine(f"{name}_bins"), nbins, method=method))
+    def host(t):
+        return t.cpu().numpy()
 
-        # the host API on the torch engine, which adopts this group
-        rabit.init([f"rabit_device={dev.type}"], engine="torch")
-        got["engine_rank_world"] = np.array(
-            [rabit.get_rank(), rabit.get_world_size(),
-             rabit.is_distributed()])
-        prepared = []
-        got["engine_sum"] = rabit.allreduce(
-            inputs["engine_sum"][rank].copy(), rabit.SUM,
-            prepare_fun=lambda a: prepared.append(a.size))
-        got["engine_prepared"] = np.array(prepared)
-        got["engine_u32"] = rabit.allreduce(
-            inputs["engine_u32"][rank].copy(), rabit.MAX)
-        got["engine_bitor"] = rabit.allreduce(
-            np.array([1 << rank, 3], np.int64), rabit.BITOR)
-        eng = rabit._engine
-        got["engine_rs"] = eng.reduce_scatter(inputs["rs"][rank].copy(),
-                                              rabit.SUM)
-        got["engine_ag"] = eng.allgather(inputs["ag"][rank].copy())
-        got["engine_async"] = eng.allreduce_async(
-            inputs["engine_u32"][rank].copy(), rabit.MAX).wait()
-        obj = rabit.broadcast({"from": rank, "arr": np.arange(3)}
-                              if rank == 1 else None, 1)
-        got["engine_bcast"] = np.frombuffer(pickle.dumps(obj), np.uint8)
-        rabit.checkpoint({"round": 1})
-        rabit.checkpoint({"round": 2})
-        version, model = rabit.load_checkpoint()
-        got["engine_ckpt"] = np.array([version, model["round"]])
-        rabit.finalize()
-        assert dist.is_initialized(), "engine destroyed a group it adopted"
-    finally:
-        dist.destroy_process_group()
-    np.savez(f"{out_dir}/rank{rank}.npz", **got)
+    for d, op in CASES:
+        key = f"tree_{d}_{op}"
+        x = mine(key)
+        got[key] = host(C.tree_allreduce(x, None, op))
+        got[f"ring_{d}_{op}"] = host(C.ring_allreduce(x, None, op))
+        assert host(x).tobytes() == inputs[key][rank].tobytes(), \
+            "input was modified"
+    got["ring_f32"] = host(C.ring_allreduce(mine("ring_f32")))
+    got["ring_u32_max"] = host(C.ring_allreduce(
+        mine("ring_u32_max"), None, MAX))
+    got["rs"] = host(C.ring_reduce_scatter(mine("rs")))
+    got["ag"] = host(C.ring_all_gather(mine("ag")))
+    got["bcast"] = host(C.bcast_from_root(mine("bcast"), None,
+                                          root=p - 1))
+    for name, nbins in (("dh_tree", NBINS_TREE),
+                        ("dh_ring", NBINS_RING)):
+        got[name] = host(distributed_histogram(
+            mine(f"{name}_grad"), mine(f"{name}_hess"),
+            mine(f"{name}_bins"), nbins, method=method))
+
+    # the host API on the torch engine, which adopts this group
+    rabit.init([f"rabit_device={dev.type}"], engine="torch")
+    got["engine_rank_world"] = np.array(
+        [rabit.get_rank(), rabit.get_world_size(),
+         rabit.is_distributed()])
+    prepared = []
+    got["engine_sum"] = rabit.allreduce(
+        inputs["engine_sum"][rank].copy(), rabit.SUM,
+        prepare_fun=lambda a: prepared.append(a.size))
+    got["engine_prepared"] = np.array(prepared)
+    got["engine_u32"] = rabit.allreduce(
+        inputs["engine_u32"][rank].copy(), rabit.MAX)
+    got["engine_bitor"] = rabit.allreduce(
+        np.array([1 << rank, 3], np.int64), rabit.BITOR)
+    eng = rabit._engine
+    got["engine_rs"] = eng.reduce_scatter(inputs["rs"][rank].copy(),
+                                          rabit.SUM)
+    got["engine_ag"] = eng.allgather(inputs["ag"][rank].copy())
+    got["engine_async"] = eng.allreduce_async(
+        inputs["engine_u32"][rank].copy(), rabit.MAX).wait()
+    obj = rabit.broadcast({"from": rank, "arr": np.arange(3)}
+                          if rank == 1 else None, 1)
+    got["engine_bcast"] = np.frombuffer(pickle.dumps(obj), np.uint8)
+    rabit.checkpoint({"round": 1})
+    rabit.checkpoint({"round": 2})
+    version, model = rabit.load_checkpoint()
+    got["engine_ckpt"] = np.array([version, model["round"]])
+    rabit.finalize()
+    assert dist.is_initialized(), "engine destroyed a group it adopted"
+    return got
 
 
 def _spawn_world(p: int, tmp_path, backend: str = "gloo") -> list:
-    inputs = _case_inputs(p)
-    ctx = mp.start_processes(
-        _rank_main,
-        args=(p, str(tmp_path / "store"), str(tmp_path), inputs, backend),
-        nprocs=p, join=False, start_method="spawn")
-    deadline = time.monotonic() + SPAWN_TIMEOUT_S
-    while not ctx.join(timeout=1):
-        if time.monotonic() > deadline:
-            for proc in ctx.processes:
-                proc.kill()
-            pytest.fail(f"world {p} did not finish in {SPAWN_TIMEOUT_S} s")
-    return [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(p)]
+    return spawn_world(_rank_main, p, tmp_path, _case_inputs(p), backend,
+                       backend=backend)
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["p2", "p4"])
