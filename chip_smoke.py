@@ -1,6 +1,7 @@
 """Chip smoke test of rabit_tpu_torch: builds the CUDA kernels and drives
-the port's two paths on one NVIDIA GPU -- the gradient-histogram
-allreduce and the flagship transformer's training step.
+the port's paths on one NVIDIA GPU -- the gradient-histogram allreduce,
+the flagship transformer's training step, and the histogram measurement
+path (the sweep, the bench and the kernel proof).
 
     python3 chip_smoke.py
 
@@ -12,6 +13,10 @@ Phases (each prints a line; any failure exits non-zero):
                 kernel.
 2. kernel       each kernel against its plain PyTorch version on the card:
                 the histogram at the main path's shapes and an edge case;
+                the bin count (mask_only) exactly equal at the sweep's six
+                shapes and at two edge cases (ragged rows in an unaligned
+                view, ids -1, nbins, nbins + 40 and 2^30; 1000 bins, and
+                120,000 bins over three shared-memory tiles);
                 the flash block forward and backward at the training shape
                 (B*H 64, T = S 512, D 32, causal), the ring chain's block
                 (H 8, T = S 1024, D 128, no mask), a causal mask whose
@@ -30,15 +35,23 @@ Phases (each prints a line; any failure exits non-zero):
                 falls; then one step through the kernels against the same
                 step through the plain block update (loss and parameters
                 within 5e-4), and a profile of three steps.
-6. timing       CUDA-event medians of each kernel, its plain version and
+6. sweep        ``tools.histogram_sweep`` at its full grid (rows 2^20, 2^21
+                x bins 256, 1024, 4096; mask_only, fast, high), no
+                artifact: its six rows and its exact count check.
+7. bench        ``rabit_tpu_torch.bench`` at full size (2^21 x 1024): its
+                JSON line, which must say correct, no artifact.
+8. proof        ``tools.kernel_hw_proof`` at full size, no artifact.
+9. timing       CUDA-event medians of each kernel, its plain version and
                 one PyTorch call that computes the same function, beside
-                the least time the card could take; the training step.
-7. kernels      one JSON line of every kernel with its main-path launches.
+                the least time the card could take; for mask_only also
+                the sweep's slope; the training step.
+10. kernels     one JSON line of every kernel with its main-path launches.
 
-Launch counters are set to 0 just before each path (phases 3-4, phase 5)
-and read just after it, so a kernel's count is its own path's alone. The
-last line is the device JSON. Without CUDA, or without the package beside
-this file, the script exits non-zero and prints no result.
+Launch counters are set to 0 just before each path (phases 3-4, phase 5,
+phase 6) and read just after it, so a kernel's count is its own path's
+alone: mask_only's is the sweep's. The last line is the device JSON.
+Without CUDA, or without the package beside this file, the script exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -58,16 +71,26 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12        # f32 outside the tensor cores, same source
 REPLACES = {"histogram": "rabit_tpu/ops/pallas_kernels.py:133",
             "flash_block": "rabit_tpu/ops/pallas_kernels.py:398",
-            "flash_block_bwd": "rabit_tpu/ops/pallas_kernels.py:345"}
+            "flash_block_bwd": "rabit_tpu/ops/pallas_kernels.py:345",
+            "mask_only": "tools/histogram_sweep.py:79"}
 SOURCES = {"histogram": "rabit_tpu_torch/csrc/histogram.cu",
            "flash_block": "rabit_tpu_torch/csrc/flash_block.cu",
-           "flash_block_bwd": "rabit_tpu_torch/csrc/flash_block_bwd.cu"}
+           "flash_block_bwd": "rabit_tpu_torch/csrc/flash_block_bwd.cu",
+           "mask_only": "rabit_tpu_torch/csrc/mask_only.cu"}
 
 # (rows, nbins): bench.py's headline, and the HIGGS gpu_hist contribution
 # count (131,072 rows x 28 features) over 28 x 256 bins
 FULL_WIDTH = [(1 << 21, 1024), (3_670_016, 7168)]
 # the JAX tests' widest histogram, one bin tile of 133,120 B of shared memory
 WIDE = (100_000, 16_640)
+# the sweep's grid (tools/histogram_sweep.py:126-127), and the bin count's
+# edge cases: ragged rows (no multiple of 4 or 16384) in an unaligned view,
+# with 1000 bins (no multiple of 128) and with 120,000 (three tiles of
+# 57,344 bins of shared memory)
+SWEEP_GRID = [(n, nb) for n in (1 << 20, 1 << 21) for nb in (256, 1024, 4096)]
+MASK_EDGES = [(1_000_003, 1000), (1_000_003, 120_000)]
+# mask_only's timing rows: the sweep's headline and its most contended
+MASK_TIMING = [(1 << 21, 1024), (1 << 20, 256)]
 # boosted_round_worker.py: rows, features, buckets
 ROUND_SHAPES = [(131_072, 16, 64), (131_072, 28, 256)]
 N_ROUNDS = 3
@@ -136,10 +159,18 @@ def phase_build() -> None:
 def demangled(symbol: str) -> str:
     """'name<args>' of a kernel template's mangled symbol (integer and
     bool arguments): the identifier whose length prefix ends where its
-    template arguments begin."""
+    template arguments begin; 'name' of a plain function in a namespace
+    (the last of its length-prefixed names)."""
     args = re.search(r"I((?:L[a-z]\d+E)+)E", symbol)
     if not args:
-        return symbol
+        names, i = [], 3
+        while symbol.startswith("_ZN") and i < len(symbol) \
+                and symbol[i].isdigit():
+            digits = re.match(r"\d+", symbol[i:]).group()
+            i += len(digits)
+            names.append(symbol[i:i + int(digits)])
+            i += int(digits)
+        return names[-1] if names else symbol
     values = ", ".join(re.findall(r"L[a-z](\d+)E", args.group(1)))
     end = args.start()
     for start in range(end - 1, 0, -1):
@@ -203,6 +234,48 @@ def phase_kernel(dev) -> float:
                   f"{err:.3g} (rtol {KERNEL_TOL['rtol']}, atol "
                   f"{KERNEL_TOL['atol']})")
     return worst
+
+
+def _ids_case(n: int, nbins: int, seed: int, dev, edge: bool = False):
+    """Bin ids on the card from a seed: all in [0, nbins), or for an edge
+    case from -3 to nbins + 40 with -1, nbins, nbins + 40, 2^30 and the
+    int32 minimum among them, in a view one element in (off 16-byte
+    alignment)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo, hi = (-3, nbins + 41) if edge else (0, nbins)
+    b = torch.randint(lo, hi, (n + int(edge),), generator=gen,
+                      dtype=torch.int32, device=dev)
+    if edge:
+        b[1:6] = torch.tensor([-1, nbins, nbins + 40, 1 << 30,
+                               np.iinfo(np.int32).min], dtype=torch.int32)
+        b = b[1:]
+    return b
+
+
+def phase_mask_kernel(dev) -> float:
+    """The bin count against its plain version, bit for bit: both count
+    exactly (integers below 2^24 in f32). Returns the largest difference,
+    0."""
+    from rabit_tpu_torch.ops import histogram as K
+    cases = [(n, nb, False) for n, nb in SWEEP_GRID]
+    cases += [(n, nb, True) for n, nb in MASK_EDGES]
+    for i, (n, nbins, edge) in enumerate(cases):
+        bins = _ids_case(n, nbins, 40 + i, dev, edge)
+        got = K.mask_only(bins, nbins)
+        want = K.mask_only_reference(bins, nbins)
+        torch.cuda.synchronize()
+        valid = int(((bins >= 0) & (bins < nbins)).sum())
+        if got.shape != want.shape or not torch.equal(got, want):
+            off = int((got != want).sum()) if got.shape == want.shape else -1
+            raise AssertionError(f"mask_only {n}x{nbins}: {off} of {nbins} "
+                                 f"counts differ from the plain version")
+        if int(want.sum()) != valid:
+            raise AssertionError(f"mask_only {n}x{nbins}: counted "
+                                 f"{int(want.sum())} of {valid} valid ids")
+        phase("kernel", f"mask_only rows={n} nbins={nbins} "
+              f"{'edge (unaligned, out-of-range ids) ' if edge else ''}"
+              f"exactly equal to the plain version ({valid} ids counted)")
+    return 0.0
 
 
 def flash_case(bh: int, t: int, s: int, d: int, mask_kind, seed: int, dev,
@@ -298,6 +371,7 @@ def reset_launches() -> None:
     from rabit_tpu_torch.ops import flash as F
     from rabit_tpu_torch.ops import histogram as K
     K.histogram.launches = 0
+    K.mask_only.launches = 0
     F.flash_block.launches = 0
     F.flash_block_bwd.launches = 0
 
@@ -306,8 +380,57 @@ def read_launches() -> dict:
     from rabit_tpu_torch.ops import flash as F
     from rabit_tpu_torch.ops import histogram as K
     return {"histogram": K.histogram.launches,
+            "mask_only": K.mask_only.launches,
             "flash_block": F.flash_block.launches,
             "flash_block_bwd": F.flash_block_bwd.launches}
+
+
+def phase_sweep(dev) -> dict:
+    """The histogram measurement path: the sweep at its full grid, no
+    artifact. Returns its rows and the launches of the run."""
+    from rabit_tpu_torch.tools import histogram_sweep
+    reset_launches()
+    t0 = time.perf_counter()
+    out = histogram_sweep.sweep(dev, emit=lambda line: phase("sweep", line))
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if launches["mask_only"] < 1:
+        raise AssertionError("kernel mask_only was not launched on the "
+                             "sweep path")
+    phase("sweep", f"{len(out['table'])} rows in {wall:.1f} s wall, slopes "
+          f"K={out['k'][0]}->{out['k'][1]} on {out['clock']}, pools "
+          f"{out['pool_datasets']} (rows -> datasets); launches {launches}")
+    return {"table": out["table"], "launches": launches}
+
+
+def phase_bench(dev) -> dict:
+    """The bench twin at full size, no artifact: its JSON line, which must
+    say correct."""
+    from rabit_tpu_torch import bench
+    out = bench.bench(dev)
+    line, doc = out["line"], out["artifact"]
+    phase("bench", json.dumps(line))
+    phase("bench", f"headline {doc['headline']}; host-paced "
+          f"{doc['host_paced']['value']:.3f} GB/s (vs_baseline "
+          f"{doc['host_paced']['vs_baseline']:.3f}); ms a call "
+          f"{doc['t_ms']}; GB/s by rows {doc['bandwidth_vs_rows']} "
+          f"(host-paced {doc['bandwidth_vs_rows_host_paced']}); numpy "
+          f"host {doc['t_host_ms']:.2f} ms")
+    if line["correct"] is not True:
+        raise AssertionError(f"bench: the histogram allreduce is not "
+                             f"correct: {line}")
+    return doc
+
+
+def phase_proof(dev) -> dict:
+    """``kernel_hw_proof`` at full size, no artifact."""
+    from rabit_tpu_torch.tools import kernel_hw_proof
+    t0 = time.perf_counter()
+    evidence = kernel_hw_proof.prove(dev)
+    if not evidence["complete"]:
+        raise AssertionError("kernel_hw_proof did not complete")
+    phase("proof", f"every stage passed in {time.perf_counter() - t0:.1f} s")
+    return evidence
 
 
 def phase_transformer(dev) -> dict:
@@ -551,6 +674,40 @@ def phase_timing(dev, power: str):
     return rows
 
 
+def phase_mask_timing(dev, power: str, sweep_rows) -> list:
+    """The bin count, its plain version and ``torch.bincount`` (the
+    yardstick; the port never calls it), per launch, beside the bound and
+    the sweep's slope at the same shape (the bound lies below one launch's
+    latency)."""
+    from rabit_tpu_torch.ops import histogram as K
+    rows = []
+    for n, nbins in MASK_TIMING:
+        bins = _ids_case(n, nbins, 5, dev)
+        sets = [(bins.clone(),) for _ in range(math.ceil(150e6 / (4 * n)))]
+        kernel = time_ms(lambda b: K.mask_only(b, nbins), sets)
+        plain = time_ms(lambda b: K.mask_only_reference(b, nbins), sets)
+        library = time_ms(lambda b: torch.bincount(b, minlength=nbins), sets)
+        nbytes = 4 * n + 4 * nbins    # each id read once, each count written
+        # one integer add a row, at the f32 rate outside the tensor cores
+        # (the data sheet gives no int32 rate); the bytes bound it ~40x over
+        ops = n
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
+                    >= ops / F32_OPS_PER_S else "operations")
+        slope = next(r["mask_only_ms"] for r in sweep_rows
+                     if (r["rows"], r["nbins"]) == (n, nbins))
+        rows.append(dict(rows=n, nbins=nbins, ms=kernel, slope_ms=slope,
+                         plain_ms=plain, library_ms=library, bound_ms=bound,
+                         bound_by=bound_by, bytes=nbytes))
+        phase("timing", f"mask_only rows={n} nbins={nbins}: kernel "
+              f"{kernel:.4f} ms a launch, {slope:.4f} ms a call by the "
+              f"sweep's slope, bound {bound:.4f} ms ({bound_by}, {nbytes} B;"
+              f" {bound / kernel:.1%} of the launch, {bound / slope:.1%} of "
+              f"the slope), plain {plain:.4f} ms, library bincount "
+              f"{library:.4f} ms [{power}]")
+    return rows
+
+
 def flash_bound(bh: int, t: int, s: int, d: int, mask, backward: bool):
     """(bound ms, what bounds it, flops, bytes) of one call: 4 D flops
     forward and 10 D backward (two and five products) for each (query,
@@ -647,7 +804,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    max_err = {"histogram": phase_kernel(dev)}
+    max_err = {"histogram": phase_kernel(dev),
+               "mask_only": phase_mask_kernel(dev)}
     max_err.update(phase_flash_kernel(dev))
 
     reset_launches()
@@ -660,16 +818,23 @@ def main() -> int:
     phase("main path", f"kernel launches on the histogram path: "
           f"{hist_launches}")
     tf_run = phase_transformer(dev)
-    launches = dict(tf_run["launches"], histogram=hist_launches["histogram"])
+    sweep = phase_sweep(dev)
+    launches = {"histogram": hist_launches["histogram"],
+                "flash_block": tf_run["launches"]["flash_block"],
+                "flash_block_bwd": tf_run["launches"]["flash_block_bwd"],
+                "mask_only": sweep["launches"]["mask_only"]}
     phase("main path", f"kernel launches, each on its own path: {launches}")
+    phase_bench(dev)
+    phase_proof(dev)
 
-    timing = {"histogram": phase_timing(dev, power)}
+    timing = {"histogram": phase_timing(dev, power),
+              "mask_only": phase_mask_timing(dev, power, sweep["table"])}
     timing.update(phase_flash_timing(dev, power))
     phase("timing", f"training step (flagship, batch 8 x seq 512): "
           f"{tf_run['step_ms']:.3f} ms median of steps 2-"
           f"{FLAGSHIP_STEPS} on CUDA events [{power}]")
     kernels = []
-    for name in ("histogram", "flash_block", "flash_block_bwd"):
+    for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only"):
         head = timing[name][0]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -678,10 +843,10 @@ def main() -> int:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "by_shape": timing[name]})
-    kernels[0]["shape"] = [timing["histogram"][0]["rows"],
-                           timing["histogram"][0]["nbins"]]
-    for k in kernels[1:]:
-        k["shape"] = k["by_shape"][0]["shape"]
+    for k in kernels:
+        head = k["by_shape"][0]
+        k["shape"] = head.get("shape", [head.get("rows"), head.get("nbins")])
+    kernels[3]["slope_ms"] = timing["mask_only"][0]["slope_ms"]
     print(json.dumps({"train_step": {
         "step_ms": tf_run["step_ms"], "first_step_ms": tf_run["first_step_ms"],
         "losses": tf_run["losses"], "profile": tf_run["profile"]}}),

@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rabit_tpu_torch"
@@ -122,4 +122,26 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        lib.rabit_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.rabit_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: List) -> Callable[..., int]:
+    """The C entry point ``symbol`` of the kernel library ``name`` with
+    its argument types set (``c_void_p`` for a pointer or stream, else
+    ctypes cuts it to 32 bits); it returns a cudaError_t."""
+    fn = getattr(load(name), symbol)
+    if not fn.argtypes:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    """Raises if a launch of the library ``name`` returned a CUDA error: a
+    refused launch never runs, and no synchronise reports it."""
+    if err != 0:
+        msg = _loaded[name].rabit_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: cuda error {err} "
+                           f"({msg})")

@@ -135,18 +135,10 @@ def block_update_bwd_reference(q: Tensor, k: Tensor, v: Tensor, m: Tensor,
     return dq, dk, dv.to(v.dtype), dm, dl, do
 
 
-def _lib(name: str, symbol: str, n_ptr_before: int, n_ptr_after: int
-         ) -> ctypes.CDLL:
-    lib = _build.load(name)
-    fn = getattr(lib, symbol)
-    if not fn.argtypes:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * n_ptr_before + [i, i, i, i, ctypes.c_float]
-                       + [p] * n_ptr_after)
-        fn.restype = ctypes.c_int
-        lib.rabit_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.rabit_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+def _entry(name: str, symbol: str, n_ptr_before: int, n_ptr_after: int):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.entry(name, symbol, [p] * n_ptr_before
+                        + [i, i, i, i, ctypes.c_float] + [p] * n_ptr_after)
 
 
 def _kernel_inputs(q, k, v, m, l, o, mask):
@@ -174,13 +166,6 @@ def _ptr(x: Optional[Tensor]) -> Optional[int]:
     return None if x is None else x.data_ptr()
 
 
-def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"{what} kernel launch failed: cuda error {err} "
-            f"({lib.rabit_cuda_error_string(err).decode()})")
-
-
 def flash_block(q: Tensor, k: Tensor, v: Tensor, m: Tensor, l: Tensor,
                 o: Tensor, mask: Optional[Tensor], sm_scale: float
                 ) -> Tuple[Tensor, Tensor, Tensor]:
@@ -193,17 +178,17 @@ def flash_block(q: Tensor, k: Tensor, v: Tensor, m: Tensor, l: Tensor,
     q, k, v, m, l, o, mask = _kernel_inputs(q, k, v, m, l, o, mask)
     h, t, d = q.shape
     s = k.shape[1]
-    lib = _lib("flash_block", "rabit_flash_block_f32", 7, 4)
+    fn = _entry("flash_block", "rabit_flash_block_f32", 7, 4)
     with torch.cuda.device(q.device):
         mo, lo, oo = torch.empty_like(m), torch.empty_like(l), \
             torch.empty_like(o)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rabit_flash_block_f32(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
             l.data_ptr(), o.data_ptr(), _ptr(mask), h, t, s, d,
             float(sm_scale), mo.data_ptr(), lo.data_ptr(), oo.data_ptr(),
             stream)
-    _raise_on(err, lib, "flash_block")
+    _build.check(err, "flash_block")
     flash_block.launches += 1
     return mo, lo, oo
 
@@ -231,20 +216,20 @@ def flash_block_bwd(q: Tensor, k: Tensor, v: Tensor, m: Tensor, l: Tensor,
     q, k, v, m, l, o, mask = _kernel_inputs(q, k, v, m, l, o, mask)
     cm, cl, co = (x.float().contiguous() for x in (cm, cl, co))
     s = k.shape[1]
-    lib = _lib("flash_block_bwd", "rabit_flash_block_bwd_f32", 10, 8)
+    fn = _entry("flash_block_bwd", "rabit_flash_block_bwd_f32", 10, 8)
     with torch.cuda.device(q.device):
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         dm, dl, do = (torch.empty_like(x) for x in (m, l, o))
         scratch = torch.empty((3, h, t), dtype=torch.float32,
                               device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rabit_flash_block_bwd_f32(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
             l.data_ptr(), o.data_ptr(), _ptr(mask), cm.data_ptr(),
             cl.data_ptr(), co.data_ptr(), h, t, s, d, float(sm_scale),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dm.data_ptr(),
             dl.data_ptr(), do.data_ptr(), scratch.data_ptr(), stream)
-    _raise_on(err, lib, "flash_block_bwd")
+    _build.check(err, "flash_block_bwd")
     flash_block_bwd.launches += 1
     return dq, dk, dv, dm, dl, do
 

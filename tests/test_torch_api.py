@@ -219,7 +219,10 @@ def test_import_leaves_out_jax_and_rabit_tpu():
         "('jax', 'jaxlib', 'rabit_tpu')]\n"
         "need = {'rabit_tpu_torch.ops.flash', 'rabit_tpu_torch.entry', "
         "'rabit_tpu_torch.models.transformer', "
-        "'rabit_tpu_torch.parallel.ring_attention'}\n"
+        "'rabit_tpu_torch.parallel.ring_attention', "
+        "'rabit_tpu_torch.bench', 'rabit_tpu_torch.utils.slope', "
+        "'rabit_tpu_torch.tools.histogram_sweep', "
+        "'rabit_tpu_torch.tools.kernel_hw_proof'}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -1,0 +1,163 @@
+"""The port's measurement entry points on the CPU: its copy of
+``slope_time`` against ``rabit_tpu/utils/slope.py`` under one fake clock,
+and ``python -m rabit_tpu_torch.bench``, ``.tools.histogram_sweep`` and
+``.tools.kernel_hw_proof`` run end to end with ``--device cpu --smoke`` in
+a subprocess (their kernels take the plain versions on the CPU), and
+refusing to run without a card when not given ``--device cpu``.
+
+Their timings on the card come only from ``chip_smoke.py`` there."""
+
+import json
+import os
+import subprocess
+import sys
+import warnings
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from rabit_tpu.utils import slope as jax_slope
+from rabit_tpu_torch.tools import ARTIFACTS
+from rabit_tpu_torch.utils import slope
+
+ROOT = Path(__file__).resolve().parents[1]
+FIVE = {"metric", "value", "unit", "vs_baseline", "correct"}
+
+
+class FakeClock:
+    """``time.perf_counter`` whose time moves only in ``run_fn``: a fixed
+    cost a batch plus ``per_k`` an iteration, and a repeating ``jitter``."""
+
+    def __init__(self, fixed, per_k, jitter=(0.0,)):
+        self.now, self.fixed, self.per_k = 0.0, fixed, per_k
+        self.jitter, self.calls = jitter, 0
+
+    def __call__(self):
+        return self.now
+
+    def run(self, k, salt):
+        self.now += (self.fixed + self.per_k * k
+                     + self.jitter[self.calls % len(self.jitter)])
+        self.calls += 1
+        return np.float32(salt)
+
+
+def _both(monkeypatch, clock_args, **kw):
+    """Each implementation on a fresh clock of the same series."""
+    out = []
+    for impl in (jax_slope, slope):
+        clock = FakeClock(*clock_args)
+        monkeypatch.setattr(impl.time, "perf_counter", clock)
+        try:
+            out.append(impl.slope_time(clock.run, 8, 64, **kw))
+        except RuntimeError as e:
+            out.append(e)
+    return out
+
+
+@pytest.mark.parametrize("clock_args", [
+    (0.070, 0.003), (0.001, 2e-5, (0.0, 1e-4, 3e-5)), (0.0, 1e-6)])
+def test_slope_time_matches_jax_package_on_stable_series(monkeypatch,
+                                                         clock_args):
+    jax_t, ours = _both(monkeypatch, clock_args)
+    assert ours == jax_t
+    assert ours == pytest.approx(clock_args[1], rel=0.2)
+
+
+def test_slope_time_raises_like_jax_package_on_flat_series(monkeypatch):
+    jax_e, ours = _both(monkeypatch, (0.070, 0.0))
+    assert isinstance(jax_e, RuntimeError) and isinstance(ours, RuntimeError)
+    assert str(ours) == str(jax_e)
+    assert "unstable after 3 attempts" in str(ours)
+
+
+def test_slope_time_noisy_value_matches_jax_package(monkeypatch):
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        jax_t, ours = _both(monkeypatch, (0.070, 1e-5, (0.0, 0.02)),
+                            allow_noisy=True)
+    assert ours == jax_t
+    assert len(caught) == 2
+    assert [str(w.message) for w in caught[1:]] == \
+        [str(w.message) for w in caught[:1]]
+    assert all(w.category is RuntimeWarning for w in caught)
+
+
+def test_slope_time_refuses_no_attempts():
+    for impl in (jax_slope, slope):
+        with pytest.raises(ValueError, match="attempts"):
+            impl.slope_time(lambda k, s: 0, 1, 2, attempts=0)
+
+
+def _run(module, *args, env_extra=None, timeout=300):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    env.update(env_extra or {})
+    return subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def _artifacts():
+    """The entry points' artifacts where a run could leave them: their
+    default ``--out``, the repo's root and ``benchmarks/``."""
+    names = ("HIST_SWEEP_TORCH_*", "BENCH_TORCH_*", "KERNEL_HW_TORCH_*")
+    return {p for n in names
+            for p in [*ROOT.glob(n), *ARTIFACTS.rglob(n),
+                      *(ROOT / "benchmarks").rglob(n)]}
+
+
+SMOKES = {
+    "rabit_tpu_torch.tools.histogram_sweep": "sweep",
+    "rabit_tpu_torch.bench": "bench",
+    "rabit_tpu_torch.tools.kernel_hw_proof": "proof",
+}
+
+
+@pytest.mark.parametrize("module", sorted(SMOKES))
+def test_cpu_smoke_runs_end_to_end(module):
+    before = _artifacts()
+    res = _run(module, "--device", "cpu", "--smoke")
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    lines = res.stdout.strip().splitlines()
+    kind = SMOKES[module]
+    if kind == "sweep":
+        assert "mask_only counts correct=True" in lines
+        rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        assert [(r["rows"], r["nbins"]) for r in rows] == \
+            [(1 << 17, 256), (1 << 17, 1024)]
+        for r in rows:
+            # the JAX tool's smoke contract (tests/test_bench_smoke.py)
+            assert {"mask_only_ms", "fast_ms", "high_ms",
+                    "per_component_ms"} <= set(r)
+            assert {"mask_only_gbps", "fast_gbps", "high_gbps",
+                    "mask_floor_frac_of_high"} <= set(r)
+    elif kind == "bench":
+        assert len(lines) == 1, lines
+        line = json.loads(lines[0])
+        assert set(line) == FIVE
+        assert line["correct"] is True
+        assert line["metric"] == "histogram_allreduce_throughput"
+        assert line["unit"] == "GB/s" and line["value"] > 0
+    else:
+        assert lines[-1] == "smoke ok"
+        assert any(ln.startswith("flash fwd+bwd chain") for ln in lines)
+    assert _artifacts() == before
+
+
+@pytest.mark.parametrize("module", sorted(SMOKES))
+def test_refuses_to_run_without_a_card(module):
+    """Not given ``--device cpu`` and with no card visible, each entry
+    point exits non-zero and prints no value."""
+    res = _run(module, "--smoke", env_extra={"CUDA_VISIBLE_DEVICES": ""},
+               timeout=120)
+    assert res.returncode != 0
+    assert "torch.cuda.is_available() is False" in res.stderr \
+        or "no CUDA device" in res.stderr
+    for ln in res.stdout.strip().splitlines():
+        assert not ln.startswith("{") or "value" not in json.loads(ln)
+    if SMOKES[module] == "bench":
+        assert json.loads(res.stdout) == {"status": "no_cuda"}
+    else:
+        assert res.stdout == ""
