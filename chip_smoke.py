@@ -10,7 +10,14 @@ Phases (each prints a line; any failure exits non-zero):
 1. build        nvcc every ``rabit_tpu_torch/csrc/*.cu`` into
                 ``build/rabit_tpu_torch/`` (one nvcc a source, all
                 started together); ptxas's registers and spills of every
-                kernel.
+                kernel (a flash backward kernel may spill none); the
+                tensor-core instructions (``HMMA``) of each
+                flash backward kernel in its SASS (``cuobjdump -sass``),
+                which must be above 0.
+1b. tile        the backward's 3xTF32 score-tile function alone
+                (``csrc/flash_mma.cuh``): one [64, DP] x [64, DP]^T tile
+                against a torch f64 product at each DP, before the
+                kernels built on it run.
 2. kernel       each kernel against its plain PyTorch version on the card:
                 the histogram at the main path's shapes and an edge case;
                 the bin count (mask_only) exactly equal at the sweep's six
@@ -22,7 +29,9 @@ Phases (each prints a line; any failure exits non-zero):
                 (H 8, T = S 1024, D 128, no mask), a causal mask whose
                 first row is fully masked at m = NEG_INF (where masked
                 tiles may not be skipped), the fully masked first-step row
-                with an exact tie, and a ragged case (T 100, S 72, D 16).
+                with an exact tie, a ragged case (T 100, S 72, D 16), a
+                causal case at D 64, and a wide-range case (q and k x 4,
+                so that s spans about +-100) at D 128.
 3. main path    ``distributed_histogram`` through a world-1 NCCL group at
                 the two full-width shapes, against the f64 host histogram.
 4. rounds       ``init(engine="torch")`` on the card, then three boosting
@@ -44,7 +53,9 @@ Phases (each prints a line; any failure exits non-zero):
 9. timing       CUDA-event medians of each kernel, its plain version and
                 one PyTorch call that computes the same function, beside
                 the least time the card could take; for mask_only also
-                the sweep's slope; the training step.
+                the sweep's slope; for the flash backward also SDPA's
+                backward alone (forward + backward minus forward); the
+                training step.
 10. kernels     one JSON line of every kernel with its main-path launches.
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
@@ -57,18 +68,24 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12        # f32 outside the tensor cores, same source
+# f32 accuracy on the tensor cores: 495 TFLOP/s of TF32 (same source) over
+# the three products of the 3xTF32 split
+TF32X3_OPS_PER_S = 495e12 / 3
 REPLACES = {"histogram": "rabit_tpu/ops/pallas_kernels.py:133",
             "flash_block": "rabit_tpu/ops/pallas_kernels.py:398",
             "flash_block_bwd": "rabit_tpu/ops/pallas_kernels.py:345",
@@ -111,6 +128,9 @@ FLASH_CHAIN = (8, 1024, 1024, 128, False)
 # bound tools/kernel_hw_proof.py:131-135 holds the TPU kernel to)
 FLASH_FWD_TOL = dict(rtol=1e-4, atol=1e-4)
 FLASH_BWD_REL = 1e-3
+# the 3xTF32 tile product against f64, max|diff| / max|ref| (the split
+# keeps about 2^-22 of each operand; 1xTF32 gives about 3e-4)
+MMA_TILE_REL = 1e-5
 # one training step through the kernels vs through the plain block update
 # (tests/test_transformer.py:69-73)
 STEP_TOL = 5e-4
@@ -152,8 +172,77 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.2f} s (per kernel, s: "
           f"{ {k: round(v, 2) for k, v in built.items()} })")
     for name in sorted(_build.sources()):
-        phase("build", f"ptxas {name}: " + "; ".join(
-            ptxas_summary(_build.ptxas_log(name).read_text())))
+        summary = ptxas_summary(_build.ptxas_log(name).read_text())
+        phase("build", f"ptxas {name}: " + "; ".join(summary))
+        spilled = [s for s in summary if s.startswith("flash_bwd_")
+                   and not s.endswith(" 0 B spilled")]
+        if spilled:
+            raise AssertionError(f"flash backward kernels spill registers: "
+                                 f"{spilled}")
+    hmma = {k: n for k, n in sass_counts(
+        _build.library_path("flash_block_bwd"), "HMMA").items()
+        if k.startswith("flash_bwd_")}
+    phase("build", f"HMMA instructions in the SASS of flash_block_bwd: "
+          f"{hmma}")
+    if len(hmma) != 16 or min(hmma.values()) == 0:
+        raise AssertionError(f"a flash backward kernel runs no tensor-core "
+                             f"product (HMMA counts {hmma}; 16 kernels "
+                             f"expected)")
+
+
+def sass_counts(library: Path, opcode: str) -> dict:
+    """Kernel -> its count of ``opcode`` instructions, from the SASS that
+    ``cuobjdump -sass`` (beside nvcc) prints of the library."""
+    from rabit_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build.nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            kernel = demangled(fn.group(1))
+            counts[kernel] = 0
+        elif kernel and re.search(rf"\b{opcode}\b", line):
+            counts[kernel] += 1
+    return counts
+
+
+def phase_tile(dev) -> None:
+    """The backward's score-tile function alone (``csrc/flash_mma.cuh``
+    through the library's check entry ``rabit_flash_mma_tile_f32``): a
+    [64, d] x [64, d]^T tile of normals against a torch f64 product, at
+    d = DP = 16, 32, 64, 128 and at d = 99 (4-byte copies). Beside it,
+    what 1xTF32 (each operand rounded to TF32 once) gives on the same
+    tile."""
+    from rabit_tpu_torch.ops import _build
+    p = ctypes.c_void_p
+    fn = _build.entry("flash_block_bwd", "rabit_flash_mma_tile_f32",
+                      [p, p, ctypes.c_int, p, p])
+    gen = torch.Generator(device=dev).manual_seed(30)
+
+    def tf32(x):   # to nearest, ties away, 10 mantissa bits
+        return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    for d in (16, 32, 64, 128, 99):
+        a, b = (torch.randn((64, d), generator=gen, device=dev)
+                for _ in range(2))
+        got = torch.empty((64, 64), device=dev)
+        err = fn(a.data_ptr(), b.data_ptr(), d, got.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "flash_block_bwd")
+        torch.cuda.synchronize()
+        ref = a.double() @ b.double().T
+        rel = float((got.double() - ref).abs().max() / ref.abs().max())
+        one = tf32(a).double() @ tf32(b).double().T
+        rel1 = float((one - ref).abs().max() / ref.abs().max())
+        phase("tile", f"3xTF32 score tile [64, {d}] x [64, {d}]^T: "
+              f"max|diff|/max|ref| {rel:.3g} against f64 (limit "
+              f"{MMA_TILE_REL}; 1xTF32 on the same tile {rel1:.3g})")
+        if not rel <= MMA_TILE_REL:
+            raise AssertionError(f"score tile d={d}: {rel:.3g} > "
+                                 f"{MMA_TILE_REL}")
 
 
 def demangled(symbol: str) -> str:
@@ -279,10 +368,11 @@ def phase_mask_kernel(dev) -> float:
 
 
 def flash_case(bh: int, t: int, s: int, d: int, mask_kind, seed: int, dev,
-               first_step: bool = False):
+               first_step: bool = False, spread: float = 1.0):
     """Inputs (q, k, v, m, l, o, mask) and cotangents (cm, cl, co) of one
-    block step, from a seed. ``first_step``: the ring's first step (m =
-    NEG_INF, l = o = 0); otherwise a running state. ``mask_kind`` is None,
+    block step, from a seed; q and k are normals times ``spread``.
+    ``first_step``: the ring's first step (m = NEG_INF, l = o = 0);
+    otherwise a running state. ``mask_kind`` is None,
     "causal", "causal, row 0 masked" (the kernels skip the tiles above the
     diagonal, but not for the first row block, whose row 0 keeps m =
     NEG_INF) or "tie": a random mask whose row 0 is fully masked with m =
@@ -295,6 +385,7 @@ def flash_case(bh: int, t: int, s: int, d: int, mask_kind, seed: int, dev,
         return torch.randn(shape, generator=gen, device=dev)
 
     q, k, v = normal(bh, t, d), normal(bh, s, d), normal(bh, s, d)
+    q, k = q * spread, k * spread
     if first_step:
         m = torch.full((bh, t), NEG_INF, device=dev)
         l, o = torch.zeros(bh, t, device=dev), torch.zeros(bh, t, d,
@@ -318,13 +409,18 @@ def flash_case(bh: int, t: int, s: int, d: int, mask_kind, seed: int, dev,
                                       normal(bh, t, d))
 
 
+# (label, (B*H, T, S, D), mask, first step, spread of q and k)
 FLASH_CASES = [
-    ("training shape", FLASH_MAIN[:4], "causal", True),
-    ("chain block", FLASH_CHAIN[:4], None, False),
+    ("training shape", FLASH_MAIN[:4], "causal", True, 1.0),
+    ("chain block", FLASH_CHAIN[:4], None, False, 1.0),
     ("fully masked first row", (4, 192, 192, 32), "causal, row 0 masked",
-     True),
-    ("tie row", (2, 64, 64, 32), "tie", False),
-    ("ragged", (3, 100, 72, 16), "tie", False),
+     True, 1.0),
+    ("tie row", (2, 64, 64, 32), "tie", False, 1.0),
+    ("ragged", (3, 100, 72, 16), "tie", False, 1.0),
+    ("D 64", (4, 256, 320, 64), "causal", True, 1.0),
+    # s = q.k / sqrt(D) with a spread of about 16 (|s| up to about 100),
+    # where a split's error grows with |s|
+    ("wide range", (2, 256, 256, 128), None, False, 4.0),
 ]
 
 
@@ -333,9 +429,10 @@ def phase_flash_kernel(dev) -> dict:
     largest absolute difference of each."""
     from rabit_tpu_torch.ops import flash as F
     worst = {"flash_block": 0.0, "flash_block_bwd": 0.0}
-    for i, (label, (bh, t, s, d), mask_kind, first) in \
+    for i, (label, (bh, t, s, d), mask_kind, first, spread) in \
             enumerate(FLASH_CASES):
-        ins, cts = flash_case(bh, t, s, d, mask_kind, 20 + i, dev, first)
+        ins, cts = flash_case(bh, t, s, d, mask_kind, 20 + i, dev, first,
+                              spread)
         sm = d ** -0.5
         got = F.flash_block(*ins, sm)
         want = F.block_update_reference(*ins, sm)
@@ -361,7 +458,7 @@ def phase_flash_kernel(dev) -> dict:
                     f"flash_block_bwd {label} {name}: max|diff|/max|ref| "
                     f"{rels[name]:.3g} > {FLASH_BWD_REL}")
         phase("kernel", f"flash {label} (B*H {bh}, T {t}, S {s}, D {d}, "
-              f"mask {mask_kind}): forward within rtol/atol "
+              f"mask {mask_kind}, q k x {spread}): forward within rtol/atol "
               f"{FLASH_FWD_TOL['rtol']}; backward max|diff|/max|ref| "
               + ", ".join(f"{n} {r:.2g}" for n, r in rels.items()))
     return worst
@@ -712,9 +809,12 @@ def flash_bound(bh: int, t: int, s: int, d: int, mask, backward: bool):
     """(bound ms, what bounds it, flops, bytes) of one call: 4 D flops
     forward and 10 D backward (two and five products) for each (query,
     key) pair that the mask leaves (about half of T S under a causal mask:
-    a masked pair adds exactly 0 once its row's max is finite), at the f32
-    rate, against each input read once and each output written once at the
-    memory rate."""
+    a masked pair adds exactly 0 once its row's max is finite), against
+    each input read once and each output written once at the memory rate.
+    The flops are reckoned at the 3xTF32 tensor-core rate, not at the f32
+    rate of the CUDA cores: the card can do this work at f32 accuracy on
+    its tensor cores (each product as three TF32 products of split
+    operands), so that is the least time it could take."""
     pairs = bh * (t * s if mask is None else int((~mask).sum()))
     rows, keys = bh * t * (2 + d), bh * s * 2 * d   # m, l, o; k, v
     nbytes = 4 * (bh * t * d + keys + rows) + (0 if mask is None else t * s)
@@ -725,7 +825,7 @@ def flash_bound(bh: int, t: int, s: int, d: int, mask, backward: bool):
     else:
         nbytes += 4 * rows                     # m', l', o'
         flops = 4 * pairs * d
-    by_ops, by_bytes = flops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    by_ops, by_bytes = flops / TF32X3_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(by_ops, by_bytes) * 1e3,
             "operations" if by_ops >= by_bytes else "bytes", flops, nbytes)
 
@@ -774,15 +874,20 @@ def phase_flash_timing(dev, power: str) -> dict:
                 ("flash_block_bwd", bwd, bwd_plain, lib_bwd, True)):
             bound, bound_by, flops, nbytes = flash_bound(bh, t, s, d, ins[6],
                                                          backward)
-            out[name].append(dict(shape=[bh, t, s, d], causal=causal, ms=ms,
-                                  plain_ms=plain, library_ms=lib,
-                                  bound_ms=bound, bound_by=bound_by,
-                                  flops=flops, bytes=nbytes))
+            row = dict(shape=[bh, t, s, d], causal=causal, ms=ms,
+                       plain_ms=plain, library_ms=lib, bound_ms=bound,
+                       bound_by=bound_by, flops=flops, bytes=nbytes)
+            # SDPA's backward alone, an estimate: forward + backward minus
+            # forward, each timed on its own
+            lib_note = f"sdpa {'fwd+bwd' if backward else 'fwd'} {lib:.4f} ms"
+            if backward:
+                row["library_bwd_ms"] = lib - lib_fwd
+                lib_note += f", sdpa bwd alone {lib - lib_fwd:.4f} ms"
+            out[name].append(row)
             phase("timing", f"{name} B*H {bh} T {t} S {s} D {d} "
                   f"{'causal' if causal else 'no mask'}: kernel {ms:.4f} ms,"
                   f" bound {bound:.4f} ms ({bound_by}; {bound / ms:.1%} of "
-                  f"it), plain {plain:.4f} ms, sdpa "
-                  f"{'fwd+bwd' if backward else 'fwd'} {lib:.4f} ms [{power}]")
+                  f"it), plain {plain:.4f} ms, {lib_note} [{power}]")
     return out
 
 
@@ -804,6 +909,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    phase_tile(dev)
     max_err = {"histogram": phase_kernel(dev),
                "mask_only": phase_mask_kernel(dev)}
     max_err.update(phase_flash_kernel(dev))
@@ -847,6 +953,8 @@ def main() -> int:
         head = k["by_shape"][0]
         k["shape"] = head.get("shape", [head.get("rows"), head.get("nbins")])
     kernels[3]["slope_ms"] = timing["mask_only"][0]["slope_ms"]
+    kernels[2]["library_bwd_ms"] = timing["flash_block_bwd"][0][
+        "library_bwd_ms"]
     print(json.dumps({"train_step": {
         "step_ms": tf_run["step_ms"], "first_step_ms": tf_run["first_step_ms"],
         "losses": tf_run["losses"], "profile": tf_run["profile"]}}),

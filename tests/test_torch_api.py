@@ -254,3 +254,7 @@ def test_no_jax_or_rabit_tpu_import_in_the_package_source():
 
 def test_no_jax_or_rabit_tpu_import_in_the_chip_smoke_script():
     assert _jax_imports([ROOT / "chip_smoke.py"]) == []
+
+
+def test_no_jax_or_rabit_tpu_import_in_the_kernel_variants_script():
+    assert _jax_imports([ROOT / "kernel_variants.py"]) == []

@@ -254,3 +254,214 @@ def test_plain_block_step_runs_the_plain_pair_forward_and_backward(
         with F.plain_block_step():
             raise RuntimeError("inside")
     assert F._step is F._KERNELS
+
+
+# -- csrc/flash_block_bwd.cu's tile schedule, modelled in plain torch --
+
+TILE = 64
+NEG_INF = F.NEG_INF
+
+
+def _tile_masked(mask, rows, cols):
+    return mask is not None and bool(mask[rows][:, cols].all())
+
+
+def _tile_schedule_bwd(q, k, v, m, l, o, mask, scale, cm, cl, co):
+    """The backward as the CUDA kernels schedule it, head by head. A row
+    block of 64 queries makes pass 1 over the 64-key tiles (s and dp a
+    tile; the running max t, its tie count and sum_j (dp + cl) exp(s - m'),
+    rescaled whenever m' = max(m, t) rises) and pass 2 (ds, dq += ds k). A
+    column block of 64 keys streams the query tiles (dv += p^T co, dk +=
+    ds^T q). A pass skips a fully masked tile where the kernels do: pass 1
+    once every row of the block had a score above NEG_INF before the tile
+    in hand (the kernels pick the next tile before they multiply the
+    current one), pass 2 always (ds = 0 there), the column pass once every
+    row of the query tile has m' above NEG_INF. Returns the six gradients
+    and the count of tiles skipped."""
+    h_n, t_n, _ = q.shape
+    s_n = k.shape[1]
+    dq, dk, dv, dm, dl, do = (torch.zeros_like(x) for x in (q, k, v, m, l, o))
+    mnew, trow, tie = (torch.zeros_like(m) for _ in range(3))
+    skipped = 0
+    key_tiles = [slice(c, min(c + TILE, s_n)) for c in range(0, s_n, TILE)]
+    row_tiles = [slice(r, min(r + TILE, t_n)) for r in range(0, t_n, TILE)]
+
+    def scores(h, rows, cols):
+        s = (q[h, rows] @ k[h, cols].T) * scale
+        return s if mask is None else s.masked_fill(mask[rows][:, cols],
+                                                    NEG_INF)
+
+    def ds(h, rows, cols):
+        s = scores(h, rows, cols)
+        dp = co[h, rows] @ v[h, cols].T + cl[h, rows, None]
+        g = dp * torch.exp(s - mnew[h, rows, None]) + tie[h, rows, None] * (
+            s == trow[h, rows, None])
+        if mask is not None:
+            g = g.masked_fill(mask[rows][:, cols], 0.0)
+        return g * scale
+
+    def schedule(tiles, skip):
+        """The tiles a pass visits; skip(i) is asked with the state before
+        the tile in hand."""
+        nonlocal skipped
+        i = 0
+        while i < len(tiles) and skip(i):
+            skipped, i = skipped + 1, i + 1
+        while i < len(tiles):
+            j = i + 1
+            while j < len(tiles) and skip(j):
+                skipped, j = skipped + 1, j + 1
+            yield tiles[i]
+            i = j
+
+    for h in range(h_n):
+        for rows in row_tiles:
+            m_in, cl_r = m[h, rows], cl[h, rows]
+            t_run = torch.full_like(m_in, -float("inf"))
+            n_run, sum_run, m_run = (torch.zeros_like(m_in),
+                                     torch.zeros_like(m_in), m_in.clone())
+
+            def seen(i, rows=rows):
+                return _tile_masked(mask, rows, key_tiles[i]) and bool(
+                    (t_run > NEG_INF).all())
+
+            for cols in schedule(key_tiles, seen):
+                s = scores(h, rows, cols)
+                dp = co[h, rows] @ v[h, cols].T + cl_r[:, None]
+                tmax = s.amax(dim=1)
+                cnt = (s == tmax[:, None]).sum(dim=1).to(m.dtype)
+                n_run = torch.where(t_run > tmax, n_run, torch.where(
+                    t_run < tmax, cnt, n_run + cnt))
+                t_run = torch.maximum(t_run, tmax)
+                m_new = torch.maximum(m_in, t_run)
+                sum_run = sum_run * torch.exp(m_run - m_new) + (
+                    dp * torch.exp(s - m_new[:, None])).sum(dim=1)
+                m_run = m_new
+            alpha = torch.exp(m_in - m_run)
+            dalpha = cl_r * l[h, rows] + (co[h, rows] * o[h, rows]).sum(1)
+            dm_new = cm[h, rows] - dalpha * alpha - sum_run
+            sel = torch.where(m_in > t_run, 1.0,
+                              torch.where(m_in < t_run, 0.0, 0.5))
+            dm[h, rows] = dalpha * alpha + dm_new * sel
+            dl[h, rows] = cl_r * alpha
+            do[h, rows] = co[h, rows] * alpha[:, None]
+            mnew[h, rows], trow[h, rows] = m_run, t_run
+            tie[h, rows] = dm_new * (1.0 - sel) / n_run
+            for cols in schedule(key_tiles, lambda i, rows=rows: _tile_masked(
+                    mask, rows, key_tiles[i])):
+                dq[h, rows] += ds(h, rows, cols) @ k[h, cols]
+        for cols in key_tiles:
+            def finite(i, cols=cols):
+                return _tile_masked(mask, row_tiles[i], cols) and bool(
+                    (mnew[h, row_tiles[i]] > NEG_INF).all())
+
+            for rows in schedule(row_tiles, finite):
+                p = torch.exp(scores(h, rows, cols) - mnew[h, rows, None])
+                dv[h, cols] += p.T @ co[h, rows]
+                dk[h, cols] += ds(h, rows, cols).T @ q[h, rows]
+    return (dq, dk, dv, dm, dl, do), skipped
+
+
+def _masked_inputs(seed, kind):
+    """numpy inputs as ``_inputs`` gives them, for the four cases of the
+    schedule: "causal" (a running state, T 192, S 192), "causal, row 0
+    masked" (the ring's first step, m = NEG_INF and l = o = 0, with row 0
+    fully masked, so the first row block may skip nothing; T 192, S 200,
+    D 16), "tie" and "ragged" (T 100, S 72, D 16, the tie mask)."""
+    if kind == "tie":
+        return _inputs(seed, "tie")
+    if kind == "ragged":
+        return _inputs(seed, "tie", t=100, s=72, d=16)
+    t, s, d = (192, 192, D) if kind == "causal" else (192, 200, 16)
+    q, k, v, m, l, o, _, cm, cl, co = _inputs(seed, None, t=t, s=s, d=d)
+    mask = np.triu(np.ones((t, s), bool), 1)
+    if kind == "causal, row 0 masked":
+        mask[0] = True
+        m = np.full_like(m, F.NEG_INF)
+        l, o = np.zeros_like(l), np.zeros_like(o)
+    return q, k, v, m, l, o, mask, cm, cl, co
+
+
+
+@pytest.mark.parametrize("kind", ["causal", "causal, row 0 masked", "tie",
+                                  "ragged"])
+def test_tile_schedule_matches_plain_backward_and_jax_vjp(kind):
+    """The kernels' algorithm (fused pass 1 with a rescaled running sum,
+    64-key tiles, the skip rules) before it reaches the card: the same
+    gradients as the plain backward and JAX's VJP within 1e-5."""
+    arrays = _masked_inputs(11, kind)
+    q, k, v, m, l, o, mask, cm, cl, co = _torch(*arrays)
+    scale = _scale(q.shape[-1])
+    got, skipped = _tile_schedule_bwd(q, k, v, m, l, o, mask, scale, cm, cl,
+                                      co)
+    plain = F.block_update_bwd_reference(q, k, v, m, l, o, mask, scale, cm,
+                                         cl, co)
+    jax_grads = _jax_vjp(*arrays)
+    for name, g, p, j in zip(NAMES, got, plain, jax_grads):
+        np.testing.assert_allclose(g.numpy(), p.numpy(), err_msg=name, **TOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), err_msg=name,
+                                   **TOL)
+    # tiles skipped a head by pass 1, pass 2 and the column pass. Causal,
+    # 3 x 3 tiles, 3 of them above the diagonal: pass 1 picks tile 1 of
+    # row block 0 before any score is seen, so it skips 2. Row 0 masked,
+    # 3 x 4 tiles, 6 above the diagonal: row 0 stays at NEG_INF, so pass 1
+    # and the column pass skip nothing that holds row 0.
+    assert skipped == {"causal": 2 * (2 + 3 + 3),
+                       "causal, row 0 masked": 2 * (3 + 6 + 3),
+                       "tie": 0, "ragged": 0}[kind]
+
+
+def _tf32(x):
+    """numpy float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_tf32(x):
+    big = _tf32(x)
+    return big, _tf32(np.asarray(x, np.float32) - big)
+
+
+def test_split_tf32_rounds_to_nearest_ties_away_and_reconstructs():
+    one = np.float32(1.0)
+    assert _tf32(one + np.float32(2.0 ** -11)) == one + np.float32(2.0 ** -10)
+    assert _tf32(-(one + np.float32(2.0 ** -11))) == -(one + 2.0 ** -10)
+    assert _tf32(one + np.float32(2.0 ** -12)) == one
+    x = np.random.default_rng(12).standard_normal(100_000).astype(np.float32)
+    x *= np.float32(10.0) ** np.random.default_rng(13).integers(-6, 6, x.size)
+    big, small = _split_tf32(x)
+    for part in (big, small):
+        assert not (part.view(np.uint32) & np.uint32(0x1FFF)).any()
+    rel = np.abs(big.astype(np.float64) + small - x) / np.abs(x)
+    assert rel.max() <= 2.0 ** -22
+    assert np.abs(big.astype(np.float64) - x).max() / np.abs(x).max() > 1e-5
+
+
+def _dot_3xtf32(a, b):
+    """a b^T as the kernels form it: k in steps of 8, each step three
+    TF32 products (small x big, big x small, big x big) summed into an f32
+    accumulator; each TF32 product is exact in f32."""
+    (ab, as_), (bb, bs) = _split_tf32(a), _split_tf32(b)
+    acc = np.zeros((a.shape[0], b.shape[0]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        ks = slice(k0, k0 + 8)
+        for x, y in ((as_, bb), (ab, bs), (ab, bb)):
+            acc = (acc + x[:, ks].astype(np.float64) @ y[:, ks].T.astype(
+                np.float64)).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("width", [16, 32, 64, 128])
+def test_3xtf32_dot_is_within_1e6_of_f64(width):
+    """The tolerance of the kernels' note: a 3xTF32 tile product of
+    seeded normals within 1e-6 of f64 (max|diff| / max|ref|), where one
+    TF32 product is off by about 3e-4."""
+    rng = np.random.default_rng(width)
+    a = rng.standard_normal((64, width)).astype(np.float32)
+    b = rng.standard_normal((64, width)).astype(np.float32)
+    ref = a.astype(np.float64) @ b.T.astype(np.float64)
+    rel = np.abs(_dot_3xtf32(a, b) - ref).max() / np.abs(ref).max()
+    one = _tf32(a).astype(np.float64) @ _tf32(b).T.astype(np.float64)
+    assert rel <= 1e-6
+    assert np.abs(one - ref).max() / np.abs(ref).max() > 1e-5

@@ -161,3 +161,16 @@ def test_refuses_to_run_without_a_card(module):
         assert json.loads(res.stdout) == {"status": "no_cuda"}
     else:
         assert res.stdout == ""
+
+
+def test_kernel_variants_refuses_to_run_without_a_card(tmp_path):
+    """``kernel_variants.py`` builds and times kernels only on a card;
+    with none visible it exits non-zero before it builds anything."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, str(ROOT / "kernel_variants.py"),
+                          str(tmp_path)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert list(tmp_path.iterdir()) == []
