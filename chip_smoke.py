@@ -10,14 +10,15 @@ Phases (each prints a line; any failure exits non-zero):
 1. build        nvcc every ``rabit_tpu_torch/csrc/*.cu`` into
                 ``build/rabit_tpu_torch/`` (one nvcc a source, all
                 started together); ptxas's registers and spills of every
-                kernel (a flash backward kernel may spill none); the
-                tensor-core instructions (``HMMA``) of each
-                flash backward kernel in its SASS (``cuobjdump -sass``),
-                which must be above 0.
-1b. tile        the backward's 3xTF32 score-tile function alone
+                kernel (a flash kernel may spill none); the tensor-core
+                instructions (``HMMA``) of each flash forward and
+                backward kernel in its SASS (``cuobjdump -sass``), which
+                must be above 0.
+1b. tile        the 3xTF32 score-tile function alone
                 (``csrc/flash_mma.cuh``): one [64, DP] x [64, DP]^T tile
                 against a torch f64 product at each DP, before the
-                kernels built on it run.
+                kernels built on it run; the forward's m' on the same
+                tiles equal to the tile's row max, bit for bit.
 2. kernel       each kernel against its plain PyTorch version on the card:
                 the histogram at the main path's shapes and an edge case;
                 the bin count (mask_only) exactly equal at the sweep's six
@@ -49,7 +50,8 @@ Phases (each prints a line; any failure exits non-zero):
                 artifact: its six rows and its exact count check.
 7. bench        ``rabit_tpu_torch.bench`` at full size (2^21 x 1024): its
                 JSON line, which must say correct, no artifact.
-8. proof        ``tools.kernel_hw_proof`` at full size, no artifact.
+8. proof        ``tools.kernel_hw_proof`` at full size, no artifact, and
+                the flash kernels' launches on its chains.
 9. timing       CUDA-event medians of each kernel, its plain version and
                 one PyTorch call that computes the same function, beside
                 the least time the card could take; for mask_only also
@@ -174,20 +176,23 @@ def phase_build() -> None:
     for name in sorted(_build.sources()):
         summary = ptxas_summary(_build.ptxas_log(name).read_text())
         phase("build", f"ptxas {name}: " + "; ".join(summary))
-        spilled = [s for s in summary if s.startswith("flash_bwd_")
+        spilled = [s for s in summary if s.startswith(("flash_bwd_",
+                                                       "flash_fwd_"))
                    and not s.endswith(" 0 B spilled")]
         if spilled:
-            raise AssertionError(f"flash backward kernels spill registers: "
-                                 f"{spilled}")
-    hmma = {k: n for k, n in sass_counts(
-        _build.library_path("flash_block_bwd"), "HMMA").items()
-        if k.startswith("flash_bwd_")}
-    phase("build", f"HMMA instructions in the SASS of flash_block_bwd: "
-          f"{hmma}")
-    if len(hmma) != 16 or min(hmma.values()) == 0:
-        raise AssertionError(f"a flash backward kernel runs no tensor-core "
-                             f"product (HMMA counts {hmma}; 16 kernels "
-                             f"expected)")
+            raise AssertionError(f"flash kernels spill registers: {spilled}")
+    # every instantiation: 4 DP x mask / no mask; the backward has two
+    # kernels of each
+    for name, prefix, expect in (("flash_block", "flash_fwd_", 8),
+                                 ("flash_block_bwd", "flash_bwd_", 16)):
+        hmma = {k: n for k, n in sass_counts(
+            _build.library_path(name), "HMMA").items()
+            if k.startswith(prefix)}
+        phase("build", f"HMMA instructions in the SASS of {name}: {hmma}")
+        if len(hmma) != expect or min(hmma.values()) == 0:
+            raise AssertionError(f"a {prefix}* kernel runs no tensor-core "
+                                 f"product (HMMA counts {hmma}; {expect} "
+                                 f"kernels expected)")
 
 
 def sass_counts(library: Path, opcode: str) -> dict:
@@ -215,8 +220,11 @@ def phase_tile(dev) -> None:
     [64, d] x [64, d]^T tile of normals against a torch f64 product, at
     d = DP = 16, 32, 64, 128 and at d = 99 (4-byte copies). Beside it,
     what 1xTF32 (each operand rounded to TF32 once) gives on the same
-    tile."""
+    tile. Then the forward's s is the backward's s: a first-step forward
+    (m = NEG_INF, l = o = 0, no mask, scale 1) on the same tiles gives an
+    m' equal to the tile's row max, bit for bit."""
     from rabit_tpu_torch.ops import _build
+    from rabit_tpu_torch.ops import flash as F
     p = ctypes.c_void_p
     fn = _build.entry("flash_block_bwd", "rabit_flash_mma_tile_f32",
                       [p, p, ctypes.c_int, p, p])
@@ -237,12 +245,26 @@ def phase_tile(dev) -> None:
         rel = float((got.double() - ref).abs().max() / ref.abs().max())
         one = tf32(a).double() @ tf32(b).double().T
         rel1 = float((one - ref).abs().max() / ref.abs().max())
+        mo, _, _ = F.flash_block(
+            a[None], b[None], torch.randn((1, 64, d), generator=gen,
+                                          device=dev),
+            torch.full((1, 64), F.NEG_INF, device=dev),
+            torch.zeros((1, 64), device=dev),
+            torch.zeros((1, 64, d), device=dev), None, 1.0)
+        torch.cuda.synchronize()
+        same = torch.equal(mo[0], got.amax(dim=1))
         phase("tile", f"3xTF32 score tile [64, {d}] x [64, {d}]^T: "
               f"max|diff|/max|ref| {rel:.3g} against f64 (limit "
-              f"{MMA_TILE_REL}; 1xTF32 on the same tile {rel1:.3g})")
+              f"{MMA_TILE_REL}; 1xTF32 on the same tile {rel1:.3g}); the "
+              f"forward's m' equals its row max bit for bit: {same}")
         if not rel <= MMA_TILE_REL:
             raise AssertionError(f"score tile d={d}: {rel:.3g} > "
                                  f"{MMA_TILE_REL}")
+        if not same:
+            raise AssertionError(
+                f"d={d}: the forward's m' differs from the tile function's "
+                f"row max in {int((mo[0] != got.amax(dim=1)).sum())} of 64 "
+                f"rows")
 
 
 def demangled(symbol: str) -> str:
@@ -520,13 +542,18 @@ def phase_bench(dev) -> dict:
 
 
 def phase_proof(dev) -> dict:
-    """``kernel_hw_proof`` at full size, no artifact."""
+    """``kernel_hw_proof`` at full size, no artifact, with the flash
+    kernels' launches on its chains (the chain block's launch counts)."""
     from rabit_tpu_torch.tools import kernel_hw_proof
+    reset_launches()
     t0 = time.perf_counter()
     evidence = kernel_hw_proof.prove(dev)
     if not evidence["complete"]:
         raise AssertionError("kernel_hw_proof did not complete")
-    phase("proof", f"every stage passed in {time.perf_counter() - t0:.1f} s")
+    launches = read_launches()
+    phase("proof", f"every stage passed in {time.perf_counter() - t0:.1f} "
+          f"s; launches {launches}")
+    evidence["launches"] = launches
     return evidence
 
 
@@ -931,7 +958,7 @@ def main() -> int:
                 "mask_only": sweep["launches"]["mask_only"]}
     phase("main path", f"kernel launches, each on its own path: {launches}")
     phase_bench(dev)
-    phase_proof(dev)
+    proof = phase_proof(dev)
 
     timing = {"histogram": phase_timing(dev, power),
               "mask_only": phase_mask_timing(dev, power, sweep["table"])}
@@ -955,6 +982,8 @@ def main() -> int:
     kernels[3]["slope_ms"] = timing["mask_only"][0]["slope_ms"]
     kernels[2]["library_bwd_ms"] = timing["flash_block_bwd"][0][
         "library_bwd_ms"]
+    for k in kernels[1:3]:   # the chain block's row: the proof's chains
+        k["by_shape"][1]["launches"] = proof["launches"][k["name"]]
     print(json.dumps({"train_step": {
         "step_ms": tf_run["step_ms"], "first_step_ms": tf_run["first_step_ms"],
         "losses": tf_run["losses"], "profile": tf_run["profile"]}}),

@@ -37,9 +37,9 @@
 // test s == t finds the same lanes in (a) and (b). K/V (or q/co) tiles
 // stream through two shared-memory stages by cp.async, the next tile in
 // flight while the current one is multiplied. Every pass skips a tile
-// that the mask covers wherever that is exact (rabit_flash::tile_masked's
-// rule): about half the tiles under a causal mask; a tile that the mask
-// leaves whole is multiplied without reading the mask.
+// that the mask covers wherever that is exact (next_tile's rule): about
+// half the tiles under a causal mask; a tile that the mask leaves whole
+// is multiplied without reading the mask.
 //
 // Work: 9 products of 2 D flops a (query, key) pair that the mask leaves
 // (a: s and dp twice, ds k; b: s, dp, p^T co, ds^T q), against the 5 of
@@ -78,20 +78,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// A tile that a pass visits: where it starts, and whether the mask leaves
-// every pair of it (then no mask is read for it).
-struct Visit {
-  int from;
-  bool unmasked;
-};
-
 // The first tile from `from` on (a key tile of rows [row0, row0 + 64), or
-// a query tile of keys [col0, col0 + 64)) that a pass must visit. It is
-// skipped where tile_masked's rule holds: every pair of it that exists
-// is masked, and `ok` (the calling thread's part of the rows' condition)
-// holds on every thread. Thread (rg, lane) reads the mask at its 4 x 4
-// block, as tile_masked does. Barriers: every thread gets the same
-// answer.
+// a query tile of keys [col0, col0 + 64)) that a pass must visit. A tile
+// is skipped where every pair of it that exists (row < T, col < S) is
+// masked and `ok` (the calling thread's part of the rows' condition)
+// holds on every thread. Thread (rg, lane) = (tid / 16, tid % 16) reads
+// the mask at its 4 x 4 block, rows 4 rg + i and columns lane + 16 j.
+// Barriers: every thread gets the same answer.
+//
+// Why the rows' condition: a masked lane's score is -1e30 exactly. Where
+// a row's running max m is above -1e30, such a lane gives p = exp(-1e30 -
+// m) = 0, moves neither the max nor the sum, and adds 0 to every product:
+// skipping it is exact. A row whose max is still -1e30 (fully masked so
+// far) gets p = 1 on such a lane, so the callers' `ok` is false for it.
 template <bool kMasked, bool kKeys, typename RowOk>
 __device__ __forceinline__ Visit next_tile(const unsigned char* mask,
                                            int row0, int col0, int T, int S,

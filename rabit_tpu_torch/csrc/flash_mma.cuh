@@ -1,6 +1,7 @@
-// Tensor-core pieces of the flash backward (flash_block_bwd.cu): f32
-// products at f32 accuracy from TF32 operands (the 3xTF32 split), the one
-// score-tile function, and asynchronous tile loads.
+// Tensor-core pieces of the flash kernels (flash_block.cu and
+// flash_block_bwd.cu): f32 products at f32 accuracy from TF32 operands
+// (the 3xTF32 split), the one score-tile function, and asynchronous tile
+// loads.
 //
 // 3xTF32 ("fast f32", CUTLASS's OpMultiplyAddFastF32): each f32 operand x
 // splits into big = tf32(x) and small = tf32(x - big), both rounded to
@@ -22,12 +23,15 @@
 // The score s = (q . k) * scale is computed by score_tile alone, with the
 // query rows as A, the keys as B, k stepped 0, 8, ..., DP - 8 and the
 // three products in the order above, then a multiply that is never
-// contracted (__fmul_rn). (It forms dp = co . v beside s, interleaved,
-// which leaves each accumulator's sequence as it would be alone.) The backward's row and column kernels tile
-// queries and keys from multiples of 64 alike, so a (query, key) pair
-// sits at the same place of the same mma sequence on the same operand
-// values in both, and both get the same bits: they test s == rowmax(s) to
-// find the lanes that carry reduce_max's cotangent.
+// contracted (__fmul_rn). (The backward's overload forms dp = co . v
+// beside s, interleaved, which leaves each accumulator's sequence as it
+// would be alone; the forward's forms s alone.) Every kernel tiles
+// queries and keys from multiples of 64 and gives a warp 16-row slices
+// and 8-key groups from multiples of 8, so a (query, key) pair sits at
+// the same place of the same mma sequence on the same operand values in
+// the forward and in both backward kernels, and gets the same bits: the
+// backward tests s == rowmax(s) to find the lanes that carry reduce_max's
+// cotangent, and the forward's m' is that row max.
 
 #pragma once
 
@@ -43,7 +47,9 @@ using rabit_flash::kThreads;
 
 // Row stride of a [64, DP] tile in shared memory: a multiple of 4 (rows
 // start 16-byte aligned, for cp.async) and 4 mod 8, so that the 8 rows x
-// 4 columns of an A or B fragment fall in 32 different banks.
+// 4 columns of an A or B fragment whose k runs along the row fall in 32
+// different banks. (A B operand whose k runs down the columns, as V in p
+// v, wants 8 mod 32: its 4 rows x 8 columns then do.)
 template <int DP>
 struct MmaTile {
   static constexpr int kLd = DP + 4;
@@ -153,24 +159,14 @@ __device__ __forceinline__ int c_col(int n, int e) {
   return 8 * n + 2 * (threadIdx.x % 4) + e % 2;
 }
 
-// The score tile: s = (q . k) * scale for the warp's 16 query rows (q_s,
-// rows from row0) x 8 NT keys (k_s, keys from col0), and with it dp =
-// co . v (co_s, v_s), all [., ld] tiles of width DP padded with zeros.
-// Where `check_mask` (kMasked: mask [T, S]), masked lanes (rows below T,
-// keys below S) get kNegInf after the multiply, and bit 4 n + e of the
-// result says that element e of tile n is masked; a caller that knows the
-// tile holds no masked pair passes false and reads no mask.
-template <int DP, int NT, bool kMasked>
-__device__ __forceinline__ unsigned score_tile(
-    float (&s)[NT][4], float (&dp)[NT][4], const float* q_s,
-    const float* k_s, const float* co_s, const float* v_s, int ld,
-    float scale, const unsigned char* mask, bool check_mask, int row0,
-    int col0, int T, int S) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-  mma3_tf32_pair<DP, NT>(s, dp, q_s, k_s, co_s, v_s, ld);
+// s *= scale (never contracted), then, where `check_mask` (kMasked: mask
+// [T, S]), masked lanes (rows below T, keys below S) get kNegInf; bit 4 n
+// + e of the result says that element e of tile n is masked. s is the
+// warp's 16 rows (from row0) x 8 NT keys (from col0).
+template <int NT, bool kMasked>
+__device__ __forceinline__ unsigned scale_and_mask(
+    float (&s)[NT][4], float scale, const unsigned char* mask,
+    bool check_mask, int row0, int col0, int T, int S) {
   unsigned bits = 0;
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -195,6 +191,42 @@ __device__ __forceinline__ unsigned score_tile(
     }
   }
   return bits;
+}
+
+// The score tile: s = (q . k) * scale for the warp's 16 query rows (q_s,
+// rows from row0) x 8 NT keys (k_s, keys from col0), and with it dp =
+// co . v (co_s, v_s), all [., ld] tiles of width DP padded with zeros.
+// Masked lanes as scale_and_mask; a caller that knows the tile holds no
+// masked pair passes check_mask false and reads no mask.
+template <int DP, int NT, bool kMasked>
+__device__ __forceinline__ unsigned score_tile(
+    float (&s)[NT][4], float (&dp)[NT][4], const float* q_s,
+    const float* k_s, const float* co_s, const float* v_s, int ld,
+    float scale, const unsigned char* mask, bool check_mask, int row0,
+    int col0, int T, int S) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+  mma3_tf32_pair<DP, NT>(s, dp, q_s, k_s, co_s, v_s, ld);
+  return scale_and_mask<NT, kMasked>(s, scale, mask, check_mask, row0, col0,
+                                     T, S);
+}
+
+// The score tile alone (the forward): s as the overload above forms it,
+// by the same mma sequence, so with the same bits.
+template <int DP, int NT, bool kMasked>
+__device__ __forceinline__ unsigned score_tile(
+    float (&s)[NT][4], const float* q_s, const float* k_s, int ld,
+    float scale, const unsigned char* mask, bool check_mask, int row0,
+    int col0, int T, int S) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+  mma3_tf32<DP / 8, NT>(s, q_s, ld, 1, k_s, 1, ld);
+  return scale_and_mask<NT, kMasked>(s, scale, mask, check_mask, row0, col0,
+                                     T, S);
 }
 
 // Asynchronous copies into shared memory: `bytes` (16 or 4) from src, or
@@ -224,13 +256,13 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Starts copying rows [row0, row0 + 64) of a [n, d] f32 array into dst
-// [64, MmaTile<DP>::kLd]; rows past n and columns past d become zero. 16-byte
-// copies where every row starts 16-byte aligned (d % 4 == 0 and an
-// aligned src), else 4-byte copies. The caller commits the group.
-template <int DP>
+// [64, kLd] (kLd a multiple of 4, by default MmaTile<DP>::kLd); rows past n
+// and columns past d become zero. 16-byte copies where every row starts
+// 16-byte aligned (d % 4 == 0 and an aligned src), else 4-byte copies.
+// The caller commits the group.
+template <int DP, int kLd = MmaTile<DP>::kLd>
 __device__ __forceinline__ void load_tile_async(float* dst, const float* src,
                                                 int row0, int n, int d) {
-  constexpr int kLd = MmaTile<DP>::kLd;
   if (d % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
     constexpr int kChunks = DP / 4;
     for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {

@@ -266,6 +266,21 @@ def _tile_masked(mask, rows, cols):
     return mask is not None and bool(mask[rows][:, cols].all())
 
 
+def _schedule(tiles, skip, skipped):
+    """The tiles a pass visits; skip(i) is asked with the state before the
+    tile in hand (the kernels pick the next tile before they multiply the
+    current one). Adds the count of tiles skipped to skipped[0]."""
+    i = 0
+    while i < len(tiles) and skip(i):
+        skipped[0], i = skipped[0] + 1, i + 1
+    while i < len(tiles):
+        j = i + 1
+        while j < len(tiles) and skip(j):
+            skipped[0], j = skipped[0] + 1, j + 1
+        yield tiles[i]
+        i = j
+
+
 def _tile_schedule_bwd(q, k, v, m, l, o, mask, scale, cm, cl, co):
     """The backward as the CUDA kernels schedule it, head by head. A row
     block of 64 queries makes pass 1 over the 64-key tiles (s and dp a
@@ -282,7 +297,7 @@ def _tile_schedule_bwd(q, k, v, m, l, o, mask, scale, cm, cl, co):
     s_n = k.shape[1]
     dq, dk, dv, dm, dl, do = (torch.zeros_like(x) for x in (q, k, v, m, l, o))
     mnew, trow, tie = (torch.zeros_like(m) for _ in range(3))
-    skipped = 0
+    skipped = [0]
     key_tiles = [slice(c, min(c + TILE, s_n)) for c in range(0, s_n, TILE)]
     row_tiles = [slice(r, min(r + TILE, t_n)) for r in range(0, t_n, TILE)]
 
@@ -301,18 +316,7 @@ def _tile_schedule_bwd(q, k, v, m, l, o, mask, scale, cm, cl, co):
         return g * scale
 
     def schedule(tiles, skip):
-        """The tiles a pass visits; skip(i) is asked with the state before
-        the tile in hand."""
-        nonlocal skipped
-        i = 0
-        while i < len(tiles) and skip(i):
-            skipped, i = skipped + 1, i + 1
-        while i < len(tiles):
-            j = i + 1
-            while j < len(tiles) and skip(j):
-                skipped, j = skipped + 1, j + 1
-            yield tiles[i]
-            i = j
+        return _schedule(tiles, skip, skipped)
 
     for h in range(h_n):
         for rows in row_tiles:
@@ -359,7 +363,51 @@ def _tile_schedule_bwd(q, k, v, m, l, o, mask, scale, cm, cl, co):
                 p = torch.exp(scores(h, rows, cols) - mnew[h, rows, None])
                 dv[h, cols] += p.T @ co[h, rows]
                 dk[h, cols] += ds(h, rows, cols).T @ q[h, rows]
-    return (dq, dk, dv, dm, dl, do), skipped
+    return (dq, dk, dv, dm, dl, do), skipped[0]
+
+
+def _tile_schedule_fwd(q, k, v, m, l, o, mask, scale):
+    """The forward as ``csrc/flash_block.cu`` schedules it, head by head.
+    With a mask a block takes query tiles i and n - 1 - i of the n tiles
+    of 64 rows (the middle one alone when n is odd), without one a block
+    a tile. A query tile streams the 64-key tiles with the online rescale
+    (m' = max(m, rowmax s), and l and o times alpha = exp(m - m') a tile),
+    and skips a tile whose every pair is masked once every row of the
+    query tile had a max above NEG_INF before the tile in hand. Returns
+    (m', l', o'), the count of tiles skipped, and the blocks of a head
+    with the key tiles each visits."""
+    h_n, t_n, _ = q.shape
+    s_n = k.shape[1]
+    key_tiles = [slice(c, min(c + TILE, s_n)) for c in range(0, s_n, TILE)]
+    row_tiles = [slice(r, min(r + TILE, t_n)) for r in range(0, t_n, TILE)]
+    n = len(row_tiles)
+    blocks = ([sorted({i, n - 1 - i}) for i in range((n + 1) // 2)]
+              if mask is not None else [[i] for i in range(n)])
+    mo, lo, oo = m.clone(), l.clone(), o.clone()
+    skipped, visits = [0], []
+    for h in range(h_n):
+        for block in blocks:
+            visits.append((block, 0))
+            for rows in (row_tiles[i] for i in block):
+                m_run, l_run, o_run = m[h, rows], l[h, rows], o[h, rows]
+
+                def skip(i, rows=rows):
+                    return _tile_masked(mask, rows, key_tiles[i]) and bool(
+                        (m_run > NEG_INF).all())
+
+                for cols in _schedule(key_tiles, skip, skipped):
+                    s = (q[h, rows] @ k[h, cols].T) * scale
+                    if mask is not None:
+                        s = s.masked_fill(mask[rows][:, cols], NEG_INF)
+                    m_new = torch.maximum(m_run, s.amax(dim=1))
+                    alpha = torch.exp(m_run - m_new)
+                    p = torch.exp(s - m_new[:, None])
+                    l_run = l_run * alpha + p.sum(dim=1)
+                    o_run = o_run * alpha[:, None] + p @ v[h, cols]
+                    m_run = m_new
+                    visits[-1] = (block, visits[-1][1] + 1)
+                mo[h, rows], lo[h, rows], oo[h, rows] = m_run, l_run, o_run
+    return (mo, lo, oo), skipped[0], visits[:len(blocks)]
 
 
 def _masked_inputs(seed, kind):
@@ -409,6 +457,44 @@ def test_tile_schedule_matches_plain_backward_and_jax_vjp(kind):
     assert skipped == {"causal": 2 * (2 + 3 + 3),
                        "causal, row 0 masked": 2 * (3 + 6 + 3),
                        "tie": 0, "ragged": 0}[kind]
+
+
+@pytest.mark.parametrize("kind", ["causal", "causal, row 0 masked", "tie",
+                                  "ragged"])
+def test_forward_tile_schedule_matches_plain_jax_and_pallas(monkeypatch,
+                                                            kind):
+    """The forward kernel's algorithm (query tiles i and n - 1 - i in one
+    block, 64-key tiles, the online rescale, the skip rule) before it
+    reaches the card: the same (m', l', o') as the plain forward, JAX's
+    ``_block_update`` and the Pallas ``flash_block`` in interpret mode,
+    within 1e-5."""
+    monkeypatch.setenv("RABIT_PALLAS_INTERPRET", "1")
+    q, k, v, m, l, o, mask, *_ = _masked_inputs(14, kind)
+    tq, tk, tv, tm, tl, to, tmask = _torch(q, k, v, m, l, o, mask)
+    scale = _scale(q.shape[-1])
+    got, skipped, visits = _tile_schedule_fwd(tq, tk, tv, tm, tl, to, tmask,
+                                              scale)
+    jq = list(map(jnp.asarray, (q, k, v, m, l, o)))
+    jmask = None if mask is None else jnp.asarray(mask)
+    refs = {"plain": F.block_update_reference(tq, tk, tv, tm, tl, to, tmask,
+                                              scale),
+            "jax": _block_update(*jq, jmask, scale),
+            "pallas": PK.flash_block(*jq, jmask, scale)}
+    for ref, want in refs.items():
+        for name, g, w in zip(("m'", "l'", "o'"), got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       err_msg=f"{name} vs {ref}", **TOL)
+    # tiles skipped a head. Causal, 3 x 3 tiles: the lookahead skips 2
+    # after row tile 0 and 1 after row tile 1. Row 0 masked (the first
+    # step, m = NEG_INF), 3 x 4 tiles: row tile 0 skips nothing; row tiles
+    # 1 and 2 may skip only once their rows have a finite max, from their
+    # third tile on: 2 and 1.
+    assert skipped == {"causal": 2 * (2 + 1), "causal, row 0 masked":
+                       2 * (2 + 1), "tie": 0, "ragged": 0}[kind]
+    # the causal balance: the block of row tiles 0 and 2 streams n + 1 = 4
+    # key tiles, the middle tile's block 2
+    if kind == "causal":
+        assert visits == [([0, 2], 4), ([1], 2)]
 
 
 def _tf32(x):
