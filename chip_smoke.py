@@ -10,10 +10,10 @@ Phases (each prints a line; any failure exits non-zero):
 1. build        nvcc every ``rabit_tpu_torch/csrc/*.cu`` into
                 ``build/rabit_tpu_torch/`` (one nvcc a source, all
                 started together); ptxas's registers and spills of every
-                kernel (a flash kernel may spill none); the tensor-core
-                instructions (``HMMA``) of each flash forward and
-                backward kernel in its SASS (``cuobjdump -sass``), which
-                must be above 0.
+                kernel (a flash or binning kernel may spill none); the
+                tensor-core instructions (``HMMA``) of each flash forward
+                and backward kernel in its SASS (``cuobjdump -sass``),
+                which must be above 0.
 1b. tile        the 3xTF32 score-tile function alone
                 (``csrc/flash_mma.cuh``): one [64, DP] x [64, DP]^T tile
                 against a torch f64 product at each DP, before the
@@ -24,7 +24,10 @@ Phases (each prints a line; any failure exits non-zero):
                 the bin count (mask_only) exactly equal at the sweep's six
                 shapes and at two edge cases (ragged rows in an unaligned
                 view, ids -1, nbins, nbins + 40 and 2^30; 1000 bins, and
-                120,000 bins over three shared-memory tiles);
+                120,000 bins over three shared-memory tiles); then
+                torch.profiler counts the device operations of a few calls
+                of each binning kernel at its main shapes: one kernel a
+                call, no memset or second kernel;
                 the flash block forward and backward at the training shape
                 (B*H 64, T = S 512, D 32, causal), the ring chain's block
                 (H 8, T = S 1024, D 128, no mask), a causal mask whose
@@ -137,6 +140,8 @@ MMA_TILE_REL = 1e-5
 # (tests/test_transformer.py:69-73)
 STEP_TOL = 5e-4
 FLAGSHIP_STEPS = 16
+# kernels that may not spill registers
+NO_SPILL = ("flash_bwd_", "flash_fwd_", "histogram_kernel", "mask_only_kernel")
 
 
 def phase(name: str, msg: str) -> None:
@@ -176,11 +181,10 @@ def phase_build() -> None:
     for name in sorted(_build.sources()):
         summary = ptxas_summary(_build.ptxas_log(name).read_text())
         phase("build", f"ptxas {name}: " + "; ".join(summary))
-        spilled = [s for s in summary if s.startswith(("flash_bwd_",
-                                                       "flash_fwd_"))
+        spilled = [s for s in summary if s.startswith(NO_SPILL)
                    and not s.endswith(" 0 B spilled")]
         if spilled:
-            raise AssertionError(f"flash kernels spill registers: {spilled}")
+            raise AssertionError(f"kernels spill registers: {spilled}")
     # every instantiation: 4 DP x mask / no mask; the backward has two
     # kernels of each
     for name, prefix, expect in (("flash_block", "flash_fwd_", 8),
@@ -387,6 +391,44 @@ def phase_mask_kernel(dev) -> float:
               f"{'edge (unaligned, out-of-range ids) ' if edge else ''}"
               f"exactly equal to the plain version ({valid} ids counted)")
     return 0.0
+
+
+def phase_device_ops(dev) -> None:
+    """One device operation a call: ``torch.profiler`` over a few calls of
+    ``histogram`` (both precisions, the main path's two shapes) and of
+    ``mask_only`` (its two timing shapes) sees exactly one kernel a call
+    and nothing else (no memset, no fill, no second pass)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from rabit_tpu_torch.ops import histogram as K
+    calls = 5
+    runs = []
+    for n, nbins in FULL_WIDTH:
+        b, g, h = _hist_case(n, nbins, 2, dev)
+        for precision in ("high", "fast"):
+            runs.append((f"histogram {n}x{nbins} {precision}",
+                         lambda b=b, g=g, h=h, nb=nbins, p=precision:
+                         K.histogram(b, g, h, nb, p)))
+    for n, nbins in MASK_TIMING:
+        b = _ids_case(n, nbins, 2, dev)
+        runs.append((f"mask_only {n}x{nbins}",
+                     lambda b=b, nb=nbins: K.mask_only(b, nb)))
+    for label, run in runs:
+        run()   # the first call of a shape asks the library once
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        ops = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+        if sum(ops.values()) == 0:
+            raise AssertionError(f"{label}: torch.profiler saw no device "
+                                 f"operation")
+        if sum(ops.values()) != calls or len(ops) != 1:
+            raise AssertionError(f"{label}: {calls} calls made the device "
+                                 f"operations {ops}, not one kernel a call")
+        phase("ops", f"{label}: {calls} calls, device operations {ops}")
 
 
 def flash_case(bh: int, t: int, s: int, d: int, mask_kind, seed: int, dev,
@@ -939,6 +981,7 @@ def main() -> int:
     phase_tile(dev)
     max_err = {"histogram": phase_kernel(dev),
                "mask_only": phase_mask_kernel(dev)}
+    phase_device_ops(dev)
     max_err.update(phase_flash_kernel(dev))
 
     reset_launches()
