@@ -25,9 +25,12 @@ Phases (each prints a line; any failure exits non-zero):
                 shapes and at two edge cases (ragged rows in an unaligned
                 view, ids -1, nbins, nbins + 40 and 2^30; 1000 bins, and
                 120,000 bins over three shared-memory tiles); then
-                torch.profiler counts the device operations of a few calls
-                of each binning kernel at its main shapes: one kernel a
-                call, no memset or second kernel;
+                torch.profiler counts the device operations of one window
+                of five calls of each binning kernel at its main shapes,
+                each call on inputs of its own: one kind of kernel, no
+                memset or second kernel, the wrapper's launch count equal
+                to the calls and each call's output agreeing with its
+                plain version;
                 the flash block forward and backward at the training shape
                 (B*H 64, T = S 512, D 32, causal), the ring chain's block
                 (H 8, T = S 1024, D 128, no mask), a causal mask whose
@@ -59,9 +62,18 @@ Phases (each prints a line; any failure exits non-zero):
                 one PyTorch call that computes the same function, beside
                 the least time the card could take; for mask_only also
                 the sweep's slope; for the flash backward also SDPA's
-                backward alone (forward + backward minus forward); the
-                training step.
-10. kernels     one JSON line of every kernel with its main-path launches.
+                backward alone (one ``autograd.grad`` over a retained
+                graph a call, from saved forward outputs); the training
+                step.
+10. collectives the collective layer (``parallel/``) on the card: the wire
+                codec (bf16 and int8, blocks 1024 and 512) against its
+                plain CPU version bit for bit at the histogram payloads
+                and 2^21 floats; every method through the dispatcher
+                ``allreduce`` in an NCCL world of 1 (which returns x);
+                ``dispatch.resolve`` over a table in a temporary file;
+                with two cards or more, ``tools.collective_sweep
+                --smoke`` at world min(4, cards) over NCCL, its rows.
+11. kernels     one JSON line of every kernel with its main-path launches.
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
 phase 6) and read just after it, so a kernel's count is its own path's
@@ -394,41 +406,70 @@ def phase_mask_kernel(dev) -> float:
 
 
 def phase_device_ops(dev) -> None:
-    """One device operation a call: ``torch.profiler`` over a few calls of
-    ``histogram`` (both precisions, the main path's two shapes) and of
-    ``mask_only`` (its two timing shapes) sees exactly one kernel a call
-    and nothing else (no memset, no fill, no second pass)."""
+    """One device operation a call: ``torch.profiler`` over one window of
+    a few calls of ``histogram`` (both precisions, the main path's two
+    shapes) and of ``mask_only`` (its two timing shapes) sees one kind of
+    kernel, one a call, and nothing else (no memset, no fill, no second
+    pass). Each call of a window has inputs of its own, and two witnesses
+    stand beside the profiler: the wrapper's launch count over the window
+    must equal the calls, and each call's output must agree with the
+    plain version on its own inputs (a call whose kernel did not run
+    leaves whatever its buffer held: every output of this phase is
+    poisoned with NaN before it is freed, so no buffer holds an earlier
+    call's result). A window in which the profiler recorded fewer kernels
+    than that, all of the one kind, passes on those witnesses and says so
+    (see PERF.md §7); more operations than calls, or a second kind,
+    fail."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from rabit_tpu_torch.ops import histogram as K
     calls = 5
     runs = []
     for n, nbins in FULL_WIDTH:
-        b, g, h = _hist_case(n, nbins, 2, dev)
+        cases = [_hist_case(n, nbins, 2 + i, dev) for i in range(calls)]
         for precision in ("high", "fast"):
-            runs.append((f"histogram {n}x{nbins} {precision}",
-                         lambda b=b, g=g, h=h, nb=nbins, p=precision:
-                         K.histogram(b, g, h, nb, p)))
+            runs.append((f"histogram {n}x{nbins} {precision}", K.histogram,
+                         [c + (nbins, precision) for c in cases],
+                         lambda b, g, h, nb, p: K.histogram_reference(
+                             b, g, h, nb, p).cpu(), KERNEL_TOL))
     for n, nbins in MASK_TIMING:
-        b = _ids_case(n, nbins, 2, dev)
-        runs.append((f"mask_only {n}x{nbins}",
-                     lambda b=b, nb=nbins: K.mask_only(b, nb)))
-    for label, run in runs:
-        run()   # the first call of a shape asks the library once
+        runs.append((f"mask_only {n}x{nbins}", K.mask_only,
+                     [(_ids_case(n, nbins, 2 + i, dev), nbins)
+                      for i in range(calls)],
+                     lambda b, nb: K.mask_only_reference(b, nb).cpu(),
+                     dict(rtol=0.0, atol=0.0)))
+    for label, wrapper, arg_sets, plain, tol in runs:
+        # the first call of a shape asks the library once
+        warm = wrapper(*arg_sets[0])
         torch.cuda.synchronize()
+        launched = wrapper.launches
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                run()
+            outs = [wrapper(*args) for args in arg_sets]
             torch.cuda.synchronize()
+        launched = wrapper.launches - launched
         ops = {e.key: e.count for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA}
-        if sum(ops.values()) == 0:
+        seen = sum(ops.values())
+        if seen == 0:
             raise AssertionError(f"{label}: torch.profiler saw no device "
                                  f"operation")
-        if sum(ops.values()) != calls or len(ops) != 1:
+        if len(ops) != 1 or seen > calls:
             raise AssertionError(f"{label}: {calls} calls made the device "
                                  f"operations {ops}, not one kernel a call")
-        phase("ops", f"{label}: {calls} calls, device operations {ops}")
+        if launched != calls:
+            raise AssertionError(f"{label}: the wrapper counted {launched} "
+                                 f"launches for {calls} calls")
+        for i, (out, args) in enumerate(zip(outs, arg_sets)):
+            assert_close(out.cpu(), plain(*args), f"{label} call {i}", **tol)
+        for out in outs + [warm]:
+            out.fill_(float("nan"))
+        witness = (f"the wrapper counted {launched} launches and each "
+                   f"call's output agreed with the plain version")
+        if seen < calls:
+            witness = (f"torch.profiler recorded {seen} of the {calls} "
+                       f"kernels; {witness}")
+        phase("ops", f"{label}: {calls} calls, device operations {ops}; "
+              f"{witness}")
 
 
 def flash_case(bh: int, t: int, s: int, d: int, mask_kind, seed: int, dev,
@@ -901,9 +942,10 @@ def flash_bound(bh: int, t: int, s: int, d: int, mask, backward: bool):
 
 def phase_flash_timing(dev, power: str) -> dict:
     """Each flash kernel, its plain version and a PyTorch yardstick the
-    port never calls (``scaled_dot_product_attention`` forward, and
-    forward + backward, on the same q/k/v and mask in f32) at the training
-    shape and the chain block."""
+    port never calls (``scaled_dot_product_attention`` forward, forward +
+    backward, and the backward alone from saved forward outputs, on the
+    same q/k/v and mask in f32) at the training shape and the chain
+    block."""
     import torch.nn.functional as TF
     from rabit_tpu_torch.ops import flash as F
     out = {"flash_block": [], "flash_block_bwd": []}
@@ -938,6 +980,17 @@ def phase_flash_timing(dev, power: str) -> dict:
         with torch.no_grad():
             lib_fwd = time_ms(sdpa, lib_sets)
         lib_bwd = time_ms(sdpa_fwd_bwd, lib_sets)
+        # SDPA's backward alone, on its own: the forward runs once a set,
+        # untimed, and each timed call is one autograd.grad over its
+        # retained graph
+        bwd_sets = [(sdpa(q, k, v, keep, co), (q, k, v), co)
+                    for q, k, v, keep, co in lib_sets]
+
+        def sdpa_bwd(out, inputs, co):
+            torch.autograd.grad(out, inputs, co, retain_graph=True)
+
+        lib_bwd_alone = time_ms(sdpa_bwd, bwd_sets)
+        del bwd_sets
         for name, ms, plain, lib, backward in (
                 ("flash_block", fwd, fwd_plain, lib_fwd, False),
                 ("flash_block_bwd", bwd, bwd_plain, lib_bwd, True)):
@@ -946,18 +999,129 @@ def phase_flash_timing(dev, power: str) -> dict:
             row = dict(shape=[bh, t, s, d], causal=causal, ms=ms,
                        plain_ms=plain, library_ms=lib, bound_ms=bound,
                        bound_by=bound_by, flops=flops, bytes=nbytes)
-            # SDPA's backward alone, an estimate: forward + backward minus
-            # forward, each timed on its own
             lib_note = f"sdpa {'fwd+bwd' if backward else 'fwd'} {lib:.4f} ms"
             if backward:
-                row["library_bwd_ms"] = lib - lib_fwd
-                lib_note += f", sdpa bwd alone {lib - lib_fwd:.4f} ms"
+                row["library_bwd_ms"] = lib_bwd_alone
+                lib_note += (f", sdpa bwd alone {lib_bwd_alone:.4f} ms "
+                             f"(fwd+bwd - fwd {lib - lib_fwd:.4f} ms)")
             out[name].append(row)
             phase("timing", f"{name} B*H {bh} T {t} S {s} D {d} "
                   f"{'causal' if causal else 'no mask'}: kernel {ms:.4f} ms,"
                   f" bound {bound:.4f} ms ({bound_by}; {bound / ms:.1%} of "
                   f"it), plain {plain:.4f} ms, {lib_note} [{power}]")
     return out
+
+
+CODEC_CASES = [("bf16", 1024), ("bf16", 512), ("int8", 1024), ("int8", 512)]
+CODEC_SIZES = (2048, 14336, 1 << 21)   # the headline payloads, 8 MB
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits on the CPU, as integers (so -0.0 differs from 0.0)."""
+    t = t.detach().cpu()
+    if t.dtype.is_floating_point:
+        return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+    return t
+
+
+def phase_collectives(dev) -> None:
+    """The collective layer on the card (see the module's phase 10)."""
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from rabit_tpu_torch.ops.reducers import SUM
+    from rabit_tpu_torch.parallel import collectives as C
+    from rabit_tpu_torch.parallel import dispatch, wire
+    from rabit_tpu_torch.parallel.mesh import make_group
+    gen = torch.Generator().manual_seed(8)
+    for n in CODEC_SIZES:
+        # blocks of every magnitude from 2^-30 to 2^29, a zero block, and
+        # quotients that fall on .5 (round half to even)
+        x = torch.randn(n, generator=gen)
+        x = x * torch.exp2(torch.arange(n) // 512 % 60 - 30.0)
+        x[:512] = 0.0
+        x[512:1024] = torch.arange(512) * 0.5
+        for codec, block in CODEC_CASES:
+            plain = wire.encode(x, codec, block)
+            card = wire.encode(x.to(dev), codec, block)
+            for a, b in zip(plain, card):
+                if not torch.equal(_bits(a), _bits(b)):
+                    raise AssertionError(f"wire {codec}@{block} n={n}: the "
+                                         f"card's encoding differs")
+            got = wire.decode(card, codec, x.shape)
+            if not torch.equal(_bits(wire.decode(plain, codec, x.shape)),
+                               _bits(got)):
+                raise AssertionError(f"wire {codec}@{block} n={n}: the "
+                                     f"card's decoding differs")
+        phase("collectives", f"wire codec n={n}: {CODEC_CASES} on the card "
+              f"equal to the CPU bit for bit")
+    group, dev = make_group(dev)
+    try:
+        x = torch.randn(40_000, generator=gen).to(dev)
+        for method in dispatch.EXPLICIT_METHODS:
+            for w in (None, "int8:bf16@512"):
+                out = C.allreduce(x, group, SUM, method=method, wire=w)
+                if not torch.equal(out, x):
+                    raise AssertionError(f"allreduce {method} wire={w} at "
+                                         f"world 1 changed x")
+        phase("collectives", f"allreduce at world 1 over "
+              f"{dist.get_backend(group)}: {dispatch.EXPLICIT_METHODS} "
+              f"return x")
+    finally:
+        dist.destroy_process_group()
+    table = {"float_sum": [
+        {"max_n": 10_000, "method": "tree", "wire": None},
+        {"max_n": 1_000_000, "method": "swing", "wire": "int8"},
+        {"max_n": None, "method": "hier", "wire": None, "flat": "bidir"}],
+        "other": [{"max_n": None, "method": "ring", "wire": None}]}
+    hier = ((0, 1), (2, 3))
+    cases = [((2048, torch.float32, 4, None), ("tree", None)),
+             ((500_000, torch.float32, 4, None), ("swing", "int8")),
+             ((500_000, torch.float32, 3, None), ("ring", "int8")),
+             ((4_000_000, torch.float32, 4, hier), ("hier", None)),
+             ((4_000_000, torch.float32, 4, None), ("bidir", None)),
+             ((100, torch.int32, 4, None), ("ring", None))]
+    env = {"RABIT_DISPATCH_TABLE": None, "RABIT_DATAPLANE_WIRE": "int8"}
+    saved = {k: os.environ.get(k) for k in env}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "COLLECTIVE_SWEEP_table.json")
+        with open(path, "w") as f:
+            json.dump({"schema": dispatch.SCHEMA, "table": table}, f)
+        env["RABIT_DISPATCH_TABLE"] = path
+        os.environ.update(env)
+        try:
+            for (n, dtype, p, groups), want in cases:
+                got = dispatch.resolve(n, dtype, SUM, p, groups=groups)
+                if got != want:
+                    raise AssertionError(f"resolve({n}, {dtype}, p={p}, "
+                                         f"{groups}) = {got}, want {want}")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            dispatch.clear_cache()
+    phase("collectives", f"dispatch.resolve over a table file: {len(cases)} "
+          f"cases as expected")
+    count = torch.cuda.device_count()
+    if count < 2:
+        phase("collectives", "one card: the NCCL sweep needs two or more")
+        return
+    world = min(4, count)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "rabit_tpu_torch.tools.collective_sweep",
+         "--smoke", "--world", str(world)], capture_output=True, text=True,
+        timeout=600, cwd=Path(__file__).resolve().parent)
+    for line in res.stdout.splitlines():
+        phase("collectives", line)
+    if res.returncode != 0 or "smoke ok" not in res.stdout:
+        raise AssertionError(f"collective_sweep --smoke --world {world} "
+                             f"failed (rc {res.returncode}):\n"
+                             f"{res.stderr[-4000:]}")
+    phase("collectives", f"collective_sweep --smoke --world {world} over "
+          f"NCCL in {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1009,6 +1173,7 @@ def main() -> int:
     phase("timing", f"training step (flagship, batch 8 x seq 512): "
           f"{tf_run['step_ms']:.3f} ms median of steps 2-"
           f"{FLAGSHIP_STEPS} on CUDA events [{power}]")
+    phase_collectives(dev)
     kernels = []
     for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only"):
         head = timing[name][0]

@@ -1,12 +1,17 @@
 """Benchmark: the gradient-histogram allreduce on the card, the port of
 ``bench.py``.
 
-    python -m rabit_tpu_torch.bench [--device cpu] [--smoke] [--out DIR]
+    python -m rabit_tpu_torch.bench [--device cpu] [--world P] [--smoke]
+                                    [--out DIR]
 
 The workload (``BASELINE.json``): each worker builds a per-bin (grad,
 hess) histogram of its rows and allreduces it. Here ``models/histogram.py::
-distributed_histogram`` runs over a world-1 process group (NCCL on the
-card, gloo on the CPU) at 2^21 rows x 1024 bins.
+distributed_histogram`` runs over a process group (NCCL on the card, gloo
+on the CPU) at 2^21 rows a worker x 1024 bins: a world of 1 by default,
+or ``--world P`` processes, one a card (rank r on card r, each building
+its histogram with the CUDA kernel; more than the machine's cards
+raises). In a world every rank measures and the world takes the maximum
+(``tools.agree_max``); rank 0 reports.
 
 Headline: gradient-pair GB/s end to end (device-resident inputs to the
 reduced histogram), p * n * 12 B over the time a call, against the numpy
@@ -47,8 +52,8 @@ import torch.distributed as dist
 
 from .models import histogram as H
 from .parallel.mesh import make_group
-from .tools import (ARTIFACTS, card, device_from_arg, gen_pool, timestamp,
-                    write_json)
+from .tools import (ARTIFACTS, agree_max, card, device_from_arg, gen_pool,
+                    run_world, timestamp, write_json)
 from .utils.slope import slope_time, slope_times
 
 METRIC = "histogram_allreduce_throughput"
@@ -83,13 +88,16 @@ def bench(device: torch.device, smoke: bool = False) -> dict:
     group, device = make_group(device)
     try:
         p = dist.get_world_size(group)
+        agree = agree_max(device) if p > 1 else None
 
         def slopes(fn):
             """(host-paced, device) seconds a call; device None on the
             CPU."""
             if cuda:
-                return slope_times(fn, k_small, k_big, allow_noisy=smoke)
-            return slope_time(fn, k_small, k_big, allow_noisy=smoke), None
+                return slope_times(fn, k_small, k_big, allow_noisy=smoke,
+                                   agree=agree)
+            return slope_time(fn, k_small, k_big, allow_noisy=smoke,
+                              agree=agree), None
 
         rank = dist.get_rank(group)
         data = gen_pool(7 + rank, k_stage, n, nbins, device)
@@ -166,6 +174,13 @@ def bench(device: torch.device, smoke: bool = False) -> dict:
     return {"line": line, "artifact": doc}
 
 
+def _bench_rank(rank: int, world: int, device: torch.device,
+                smoke: bool) -> dict:
+    """One rank of ``--world``: the same measurement on its own card."""
+    del rank, world  # the group is set up; bench() reads it
+    return bench(device, smoke)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
@@ -174,6 +189,8 @@ def main(argv=None) -> int:
                     help="small sizes, noisy slopes allowed, no artifact")
     ap.add_argument("--out", default=str(ARTIFACTS),
                     help="directory of the artifact")
+    ap.add_argument("--world", type=int, default=1,
+                    help="processes, one a card (default 1)")
     args = ap.parse_args(argv)
     if args.device is None and not torch.cuda.is_available():
         print(json.dumps({"status": "no_cuda"}), flush=True)
@@ -181,7 +198,14 @@ def main(argv=None) -> int:
               "run on the CPU", file=sys.stderr)
         return 1
     device = device_from_arg(args.device)
-    out = bench(device, args.smoke)
+    if args.world > 1:
+        if device.type == "cuda":
+            from .ops import _build
+            _build.build(["histogram"])   # once here, not in every rank
+        out = run_world(_bench_rank, args.world, device.type,
+                        args=(args.smoke,))[0]
+    else:
+        out = bench(device, args.smoke)
     t = out["artifact"]["t_ms"]
     print(f"# {out['artifact']['device']['name']}: headline "
           f"{out['artifact']['headline']}, ms a call {t}", file=sys.stderr)

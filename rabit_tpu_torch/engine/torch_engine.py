@@ -11,13 +11,32 @@ the CPU), and copied back in place — the reference's in-place
 ``sendrecvbuf`` contract (engine.h:74-96).
 
 ``rabit_device`` picks the device: ``cuda`` unless told ``cpu``; asking
-for the card where there is none raises. Payloads of at least
-``rabit_reduce_ring_mincount`` elements (default
-``RING_MINCOUNT_DEFAULT``) take the ring, smaller ones the tree.
+for the card where there is none raises. The schedule and the wire of
+each allreduce follow ``XlaEngine``'s keys (``engine/xla.py:102-132``):
+
+* ``rabit_reduce_method``: ``auto`` (the default) or one of
+  ``dispatch.METHODS``; ``auto`` asks ``dispatch.resolve``, which reads
+  the port's measured table, else the 32768-element crossover;
+* ``rabit_reduce_ring_mincount``: when set, pins the legacy two-way
+  crossover (ring at and above it, tree below) in place of the table;
+* ``rabit_dataplane_wire`` (a ``parallel/wire.py`` spec) engages only
+  for payloads of at least ``rabit_dataplane_wire_mincount`` elements;
+* ``rabit_hier_group`` (else ``RABIT_HIER_GROUP``): the host grouping
+  of the ``hier`` schedule, resolved once at init.
+
+``rabit_reduce_method=hier`` does not go through the dispatcher
+(``collectives.allreduce``): as ``XlaEngine`` runs
+``device_hier_allreduce``, the engine calls ``hier_allreduce`` on the
+init grouping, and a world with no two-level grouping takes that
+function's degradation (one group: a flat ring without the wire; one
+rank a group or ragged groups: a flat ring with it), where the
+dispatcher's ``dispatch.resolve`` turns an explicit ``hier`` into a ring
+that keeps the wire. Every other method goes through the dispatcher.
+
 Checkpoints are kept in memory.
 
-Not ported yet: telemetry, the watchdog, async dispatch, hierarchical
-schedules, the quantized wire, the durable checkpoint store.
+Not ported yet: telemetry, the watchdog, async dispatch, the durable
+checkpoint store.
 """
 
 from __future__ import annotations
@@ -32,7 +51,8 @@ import torch.distributed as dist
 from .base import Engine
 from ..convert import numpy_from_tensor, tensor_from_numpy
 from ..parallel import collectives as C
-from ..parallel.dispatch import RING_MINCOUNT_DEFAULT
+from ..parallel import dispatch, topology
+from ..parallel import wire as wirespec
 from ..parallel.mesh import make_group
 from ..utils.config import Config
 
@@ -44,7 +64,11 @@ class TorchEngine(Engine):
         self._group: Optional[dist.ProcessGroup] = None
         self._device: Optional[torch.device] = None
         self._owns_group = False
-        self._ring_mincount = RING_MINCOUNT_DEFAULT
+        self._ring_mincount: Optional[int] = None
+        self._method = "auto"
+        self._wire: Optional[str] = None
+        self._wire_mincount = dispatch.WIRE_MINCOUNT_DEFAULT
+        self._groups = None
         self._global: Optional[bytes] = None
         self._local: Optional[bytes] = None
         self._lazy: Optional[Callable[[], bytes]] = None
@@ -64,19 +88,46 @@ class TorchEngine(Engine):
             init_method = "env://" if world > 1 else None
         else:
             rank, world, init_method = 0, 1, None
+        # the schedule keys are checked before any group is set up
+        # an explicit rabit_reduce_ring_mincount pins the legacy two-way
+        # crossover; otherwise method="auto" consults the dispatch table
+        mincount = cfg.get("rabit_reduce_ring_mincount")
+        self._ring_mincount = None if mincount is None else int(mincount)
+        self._method = cfg.get("rabit_reduce_method", "auto") or "auto"
+        if self._method != "auto" and self._method not in dispatch.METHODS:
+            raise ValueError(
+                f"rabit_reduce_method must be one of "
+                f"{('auto',) + dispatch.METHODS}, got {self._method!r}")
+        wire = cfg.get("rabit_dataplane_wire", "") or None
+        if wire is not None:
+            try:
+                wire = wirespec.canonical_wire(wire)
+            except ValueError as e:
+                raise ValueError(f"rabit_dataplane_wire: {e}") from None
+        self._wire = wire
+        self._wire_mincount = cfg.get_size(
+            "rabit_dataplane_wire_mincount", dispatch.WIRE_MINCOUNT_DEFAULT)
         self._owns_group = not dist.is_initialized()
         self._group, self._device = make_group(
             device, rank=rank, world_size=world, init_method=init_method)
         self._rank = dist.get_rank(self._group)
         self._world = dist.get_world_size(self._group)
-        self._ring_mincount = cfg.get_int("rabit_reduce_ring_mincount",
-                                          RING_MINCOUNT_DEFAULT)
+        self._epoch_reset()
+        self._groups = topology.resolve_groups(
+            self._world, spec=cfg.get("rabit_hier_group"))
+
+    def _epoch_reset(self) -> None:
+        """Drop what the last world left behind: the parsed dispatch
+        table and a grouping that does not describe this world."""
+        topology.epoch_reset(self._world)
+        dispatch.epoch_reset(self._world)
 
     def shutdown(self) -> None:
         if self._owns_group and dist.is_initialized():
             dist.destroy_process_group()
         self._group = None
         self._owns_group = False
+        self._epoch_reset()
 
     @property
     def device(self) -> torch.device:
@@ -95,10 +146,24 @@ class TorchEngine(Engine):
         if self._world == 1:
             return
         x = tensor_from_numpy(buf).to(self._device)
-        fn = (C.ring_allreduce if buf.size >= self._ring_mincount
-              else C.tree_allreduce)
-        out = fn(x, self._group, op)
-        np.copyto(buf, numpy_from_tensor(out, buf.dtype))
+        method, wire = self._resolve_method_wire(buf.size)
+        if method == "hier":   # not the dispatcher's: see the docstring
+            out = C.hier_allreduce(x.reshape(-1), self._group, op,
+                                   groups=self._groups, wire=wire)
+        else:
+            out = C.allreduce(x, self._group, op, method=method, wire=wire)
+        np.copyto(buf, numpy_from_tensor(out.reshape(x.shape), buf.dtype))
+
+    def _resolve_method_wire(self, n: int) -> Tuple[str, Optional[str]]:
+        """``XlaEngine._resolve_method_wire``: the pinned crossover where
+        one is set, and the configured wire only above its size gate
+        (below it the payload runs unquantized)."""
+        method = self._method
+        if method == "auto" and self._ring_mincount is not None:
+            method = "ring" if n >= self._ring_mincount else "tree"
+        wire = self._wire if (self._wire and n >= self._wire_mincount) \
+            else None
+        return method, wire
 
     def broadcast(self, data: Optional[bytes], root: int) -> bytes:
         if self._world == 1:

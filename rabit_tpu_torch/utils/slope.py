@@ -24,6 +24,12 @@ event that lasts longer than the host takes to queue the big batch (sized
 from a measured enqueue of it), so the device runs the k iterations back
 to back once it wakes. That slope is device time; the host-paced one is
 printed beside it where the two differ. ``slope_times`` returns both.
+
+In a world of several ranks every rank must make the same calls, or a
+collective inside ``run_fn`` waits forever: ``agree`` (a function of one
+float) makes each measured time the world's (the bench and the collective
+sweep pass the maximum over ranks), so the noise test, its retries and the
+sleep's length are decided alike on every rank.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from __future__ import annotations
 import sys
 import time
 import warnings
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
@@ -68,15 +74,20 @@ def _noisy(t_small: float, t_big: float, k_small: int, k_big: int,
         f"(t{k_small}={t_small:.4f}s t{k_big}={t_big:.4f}s)")
 
 
+Agree = Optional[Callable[[float], float]]
+
+
 def _host_slope(run_fn, k_small: int, k_big: int, salt_base: int,
-                reps: int, attempts: int, allow_noisy: bool) -> float:
+                reps: int, attempts: int, allow_noisy: bool,
+                agree: Agree = None) -> float:
     if attempts < 1:
         raise ValueError(f"attempts must be >= 1, got {attempts}")
+    agree = agree or (lambda t: t)
 
     def timed(k: int, salt: int) -> float:
         _fetch(run_fn(k, salt))               # build + warm
-        return min(_host_time(run_fn, k, salt + 1 + rep)
-                   for rep in range(reps))
+        return agree(min(_host_time(run_fn, k, salt + 1 + rep)
+                         for rep in range(reps)))
 
     for attempt in range(attempts):
         t_small = timed(k_small, salt_base + 100 * attempt)
@@ -102,7 +113,8 @@ def _sleep_cycles_per_s() -> float:
 
 def slope_times(run_fn, k_small: int, k_big: int, *, salt_base: int = 100,
                 reps: int = 2, attempts: int = 3,
-                allow_noisy: bool = False) -> Tuple[float, float]:
+                allow_noisy: bool = False,
+                agree: Agree = None) -> Tuple[float, float]:
     """(host-paced, device) seconds per work-iteration of ``run_fn``,
     whose work runs on the current CUDA device's current stream.
 
@@ -110,21 +122,26 @@ def slope_times(run_fn, k_small: int, k_big: int, *, salt_base: int = 100,
     same batches on CUDA events behind a sleep kernel that outlasts the
     host's enqueue of the big batch; its 1.2x stability test and noise
     rule are ``slope_time``'s. Where a batch took the host longer to
-    queue than the sleep lasted, both slopes are printed to stderr: the
-    device then either waited on the host or kept the host waiting on a
-    full launch queue, and its slope is device time only where it stays
-    below the host-paced one."""
+    queue than the sleep lasted (a host under load queues unevenly), both
+    batches are timed again behind a sleep twice as long, within
+    ``attempts``; if the last attempt is still outpaced, both slopes are
+    printed to stderr: the device then either waited on the host or kept
+    the host waiting on a full launch queue, and its slope is device time
+    only where it stays below the host-paced one."""
     import torch
     host = _host_slope(run_fn, k_small, k_big, salt_base, reps, attempts,
-                       allow_noisy)
+                       allow_noisy, agree)
+    agree = agree or (lambda t: t)
     # the big batch's enqueue, after a warm batch (builds, allocations)
     _fetch(run_fn(k_small, salt_base))
     t0 = time.perf_counter()
     out = run_fn(k_big, salt_base + 1)
     enqueue_s = time.perf_counter() - t0
     _fetch(out)
+    enqueue_s = agree(enqueue_s)
+    rate = _sleep_cycles_per_s()
     sleep_s = 2 * enqueue_s + 1e-3
-    cycles = int(sleep_s * _sleep_cycles_per_s())
+    cycles = int(sleep_s * rate)
     outpaced = {}
 
     def timed(k: int, salt: int) -> float:
@@ -143,12 +160,20 @@ def slope_times(run_fn, k_small: int, k_big: int, *, salt_base: int = 100,
                 outpaced[k] = max(queued, outpaced.get(k, 0.0))
             _fetch(out)
             best = min(best, start.elapsed_time(end) * 1e-3)
-        return best
+        return agree(best)
 
     device: Optional[float] = None
     for attempt in range(attempts):
+        outpaced.clear()
         t_small = timed(k_small, salt_base + 100 * attempt)
         t_big = timed(k_big, salt_base + 10 + 100 * attempt)
+        if agree(float(bool(outpaced))) and attempt < attempts - 1:
+            # a batch (on some rank) took longer to queue than the sleep
+            # lasted, so its device time holds host waits: sleep twice as
+            # long and time both batches again
+            sleep_s *= 2
+            cycles = int(sleep_s * rate)
+            continue
         if t_big > t_small * 1.2:
             device = (t_big - t_small) / (k_big - k_small)
             break
@@ -166,7 +191,7 @@ def slope_times(run_fn, k_small: int, k_big: int, *, salt_base: int = 100,
 
 def slope_time(run_fn, k_small: int, k_big: int, *, salt_base: int = 100,
                reps: int = 2, attempts: int = 3, allow_noisy: bool = False,
-               cuda_events: bool = False) -> float:
+               cuda_events: bool = False, agree: Agree = None) -> float:
     """Seconds per work-iteration of ``run_fn``: on the host clock, or,
     with ``cuda_events``, on CUDA events (device time; see
     ``slope_times``), printing the host-paced slope beside it where the
@@ -176,10 +201,10 @@ def slope_time(run_fn, k_small: int, k_big: int, *, salt_base: int = 100,
     be fetched to the host (the fetch waits for the work)."""
     if not cuda_events:
         return _host_slope(run_fn, k_small, k_big, salt_base, reps,
-                           attempts, allow_noisy)
+                           attempts, allow_noisy, agree)
     host, device = slope_times(run_fn, k_small, k_big, salt_base=salt_base,
                                reps=reps, attempts=attempts,
-                               allow_noisy=allow_noisy)
+                               allow_noisy=allow_noisy, agree=agree)
     if abs(host - device) > DIFFER * device:
         print(f"# slope: host-paced {host * 1e3:.4f} ms, device "
               f"{device * 1e3:.4f} ms an iteration", file=sys.stderr,

@@ -222,7 +222,12 @@ def test_import_leaves_out_jax_and_rabit_tpu():
         "'rabit_tpu_torch.parallel.ring_attention', "
         "'rabit_tpu_torch.bench', 'rabit_tpu_torch.utils.slope', "
         "'rabit_tpu_torch.tools.histogram_sweep', "
-        "'rabit_tpu_torch.tools.kernel_hw_proof'}\n"
+        "'rabit_tpu_torch.tools.kernel_hw_proof', "
+        "'rabit_tpu_torch.tools.collective_sweep', "
+        "'rabit_tpu_torch.parallel.topology', "
+        "'rabit_tpu_torch.parallel.wire', "
+        "'rabit_tpu_torch.parallel.dispatch', "
+        "'rabit_tpu_torch.parallel.collectives'}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -9,8 +9,11 @@ slice of the 8-device virtual CPU mesh). This module imports neither JAX
 nor ``rabit_tpu`` at its top: the spawned ranks import it.
 
 ``test_nccl_world_on_the_cards`` runs the same world over NCCL, one rank
-per card (up to 4), with the histogram built by the CUDA kernel. It is
-marked ``cuda`` and skips without two cards. On a machine with cards and
+per card (up to 4), with the histogram built by the CUDA kernel, and every
+schedule and wire of ``tests/test_torch_schedules.py`` on the cards, held
+bit for bit against the same cases in a gloo world on the CPU (which that
+file holds against JAX). It is marked ``cuda`` and skips without two
+cards. On a machine with cards and
 no JAX (so without ``tests/conftest.py``):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -139,7 +142,16 @@ def _rank_main(rank: int, p: int, inputs: dict, backend: str) -> dict:
     got["engine_ckpt"] = np.array([version, model["round"]])
     rabit.finalize()
     assert dist.is_initialized(), "engine destroyed a group it adopted"
+    if backend == "nccl":
+        from test_torch_schedules import run_cases
+        got.update({f"sched_{k}": v
+                    for k, v in run_cases(rank, p, dev).items()})
     return got
+
+
+def _schedules_on_the_cpu(rank: int, p: int) -> dict:
+    from test_torch_schedules import run_cases
+    return run_cases(rank, p, torch.device("cpu"))
 
 
 def _spawn_world(p: int, tmp_path, backend: str = "gloo") -> list:
@@ -290,13 +302,23 @@ def nccl_world(tmp_path_factory):
 
 
 @pytest.mark.cuda
-def test_nccl_world_on_the_cards(nccl_world):
+def test_nccl_world_on_the_cards(nccl_world, tmp_path):
     """The gloo world's numpy checks, run on the NCCL world: same bits on
     every rank, tree/ring/RS/AG/bcast and the torch engine; the f32 ring in
     the JAX ring's order bit for bit; the histogram allreduce (CUDA kernel,
-    atomic order) against the f64 oracle."""
+    atomic order) against the f64 oracle. Every schedule and wire of
+    ``tests/test_torch_schedules.py`` on the cards equal, rank by rank and
+    bit for bit, to the same case over gloo on the CPU: the schedules fold
+    in one order, and the codec's arithmetic (IEEE division and product,
+    round half to even) has the same bits on the card."""
     from rabit_tpu_torch.models.histogram import host_histogram
+    from test_torch_schedules import _cases
     p, inputs, ranks = nccl_world
+    cpu = spawn_world(_schedules_on_the_cpu, p, tmp_path)
+    for name in _cases(p):
+        for r in range(p):
+            assert ranks[r].pop(f"sched_{name}").tobytes() == \
+                cpu[r][name].tobytes(), f"{name}: rank {r}"
     test_every_rank_ends_with_the_same_bits(nccl_world)
     for dtype, op in CASES:
         test_tree_and_ring_allreduce_match_numpy(nccl_world, dtype, op)
