@@ -73,11 +73,31 @@ Phases (each prints a line; any failure exits non-zero):
                 ``dispatch.resolve`` over a table in a temporary file;
                 with two cards or more, ``tools.collective_sweep
                 --smoke`` at world min(4, cards) over NCCL, its rows.
-11. kernels     one JSON line of every kernel with its main-path launches.
+11. robust      the robust engine under the port: the native core's build
+                (g++, beside the nvccs of phase 1); ``tools.boosted_trees``
+                at the headline shape (64 features x 16 buckets x 32,768
+                rows: 2^21 entries into 1024 bins a rank), six rounds,
+                under the port's launcher at world 1 (mock engine,
+                ``rabit_ckpt_dir``): a kill at round 3, the respawn's cold
+                restart from the durable store at version 3, trees equal to
+                the run without a kill bit for bit, the histogram kernel
+                launched every round; the histogram payload through
+                ``TorchEngine`` at world 1; with two cards or more, at world
+                min(4, cards) with the torch data plane over NCCL
+                (``rabit_dataplane_minbytes=0``): a run without a kill, a
+                kill of rank 1 at round 3 and a scripted data-plane failure
+                end with the same trees on every rank, the epoch advanced;
+                the allreduce's host-paced ms through the robust engine and
+                through ``TorchEngine``, the seconds from the kill to the
+                first collective of the re-formed world and to form the
+                NCCL world.
+12. kernels     one JSON line of every kernel with its main-path launches.
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
 phase 6) and read just after it, so a kernel's count is its own path's
-alone: mask_only's is the sweep's. The last line is the device JSON.
+alone: mask_only's is the sweep's. Phase 11's histogram launches are
+counted in its workers, each a fresh process (so from 0), and printed
+there. The last line is the device JSON.
 Without CUDA, or without the package beside this file, the script exits
 non-zero and prints no result.
 """
@@ -184,12 +204,20 @@ def assert_close(got, want, what: str, rtol: float, atol: float) -> float:
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+    from rabit_tpu_torch.engine import _native_build
     from rabit_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    built = _build.build()
+    # the native core (one g++) compiles while the kernels' nvccs run
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(_native_build.build)
+        built = _build.build()
+        native_s = native.result()
     phase("build", f"{sorted(_build.sources())} ready in "
           f"{time.perf_counter() - t0:.2f} s (per kernel, s: "
           f"{ {k: round(v, 2) for k, v in built.items()} })")
+    phase("build", f"native core {_native_build.library_path().name}: "
+          f"g++ {native_s:.2f} s (0 = already built), beside the nvccs")
     for name in sorted(_build.sources()):
         summary = ptxas_summary(_build.ptxas_log(name).read_text())
         phase("build", f"ptxas {name}: " + "; ".join(summary))
@@ -1124,6 +1152,174 @@ def phase_collectives(dev) -> None:
           f"NCCL in {time.perf_counter() - t0:.1f} s")
 
 
+# the robust phase: tools/boosted_trees.py at the headline shape (64
+# features x 16 buckets x 32,768 rows a rank: 2^21 entries into 1024 bins),
+# six rounds, a kill at round 3
+BOOST_SHAPE = ("--features", "64", "--rows", "32768", "--bins", "16")
+BOOST_ROUNDS = 6
+BOOST_KILL = 3
+BOOST_TIMEOUT_S = 300
+
+
+def _launch_boost(n: int, args, env: dict) -> tuple:
+    """``tools.boosted_trees`` as ``n`` workers under the port's launcher:
+    each rank's ``BOOST-JSON`` document (a respawned rank's last) and the
+    wall clock of every worker death the launcher saw."""
+    import os
+    import signal
+    cmd = [sys.executable, "-m", "rabit_tpu_torch.tracker.launch", "-n",
+           str(n), "--timeout", str(BOOST_TIMEOUT_S - 30), sys.executable,
+           "-m", "rabit_tpu_torch.tools.boosted_trees", *BOOST_SHAPE, *args]
+    full_env = dict(os.environ, N_ROUNDS=str(BOOST_ROUNDS), **env)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=full_env,
+                            cwd=Path(__file__).resolve().parent,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=BOOST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)   # the launcher and its workers
+        proc.communicate()
+        raise AssertionError(f"boosted_trees {args} at world {n} outlasted "
+                             f"{BOOST_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"boosted_trees {args} at world {n} failed "
+                             f"(rc {proc.returncode}):\n{err[-4000:]}")
+    docs = {}
+    for line in out.splitlines():
+        if line.startswith("BOOST-JSON "):
+            doc = json.loads(line[len("BOOST-JSON "):])
+            docs[doc["rank"]] = doc
+    if sorted(docs) != list(range(n)):
+        raise AssertionError(f"boosted_trees {args}: documents of ranks "
+                             f"{sorted(docs)} of {n}")
+    deaths = [float(t) for t in re.findall(r"died rc=\S+ at ([0-9.]+)",
+                                           err)]
+    return docs, deaths
+
+
+def _same_model(docs: dict, want: dict, what: str) -> None:
+    for r, d in docs.items():
+        if d["trees"] != want["trees"] or d["digest"] != want["digest"]:
+            raise AssertionError(f"{what}: rank {r}'s trees differ from the "
+                                 f"run without a kill:\n{d['trees']}\n"
+                                 f"{want['trees']}")
+
+
+def phase_robust(dev, power: str) -> None:
+    """The robust engine under the port (see the module's phase 11)."""
+    import tempfile
+    import torch.distributed as dist
+    import rabit_tpu_torch as rabit
+    from rabit_tpu_torch.engine import _native_build
+    t0 = time.perf_counter()
+    built = _native_build.build()
+    phase("robust", f"native core {_native_build.library_path().name} "
+          f"ready in {time.perf_counter() - t0:.2f} s (g++ {built:.2f} s "
+          f"in this phase; 0 = built in phase 1)")
+    with tempfile.TemporaryDirectory() as tmp:
+        clean, _ = _launch_boost(1, ["rabit_engine=mock",
+                                     f"rabit_ckpt_dir={tmp}/clean"], {})
+        kill, deaths = _launch_boost(
+            1, ["rabit_engine=mock", f"rabit_ckpt_dir={tmp}/kill",
+                f"mock=0,{BOOST_KILL},0,0"], {})
+    c, k = clean[0], kill[0]
+    if c["device"] != "cuda:0" or k["device"] != "cuda:0":
+        raise AssertionError(f"histograms built on {c['device']}, "
+                             f"{k['device']}, not the card")
+    if len(deaths) != 1 or k["version"] != BOOST_KILL:
+        raise AssertionError(f"the kill: {len(deaths)} deaths, respawn "
+                             f"resumed at version {k['version']}, want 1 "
+                             f"and {BOOST_KILL}")
+    if c["launches"] < BOOST_ROUNDS or \
+            k["launches"] < BOOST_ROUNDS - BOOST_KILL:
+        raise AssertionError(f"histogram launches {c['launches']} and "
+                             f"{k['launches']} for {BOOST_ROUNDS} and "
+                             f"{BOOST_ROUNDS - BOOST_KILL} rounds")
+    _same_model(kill, c, "world 1, cold restart")
+    phase("robust", f"world 1 (mock engine, rabit_ckpt_dir): killed at "
+          f"round {BOOST_KILL}, respawned, cold-restarted from the durable "
+          f"store at version {k['version']}, {BOOST_ROUNDS} trees equal to "
+          f"the run without a kill bit for bit (digest {c['digest']}); "
+          f"histogram kernel launches {c['launches']} (clean) and "
+          f"{k['launches']} (after the respawn); death to the respawned "
+          f"worker's first round {k['first_round_at'] - deaths[0]:.2f} s; "
+          f"robust allreduce of the {2048 * 4} B histogram at world 1 "
+          f"{float(np.median(c['allreduce_ms'])):.4f} ms a round "
+          f"host-paced (local: no peer) [{power}]")
+    # the histogram payload through TorchEngine at world 1, and the
+    # formation of an NCCL world of 1
+    t0 = time.perf_counter()
+    rabit.init([], engine="torch")
+    form_s = time.perf_counter() - t0
+    try:
+        hist = np.zeros(2048, np.float32)
+        rabit.allreduce(hist, rabit.SUM)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            rabit.allreduce(hist, rabit.SUM)
+        te_ms = (time.perf_counter() - t0) * 1e3 / 20
+        backend = dist.get_backend()
+    finally:
+        rabit.finalize()
+    phase("robust", f"TorchEngine at world 1 ({backend}): the histogram "
+          f"payload {te_ms:.4f} ms a call host-paced (returns at world 1); "
+          f"init with its NCCL world of 1 {form_s:.3f} s [{power}]")
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        phase("robust", "one card: the torch data plane's NCCL world "
+              "(rabit_dataplane=torch) needs two or more")
+        return
+    phase_robust_world(min(4, count), power)
+
+
+def phase_robust_world(p: int, power: str) -> None:
+    """The torch data plane over NCCL at world ``p``, one rank a card."""
+    args = ["rabit_engine=robust_torch", "rabit_dataplane_minbytes=0"]
+    clean, _ = _launch_boost(p, args, {})
+    kill, deaths = _launch_boost(p, args + [f"mock=1,{BOOST_KILL},0,0"], {})
+    fail, _ = _launch_boost(p, args, {"RABIT_DATAPLANE_FAIL_AT": "5"})
+    ref = clean[0]
+    for what, docs in (("clean", clean), ("kill", kill), ("fail", fail)):
+        _same_model(docs, ref, f"world {p}, {what}")
+        backends = {d["dataplane"]["backend"] for d in docs.values()}
+        if backends != {"nccl"}:
+            raise AssertionError(f"world {p} {what}: backends {backends}")
+    for what, docs in (("kill", kill), ("fail", fail)):
+        epochs = {d["epoch"] for d in docs.values()}
+        if min(epochs) < 2 or len(epochs) != 1:
+            raise AssertionError(f"world {p} {what}: epochs {epochs} "
+                                 f"(want one, advanced past 1)")
+    if len(deaths) != 1 or min(d["launches"] for d in clean.values()) \
+            < BOOST_ROUNDS:
+        raise AssertionError(f"world {p}: {len(deaths)} deaths, launches "
+                             f"{[d['launches'] for d in clean.values()]}")
+    robust_ms = float(np.median([np.median(d["allreduce_ms"])
+                                 for d in clean.values()]))
+    direct = [d["timing"] for d in clean.values()]
+    recover_s = max(d["dataplane"]["first_collective_at"]
+                    for d in kill.values()) - deaths[0]
+    form_s = max(d["dataplane"]["form_seconds"] for d in clean.values())
+    phase("robust", f"world {p} (robust_torch, rabit_dataplane_minbytes=0, "
+          f"NCCL, one rank a card): the run without a kill, a kill of rank "
+          f"1 at round {BOOST_KILL} and RABIT_DATAPLANE_FAIL_AT=5 end with "
+          f"the same trees bit for bit on every rank (digest "
+          f"{ref['digest']}); epochs {kill[0]['epoch']} and "
+          f"{fail[0]['epoch']}")
+    phase("robust", f"world {p}: histogram allreduce ({2048 * 4} B) "
+          f"{robust_ms:.4f} ms a round host-paced through the robust "
+          f"engine (median of ranks' medians over {BOOST_ROUNDS} rounds); "
+          f"20 calls each: robust "
+          f"{max(t['robust_ms'] for t in direct):.4f} ms, TorchEngine on "
+          f"the same world {max(t['torch_engine_ms'] for t in direct):.4f} "
+          f"ms, the same on a group without blocking waits "
+          f"{max(t['no_blocking_wait_ms'] for t in direct):.4f} ms a call "
+          f"(slowest rank); kill to the first collective of the "
+          f"re-formed world {recover_s:.2f} s; NCCL world formed in "
+          f"{form_s:.3f} s (slowest rank) [{power}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1174,6 +1370,7 @@ def main() -> int:
           f"{tf_run['step_ms']:.3f} ms median of steps 2-"
           f"{FLAGSHIP_STEPS} on CUDA events [{power}]")
     phase_collectives(dev)
+    phase_robust(dev, power)
     kernels = []
     for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only"):
         head = timing[name][0]

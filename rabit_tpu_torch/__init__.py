@@ -11,9 +11,11 @@ tensors or asks for ``device="cpu"`` / ``rabit_device=cpu``; asking for
 the card where there is none raises.
 
 Public API (the reference binding, python/rabit.py:88-364):
-    init/finalize, get_rank/get_world_size, is_distributed, tracker_print,
-    allreduce, broadcast, load_checkpoint, checkpoint, lazy_checkpoint,
-    version_number, and the ops MAX/MIN/SUM/BITOR.
+    init/finalize, get_rank/get_world_size, is_distributed,
+    get_processor_name, tracker_print, allreduce, allreduce_async,
+    reduce_scatter, allgather, broadcast, load_checkpoint, checkpoint,
+    lazy_checkpoint, version_number, init_after_exception, and the ops
+    MAX/MIN/SUM/BITOR.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ __version__ = "0.1.0"
 
 _engine: Optional[Engine] = None
 
+ENGINES = ("empty", "torch", "native", "base", "robust", "mock",
+           "robust_torch")
+
 
 def _require_engine() -> Engine:
     if _engine is None:
@@ -48,12 +53,19 @@ def init(args: Optional[list] = None, engine: str = "auto", **kwargs) -> None:
 
     ``args`` are ``key=value`` strings (default: those in ``sys.argv``).
     ``engine``:
-      - ``"auto"``: ``rabit_engine`` from the configuration; without a
-        tracker it defaults to ``"empty"`` (as ``rabit_tpu.init``);
+      - ``"auto"``: ``rabit_engine`` from the configuration; with a
+        tracker it defaults to ``"robust"``, without one to ``"empty"``
+        (as ``rabit_tpu.init``);
       - ``"empty"``: single-process engine, collectives are identity;
       - ``"torch"``: collectives over ``torch.distributed`` on this
-        rank's device (the counterpart of ``rabit_tpu``'s ``"xla"``).
-    The ctypes engines over ``native/`` are not ported yet."""
+        rank's device (the counterpart of ``rabit_tpu``'s ``"xla"``);
+      - ``"native"``/``"base"``, ``"robust"``, ``"mock"``: the native
+        core's socket engine, its fault-tolerant engine, and the latter
+        with scripted kills (``engine/native.py``);
+      - ``"robust_torch"``: the fault-tolerant engine with its
+        allreduces on a torch data plane (``rabit_dataplane=torch``,
+        ``engine/dataplane.py``), the counterpart of ``"robust_xla"``.
+    ``"mpi"`` is not ported yet."""
     global _engine
     if _engine is not None:
         import warnings
@@ -64,7 +76,9 @@ def init(args: Optional[list] = None, engine: str = "auto", **kwargs) -> None:
         args = [a for a in sys.argv[1:] if "=" in a]
     args = [a.decode() if isinstance(a, bytes) else str(a) for a in args]
     cfg = Config.from_args(args, **kwargs)
-    args = cfg.as_args()
+    # the engine gets the arguments as given (a repeated key such as
+    # mock=... stays one argument an occurrence), and the keywords
+    args = args + [f"{k}={v}" for k, v in kwargs.items()]
 
     if engine == "auto":
         if cfg.get("rabit_tracker_uri") or cfg.get("dmlc_tracker_uri"):
@@ -78,9 +92,15 @@ def init(args: Optional[list] = None, engine: str = "auto", **kwargs) -> None:
     elif engine == "torch":
         from .engine.torch_engine import TorchEngine
         eng = TorchEngine()
+    elif engine in ("native", "base", "robust", "mock"):
+        from .engine.native import NativeEngine
+        eng = NativeEngine(variant=engine)
+    elif engine == "robust_torch":
+        from .engine.native import NativeEngine
+        eng = NativeEngine(variant="robust", dataplane="torch")
     else:
         raise ValueError(f"unknown or not yet ported engine {engine!r} "
-                         f"(rabit_tpu_torch has 'empty' and 'torch')")
+                         f"(rabit_tpu_torch has {ENGINES})")
     eng.init(args)
     _engine = eng
 
@@ -119,6 +139,11 @@ def is_distributed() -> bool:
     return _require_engine().is_distributed
 
 
+def get_processor_name() -> str:
+    """Host identifier of this worker (rabit.py:152-169)."""
+    return _require_engine().host
+
+
 def tracker_print(msg: str) -> None:
     """Print a message from rank 0 (rabit.py:142-150)."""
     _require_engine().tracker_print(str(msg))
@@ -133,27 +158,81 @@ def allreduce(data: np.ndarray, op: int,
     reduced elementwise with ``op`` across ranks, and returned with the
     input's shape. ``prepare_fun`` is the lazy initializer (rabit.h:222-231):
     it is invoked on ``data`` right before the reduction runs."""
+    _check_payload(data, op, "allreduce")
+    eng = _require_engine()
+    buf, pf = _host_buffer(data, prepare_fun)
+    eng.allreduce(buf, op, prepare_fun=pf)
+    return buf.reshape(data.shape)
+
+
+def _check_payload(data: np.ndarray, op: Optional[int], what: str) -> None:
     if not isinstance(data, np.ndarray):
-        raise TypeError("allreduce only takes numpy.ndarray")
+        raise TypeError(f"{what} only takes numpy.ndarray")
     if np.dtype(data.dtype) not in DTYPE_ENUM:
         raise TypeError(f"dtype {data.dtype} not supported")
+    if op is None:
+        return
     if op not in OP_NAMES:
         raise ValueError(f"unknown op {op}")
     if not is_valid_op_dtype(op, data.dtype):
         raise TypeError(
             f"op {OP_NAMES[op]} is not defined for dtype {data.dtype} "
             "(reference rejects BitOR on floats, c_api.cc:26-35)")
-    eng = _require_engine()
-    shape = data.shape
-    buf = data.flatten()  # always a contiguous 1-D copy, never aliases data
+
+
+def _host_buffer(data: np.ndarray, prepare_fun):
+    """A contiguous 1-D copy of ``data`` (never aliasing it) and the
+    engine-side prepare hook: the user's ``prepare_fun`` runs on ``data``
+    and its result is copied into the buffer."""
+    buf = data.flatten()
     if prepare_fun is None:
-        pf = None
-    else:
-        def pf(b=buf, d=data, f=prepare_fun):
-            f(d)
-            b[:] = np.ascontiguousarray(d).reshape(-1)
-    eng.allreduce(buf, op, prepare_fun=pf)
-    return buf.reshape(shape)
+        return buf, None
+
+    def pf(b=buf, d=data, f=prepare_fun):
+        f(d)
+        b[:] = np.ascontiguousarray(d).reshape(-1)
+    return buf, pf
+
+
+def allreduce_async(data: np.ndarray, op: int,
+                    prepare_fun: Optional[Callable[[np.ndarray], None]]
+                    = None):
+    """Issue an allreduce; returns a handle whose ``wait()`` yields the
+    reduced array (input shape kept). Same validation and semantics as
+    :func:`allreduce`, ``prepare_fun`` included, which runs at issue (the
+    buffer is a copy, so the caller may overwrite ``data`` at once). The
+    port's engines complete the op before returning (the base engine's
+    composition: correct, with no overlap)."""
+    _check_payload(data, op, "allreduce_async")
+    from .engine.base import AllreduceHandle
+    eng = _require_engine()
+    buf, pf = _host_buffer(data, prepare_fun)
+    h = eng.allreduce_async(buf, op, prepare_fun=pf)
+    return AllreduceHandle(wait_fn=lambda: h.wait().reshape(data.shape),
+                           ready_fn=h.ready)
+
+
+def reduce_scatter(data: np.ndarray, op: int) -> np.ndarray:
+    """Reduce ``data`` elementwise across ranks and return only this
+    rank's chunk: a 1-D array of ``data.size / world_size`` elements
+    starting at ``rank * data.size / world_size`` (rank i owns chunk i,
+    allreduce_base.cc:829-918). ``data.size`` must divide by the world
+    size."""
+    _check_payload(data, op, "reduce_scatter")
+    eng = _require_engine()
+    if data.size % eng.world_size:
+        raise ValueError(
+            f"reduce_scatter payload of {data.size} elements must divide "
+            f"by the world size {eng.world_size} (rank i owns chunk i)")
+    return eng.reduce_scatter(data.flatten(), op)
+
+
+def allgather(data: np.ndarray) -> np.ndarray:
+    """Concatenate every rank's ``data`` (flattened, the same size on
+    every rank) in rank order; every rank returns the full 1-D result
+    (TryAllgatherRing, allreduce_base.cc:751-815)."""
+    _check_payload(data, None, "allgather")
+    return _require_engine().allgather(data.flatten())
 
 
 def broadcast(data: Any, root: int) -> Any:
@@ -210,9 +289,17 @@ def version_number() -> int:
     return _require_engine().version_number
 
 
+def init_after_exception() -> None:
+    """Reset engine state after catching an exception mid-collective so
+    the next collective starts clean (IEngine::InitAfterException,
+    allreduce_robust.h:163-169). Robust engine only."""
+    _require_engine().init_after_exception()
+
+
 __all__ = [
     "init", "finalize", "get_rank", "get_world_size", "is_distributed",
-    "tracker_print", "allreduce", "broadcast",
+    "get_processor_name", "tracker_print", "allreduce", "allreduce_async",
+    "reduce_scatter", "allgather", "broadcast",
     "load_checkpoint", "checkpoint", "lazy_checkpoint", "version_number",
-    "MAX", "MIN", "SUM", "BITOR",
+    "init_after_exception", "MAX", "MIN", "SUM", "BITOR",
 ]

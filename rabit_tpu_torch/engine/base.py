@@ -5,8 +5,8 @@ Python is the module-global in ``rabit_tpu_torch.__init__`` (the API is
 documented not thread-safe, rabit.h:177-178).
 
 The port's copy of ``rabit_tpu/engine/base.py``, without its telemetry
-spans, ``init_after_exception`` and ``resize`` (robust-engine features the
-port has no engine for yet), and with ``restore_checkpoint``."""
+spans and ``resize`` (elastic membership, not ported yet), and with
+``restore_checkpoint``."""
 
 from __future__ import annotations
 
@@ -144,6 +144,13 @@ class Engine(ABC):
         """Defer serialization until a failure needs it
         (IEngine::LazyCheckPoint, engine.h:155-166)."""
         self._version += 1
+
+    def init_after_exception(self) -> None:
+        """Reset engine state after the caller caught an exception
+        mid-collective (IEngine::InitAfterException,
+        allreduce_robust.h:163-169). Only the robust engine can honor it."""
+        raise NotImplementedError(
+            "InitAfterException requires the robust engine")
 
     def restore_checkpoint(self, version: int, global_bytes: Optional[bytes],
                            local_bytes: Optional[bytes] = None) -> None:

@@ -24,14 +24,10 @@ each allreduce follow ``XlaEngine``'s keys (``engine/xla.py:102-132``):
 * ``rabit_hier_group`` (else ``RABIT_HIER_GROUP``): the host grouping
   of the ``hier`` schedule, resolved once at init.
 
-``rabit_reduce_method=hier`` does not go through the dispatcher
-(``collectives.allreduce``): as ``XlaEngine`` runs
-``device_hier_allreduce``, the engine calls ``hier_allreduce`` on the
-init grouping, and a world with no two-level grouping takes that
-function's degradation (one group: a flat ring without the wire; one
-rank a group or ragged groups: a flat ring with it), where the
-dispatcher's ``dispatch.resolve`` turns an explicit ``hier`` into a ring
-that keeps the wire. Every other method goes through the dispatcher.
+Each allreduce goes through ``collectives.allreduce_numpy``, the helper
+the robust engine's data plane shares: ``rabit_reduce_method=hier`` runs
+``hier_allreduce`` on the init grouping (as ``XlaEngine`` runs
+``device_hier_allreduce``), every other method the dispatcher.
 
 Checkpoints are kept in memory.
 
@@ -49,7 +45,7 @@ import torch
 import torch.distributed as dist
 
 from .base import Engine
-from ..convert import numpy_from_tensor, tensor_from_numpy
+from ..convert import numpy_from_tensor
 from ..parallel import collectives as C
 from ..parallel import dispatch, topology
 from ..parallel import wire as wirespec
@@ -145,14 +141,9 @@ class TorchEngine(Engine):
             prepare_fun()
         if self._world == 1:
             return
-        x = tensor_from_numpy(buf).to(self._device)
         method, wire = self._resolve_method_wire(buf.size)
-        if method == "hier":   # not the dispatcher's: see the docstring
-            out = C.hier_allreduce(x.reshape(-1), self._group, op,
-                                   groups=self._groups, wire=wire)
-        else:
-            out = C.allreduce(x, self._group, op, method=method, wire=wire)
-        np.copyto(buf, numpy_from_tensor(out.reshape(x.shape), buf.dtype))
+        C.allreduce_numpy(buf, self._group, op, self._device, method=method,
+                          wire=wire, groups=self._groups)
 
     def _resolve_method_wire(self, n: int) -> Tuple[str, Optional[str]]:
         """``XlaEngine._resolve_method_wire``: the pinned crossover where

@@ -60,7 +60,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..convert import tensor_from_numpy
+from ..convert import numpy_from_tensor, tensor_from_numpy
 from ..ops.reducers import BITOR, MAX, MIN, OP_NAMES, SUM, torch_reduce_fn
 from . import dispatch as _dispatch
 from . import topology as _topology
@@ -713,6 +713,27 @@ def allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
         groups = None
     return _per_shard_allreduce(x.reshape(-1), group, op, method, wire,
                                 groups).reshape(x.shape)
+
+
+def allreduce_numpy(buf: np.ndarray, group: Optional[dist.ProcessGroup],
+                    op: int, device: torch.device, method: str = "auto",
+                    wire: Optional[str] = "auto", groups=None) -> None:
+    """Allreduce the host buffer ``buf`` in place through ``device``: the
+    reference's in-place ``sendrecvbuf`` contract (engine.h:74-96), shared
+    by ``TorchEngine`` and the robust engine's ``TorchDataPlane``. The
+    buffer is staged onto the device and reduced by the dispatcher
+    (``allreduce``), or for ``method="hier"`` by ``hier_allreduce`` over
+    ``groups`` with that function's own degradation (one group: a flat
+    ring without the wire; one rank a group or ragged groups: a flat ring
+    with it), where the dispatcher turns an explicit ``hier`` on such a
+    world into a ring that keeps the wire; the result is copied back."""
+    x = tensor_from_numpy(buf).to(device)
+    if method == "hier":
+        out = hier_allreduce(x.reshape(-1), group, op, groups=groups,
+                             wire=wire)
+    else:
+        out = allreduce(x, group, op, method=method, wire=wire)
+    np.copyto(buf, numpy_from_tensor(out.reshape(x.shape), buf.dtype))
 
 
 def bcast_from_root(x: torch.Tensor,

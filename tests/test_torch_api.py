@@ -105,13 +105,19 @@ def test_checkpoint_bytes_from_rabit_tpu_load_unchanged(both_empty):
 
 
 def test_uninitialized_and_unknown_engines_raise():
+    """``mpi`` is not ported: asked for by name, or by ``rabit_engine``
+    under ``auto`` with a tracker URI, init raises before it dials any
+    tracker (none listens at the URI below)."""
     rabit_tpu_torch.finalize()
     with pytest.raises(RuntimeError, match="not initialized"):
         rabit_tpu_torch.get_rank()
     with pytest.raises(ValueError, match="engine"):
-        rabit_tpu_torch.init([], engine="robust")
+        rabit_tpu_torch.init([], engine="mpi")
     with pytest.raises(ValueError, match="engine"):
-        rabit_tpu_torch.init(["rabit_tracker_uri=127.0.0.1"], engine="auto")
+        rabit_tpu_torch.init(["rabit_tracker_uri=127.0.0.1",
+                              "rabit_tracker_port=9", "rabit_engine=mpi"],
+                             engine="auto")
+    assert rabit_tpu_torch._engine is None
 
 
 def test_torch_engine_without_cuda_raises_rather_than_use_the_cpu(
@@ -227,7 +233,15 @@ def test_import_leaves_out_jax_and_rabit_tpu():
         "'rabit_tpu_torch.parallel.topology', "
         "'rabit_tpu_torch.parallel.wire', "
         "'rabit_tpu_torch.parallel.dispatch', "
-        "'rabit_tpu_torch.parallel.collectives'}\n"
+        "'rabit_tpu_torch.parallel.collectives', "
+        "'rabit_tpu_torch.utils.log', 'rabit_tpu_torch.utils.retry', "
+        "'rabit_tpu_torch.engine.ckpt_store', "
+        "'rabit_tpu_torch.engine._native_build', "
+        "'rabit_tpu_torch.engine.native', "
+        "'rabit_tpu_torch.engine.dataplane', "
+        "'rabit_tpu_torch.tracker.tracker', "
+        "'rabit_tpu_torch.tracker.launch', "
+        "'rabit_tpu_torch.tools.boosted_trees'}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -263,3 +277,17 @@ def test_no_jax_or_rabit_tpu_import_in_the_chip_smoke_script():
 
 def test_no_jax_or_rabit_tpu_import_in_the_kernel_variants_script():
     assert _jax_imports([ROOT / "kernel_variants.py"]) == []
+
+
+def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
+    """The modules of the robust engine's slice, by name (the package scan
+    above covers them too), and the port's own test workers."""
+    new = [PKG / "utils" / "log.py", PKG / "utils" / "retry.py",
+           PKG / "engine" / "ckpt_store.py", PKG / "engine" / "_native_build.py",
+           PKG / "engine" / "native.py", PKG / "engine" / "dataplane.py",
+           PKG / "tracker" / "tracker.py", PKG / "tracker" / "launch.py",
+           PKG / "tools" / "boosted_trees.py",
+           ROOT / "tests" / "workers" / "torch_recover_worker.py",
+           ROOT / "tests" / "workers" / "torch_dataplane_fail_worker.py"]
+    assert all(p.is_file() for p in new)
+    assert _jax_imports(new) == []
