@@ -1,7 +1,8 @@
 """Chip smoke test of rabit_tpu_torch: builds the CUDA kernels and drives
 the port's paths on one NVIDIA GPU -- the gradient-histogram allreduce,
-the flagship transformer's training step, and the histogram measurement
-path (the sweep, the bench and the kernel proof).
+the flagship transformer's training step, the histogram measurement
+path (the sweep, the bench and the kernel proof), the robust engine, and
+the bucketed and overlapped train steps of the flagship and the MLP.
 
     python3 chip_smoke.py
 
@@ -91,13 +92,38 @@ Phases (each prints a line; any failure exits non-zero):
                 through ``TorchEngine``, the seconds from the kill to the
                 first collective of the re-formed world and to form the
                 NCCL world.
-12. kernels     one JSON line of every kernel with its main-path launches.
+12. bucket      the bucketed and overlapped train steps: (a) the
+                full-width flagship (1,836,288 f32 parameters in 20
+                leaves, one 7.35 MB bucket) on a world-1 NCCL mesh, 4 steps
+                each of ``"psum"``, ``"bucket"`` and the async bucket step
+                (``RABIT_ASYNC_COLLECTIVES=1``) from the same weights and
+                data: equal bit for bit (at world 1 every sum is the
+                identity), flash_block and flash_block_bwd launched 2 x 4
+                times in each run, each step's ms on CUDA events; an async
+                allreduce issued behind a sleeping stream, not ready until
+                the stream ran; (b) the MLP 256 -> 512 -> 128, batch 64,
+                under ``"psum"``, ``"ring"``, ``"bucket"`` and async bucket,
+                4 steps each, within tests/test_models.py's bounds of its
+                single-device step, bucket = ring and async = bucket bit
+                for bit; (c) with two cards or more, at world min(4,
+                cards) over NCCL: every device and async entry point on
+                f32 and i32 payloads of 4,096 and 2,097,152 elements (hier
+                at 2 x 2, a mixed-dtype tree) equal to the same calls on a
+                gloo world bit for bit; the flagship's bucket step within
+                5e-4 of its psum step and the async step equal to the
+                bucket step bit for bit at (dp, tp, sp) = (2, 1, 2); the
+                MLP at (2, 2, 1) as in (b); the step times, and one
+                ``device_allreduce_tree`` of the flagship's gradient tree
+                by "auto", "tree" and "ring". With one card it prints that
+                (c) did not run.
+13. kernels     one JSON line of every kernel with its main-path launches
+                (and, for the flash kernels, phase 12's).
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
-phase 6) and read just after it, so a kernel's count is its own path's
-alone: mask_only's is the sweep's. Phase 11's histogram launches are
-counted in its workers, each a fresh process (so from 0), and printed
-there. The last line is the device JSON.
+phase 6, each run of phase 12) and read just after it, so a kernel's
+count is its own path's alone: mask_only's is the sweep's. Phase 11's
+histogram launches are counted in its workers, each a fresh process (so
+from 0), and printed there. The last line is the device JSON.
 Without CUDA, or without the package beside this file, the script exits
 non-zero and prints no result.
 """
@@ -1163,32 +1189,37 @@ BOOST_TIMEOUT_S = 300
 
 def _launch_boost(n: int, args, env: dict) -> tuple:
     """``tools.boosted_trees`` as ``n`` workers under the port's launcher:
-    each rank's ``BOOST-JSON`` document (a respawned rank's last) and the
-    wall clock of every worker death the launcher saw."""
+    each rank's result document (a respawned rank's last), read from the
+    file the worker writes into ``RABIT_RESULT_DIR`` (the ranks share the
+    launcher's stdout, where one process's output can break into another's
+    line), and the wall clock of every worker death the launcher saw."""
     import os
     import signal
+    import tempfile
     cmd = [sys.executable, "-m", "rabit_tpu_torch.tracker.launch", "-n",
            str(n), "--timeout", str(BOOST_TIMEOUT_S - 30), sys.executable,
            "-m", "rabit_tpu_torch.tools.boosted_trees", *BOOST_SHAPE, *args]
-    full_env = dict(os.environ, N_ROUNDS=str(BOOST_ROUNDS), **env)
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, env=full_env,
-                            cwd=Path(__file__).resolve().parent,
-                            start_new_session=True)
-    try:
-        out, err = proc.communicate(timeout=BOOST_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)   # the launcher and its workers
-        proc.communicate()
-        raise AssertionError(f"boosted_trees {args} at world {n} outlasted "
-                             f"{BOOST_TIMEOUT_S} s")
-    if proc.returncode != 0:
-        raise AssertionError(f"boosted_trees {args} at world {n} failed "
-                             f"(rc {proc.returncode}):\n{err[-4000:]}")
-    docs = {}
-    for line in out.splitlines():
-        if line.startswith("BOOST-JSON "):
-            doc = json.loads(line[len("BOOST-JSON "):])
+    with tempfile.TemporaryDirectory() as out_dir:
+        full_env = dict(os.environ, N_ROUNDS=str(BOOST_ROUNDS),
+                        RABIT_RESULT_DIR=out_dir, **env)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                env=full_env,
+                                cwd=Path(__file__).resolve().parent,
+                                start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=BOOST_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)  # the launcher and workers
+            proc.communicate()
+            raise AssertionError(f"boosted_trees {args} at world {n} "
+                                 f"outlasted {BOOST_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            raise AssertionError(f"boosted_trees {args} at world {n} failed "
+                                 f"(rc {proc.returncode}):\n{err[-4000:]}")
+        docs = {}
+        for path in Path(out_dir).glob("rank*.json"):
+            doc = json.loads(path.read_text())
             docs[doc["rank"]] = doc
     if sorted(docs) != list(range(n)):
         raise AssertionError(f"boosted_trees {args}: documents of ranks "
@@ -1320,6 +1351,404 @@ def phase_robust_world(p: int, power: str) -> None:
           f"{form_s:.3f} s (slowest rank) [{power}]")
 
 
+# phase 12: the bucketed and overlapped train steps. The flagship at full
+# width (tools/flagship_hw_proof.py:37-47), each grad sync from the same
+# weights and data for BUCKET_STEPS steps; the MLP at the JAX package's
+# full width (rabit_tpu/models/mlp.py:33-34, make_sharded_inputs' batch)
+BUCKET_STEPS = 4
+FLAGSHIP_PARAMS = (1_836_288, 20)        # f32 elements, leaves
+MLP_SIZES = dict(in_dim=256, hidden=512, out_dim=128)
+MLP_BATCH, MLP_LR = 64, 0.1
+# the MLP's sharded step against the single-device step
+# (tests/test_models.py:96-100)
+MLP_LOSS_TOL = dict(rtol=2e-2, atol=1e-3)
+MLP_PARAM_TOL = dict(rtol=5e-2, atol=5e-3)
+# the collectives at world > 1: the histogram's and the 8 MB payloads of
+# the collective sweep (tools/collective_sweep.py:72)
+BUCKET_COLL_SIZES = (4096, 2_097_152)
+BUCKET_WORLD_TIMEOUT_S = 600
+
+
+@contextlib.contextmanager
+def _async_collectives(on: bool):
+    import os
+    saved = os.environ.pop("RABIT_ASYNC_COLLECTIVES", None)
+    if on:
+        os.environ["RABIT_ASYNC_COLLECTIVES"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("RABIT_ASYNC_COLLECTIVES", None)
+        if saved is not None:
+            os.environ["RABIT_ASYNC_COLLECTIVES"] = saved
+
+
+def _make_step(module, mesh, lr: float, sync: str):
+    """``module.make_train_step`` for a grad sync, ``"async"`` being the
+    bucket sync with ``RABIT_ASYNC_COLLECTIVES=1``."""
+    with _async_collectives(sync == "async"):
+        return module.make_train_step(mesh, lr, "bucket" if sync == "async"
+                                      else sync)
+
+
+def _timed_steps(step, model, x, y, steps: int) -> tuple:
+    """(losses, ms a step on CUDA events) of ``steps`` steps."""
+    losses, ms = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(model, x, y)
+        end.record()
+        losses.append(float(loss))
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return losses, ms
+
+
+def _state(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _equal_bits(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def phase_bucket(dev, power: str) -> dict:
+    """The bucketed and overlapped train steps (see the module's phase
+    12). Returns the flagship runs' medians and launches."""
+    import torch.distributed as dist
+    from rabit_tpu_torch import entry as E
+    from rabit_tpu_torch.models import transformer as tf
+    from rabit_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh((1, 1, 1), dev)
+    try:
+        params = tf.init_params(0, **E.FLAGSHIP_SIZES)
+        n = sum(a.size for a in params.values())
+        if (n, len(params)) != FLAGSHIP_PARAMS:
+            raise AssertionError(f"flagship parameters {n} in {len(params)} "
+                                 f"leaves, want {FLAGSHIP_PARAMS}")
+        x, y = (torch.from_numpy(a).to(dev) for a in E.flagship_data(
+            0, E.FLAGSHIP_BATCH, E.FLAGSHIP_SEQ, E.FLAGSHIP_SIZES["vocab"]))
+        runs = {}
+        for sync in ("psum", "bucket", "async"):
+            model = tf.model_on(params, dev)
+            step = _make_step(tf, mesh, E.FLAGSHIP_LR, sync)
+            reset_launches()
+            losses, ms = _timed_steps(step, model, x, y, BUCKET_STEPS)
+            launches = read_launches()
+            want = 2 * BUCKET_STEPS
+            if (launches["flash_block"], launches["flash_block_bwd"]) != \
+                    (want, want):
+                raise AssertionError(f"flagship {sync}: flash launches "
+                                     f"{launches}, want {want} each")
+            runs[sync] = {"losses": losses, "ms": ms,
+                          "median_ms": float(np.median(ms[1:])),
+                          "launches": launches, "state": _state(model)}
+        for sync in ("bucket", "async"):
+            if not _equal_bits(runs[sync]["state"], runs["psum"]["state"]) \
+                    or runs[sync]["losses"] != runs["psum"]["losses"]:
+                raise AssertionError(f"flagship {sync} differs from psum at "
+                                     f"world 1, where every sum is the "
+                                     f"identity")
+        phase("bucket", f"flagship at world 1 ({n} f32 parameters in "
+              f"{len(params)} leaves, one {n * 4 / 1e6:.2f} MB bucket): "
+              f"psum, bucket and async bucket ({BUCKET_STEPS} steps each "
+              f"from the same weights) equal bit for bit, loss "
+              f"{runs['psum']['losses'][0]:.4f} -> "
+              f"{runs['psum']['losses'][-1]:.4f}; flash_block and "
+              f"flash_block_bwd launched {2 * BUCKET_STEPS} times in each "
+              f"run")
+        each = {s: ", ".join(f"{v:.2f}" for v in r["ms"])
+                for s, r in runs.items()}
+        phase("bucket", "flagship step ms, median of steps 2-"
+              f"{BUCKET_STEPS} on CUDA events: " + ", ".join(
+                  f"{s} {r['median_ms']:.3f} ({each[s]})"
+                  for s, r in runs.items()) + f" [{power}]")
+        _async_issue_probe(dev)
+        phase_bucket_mlp(mesh, dev, power)
+    finally:
+        dist.destroy_process_group()
+    count = torch.cuda.device_count()
+    if count < 2:
+        phase("bucket", "(c) did not run: one card; the NCCL world of the "
+              "device entry points and the steps needs two or more")
+    else:
+        phase_bucket_world(min(4, count), power)
+    return {s: {k: r[k] for k in ("median_ms", "ms", "launches", "losses")}
+            for s, r in runs.items()}
+
+
+def _async_issue_probe(dev) -> None:
+    """Rule (b) of the async layer: issuing waits for no device work. The
+    caller's stream is held busy, so the collective cannot have run when
+    the issue returns."""
+    from rabit_tpu_torch.ops.reducers import SUM
+    from rabit_tpu_torch.parallel import collectives as C
+    probe = torch.ones(1 << 20, device=dev)
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    h = C.device_allreduce_async(probe, None, SUM, method="ring")
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    early = h.ready()
+    out = h.wait()
+    if early or not h.ready() or not torch.equal(out, probe):
+        raise AssertionError(f"async allreduce behind a busy stream: ready "
+                             f"at issue {early}")
+    phase("bucket", f"device_allreduce_async behind a sleeping stream: "
+          f"issued in {issue_ms:.3f} ms, not ready until the stream ran "
+          f"(rule (b)); its value the sync result")
+
+
+def phase_bucket_mlp(mesh, dev, power: str) -> None:
+    """The MLP at full width on the world-1 mesh: each grad sync against
+    the port's single-device ``reference_train_step``."""
+    from rabit_tpu_torch.models import mlp
+    params = mlp.init_params(0, **MLP_SIZES)
+    _, x, y = mlp.make_sharded_inputs(mesh, MLP_BATCH, seed=0, **MLP_SIZES)
+    ref = {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
+    ref_losses = []
+    for _ in range(BUCKET_STEPS):
+        ref, loss = mlp.reference_train_step(ref, x, y, MLP_LR)
+        ref_losses.append(float(loss))
+    runs, worst = {}, {}
+    for sync in ("psum", "ring", "bucket", "async"):
+        model = mlp.model_on(params, dev)
+        losses, ms = _timed_steps(_make_step(mlp, mesh, MLP_LR, sync), model,
+                                  x, y, BUCKET_STEPS)
+        np.testing.assert_allclose(losses, ref_losses, **MLP_LOSS_TOL)
+        state = _state(model)
+        worst[sync] = 0.0
+        for k, v in state.items():
+            np.testing.assert_allclose(v.cpu().numpy(), ref[k].cpu().numpy(),
+                                       **MLP_PARAM_TOL, err_msg=f"{sync} {k}")
+            worst[sync] = max(worst[sync],
+                              float((v - ref[k]).abs().max()))
+        runs[sync] = (state, float(np.median(ms[1:])))
+    for a, b in (("bucket", "ring"), ("async", "bucket")):
+        if not _equal_bits(runs[a][0], runs[b][0]):
+            raise AssertionError(f"MLP {a} differs from {b}")
+    phase("bucket", f"MLP {MLP_SIZES['in_dim']} -> {MLP_SIZES['hidden']} -> "
+          f"{MLP_SIZES['out_dim']}, batch {MLP_BATCH}, {BUCKET_STEPS} steps "
+          f"at world 1: psum, ring, bucket, async within the single-device "
+          f"step's bounds (max |diff| " + ", ".join(
+              f"{s} {w:.2e}" for s, w in worst.items()) + "); bucket = ring "
+          "and async = bucket bit for bit; ms a step " + ", ".join(
+              f"{s} {r[1]:.3f}" for s, r in runs.items()) + f" [{power}]")
+
+
+def _bucket_payloads(rank: int, p: int, n: int) -> dict:
+    rng = np.random.default_rng([rank, n])
+    return {"f32": rng.standard_normal(n).astype(np.float32),
+            "i32": rng.integers(-1 << 20, 1 << 20, n).astype(np.int32),
+            "w": rng.standard_normal((33, 5)).astype(np.float32),
+            "steps": rng.integers(0, 1000, 9).astype(np.int32)}
+
+
+def _bucket_cases_rank(rank: int, p: int, device) -> dict:
+    """Every device entry point and async entry point at world ``p`` on
+    this rank's payloads (on ``device``): f32 by the hand-scheduled ring
+    (local torch arithmetic, so NCCL's world must equal gloo's bit for
+    bit), i32 exactly."""
+    from rabit_tpu_torch.ops.reducers import SUM
+    from rabit_tpu_torch.parallel import collectives as C
+    groups = ((0, 1), (2, 3)) if p == 4 else ((0, 1),)
+    got = {}
+    for n in BUCKET_COLL_SIZES:
+        pay = {k: torch.from_numpy(v).to(device)
+               for k, v in _bucket_payloads(rank, p, n).items()}
+        for dt in ("f32", "i32"):
+            x = pay[dt]
+            tree = {"a": x, "w": pay["w"], "steps": pay["steps"]}
+            out = {
+                "rs": C.device_reduce_scatter(x, None, SUM),
+                "ag": C.device_allgather(x[:n // p], None),
+                "hier": C.device_hier_allreduce(x, None, SUM, groups=groups),
+                "bcast": C.device_broadcast(x, None, root=p - 1),
+                "async": C.device_allreduce_async(
+                    x, None, SUM, method="ring").wait(),
+                "grad_bucket": C.grad_bucket_allreduce_async(x, None,
+                                                             SUM).wait(),
+                "hier_async": C.device_hier_allreduce_async(
+                    x, None, SUM, groups=groups).wait()}
+            for name, fn in (
+                    ("tree", lambda: C.device_allreduce_tree(
+                        tree, None, SUM, method="ring")),
+                    ("bucket", lambda: C.bucket_allreduce(
+                        tree, None, SUM, method="ring")),
+                    ("tree_async", lambda: C.bucket_allreduce_async(
+                        tree, None, SUM, method="ring").wait())):
+                for k, v in fn().items():
+                    out[f"{name}.{k}"] = v
+            for k, v in out.items():
+                got[f"{n}.{dt}.{k}"] = v.cpu().numpy()
+    return got
+
+
+def _bucket_steps_rank(rank: int, p: int, device) -> dict:
+    """The flagship's psum, bucket and async bucket steps at (2, 1, 2) (at
+    world 2: (2, 1, 1)) and the MLP's four syncs at (2, 2, 1) ((2, 1, 1)),
+    BUCKET_STEPS steps each; the flagship's gradient tree through
+    ``device_allreduce_tree`` by "auto", "tree" and "ring"."""
+    from rabit_tpu_torch import entry as E
+    from rabit_tpu_torch.models import mlp
+    from rabit_tpu_torch.models import transformer as tf
+    from rabit_tpu_torch.ops.reducers import SUM
+    from rabit_tpu_torch.parallel import collectives as C
+    from rabit_tpu_torch.parallel import dispatch
+    from rabit_tpu_torch.parallel.mesh import make_mesh
+    got = {}
+    shape = (2, 1, 2) if p == 4 else (2, 1, 1)
+    mesh = make_mesh(shape, device)
+    params = tf.init_params(0, **E.FLAGSHIP_SIZES)
+    xs, ys = E.flagship_data(0, E.FLAGSHIP_BATCH, E.FLAGSHIP_SEQ,
+                             E.FLAGSHIP_SIZES["vocab"])
+    x, y = (tf.shard_tokens(a, mesh, device) for a in (xs, ys))
+    for sync in ("psum", "bucket", "async"):
+        model = tf.model_on(params, device)
+        losses, ms = _timed_steps(_make_step(tf, mesh, E.FLAGSHIP_LR, sync),
+                                  model, x, y, BUCKET_STEPS)
+        got[f"tf.{sync}.losses"] = np.array(losses)
+        got[f"tf.{sync}.ms"] = np.array(ms)
+        for k, v in model.state_dict().items():
+            got[f"tf.{sync}|{k}"] = v.cpu().numpy()
+    # the gradient tree's allreduce: CUDA-event medians of single calls
+    grads = {k: torch.randn(a.shape, device=device,
+                            generator=torch.Generator(device).manual_seed(
+                                rank)) for k, a in params.items()}
+    n = sum(a.size for a in params.values())
+    got["tree.auto_method"] = np.array(dispatch.resolve(
+        n, torch.float32, SUM, p)[0])
+    for method in ("auto", "tree", "ring"):
+        reps = []
+        for _ in range(6):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            C.device_allreduce_tree(grads, None, SUM, method=method)
+            end.record()
+            end.synchronize()
+            reps.append(start.elapsed_time(end))
+        got[f"tree.{method}.ms"] = np.array(reps)
+    # the MLP
+    mshape = (2, 2, 1) if p == 4 else (2, 1, 1)
+    mmesh = make_mesh(mshape, device)
+    mparams = mlp.init_params(0, **MLP_SIZES)
+    ref = {k: torch.from_numpy(v).to(device) for k, v in mparams.items()}
+    npr = np.random.default_rng(0)   # make_sharded_inputs' draws, whole
+    full_x = torch.from_numpy(npr.standard_normal(
+        (MLP_BATCH, MLP_SIZES["in_dim"])).astype(np.float32)).to(device)
+    full_y = torch.from_numpy(npr.integers(
+        0, MLP_SIZES["out_dim"], size=(MLP_BATCH,))).to(device)
+    _, mx, my = mlp.make_sharded_inputs(mmesh, MLP_BATCH, seed=0,
+                                        **MLP_SIZES)
+    for _ in range(BUCKET_STEPS):
+        ref, _ = mlp.reference_train_step(ref, full_x, full_y, MLP_LR)
+    want = _mlp_shard(ref, mmesh)
+    for sync in ("psum", "ring", "bucket", "async"):
+        model = mlp.model_on(mparams, device, mmesh.index("tp"),
+                             mmesh.size("tp"))
+        _, ms = _timed_steps(_make_step(mlp, mmesh, MLP_LR, sync), model,
+                             mx, my, BUCKET_STEPS)
+        got[f"mlp.{sync}.ms"] = np.array(ms)
+        for k, v in model.state_dict().items():
+            got[f"mlp.{sync}|{k}"] = v.cpu().numpy()
+            got[f"mlp.ref|{k}"] = want[k]
+    return got
+
+
+def _mlp_shard(ref: dict, mesh) -> dict:
+    """This rank's tp shard of the MLP's full parameters."""
+    from rabit_tpu_torch.convert import mlp_params_from_jax
+    return {k: v.cpu().numpy() for k, v in mlp_params_from_jax(
+        {k: v.cpu().numpy() for k, v in ref.items()}, mesh.index("tp"),
+        mesh.size("tp"), "cpu").items()}
+
+
+def phase_bucket_world(p: int, power: str) -> None:
+    """Phase 12 (c): the device and async entry points over NCCL at world
+    ``p`` against the same calls on a gloo world, and the bucketed steps
+    on the cards."""
+    from rabit_tpu_torch.ops import _build
+    from rabit_tpu_torch.tools import run_world
+    _build.build(["flash_block", "flash_block_bwd"])  # once, not per rank
+    t0 = time.perf_counter()
+    nccl = run_world(_bucket_cases_rank, p, "cuda", arrays=True,
+                     timeout_s=BUCKET_WORLD_TIMEOUT_S)
+    gloo = run_world(_bucket_cases_rank, p, "cpu", arrays=True,
+                     timeout_s=BUCKET_WORLD_TIMEOUT_S)
+    for r in range(p):
+        for k, v in gloo[r].items():
+            if nccl[r][k].tobytes() != v.tobytes():
+                raise AssertionError(f"world {p}: {k} on rank {r} over NCCL "
+                                     f"differs from gloo")
+    phase("bucket", f"world {p} over NCCL: device_reduce_scatter, "
+          f"device_allgather, device_hier_allreduce (groups "
+          f"{'2 x 2' if p == 4 else 'one group'}), device_allreduce_tree "
+          f"and bucket_allreduce (mixed f32/i32 tree), device_broadcast "
+          f"and the four async entry points on f32 and i32 payloads of "
+          f"{' and '.join(map(str, BUCKET_COLL_SIZES))} elements equal to "
+          f"a gloo world bit for bit ({len(gloo[0])} results a rank, "
+          f"{time.perf_counter() - t0:.1f} s)")
+    steps = run_world(_bucket_steps_rank, p, "cuda", arrays=True,
+                      timeout_s=BUCKET_WORLD_TIMEOUT_S)
+    shape = "(2, 1, 2)" if p == 4 else "(2, 1, 1)"
+    names = [k.split("|", 1)[1] for k in steps[0] if k.startswith("tf.psum|")]
+    worst = 0.0
+    for r, got in enumerate(steps):
+        for k in names:
+            a, b = got[f"tf.bucket|{k}"], got[f"tf.async|{k}"]
+            if a.tobytes() != b.tobytes():
+                raise AssertionError(f"world {p}: async {k} differs from "
+                                     f"bucket on rank {r}")
+            np.testing.assert_allclose(a, got[f"tf.psum|{k}"], rtol=STEP_TOL,
+                                       atol=STEP_TOL, err_msg=k)
+            worst = max(worst, float(np.abs(a - got[f"tf.psum|{k}"]).max()))
+        for sync in ("psum", "ring", "bucket", "async"):
+            for k in ("w1", "b1", "w2", "b2"):
+                np.testing.assert_allclose(got[f"mlp.{sync}|{k}"],
+                                           got[f"mlp.ref|{k}"],
+                                           **MLP_PARAM_TOL,
+                                           err_msg=f"mlp {sync} {k}")
+        for a, b in (("bucket", "ring"), ("async", "bucket")):
+            for k in ("w1", "b1", "w2", "b2"):
+                if got[f"mlp.{a}|{k}"].tobytes() != \
+                        got[f"mlp.{b}|{k}"].tobytes():
+                    raise AssertionError(f"MLP {a} {k} differs from {b}")
+
+    def med(key):   # the slowest rank's median of steps 2..
+        return max(float(np.median(g[key][1:])) for g in steps)
+    phase("bucket", f"world {p}, flagship at (dp, tp, sp) = {shape}: bucket "
+          f"within {STEP_TOL} of psum (max |diff| {worst:.2e}), async = "
+          f"bucket bit for bit; ms a step (slowest rank's median of steps "
+          f"2-{BUCKET_STEPS}, CUDA events): psum {med('tf.psum.ms'):.3f}, "
+          f"bucket {med('tf.bucket.ms'):.3f}, async bucket "
+          f"{med('tf.async.ms'):.3f} [{power}]")
+    mshape = "(2, 2, 1)" if p == 4 else "(2, 1, 1)"
+    phase("bucket", f"world {p}, MLP at {mshape}: "
+          f"psum, ring, bucket, async within the single-device step's "
+          f"bounds; bucket = ring, async = bucket bit for bit; ms a step "
+          + ", ".join(f"{s} {med(f'mlp.{s}.ms'):.3f}"
+                      for s in ("psum", "ring", "bucket", "async")))
+    tree = {m: max(float(np.median(g[f"tree.{m}.ms"][1:])) for g in steps)
+            for m in ("auto", "tree", "ring")}
+    phase("bucket", f"world {p}: device_allreduce_tree of the flagship's "
+          f"gradient tree ({FLAGSHIP_PARAMS[0] * 4 / 1e6:.2f} MB f32, "
+          f"{FLAGSHIP_PARAMS[1]} leaves): auto (resolves to "
+          f"{steps[0]['tree.auto_method']}) {tree['auto']:.3f} ms, tree "
+          f"{tree['tree']:.3f} ms, ring {tree['ring']:.3f} ms a call (slowest "
+          f"rank's median of 5 CUDA-event calls) [{power}]")
+
+
+def card_power() -> str:
+    """The first card's name and power limit, as ``nvidia-smi`` gives
+    them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1327,10 +1756,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    power = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    power = card_power()
     phase("device", f"{torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}, torch {torch.__version__}, cuda "
           f"{torch.version.cuda}")
@@ -1371,6 +1797,7 @@ def main() -> int:
           f"{FLAGSHIP_STEPS} on CUDA events [{power}]")
     phase_collectives(dev)
     phase_robust(dev, power)
+    bucket = phase_bucket(dev, power)
     kernels = []
     for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only"):
         head = timing[name][0]
@@ -1389,10 +1816,14 @@ def main() -> int:
         "library_bwd_ms"]
     for k in kernels[1:3]:   # the chain block's row: the proof's chains
         k["by_shape"][1]["launches"] = proof["launches"][k["name"]]
+        # phase 12's paths: each bucketed run, counted from 0
+        k["bucket_launches"] = {s: r["launches"][k["name"]]
+                                for s, r in bucket.items()}
     print(json.dumps({"train_step": {
         "step_ms": tf_run["step_ms"], "first_step_ms": tf_run["first_step_ms"],
-        "losses": tf_run["losses"], "profile": tf_run["profile"]}}),
-        flush=True)
+        "losses": tf_run["losses"], "profile": tf_run["profile"]},
+        "bucket_steps": {s: {k: r[k] for k in ("median_ms", "ms", "losses")}
+                         for s, r in bucket.items()}}), flush=True)
     print(power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -201,7 +201,8 @@ def allreduce_async(data: np.ndarray, op: int,
     reduced array (input shape kept). Same validation and semantics as
     :func:`allreduce`, ``prepare_fun`` included, which runs at issue (the
     buffer is a copy, so the caller may overwrite ``data`` at once). The
-    port's engines complete the op before returning (the base engine's
+    torch engine runs it on its worker thread while the caller goes on;
+    the other engines complete it before returning (the base engine's
     composition: correct, with no overlap)."""
     _check_payload(data, op, "allreduce_async")
     from .engine.base import AllreduceHandle

@@ -7,7 +7,8 @@
   bfloat16 ones (numpy's ``ml_dtypes`` type) included.
 * ``transformer_params_from_jax`` / ``transformer_params_to_jax`` turn
   the JAX transformer's parameter dict (numpy) into the port's module
-  state for a tensor-parallel rank, and back.
+  state for a tensor-parallel rank, and back; ``mlp_params_from_jax`` /
+  ``mlp_params_to_jax`` do the same for the MLP.
 * ``adopt_checkpoint`` hands checkpoint bytes written by ``rabit_tpu`` to
   the port's engine. Both packages pickle Python and numpy objects, so the
   bytes load unchanged.
@@ -72,20 +73,15 @@ def adopt_checkpoint(version: int, global_bytes: Optional[bytes],
     _require_engine().restore_checkpoint(version, global_bytes, local_bytes)
 
 
-def transformer_params_from_jax(params: Mapping[str, np.ndarray],
-                                tp_rank: int = 0, tp: int = 1,
-                                device: DeviceLike = None
-                                ) -> Dict[str, torch.Tensor]:
-    """The JAX package's transformer parameter dict (numpy arrays, JAX
-    layouts) as the port's module state for tensor-parallel rank
-    ``tp_rank`` of ``tp``: each sharded parameter cut along its axis as
-    ``param_specs`` cuts it, on ``device`` (the card by default)."""
-    from .models.transformer import param_specs  # that module imports this
+def _shard_params(params: Mapping[str, np.ndarray], specs, tp_rank: int,
+                  tp: int, device: DeviceLike) -> Dict[str, torch.Tensor]:
+    """Each parameter of a JAX-layout dict cut along its tp axis
+    (``specs``: name -> axis or None) for rank ``tp_rank`` of ``tp``."""
     if not 0 <= tp_rank < tp:
         raise ValueError(f"tp_rank {tp_rank} out of range for tp={tp}")
     dev = resolve_device(device)
     out = {}
-    for name, axis in param_specs(params).items():
+    for name, axis in specs.items():
         a = np.asarray(params[name])
         if axis is not None:
             n = a.shape[axis]
@@ -98,14 +94,52 @@ def transformer_params_from_jax(params: Mapping[str, np.ndarray],
     return out
 
 
+def _join_params(states: Sequence[Mapping[str, torch.Tensor]], specs
+                 ) -> Dict[str, np.ndarray]:
+    """The way back: tp ranks' states joined along each parameter's
+    axis."""
+    out = {}
+    for name, axis in specs.items():
+        parts = [s[name].detach().cpu().numpy() for s in states]
+        out[name] = parts[0] if axis is None else \
+            np.concatenate(parts, axis=axis)
+    return out
+
+
+def transformer_params_from_jax(params: Mapping[str, np.ndarray],
+                                tp_rank: int = 0, tp: int = 1,
+                                device: DeviceLike = None
+                                ) -> Dict[str, torch.Tensor]:
+    """The JAX package's transformer parameter dict (numpy arrays, JAX
+    layouts) as the port's module state for tensor-parallel rank
+    ``tp_rank`` of ``tp``: each sharded parameter cut along its axis as
+    ``param_specs`` cuts it, on ``device`` (the card by default)."""
+    from .models.transformer import param_specs  # that module imports this
+    return _shard_params(params, param_specs(params), tp_rank, tp, device)
+
+
 def transformer_params_to_jax(states: Sequence[Mapping[str, torch.Tensor]]
                               ) -> Dict[str, np.ndarray]:
     """The way back: the module states of tp ranks 0..tp-1 (one state for
     tp = 1) joined into the JAX package's full parameter dict."""
     from .models.transformer import param_specs
-    out = {}
-    for name, axis in param_specs(states[0]).items():
-        parts = [s[name].detach().cpu().numpy() for s in states]
-        out[name] = parts[0] if axis is None else \
-            np.concatenate(parts, axis=axis)
-    return out
+    return _join_params(states, param_specs(states[0]))
+
+
+def mlp_params_from_jax(params: Mapping[str, np.ndarray], tp_rank: int = 0,
+                        tp: int = 1, device: DeviceLike = None
+                        ) -> Dict[str, torch.Tensor]:
+    """The JAX MLP's parameter dict (w1 [in, hidden], b1 [hidden], w2
+    [hidden, out], b2 [out], numpy) as the port's state for tp rank
+    ``tp_rank`` of ``tp``: the hidden axis cut as ``mlp.param_specs``
+    cuts it, on ``device`` (the card by default)."""
+    from .models.mlp import param_specs
+    return _shard_params(params, param_specs(), tp_rank, tp, device)
+
+
+def mlp_params_to_jax(states: Sequence[Mapping[str, torch.Tensor]]
+                      ) -> Dict[str, np.ndarray]:
+    """The way back: the MLP states of tp ranks 0..tp-1 joined into the
+    JAX package's full parameter dict."""
+    from .models.mlp import param_specs
+    return _join_params(states, param_specs())

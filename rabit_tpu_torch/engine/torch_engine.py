@@ -29,23 +29,35 @@ the robust engine's data plane shares: ``rabit_reduce_method=hier`` runs
 ``hier_allreduce`` on the init grouping (as ``XlaEngine`` runs
 ``device_hier_allreduce``), every other method the dispatcher.
 
+``reduce_scatter`` and ``allgather`` stage the buffer the same way and
+run ``collectives.device_reduce_scatter`` / ``device_allgather`` (rank i
+owns chunk i; the rank-order concatenation). ``allreduce_async`` runs
+the allreduce on one worker thread, a FIFO, so that the async
+collectives keep their issue order on every rank; every synchronous
+collective and ``shutdown`` first waits out what that worker holds, so
+the process issues one global order (``engine/xla.py``'s rule). At
+world 1 the handle is complete at issue. ``init`` exports
+``rabit_async_collectives`` and ``rabit_async_max_inflight`` to the
+environment (``collectives.configure_async``) for the models' async
+steps.
+
 Checkpoints are kept in memory.
 
-Not ported yet: telemetry, the watchdog, async dispatch, the durable
-checkpoint store.
+Not ported yet: telemetry, the watchdog, the durable checkpoint store.
 """
 
 from __future__ import annotations
 
 import os
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from .base import Engine
-from ..convert import numpy_from_tensor
+from .base import AllreduceHandle, Engine
+from ..convert import numpy_from_tensor, tensor_from_numpy
 from ..parallel import collectives as C
 from ..parallel import dispatch, topology
 from ..parallel import wire as wirespec
@@ -69,9 +81,12 @@ class TorchEngine(Engine):
         self._local: Optional[bytes] = None
         self._lazy: Optional[Callable[[], bytes]] = None
         self._version = 0
+        self._async_ex: Optional[ThreadPoolExecutor] = None
+        self._async_pending: List[Future] = []
 
     def init(self, args: List[str]) -> None:
         cfg = Config.from_args(args)
+        C.configure_async(cfg)
         device = cfg.get("rabit_device") or None
         coord = cfg.get("rabit_coordinator")
         nproc = cfg.get_int("rabit_num_processes", 0)
@@ -119,6 +134,12 @@ class TorchEngine(Engine):
         dispatch.epoch_reset(self._world)
 
     def shutdown(self) -> None:
+        try:
+            self._drain_async()
+        finally:
+            if self._async_ex is not None:
+                self._async_ex.shutdown(wait=True)
+                self._async_ex = None
         if self._owns_group and dist.is_initialized():
             dist.destroy_process_group()
         self._group = None
@@ -141,9 +162,94 @@ class TorchEngine(Engine):
             prepare_fun()
         if self._world == 1:
             return
+        self._drain_async()
+        self._allreduce_now(buf, op)
+
+    def _allreduce_now(self, buf: np.ndarray, op: int) -> None:
         method, wire = self._resolve_method_wire(buf.size)
         C.allreduce_numpy(buf, self._group, op, self._device, method=method,
                           wire=wire, groups=self._groups)
+
+    def allreduce_async(self, buf: np.ndarray, op: int,
+                        prepare_fun: Optional[Callable[[], None]] = None,
+                        key: str = "") -> AllreduceHandle:
+        """Issue the allreduce of ``buf`` (in place) on the engine's
+        worker and return a handle; the caller's thread goes on while it
+        runs. ``buf`` must be left alone until ``wait()`` returns it."""
+        if prepare_fun is not None:
+            prepare_fun()
+        if self._world == 1:
+            return AllreduceHandle(value=buf)
+        fut = self._async_executor().submit(self._allreduce_now, buf, op)
+        self._async_pending.append(fut)
+
+        def wait_fn():
+            try:
+                fut.result()
+            finally:
+                self._forget(fut)
+            return buf
+
+        return AllreduceHandle(wait_fn=wait_fn, ready_fn=fut.done)
+
+    def _async_executor(self) -> ThreadPoolExecutor:
+        """One worker on purpose: a FIFO keeps the async collectives in
+        issue order in every process; several workers could order them
+        differently on two ranks and hang the world."""
+        if self._async_ex is None:
+            device = self._device
+            init = (lambda: torch.cuda.set_device(device)) \
+                if device.type == "cuda" else None
+            self._async_ex = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="rabit-async",
+                initializer=init)
+        return self._async_ex
+
+    def _forget(self, fut: Future) -> None:
+        try:
+            self._async_pending.remove(fut)
+        except ValueError:
+            pass
+
+    def _drain_async(self) -> None:
+        """The fence before a synchronous collective: wait out the async
+        queue, so every process issues one global order. A failure raises
+        here, and again from the failed handle's ``wait()``."""
+        while self._async_pending:
+            fut = self._async_pending[0]
+            try:
+                fut.result()
+            finally:
+                self._forget(fut)
+
+    def reduce_scatter(self, buf: np.ndarray, op: int) -> np.ndarray:
+        """This rank's chunk of the reduction (``n/p`` elements from
+        ``rank*n/p``), by the ring reduce-scatter on the device, which
+        ships 1/p of the allreduce's bytes. ``buf`` is left as it is."""
+        if self._world == 1:
+            return buf.copy()
+        self._drain_async()
+        if buf.size % self._world:
+            raise ValueError(
+                f"reduce_scatter payload of {buf.size} elements must "
+                f"divide by the world size {self._world}")
+        return self._device_collective(
+            buf, lambda x: C.device_reduce_scatter(x, self._group, op))
+
+    def allgather(self, buf: np.ndarray) -> np.ndarray:
+        """The rank-order concatenation of every rank's ``buf``, by the
+        ring all-gather on the device."""
+        if self._world == 1:
+            return buf.reshape(-1).copy()
+        self._drain_async()
+        return self._device_collective(
+            buf, lambda x: C.device_allgather(x, self._group))
+
+    def _device_collective(self, buf: np.ndarray, fn) -> np.ndarray:
+        """``fn`` on ``buf`` staged onto the device as
+        ``allreduce_numpy`` stages it; the result back on the host."""
+        x = tensor_from_numpy(buf.reshape(-1)).to(self._device)
+        return numpy_from_tensor(fn(x), buf.dtype).copy()
 
     def _resolve_method_wire(self, n: int) -> Tuple[str, Optional[str]]:
         """``XlaEngine._resolve_method_wire``: the pinned crossover where
@@ -162,6 +268,7 @@ class TorchEngine(Engine):
                 raise ValueError(
                     "single-process broadcast must originate data")
             return data
+        self._drain_async()
         # Two phases like the reference binding (rabit.py:171-206):
         # the length, then the payload.
         is_root = self._rank == root

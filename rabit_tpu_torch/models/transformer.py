@@ -4,7 +4,10 @@ step over a (dp, tp, sp) mesh: the port of
 
 - **dp**: the batch is sharded; gradients are summed over the dp group
   (``"psum"``: ``tree_allreduce``; ``"ring"``: the ported
-  ``ring_allreduce``).
+  ``ring_allreduce``; ``"bucket"``: ``bucket_allreduce``, the whole
+  gradient tree in one ring a dtype, and with ``RABIT_ASYNC_COLLECTIVES``
+  on, the overlapped step that issues each bucket's ring with
+  ``grad_bucket_allreduce_async``).
 - **tp**: Megatron-style tensor parallelism. wq/wk/wv and w1 are
   column-sharded, wo and w2 row-sharded; partial results are combined
   with ``psum_identity_grad`` and replicated activations enter with
@@ -20,8 +23,8 @@ w2 [F, E]. ``init_params`` makes the full parameter dict in numpy from a
 seed (it cannot reproduce ``jax.random``), so a test can hand the same
 weights to both packages.
 
-Not ported yet: the ``"bucket"`` grad sync and the async bucket step,
-and the ``dtype`` knob of ``init_params`` (the kernels take f32).
+Not ported yet: the ``dtype`` knob of ``init_params`` (the kernels take
+f32).
 """
 
 from __future__ import annotations
@@ -34,14 +37,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..convert import transformer_params_from_jax
+from ..ops.reducers import SUM
 from ..parallel.collectives import (
-    ident_psum_grad, psum_identity_grad, ring_allreduce, tree_allreduce)
+    async_enabled, bucket_allreduce, grad_buckets_async, ident_psum_grad,
+    psum_identity_grad, ring_allreduce, tree_allreduce)
 from ..parallel.mesh import DeviceLike, Mesh
 from ..parallel.ring_attention import reference_attention, ring_attention
 
 Tensor = torch.Tensor
 Params = Mapping[str, Tensor]
-GRAD_SYNCS = ("psum", "ring")
+GRAD_SYNCS = ("psum", "ring", "bucket")
 
 
 def init_params(seed: int = 0, vocab: int = 64, n_layers: int = 2,
@@ -203,12 +208,18 @@ def make_train_step(mesh: Mesh, lr: float = 0.1, grad_sync: str = "psum"):
     """The SGD step over the mesh: ``step(model, tokens, targets) ->
     loss``, tokens/targets this rank's [B_loc, T_loc] shard. It updates
     ``model`` in place (JAX's step returns new params) and returns the
-    global mean loss. Gradients are summed over sp, then over dp: with
-    ``tree_allreduce`` (``"psum"``) or, over dp, the ported
-    ``ring_allreduce`` (``"ring"``)."""
+    global mean loss. Gradients are summed over sp, then over dp: leaf by
+    leaf with ``tree_allreduce`` (``"psum"``) or the ported
+    ``ring_allreduce`` (``"ring"``), or as one flat buffer a dtype through
+    ``bucket_allreduce`` with the ring (``"bucket"``, leaves in sorted-key
+    order). With ``async_enabled()``, ``"bucket"`` gives the overlapped
+    step of ``_make_async_bucket_step``, equal to the sync bucket step bit
+    for bit."""
     if grad_sync not in GRAD_SYNCS:
-        raise ValueError(f"grad_sync must be one of {GRAD_SYNCS} (the "
-                         f"'bucket' sync is not ported), got {grad_sync!r}")
+        raise ValueError(f"grad_sync must be one of {GRAD_SYNCS}, got "
+                         f"{grad_sync!r}")
+    if grad_sync == "bucket" and async_enabled():
+        return _make_async_bucket_step(mesh, lr)
     dp, sp = mesh.group("dp"), mesh.group("sp")
 
     def sync(g: Tensor) -> Tensor:
@@ -223,11 +234,59 @@ def make_train_step(mesh: Mesh, lr: float = 0.1, grad_sync: str = "psum"):
         partial = _local_loss(model, tokens, targets, mesh)
         partial.backward()
         with torch.no_grad():
-            for p in model.parameters():
-                p.sub_(lr * sync(p.grad))
+            params = model.params()
+            if grad_sync == "bucket":
+                grads = bucket_allreduce(
+                    {k: p.grad for k, p in params.items()}, dp, SUM,
+                    method="ring", presum_group=sp)
+            else:
+                grads = {k: sync(p.grad) for k, p in params.items()}
+            for k, p in params.items():
+                p.sub_(lr * grads[k])
         model.zero_grad(set_to_none=True)
-        return _sum_over(_sum_over(partial.detach().reshape(1), sp),
-                         dp)[0]
+        return _global_loss(partial, mesh)
+
+    return step
+
+
+def _global_loss(partial: Tensor, mesh: Mesh) -> Tensor:
+    """The global mean loss from this rank's part: summed over sp, then
+    dp."""
+    return _sum_over(_sum_over(partial.detach().reshape(1),
+                               mesh.group("sp")), mesh.group("dp"))[0]
+
+
+def _make_async_bucket_step(mesh: Mesh, lr: float):
+    """The overlapped bucketed step (``transformer.py:263-338`` of the JAX
+    package): after the backward pass, the sp partials are folded, the
+    gradients go into one flat buffer a dtype in sorted-key order, each
+    buffer's dp ring is issued in reverse bucket order
+    (``grad_buckets_async``), the parameters are updated in place from
+    the handles' values (on the card the update waits on the device, not
+    the host), and then every handle is waited on. Same folds, order and
+    ring as the sync ``"bucket"`` step, so the same bits."""
+    dp, sp = mesh.group("dp"), mesh.group("sp")
+
+    def step(model: TransformerLM, tokens: Tensor, targets: Tensor
+             ) -> Tensor:
+        model.zero_grad(set_to_none=True)
+        partial = _local_loss(model, tokens, targets, mesh)
+        partial.backward()
+        loss = _global_loss(partial, mesh)
+        with torch.no_grad():
+            params = model.params()
+            issued = grad_buckets_async(
+                {k: _sum_over(p.grad, sp) for k, p in params.items()}, dp)
+            for names, h in issued:
+                flat, off = h.value, 0
+                for k in names:
+                    p = params[k]
+                    p.sub_(lr * flat[off:off + p.numel()].view_as(p))
+                    off += p.numel()
+            for _, h in issued:
+                h.wait()
+        model.zero_grad(set_to_none=True)
+        return loss
 
     return step
 

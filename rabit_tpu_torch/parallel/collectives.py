@@ -28,6 +28,20 @@ contract, so unquantized f32 results carry the JAX schedules' bits:
   (``parallel/topology.py``), then ``dispatch.resolve``, then the
   schedule.
 * ``bcast_from_root`` and ``shard_over``.
+* the device entry points of the JAX package, each rank on its own
+  tensor: ``device_reduce_scatter``, ``device_allgather``,
+  ``device_hier_allreduce`` (three phases, each under ``phase_guard``),
+  ``bucket_allreduce`` and ``device_allreduce_tree`` (one buffer per
+  dtype, leaves in JAX's flatten order), ``device_broadcast``
+  (``allreduce`` is ``device_allreduce``);
+* the async layer: ``device_allreduce_async``,
+  ``grad_bucket_allreduce_async``, ``bucket_allreduce_async`` and
+  ``device_hier_allreduce_async`` return an ``AsyncHandle`` (or an
+  ``AsyncTreeHandle``) in a bounded window (``async_max_inflight``);
+  ``grad_buckets_async`` issues a gradient dict's buckets for the models;
+  ``async_enabled`` and ``configure_async`` read and set the knobs. How
+  it keeps every rank's collectives in one order, issues without waiting
+  on the card, and hands back the sync bits: the section's comment.
 * ``psum_identity_grad`` / ``ident_psum_grad`` (Megatron's conjugate
   pair) and ``ring_shift`` (one differentiable ring rotation): autograd
   Functions for the transformer's tensor- and sequence-parallel regions.
@@ -52,9 +66,15 @@ flipped back after.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import os
+import threading
+import warnings
+import weakref
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -64,8 +84,9 @@ from ..convert import numpy_from_tensor, tensor_from_numpy
 from ..ops.reducers import BITOR, MAX, MIN, OP_NAMES, SUM, torch_reduce_fn
 from . import dispatch as _dispatch
 from . import topology as _topology
-from .wire import (decode as _decode, encode as _encode,
-                   format_wire as _format_wire, parse_wire as _parse_wire)
+from .wire import (canonical_wire as _canonical_wire, decode as _decode,
+                   encode as _encode, format_wire as _format_wire,
+                   parse_wire as _parse_wire)
 
 _REDUCE_OPS = {SUM: dist.ReduceOp.SUM, MAX: dist.ReduceOp.MAX,
                MIN: dist.ReduceOp.MIN}
@@ -595,18 +616,37 @@ def hier_allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
         if groups and len(groups) == 1:
             return ring_allreduce(x, group, op, wire=None)
         return flat_fn(x, group, op, wire=wire)
-    groups = tuple(tuple(int(r) for r in grp) for grp in groups)
-    _group_tables(groups, p)
-    slots = _topology.slot_rings(groups)
     wire = _normalize_wire(wire, op, x.dtype)  # eligibility; pad below
     y, back = _as_reducible(x.contiguous(), op)
+    return back(_hier_phases(y, group, op, groups, wire, inter_method,
+                             _no_guard))
+
+
+def _no_guard(name: str, nbytes: int):
+    return contextlib.nullcontext()
+
+
+def _hier_phases(y: torch.Tensor, group, op: int, groups, wire,
+                 inter_method: str, guard) -> torch.Tensor:
+    """The three phases of the hierarchical schedule over a two-level
+    ``groups`` (``y`` flat, in a reducible dtype, ``wire`` normalized),
+    each inside ``guard(phase, nbytes)`` with JAX's phase names."""
+    p = dist.get_world_size(group)
+    groups = tuple(tuple(int(r) for r in grp) for grp in groups)
+    g, _ = _group_tables(groups, p)
+    slots = _topology.slot_rings(groups)
+    flat_fn = swing_allreduce if inter_method == "swing" else ring_allreduce
     # pad so the intra shard (n/g) splits evenly into inter chunks (n/p);
     # the int8 block constraint lands on the inter phase's chunk
     yp, n = _pad_to_multiple(y, _wire_pad_mult(wire, p))
-    mine = ring_reduce_scatter(yp, group, op, groups=groups)
-    mine = flat_fn(mine, group, op, wire=wire, groups=slots)
-    full = ring_all_gather(mine, group, groups=groups)
-    return back(full[:n])
+    isz = y.element_size()
+    with guard("hier.reduce_scatter", n * isz):
+        mine = ring_reduce_scatter(yp, group, op, groups=groups)
+    with guard("hier.inter", yp.shape[0] // g * isz):
+        mine = flat_fn(mine, group, op, wire=wire, groups=slots)
+    with guard("hier.allgather", n * isz):
+        full = ring_all_gather(mine, group, groups=groups)
+    return full[:n]
 
 
 def preagg_allreduce(x: torch.Tensor,
@@ -705,14 +745,21 @@ def allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
     host grouping for ``hier`` (and the laggard split for ``preagg``),
     else the ``RABIT_HIER_GROUP`` override (``parallel/topology.py``);
     flat methods drop it."""
+    return _allreduce_plan(x, group, op, method, wire, groups)()
+
+
+def _allreduce_plan(x: torch.Tensor, group, op: int, method: str, wire,
+                    groups) -> Callable[[], torch.Tensor]:
+    """``allreduce``'s resolution (grouping, then method and wire), and
+    the call that runs the schedule it chose."""
     p = dist.get_world_size(group)
     groups = _topology.resolve_groups(p, explicit=groups)
     method, wire = _dispatch.resolve(x.numel(), x.dtype, op, p,
                                      method=method, wire=wire, groups=groups)
     if method not in ("hier", "preagg"):
         groups = None
-    return _per_shard_allreduce(x.reshape(-1), group, op, method, wire,
-                                groups).reshape(x.shape)
+    return lambda: _per_shard_allreduce(x.reshape(-1), group, op, method,
+                                        wire, groups).reshape(x.shape)
 
 
 def allreduce_numpy(buf: np.ndarray, group: Optional[dist.ProcessGroup],
@@ -756,6 +803,540 @@ def shard_over(xs: np.ndarray, rank: int,
     if not 0 <= rank < xs.shape[0]:
         raise ValueError(f"rank {rank} out of range for {xs.shape[0]} rows")
     return tensor_from_numpy(xs[rank]).to(device)
+
+
+# ---------------------------------------------------------------------------
+# The device entry points of the JAX package (``device_reduce_scatter`` ...
+# ``device_broadcast``): each rank passes its own tensor and the group
+# where JAX takes a global [p, ...] array over a mesh axis, and gets back
+# what that rank holds in JAX's output sharding. Where the JAX entry point
+# reads the skew plan, the port raises while ``rabit_skew_adapt`` is on
+# (``dispatch._not_ported_knobs``).
+# ---------------------------------------------------------------------------
+
+def device_reduce_scatter(x: torch.Tensor,
+                          group: Optional[dist.ProcessGroup] = None,
+                          op: int = SUM, wire: Optional[str] = None
+                          ) -> torch.Tensor:
+    """Reduce-scatter of this rank's ``x`` (n elements, any shape) over
+    ``group``: rank i gets chunk i of the elementwise reduction, n/p
+    elements starting at i*n/p, flat (the layout
+    :func:`device_allgather` inverts). n must divide by p: the caller
+    owns the chunk layout (:func:`allreduce` pads and slices). ``wire``
+    as in :func:`ring_reduce_scatter`; ``"auto"`` asks
+    ``dispatch.resolve``."""
+    _dispatch._not_ported_knobs()
+    p, n = dist.get_world_size(group), x.numel()
+    if n % p:
+        raise ValueError(
+            f"reduce_scatter payload of {n} elements must divide by the "
+            f"axis size {p} (rank i owns chunk i of length n/p); pad the "
+            "input or use allreduce")
+    if wire == "auto":
+        _, wire = _dispatch.resolve(n, x.dtype, op, p, method="ring",
+                                    wire="auto")
+    wire = _normalize_wire(_canonical_wire(wire), op, x.dtype, n // p)
+    return ring_reduce_scatter(x.reshape(-1), group, op, wire=wire)
+
+
+def device_allgather(x: torch.Tensor,
+                     group: Optional[dist.ProcessGroup] = None,
+                     wire: Optional[str] = None) -> torch.Tensor:
+    """All-gather of this rank's ``x`` (m elements, flattened): every rank
+    gets the p*m rank-order concatenation. ``wire`` as in
+    :func:`ring_all_gather`; ``"auto"`` asks ``dispatch.resolve``."""
+    _dispatch._not_ported_knobs()
+    p, m = dist.get_world_size(group), x.numel()
+    if wire == "auto":
+        _, wire = _dispatch.resolve(p * m, x.dtype, SUM, p, method="ring",
+                                    wire="auto")
+    wire = _normalize_wire(_canonical_wire(wire), SUM, x.dtype, m)
+    return ring_all_gather(x.reshape(-1), group, wire=wire)
+
+
+def _hier_setup(x: torch.Tensor, group, op: int, groups, wire,
+                inter_method: str):
+    """``device_hier_allreduce``'s set-up: ``(groups, wire)``, the
+    two-level grouping and the inter phase's normalized wire; or, where
+    the grouping is not two-level, ``(None, wire)`` for the flat
+    ``inter_method`` call it degrades to (JAX's rules: a single group
+    drops the wire, every link being local)."""
+    _dispatch._not_ported_knobs()
+    if inter_method not in ("ring", "swing"):
+        raise ValueError(
+            f"inter_method must be 'ring' or 'swing', got {inter_method!r}")
+    p = dist.get_world_size(group)
+    groups = _topology.resolve_groups(p, explicit=groups)
+    if not _topology.is_hierarchical(groups, p):
+        if groups and len(groups) == 1:
+            wire = None
+        return None, wire or "none"
+    if wire == "auto":
+        _, wire = _dispatch.resolve(x.numel() // len(groups[0]), x.dtype, op,
+                                    len(groups), method="ring", wire="auto")
+    return groups, _normalize_wire(_canonical_wire(wire), op, x.dtype)
+
+
+def _hier_run(x: torch.Tensor, group, op: int, groups, wire,
+              inter_method: str, guard) -> torch.Tensor:
+    y, back = _as_reducible(x.reshape(-1).contiguous(), op)
+    return back(_hier_phases(y, group, op, groups, wire, inter_method,
+                             guard)).reshape(x.shape)
+
+
+def device_hier_allreduce(x: torch.Tensor,
+                          group: Optional[dist.ProcessGroup] = None,
+                          op: int = SUM, groups=None,
+                          wire: Optional[str] = None,
+                          inter_method: str = "ring",
+                          phase_guard=None) -> torch.Tensor:
+    """The hierarchical allreduce as three phases the host sees apart:
+    intra-group reduce-scatter, inter-group ``inter_method`` over the slot
+    rings (``wire`` applies there only), intra-group all-gather, each run
+    inside ``phase_guard(phase, nbytes)`` (a factory of context managers,
+    JAX's phase names ``hier.reduce_scatter``, ``hier.inter`` and
+    ``hier.allgather``; by default none). ``groups``: explicit, else the
+    ``RABIT_HIER_GROUP`` grouping. A grouping that is not two-level runs
+    the flat ``inter_method`` through :func:`allreduce` (one group: without
+    the wire), unguarded, as in the JAX package."""
+    groups, wire = _hier_setup(x, group, op, groups, wire, inter_method)
+    if groups is None:
+        return allreduce(x, group, op, method=inter_method, wire=wire)
+    return _hier_run(x, group, op, groups, wire, inter_method,
+                     phase_guard or _no_guard)
+
+
+def _flatten(tree) -> Tuple[List[torch.Tensor], Callable]:
+    """The leaves of ``tree`` in ``jax.tree_util.tree_flatten``'s order,
+    and the function that rebuilds the tree from new leaves: a mapping by
+    its sorted keys (not insertion order, and not
+    ``nn.Module.parameters()`` order: the order sets the buckets' chunk
+    boundaries, and so the bits), a list or tuple as it is, a tensor as
+    one leaf."""
+    if isinstance(tree, torch.Tensor):
+        return [tree], lambda out: out[0]
+    if isinstance(tree, Mapping):
+        keys = sorted(tree)
+        return [tree[k] for k in keys], lambda out: dict(zip(keys, out))
+    if isinstance(tree, (list, tuple)):
+        return list(tree), type(tree)
+    raise TypeError(f"a tree is a tensor, or a mapping or a sequence of "
+                    f"tensors, got {type(tree).__name__}")
+
+
+def _by_dtype(leaves: Sequence[torch.Tensor]) -> Dict[torch.dtype, List[int]]:
+    """Leaf indices bucketed one buffer per dtype, in first-seen order."""
+    buckets: Dict[torch.dtype, List[int]] = {}
+    for i, leaf in enumerate(leaves):
+        buckets.setdefault(leaf.dtype, []).append(i)
+    return buckets
+
+
+def _concat(leaves: Sequence[torch.Tensor], idxs) -> torch.Tensor:
+    return torch.cat([leaves[i].reshape(-1) for i in idxs])
+
+
+def _split(red: torch.Tensor, leaves: Sequence[torch.Tensor], idxs
+           ) -> List[torch.Tensor]:
+    """A reduced bucket cut back into its leaves' shapes (views)."""
+    out, off = [], 0
+    for i in idxs:
+        n = leaves[i].numel()
+        out.append(red[off:off + n].reshape(leaves[i].shape))
+        off += n
+    return out
+
+
+def _bucketed(leaves: Sequence[torch.Tensor], group, op: int,
+              plan: Callable[[torch.dtype, int], Tuple[str, Optional[str]]]
+              ) -> List[torch.Tensor]:
+    """Each dtype's bucket of ``leaves`` through one allreduce, its
+    ``(method, wire)`` from ``plan(dtype, element count)`` (every bucket
+    planned before the first runs), cut back into the leaves."""
+    buckets = _by_dtype(leaves)
+    plans = {dt: plan(dt, sum(leaves[i].numel() for i in idxs))
+             for dt, idxs in buckets.items()}
+    out: List[Optional[torch.Tensor]] = [None] * len(leaves)
+    for dt, idxs in buckets.items():
+        red = _per_shard_allreduce(_concat(leaves, idxs), group, op,
+                                   *plans[dt])
+        for i, part in zip(idxs, _split(red, leaves, idxs)):
+            out[i] = part
+    return out
+
+
+def bucket_allreduce(tree, group: Optional[dist.ProcessGroup] = None,
+                     op: int = SUM, wire: Optional[str] = None,
+                     method: str = "ring", presum_group=None):
+    """DDP-style bucketed allreduce of this rank's tree (a mapping or a
+    sequence of tensors): the leaves, in JAX's flatten order, are
+    concatenated into one buffer per dtype, each buffer runs one
+    ``method`` allreduce over ``group``, and the results are cut back into
+    the tree. ``presum_group`` first sums every leaf over that group (the
+    transformer's sequence-parallel partials). ``method`` is one schedule
+    ("tree", "ring", "bidir", "swing"); :func:`device_allreduce_tree`
+    resolves it per bucket."""
+    if method != "tree" and method not in _METHOD_FNS:
+        raise ValueError(
+            f"method must be tree|ring|bidir|swing, got {method!r}")
+    leaves, rebuild = _flatten(tree)
+    if presum_group is not None and dist.get_world_size(presum_group) > 1:
+        leaves = [tree_allreduce(leaf, presum_group) for leaf in leaves]
+    return rebuild(_bucketed(leaves, group, op, lambda dt, n: (method, wire)))
+
+
+def device_allreduce_tree(tree, group: Optional[dist.ProcessGroup] = None,
+                          op: int = SUM, method: str = "auto",
+                          wire: Optional[str] = "auto"):
+    """Bucketed allreduce of this rank's tree: one buffer per dtype, each
+    bucket's method and wire resolved by ``dispatch.resolve`` on the
+    bucket's total element count (so a tree of small leaves reaches the
+    ring's sizes). An empty tree comes back as it is."""
+    leaves, rebuild = _flatten(tree)
+    if not leaves:
+        return tree
+    p = dist.get_world_size(group)
+
+    def plan(dt, n):
+        return _dispatch.resolve(n, dt, op, p, method=method, wire=wire)
+    return rebuild(_bucketed(leaves, group, op, plan))
+
+
+def device_broadcast(x: torch.Tensor,
+                     group: Optional[dist.ProcessGroup] = None,
+                     root: int = 0) -> torch.Tensor:
+    """Every rank gets rank ``root``'s ``x``: :func:`bcast_from_root`."""
+    return bcast_from_root(x, group, root)
+
+
+# ---------------------------------------------------------------------------
+# The async layer: issue, overlap, wait. A ``*_async`` entry point runs the
+# same schedule as its synchronous twin and returns a handle. How the design
+# keeps its four rules:
+#
+# (a) Same order everywhere. Every collective, async or not, is issued by
+#     the caller's thread, in program order; no worker thread exists that
+#     could issue one rank's collectives in another order than its peers'.
+# (b) No host wait on the card. On CUDA tensors the schedule is enqueued
+#     on a side stream of the device (one per device), which first waits
+#     on the caller's current stream through the stream itself, not the
+#     host; an event recorded after the schedule is the handle's
+#     ``ready()``. Issuing returns once the kernels and NCCL calls are
+#     enqueued (the schedules hold no host synchronisation). On the CPU
+#     (gloo) a collective blocks the calling thread, so the schedule runs
+#     at issue and the handle is ready at once.
+# (c) Safe ``value`` on the card. ``value`` makes the caller's current
+#     stream wait on the event and marks the result as used on that stream
+#     (``record_stream``); each input is marked as used on the side stream
+#     at issue, so the caching allocator reuses no input before the
+#     collective has read it, whatever the caller frees.
+# (d) Same bits as sync. The handle runs the sync entry point's own
+#     resolution and schedule on the same tensors; only the stream
+#     differs.
+#
+# At most ``async_max_inflight()`` handles are in flight: admitting one
+# past the cap waits on the oldest first. The window holds weak
+# references, so a handle dropped without ``wait()`` is still found: it
+# warns, disarms its guard and leaves the window.
+# ---------------------------------------------------------------------------
+
+_ASYNC_ENV = "RABIT_ASYNC_COLLECTIVES"
+_ASYNC_INFLIGHT_ENV = "RABIT_ASYNC_MAX_INFLIGHT"
+ASYNC_MAX_INFLIGHT_DEFAULT = 4
+
+
+def async_enabled() -> bool:
+    """The knob of the overlapped pipelines (the models' async bucket
+    steps): ``RABIT_ASYNC_COLLECTIVES``. The ``*_async`` entry points work
+    regardless."""
+    return os.environ.get(_ASYNC_ENV, "").lower() in ("1", "true", "yes",
+                                                      "on")
+
+
+def async_max_inflight() -> int:
+    """The cap on async collectives in flight
+    (``RABIT_ASYNC_MAX_INFLIGHT``, default 4, at least 1)."""
+    try:
+        return max(1, int(os.environ.get(_ASYNC_INFLIGHT_ENV,
+                                         ASYNC_MAX_INFLIGHT_DEFAULT)))
+    except ValueError:
+        return ASYNC_MAX_INFLIGHT_DEFAULT
+
+
+def configure_async(cfg) -> None:
+    """Export the async knobs of an engine config (anything with
+    ``get``) to the environment, so model code, which never sees the
+    config, reads one source; the environment's value stays where the
+    config is silent."""
+    v = cfg.get("rabit_async_collectives")
+    if v is not None:
+        os.environ[_ASYNC_ENV] = str(v)
+    v = cfg.get("rabit_async_max_inflight")
+    if v is not None:
+        os.environ[_ASYNC_INFLIGHT_ENV] = str(v)
+
+
+_INFLIGHT_LOCK = threading.Lock()
+_INFLIGHT: list = []   # weak references to the handles in flight
+
+
+def _admit(handle) -> None:
+    # never wait while holding the lock: wait() retires, which locks
+    while True:
+        with _INFLIGHT_LOCK:
+            _INFLIGHT[:] = [r for r in _INFLIGHT if r() is not None]
+            if len(_INFLIGHT) < async_max_inflight():
+                _INFLIGHT.append(weakref.ref(handle))
+                return
+            oldest = _INFLIGHT[0]()
+        if oldest is not None:
+            oldest.wait()
+
+
+def _retire(handle) -> None:
+    with _INFLIGHT_LOCK:
+        _INFLIGHT[:] = [r for r in _INFLIGHT
+                        if r() is not None and r() is not handle]
+
+
+def inflight_count() -> int:
+    with _INFLIGHT_LOCK:
+        _INFLIGHT[:] = [r for r in _INFLIGHT if r() is not None]
+        return len(_INFLIGHT)
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    return torch.cuda.Stream(device)
+
+
+class AsyncHandle:
+    """An async collective's result. ``value`` is the result, usable at
+    once on the caller's stream (the stream waits for it on the card);
+    ``ready()`` says without blocking whether it is complete; ``wait()``
+    blocks until it is, disarms the guard, leaves the in-flight window and
+    returns the result (after ``postprocess``); it is idempotent. Dropping
+    a handle without ``wait()`` warns (``RuntimeWarning``): the collective
+    still completes."""
+
+    def __init__(self, out: torch.Tensor, *, name: str, event=None,
+                 guard=None, postprocess=None):
+        self._out = out
+        self._name = name
+        self._event = event
+        self._guard = guard            # armed by the issuing entry point
+        self._post = postprocess
+        self._done = False
+        self._result = None
+        _admit(self)
+
+    @property
+    def value(self) -> torch.Tensor:
+        if self._event is not None:
+            stream = torch.cuda.current_stream(self._out.device)
+            stream.wait_event(self._event)
+            self._out.record_stream(stream)
+        return self._out
+
+    def ready(self) -> bool:
+        return self._done or self._event is None or self._event.query()
+
+    def wait(self):
+        if self._done:
+            return self._result
+        try:
+            out = self.value
+            if self._event is not None:
+                self._event.synchronize()
+        finally:
+            self._done = True
+            self._release()
+        post, self._post = self._post, None
+        self._result = post(out) if post else out
+        return self._result
+
+    def _release(self) -> None:
+        guard, self._guard = self._guard, None
+        if guard is not None:
+            guard.__exit__(None, None, None)
+        _retire(self)
+
+    def __del__(self):
+        try:
+            if not self._done:
+                self._done = True
+                warnings.warn(
+                    f"async collective handle '{self._name}' dropped "
+                    "without wait(); result discarded", RuntimeWarning,
+                    stacklevel=2)
+                self._release()
+        except Exception:
+            pass  # interpreter teardown: modules may be half-gone
+
+
+class AsyncTreeHandle:
+    """The handles of one tree's buckets (:func:`bucket_allreduce_async`):
+    ``wait()`` waits on them oldest first and assembles the tree once."""
+
+    def __init__(self, handles: Sequence[AsyncHandle], assemble):
+        self._handles = list(handles)
+        self._assemble = assemble
+        self._done = False
+        self._result = None
+
+    @property
+    def handles(self) -> Tuple[AsyncHandle, ...]:
+        return tuple(self._handles)
+
+    def ready(self) -> bool:
+        return self._done or all(h.ready() for h in self._handles)
+
+    def wait(self):
+        if self._done:
+            return self._result
+        parts = [h.wait() for h in self._handles]
+        assemble, self._assemble = self._assemble, None
+        self._result = assemble(parts)
+        self._done = True
+        return self._result
+
+
+def _issue(run: Callable[[], torch.Tensor], inputs: Sequence[torch.Tensor],
+           name: str, guard=None, postprocess=None) -> AsyncHandle:
+    """Run ``run`` (a sync schedule over ``inputs``) as an async
+    collective: on a CUDA device on its side stream, after the caller's
+    stream, with an event behind it; on the CPU at once. ``guard`` (an
+    unentered context manager) is armed now and disarmed by the handle."""
+    if guard is not None:
+        guard.__enter__()
+    try:
+        dev = inputs[0].device
+        event = None
+        if dev.type == "cuda":
+            side = _side_stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                out = run()
+                event = torch.cuda.Event()
+                event.record(side)
+            for t in inputs:
+                t.record_stream(side)
+        else:
+            out = run()
+    except BaseException:
+        if guard is not None:
+            guard.__exit__(None, None, None)
+        raise
+    return AsyncHandle(out, name=name, event=event, guard=guard,
+                       postprocess=postprocess)
+
+
+def device_allreduce_async(x: torch.Tensor,
+                           group: Optional[dist.ProcessGroup] = None,
+                           op: int = SUM, method: str = "auto",
+                           wire: Optional[str] = "auto", groups=None,
+                           guard=None) -> AsyncHandle:
+    """:func:`allreduce`, split into issue and wait; the method and wire
+    are resolved at issue. ``guard`` (an unentered context manager, e.g. a
+    watchdog's) covers issue to completion."""
+    return _issue(_allreduce_plan(x, group, op, method, wire, groups), [x],
+                  "allreduce", guard=guard)
+
+
+def grad_bucket_allreduce_async(x: torch.Tensor,
+                                group: Optional[dist.ProcessGroup] = None,
+                                op: int = SUM, method: str = "ring",
+                                wire: Optional[str] = None,
+                                guard=None) -> AsyncHandle:
+    """One flat gradient bucket's data-parallel allreduce over ``group``
+    (the dp group), issued without blocking: the models' async bucket
+    steps. JAX's [dp, tp, n] bucket is this rank's row."""
+    _dispatch._not_ported_knobs()
+    flat = x.reshape(-1)
+    if wire == "auto":
+        _, wire = _dispatch.resolve(flat.numel(), x.dtype, op,
+                                    dist.get_world_size(group),
+                                    method=method, wire="auto")
+    wire = _normalize_wire(_canonical_wire(wire), op, x.dtype)
+    return _issue(lambda: _per_shard_allreduce(flat, group, op, method,
+                                               wire),
+                  [flat], "bucket_allreduce", guard=guard)
+
+
+def grad_buckets_async(grads: Mapping[str, torch.Tensor],
+                       group: Optional[dist.ProcessGroup] = None,
+                       op: int = SUM, method: str = "ring"
+                       ) -> List[Tuple[List[str], AsyncHandle]]:
+    """The models' async bucket steps: ``grads`` (name -> tensor) as one
+    flat buffer a dtype, the names in JAX's flatten order (sorted), each
+    buffer's allreduce issued with :func:`grad_bucket_allreduce_async` in
+    reverse bucket order. Returns ``(names, handle)`` in bucket order; a
+    handle's ``value`` is the reduced buffer, the names' gradients in
+    turn."""
+    leaves, _ = _flatten(grads)
+    keys = sorted(grads)
+    buckets = [(idxs, _concat(leaves, idxs))
+               for idxs in _by_dtype(leaves).values()]
+    handles = [grad_bucket_allreduce_async(flat, group, op, method=method)
+               for _, flat in reversed(buckets)][::-1]
+    return [([keys[i] for i in idxs], h)
+            for (idxs, _), h in zip(buckets, handles)]
+
+
+def bucket_allreduce_async(tree, group: Optional[dist.ProcessGroup] = None,
+                           op: int = SUM, method: str = "auto",
+                           wire: Optional[str] = "auto") -> AsyncTreeHandle:
+    """:func:`device_allreduce_tree`, issued bucket by bucket without
+    blocking, in reverse bucket order (the late layers' gradients exist
+    first under backpropagation: DDP's ready order). Each bucket's method
+    and wire resolve on its total count; ``hier`` and ``preagg`` run the
+    ring. ``wait()`` returns the reduced tree."""
+    _dispatch._not_ported_knobs()
+    leaves, rebuild = _flatten(tree)
+    if not leaves:
+        return AsyncTreeHandle([], lambda parts: tree)
+    p = dist.get_world_size(group)
+    handles, issued = [], []
+    for dt, idxs in reversed(list(_by_dtype(leaves).items())):
+        flat = _concat(leaves, idxs)
+        mth, w = _dispatch.resolve(flat.numel(), dt, op, p, method=method,
+                                   wire=wire)
+        if mth in ("hier", "preagg"):
+            mth = "ring"  # the bucket path runs flat schedules only
+        handles.append(_issue(
+            functools.partial(_per_shard_allreduce, flat, group, op, mth, w),
+            [flat], "bucket_allreduce",
+            postprocess=functools.partial(_split, leaves=leaves,
+                                          idxs=idxs)))
+        issued.append(idxs)
+
+    def assemble(parts):
+        out: List[Optional[torch.Tensor]] = [None] * len(leaves)
+        for idxs, pieces in zip(issued, parts):
+            for i, piece in zip(idxs, pieces):
+                out[i] = piece
+        return rebuild(out)
+
+    return AsyncTreeHandle(handles, assemble)
+
+
+def device_hier_allreduce_async(x: torch.Tensor,
+                                group: Optional[dist.ProcessGroup] = None,
+                                op: int = SUM, groups=None,
+                                wire: Optional[str] = None,
+                                inter_method: str = "ring",
+                                guard=None) -> AsyncHandle:
+    """:func:`device_hier_allreduce`, issued without blocking: the three
+    phases are enqueued back to back; the one ``guard`` covers all of
+    them (per-phase guards need the sync variant's boundaries). A grouping
+    that is not two-level issues :func:`device_allreduce_async`."""
+    groups, wire = _hier_setup(x, group, op, groups, wire, inter_method)
+    if groups is None:
+        return device_allreduce_async(x, group, op, method=inter_method,
+                                      wire=wire, guard=guard)
+    return _issue(lambda: _hier_run(x, group, op, groups, wire,
+                                    inter_method, _no_guard),
+                  [x], "hier_allreduce", guard=guard)
 
 
 # ---------------------------------------------------------------------------

@@ -35,12 +35,16 @@ the splits agree and the leaf weights agree to about the rounding.
 
 ``N_ROUNDS`` (default 10) is the number of rounds. The histogram is built
 on the card ``cuda:{rank % device_count}`` unless ``rabit_device=cpu``.
-The last line of each worker is ``BOOST-JSON`` and a JSON object: its
-trees, digest, kernel launches, the host-paced ms of each round's
-histogram allreduce, the wall clock at the end of its first round, and
-the data plane's formations; where a data plane formed a world, also the
-histogram payload's allreduce timed through the robust engine and through
-``TorchEngine`` on that world.
+Each worker's result is a JSON document: its trees, digest, kernel
+launches, the host-paced ms of each round's histogram allreduce, the wall
+clock at the end of its first round, and the data plane's formations;
+where a data plane formed a world, also the histogram payload's allreduce
+timed through the robust engine and through ``TorchEngine`` on that
+world. With ``RABIT_RESULT_DIR`` set, the worker writes it to
+``rank<r>.json`` there (a respawned rank's replaces its predecessor's):
+the ranks share the launcher's stdout, where another process's output can
+break into a line. The last line of its output is ``BOOST-JSON`` and the
+same document, for people reading it.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import math
 import os
 import sys
 import time
+from pathlib import Path
 from typing import List, Tuple
 
 import numpy as np
@@ -59,9 +64,11 @@ import torch
 import rabit_tpu_torch as rabit
 from rabit_tpu_torch.ops import histogram as K
 from rabit_tpu_torch.parallel.mesh import resolve_device
+from rabit_tpu_torch.tools import write_json
 from rabit_tpu_torch.utils.config import Config
 
 LR = 0.4
+RESULT_DIR_ENV = "RABIT_RESULT_DIR"
 
 
 def make_shard(rank: int, n: int, n_feat: int, n_bins: int, seed: int = 7):
@@ -265,6 +272,9 @@ def main(argv=None) -> None:
                             "formed_at": dp.formed_at,
                             "first_collective_at": dp.first_collective_at}
     rabit.finalize()
+    out_dir = os.environ.get(RESULT_DIR_ENV)
+    if out_dir:
+        write_json(Path(out_dir) / f"rank{rank}.json", doc)
     # one write a line: the ranks share the launcher's stdout, and under
     # unbuffered output print() writes the text and its newline apart
     sys.stdout.write(f"BOOST-OK rank={rank} world={world} trees={len(model)}"

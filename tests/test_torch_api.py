@@ -241,7 +241,8 @@ def test_import_leaves_out_jax_and_rabit_tpu():
         "'rabit_tpu_torch.engine.dataplane', "
         "'rabit_tpu_torch.tracker.tracker', "
         "'rabit_tpu_torch.tracker.launch', "
-        "'rabit_tpu_torch.tools.boosted_trees'}\n"
+        "'rabit_tpu_torch.tools.boosted_trees', "
+        "'rabit_tpu_torch.models.mlp'}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -280,14 +281,16 @@ def test_no_jax_or_rabit_tpu_import_in_the_kernel_variants_script():
 
 
 def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
-    """The modules of the robust engine's slice, by name (the package scan
-    above covers them too), and the port's own test workers."""
+    """The modules of the robust engine's slice and of the bucketed steps'
+    (the MLP, the step timing script), by name (the package scan above
+    covers the package too), and the port's own test workers."""
     new = [PKG / "utils" / "log.py", PKG / "utils" / "retry.py",
            PKG / "engine" / "ckpt_store.py", PKG / "engine" / "_native_build.py",
            PKG / "engine" / "native.py", PKG / "engine" / "dataplane.py",
            PKG / "tracker" / "tracker.py", PKG / "tracker" / "launch.py",
            PKG / "tools" / "boosted_trees.py",
            ROOT / "tests" / "workers" / "torch_recover_worker.py",
-           ROOT / "tests" / "workers" / "torch_dataplane_fail_worker.py"]
+           ROOT / "tests" / "workers" / "torch_dataplane_fail_worker.py",
+           PKG / "models" / "mlp.py", ROOT / "train_step_timing.py"]
     assert all(p.is_file() for p in new)
     assert _jax_imports(new) == []

@@ -17,6 +17,8 @@ it, so on a machine with cards and no JAX:
         tests/test_torch_transformer.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -35,7 +37,9 @@ LOSS_TOL, PARAM_TOL = 1e-4, 5e-4
 # the forward against JAX: f32 through 2 layers (test_transformer.py:30)
 FWD_TOL = dict(rtol=2e-4, atol=2e-4)
 LAYOUTS = [((2, 1, 2), "psum"), ((2, 1, 2), "ring"), ((1, 2, 2), "psum"),
-           ((1, 2, 2), "ring")]
+           ((1, 2, 2), "ring"), ((2, 1, 2), "bucket"), ((1, 2, 2), "bucket")]
+# the async bucket step, run beside the layouts in the same world
+ASYNC = [((2, 1, 2), "async"), ((1, 2, 2), "async")]
 
 
 def _data(seed: int):
@@ -152,8 +156,29 @@ def test_sharded_forward_of_a_world_of_one_is_the_dense_forward(
 
 
 def test_unported_grad_sync_raises(world_of_one):
-    with pytest.raises(ValueError, match="bucket"):
-        tf.make_train_step(world_of_one, grad_sync="bucket")
+    with pytest.raises(ValueError, match="grad_sync must be one of"):
+        tf.make_train_step(world_of_one, grad_sync="allgather")
+
+
+@pytest.mark.parametrize("grad_sync", ["bucket", "async"])
+def test_world_of_one_bucket_steps_equal_the_psum_step(
+        world_of_one, grad_sync, monkeypatch):
+    """At world 1 every sum is the identity: the bucketed steps' bits are
+    the psum step's."""
+    params, x, y = _data(4)
+    got = {}
+    for sync in ("psum", grad_sync):
+        if sync == "async":
+            monkeypatch.setenv("RABIT_ASYNC_COLLECTIVES", "1")
+        model = tf.model_on(params, "cpu")
+        step = tf.make_train_step(world_of_one, lr=0.2, grad_sync="bucket"
+                                  if sync == "async" else sync)
+        for _ in range(2):
+            loss = step(model, torch.from_numpy(x), torch.from_numpy(y))
+        got[sync] = (float(loss), model.state_dict())
+    assert got["psum"][0] == got[grad_sync][0]
+    for k, t in got["psum"][1].items():
+        assert torch.equal(t, got[grad_sync][1][k]), k
 
 
 def _layout_rank(rank, p, params, x, y, lr, layouts, device):
@@ -165,7 +190,11 @@ def _layout_rank(rank, p, params, x, y, lr, layouts, device):
     for shape, sync in layouts:
         mesh = make_mesh(shape, dev)
         model = tf.model_on(params, dev, mesh.index("tp"), mesh.size("tp"))
-        step = tf.make_train_step(mesh, lr=lr, grad_sync=sync)
+        if sync == "async":
+            os.environ["RABIT_ASYNC_COLLECTIVES"] = "1"
+        step = tf.make_train_step(mesh, lr=lr, grad_sync="bucket"
+                                  if sync == "async" else sync)
+        os.environ.pop("RABIT_ASYNC_COLLECTIVES", None)
         loss = step(model, tf.shard_tokens(x, mesh, dev),
                     tf.shard_tokens(y, mesh, dev))
         key = f"{'x'.join(map(str, shape))}-{sync}"
@@ -202,7 +231,7 @@ def gloo_world(tmp_path_factory):
     params, x, y = _data(5)
     lr = 0.2
     ranks = spawn_world(_layout_rank, 4, tmp_path_factory.mktemp("tf4"),
-                        params, x, y, lr, LAYOUTS, "cpu")
+                        params, x, y, lr, LAYOUTS + ASYNC, "cpu")
     return ranks, _jax_dense_step(params, x, y, lr)
 
 
@@ -212,6 +241,20 @@ def gloo_world(tmp_path_factory):
 def test_world_of_four_step_matches_jax_dense_sgd(gloo_world, shape, sync):
     ranks, want = gloo_world
     _assert_step(*_gather(ranks, shape, sync), *want)
+
+
+@pytest.mark.parametrize("shape", [s for s, _ in ASYNC])
+def test_async_bucket_step_equals_the_bucket_step_bit_for_bit(gloo_world,
+                                                              shape):
+    ranks, _ = gloo_world
+    tag = "x".join(map(str, shape))
+    for r, got in enumerate(ranks):
+        names = [n.split("|", 1)[1] for n in got
+                 if n.startswith(f"{tag}-bucket|")]
+        assert "loss" in names and len(names) > 3
+        for name in names:
+            assert got[f"{tag}-async|{name}"].tobytes() == \
+                got[f"{tag}-bucket|{name}"].tobytes(), (r, name)
 
 
 @pytest.mark.parametrize("shape", sorted({s for s, _ in LAYOUTS}))
@@ -293,15 +336,16 @@ def nccl_world(tmp_path_factory):
     params, x, y = _data(5)
     lr = 0.2
     ranks = spawn_world(_layout_rank, p, tmp_path_factory.mktemp("nccl"),
-                        params, x, y, lr, [(shape, "ring")], "cuda",
-                        backend="nccl")
+                        params, x, y, lr, [(shape, "ring"), (shape, "bucket")],
+                        "cuda", backend="nccl")
     return shape, ranks, _torch_dense_step(params, x, y, lr)
 
 
 @pytest.mark.cuda
 def test_nccl_step_on_the_cards(nccl_world):
     """The (1, 2, 2) step (tp 2 x sp 2; (1, 2, 1) on two cards) through
-    the flash kernels on an NCCL world, against the dense step of the
-    port's oracle on the CPU."""
+    the flash kernels on an NCCL world, under ``"ring"`` and ``"bucket"``,
+    against the dense step of the port's oracle on the CPU."""
     shape, ranks, want = nccl_world
-    _assert_step(*_gather(ranks, shape, "ring"), *want)
+    for sync in ("ring", "bucket"):
+        _assert_step(*_gather(ranks, shape, sync), *want)

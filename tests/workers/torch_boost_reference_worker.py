@@ -1,7 +1,8 @@
 """``examples/py/boosted_trees.py`` as it is, under ``rabit_tpu``, with its
 model printed: the reference for the port's ``tools/boosted_trees.py``.
-Runs the example's ``main`` and prints ``REF-JSON`` and the trees of the
-last checkpoint (every round checkpoints the whole model)."""
+Runs the example's ``main`` and writes the trees of the last checkpoint
+(every round checkpoints the whole model) as ``ref-rank<r>.json`` into
+``RABIT_RESULT_DIR``, and prints them after ``REF-JSON``."""
 
 import importlib.util
 import json
@@ -30,7 +31,12 @@ def main() -> None:
 
     rabit_tpu.checkpoint = keep
     example.main()
-    # one write: the ranks share the launcher's stdout
+    # the ranks share the launcher's stdout: the test reads the file
+    out_dir = os.environ["RABIT_RESULT_DIR"]
+    path = os.path.join(out_dir, f"ref-rank{last['rank']}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(last, f)
+    os.replace(path + ".tmp", path)
     sys.stdout.write("REF-JSON " + json.dumps(last) + "\n")
     sys.stdout.flush()
 
