@@ -1,8 +1,10 @@
 """Chip smoke test of rabit_tpu_torch: builds the CUDA kernels and drives
 the port's paths on one NVIDIA GPU -- the gradient-histogram allreduce,
 the flagship transformer's training step, the histogram measurement
-path (the sweep, the bench and the kernel proof), the robust engine, and
-the bucketed and overlapped train steps of the flagship and the MLP.
+path (the sweep, the bench and the kernel proof), the robust engine, the
+bucketed and overlapped train steps of the flagship and the MLP, and the
+parallelism families (sequence parallelism, the pipeline, the MoE, the
+multichip dryrun).
 
     python3 chip_smoke.py
 
@@ -116,11 +118,29 @@ Phases (each prints a line; any failure exits non-zero):
                 ``device_allreduce_tree`` of the flagship's gradient tree
                 by "auto", "tree" and "ring". With one card it prints that
                 (c) did not run.
-13. kernels     one JSON line of every kernel with its main-path launches
-                (and, for the flash kernels, phase 12's).
+13. parallel    the parallelism families, one process a card over NCCL at
+                world p = min(4, cards): ``sequence_parallel_attention``,
+                ring and Ulysses, causal, at the flash chain's width (T
+                8192, H 8, D 128) and at ``tools.long_context``'s (T 512
+                p, H 8, D 32), forward and the gradients of sum(out * ct)
+                against the dense oracle (forward 1e-4, gradients 1e-3 of
+                the largest) and against each other, the ring's flash
+                launches of one call p forward and p backward block steps
+                on every rank (counted from 0 around the call), the ms of
+                forward and forward + backward; the MoE at the dryrun's
+                shapes against the dense oracle without drops (2e-5) and
+                timed steps at d_model 256, d_ff 1024, 4096 tokens a rank,
+                capacity factor 2.0; the pipeline at the dryrun's shapes
+                against the stages composed on one card (forward 1e-5,
+                gradient 1e-4) and timed steps at d 1024, 8 microbatches
+                of 512 rows; then ``entry.dryrun_multichip(p)``. With one
+                card it runs the p = 1 paths and says so.
+14. kernels     one JSON line of every kernel with its main-path launches
+                (and, for the flash kernels, phase 12's and phase 13's).
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
-phase 6, each run of phase 12) and read just after it, so a kernel's
+phase 6, each run of phase 12, each ring call of phase 13, in its rank's
+process) and read just after it, so a kernel's
 count is its own path's alone: mask_only's is the sweep's. Phase 11's
 histogram launches are counted in its workers, each a fresh process (so
 from 0), and printed there. The last line is the device JSON.
@@ -1740,6 +1760,298 @@ def phase_bucket_world(p: int, power: str) -> None:
           f"rank's median of 5 CUDA-event calls) [{power}]")
 
 
+# phase 13: the parallelism families. Sequence-parallel attention at the
+# flash chain's width (tools/kernel_hw_proof.py:156: T 8192, H 8, D 128)
+# and at tools/long_context.py's (T 512 a rank, H 8, D 32), causal; the MoE
+# and the pipeline at the dryrun's shapes against their oracles, and one
+# timed step each at the flagship's widths (MoE: d_model 256, d_ff 1024,
+# batch 8 x seq 512 tokens a rank) and at d 1024 (the pipeline)
+SP_SHAPES = [(8192, 8, 128), ("512p", 8, 32)]
+SP_FWD_TOL = dict(rtol=1e-4, atol=1e-4)
+SP_REPS = 5
+MOE_TOL = dict(rtol=2e-5, atol=2e-5)        # tests/test_pipeline_moe.py:126
+PIPE_FWD_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_pipeline_moe.py:54
+PIPE_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_pipeline_moe.py:84
+MOE_STEP = dict(d_model=256, d_ff=1024, tokens=8 * 512, cf=2.0)
+PIPE_STEP = dict(d=1024, n_micro=8, rows=512)
+PARALLEL_STEPS = 5
+PARALLEL_TIMEOUT_S = 900
+
+
+def _events_ms(fn, reps: int) -> list:
+    """CUDA-event ms of each of ``reps`` calls of ``fn`` (after one
+    warm-up call)."""
+    fn()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _sp_case(rank: int, p: int, device, shape) -> dict:
+    """Both impls of ``sequence_parallel_attention`` at one global shape,
+    causal: forward and the gradients of sum(out * ct) against the dense
+    oracle and against each other; the ring's flash launches of one call;
+    CUDA-event ms of forward and of forward + backward."""
+    from rabit_tpu_torch.parallel.mesh import make_mesh
+    from rabit_tpu_torch.parallel import ring_attention as R
+    t, h, d = shape
+    t = 512 * p if t == "512p" else t
+    mesh = make_mesh((p,), device, axes=("sp",))
+    gen = torch.Generator(device).manual_seed(13)
+    q, k, v, ct = (torch.randn((t, h, d), generator=gen, device=device)
+                   for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = R.reference_attention(*leaves, causal=True)
+    want_g = torch.autograd.grad((want * ct).sum(), leaves)
+    want = want.detach()
+    got, ms = {}, {}
+    for impl in R.IMPLS:
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        reset_launches()
+        out = R.sequence_parallel_attention(*leaves, mesh, True, impl=impl)
+        grads = torch.autograd.grad((out * ct).sum(), leaves)
+        launches = read_launches()
+        torch.testing.assert_close(out, want, **SP_FWD_TOL,
+                                   msg=lambda m: f"{impl} {shape}: {m}")
+        rel = [_rel_err(g, w) for g, w in zip(grads, want_g)]
+        if max(rel) > FLASH_BWD_REL:
+            raise AssertionError(f"{impl} {shape}: gradients {rel} of the "
+                                 f"largest from the dense oracle")
+        got[impl] = (out.detach(), grads, rel, launches)
+
+        def fwd():
+            with torch.no_grad():
+                R.sequence_parallel_attention(q, k, v, mesh, True, impl=impl)
+
+        def fwd_bwd():
+            xs = [x.requires_grad_() for x in (q.detach(), k.detach(),
+                                              v.detach())]
+            o = R.sequence_parallel_attention(*xs, mesh, True, impl=impl)
+            torch.autograd.grad((o * ct).sum(), xs)
+
+        ms[impl] = {"fwd": _events_ms(fwd, SP_REPS),
+                    "fwd_bwd": _events_ms(fwd_bwd, SP_REPS)}
+    torch.testing.assert_close(got["ring"][0], got["ulysses"][0],
+                               **SP_FWD_TOL)
+    ring_vs = max(_rel_err(a, b) for a, b in zip(got["ring"][1],
+                                                 got["ulysses"][1]))
+    if ring_vs > FLASH_BWD_REL:
+        raise AssertionError(f"{shape}: ring and Ulysses gradients "
+                             f"{ring_vs} of the largest apart")
+    return {"shape": [t, h, d],
+            "fwd_err": {i: float((got[i][0] - want).abs().max())
+                        for i in R.IMPLS},
+            "grad_rel": {i: got[i][2] for i in R.IMPLS},
+            "ring_vs_ulysses_grad_rel": ring_vs,
+            "ring_launches": got["ring"][3], "ms": ms}
+
+
+def _moe_case(rank: int, p: int, device) -> dict:
+    """The MoE at the dryrun's shapes (d 16, d_ff 32, 8 tokens a rank,
+    capacity factor p: nothing dropped) against the dense oracle on this
+    rank's tokens; then PARALLEL_STEPS timed SGD steps at the flagship's
+    widths (capacity factor 2.0)."""
+    from rabit_tpu_torch.parallel import collectives as C
+    from rabit_tpu_torch.parallel import moe
+    from rabit_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh((p,), device, axes=("ep",))
+    full = moe.init_moe_params(7, d_model=16, d_ff=32, n_experts=p)
+    xs = np.random.default_rng(8).standard_normal((8 * p, 16)).astype(
+        np.float32)
+    x = torch.from_numpy(xs[rank * 8:(rank + 1) * 8]).to(device)
+    with torch.no_grad():
+        y, _ = moe.make_moe_fn(mesh, capacity_factor=float(p))(
+            moe.place_moe_params(mesh, full), x)
+    want = moe.moe_reference({k: torch.from_numpy(v).to(device)
+                              for k, v in full.items()}, x)
+    torch.testing.assert_close(y, want, **MOE_TOL)
+    err = float((y - want).abs().max())
+    w = MOE_STEP
+    params = moe.place_moe_params(mesh, moe.init_moe_params(
+        0, w["d_model"], w["d_ff"], p))
+    gen = torch.Generator(device).manual_seed(rank)
+    x = torch.randn((w["tokens"], w["d_model"]), generator=gen,
+                    device=device)
+    fn = moe.make_moe_fn(mesh, capacity_factor=w["cf"])
+    group = mesh.group("ep")
+    losses = []
+
+    def step():
+        y, aux = fn(params, x)
+        loss = C.psum_identity_grad((y * y).sum(), group) / (y.numel() * p) \
+            + 0.01 * aux
+        loss.backward()
+        with torch.no_grad():
+            for v in params.values():
+                v -= 0.1 * v.grad
+                v.grad = None
+        losses.append(loss.detach())
+
+    ms = _events_ms(step, PARALLEL_STEPS)
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"MoE step losses {losses}")
+    return {"oracle_err": err, "step_ms": ms, "losses": losses}
+
+
+def _pipe_case(rank: int, p: int, device) -> dict:
+    """The pipeline at the dryrun's shapes (d 16, 6 microbatches of 4 rows,
+    tanh(x w)) against the stages composed on this card, forward and this
+    rank's stage gradient; then PARALLEL_STEPS timed SGD steps at d 1024,
+    8 microbatches of 512 rows."""
+    from rabit_tpu_torch.parallel import pipeline
+    from rabit_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh((p,), device, axes=("pp",))
+    rng = np.random.default_rng(0)
+    stages = [{"w": (rng.standard_normal((16, 16)) / 4).astype(np.float32)}
+              for _ in range(p)]
+    xm = torch.from_numpy(rng.standard_normal((6, 4, 16)).astype(
+        np.float32)).to(device)
+
+    def stage_fn(prm, h):
+        return torch.tanh(h @ prm["w"])
+
+    placed = pipeline.place_pipeline_params(mesh, stages)
+    y = pipeline.make_pipeline_fn(mesh, stage_fn)(placed, xm)
+    (y * y).mean().backward()
+    ws = [torch.from_numpy(s["w"]).to(device).requires_grad_()
+          for s in stages]
+    h = xm
+    for w in ws:
+        h = torch.tanh(h @ w)
+    (h * h).mean().backward()
+    torch.testing.assert_close(y.detach(), h.detach(), **PIPE_FWD_TOL)
+    torch.testing.assert_close(placed["w"].grad[0], ws[rank].grad,
+                               **PIPE_GRAD_TOL)
+    err = {"fwd": float((y - h).abs().max()),
+           "grad": float((placed["w"].grad[0] - ws[rank].grad).abs().max())}
+    w = PIPE_STEP
+    big = [{"w": (rng.standard_normal((w["d"], w["d"])) / np.sqrt(
+        w["d"])).astype(np.float32)} for _ in range(p)]
+    placed = pipeline.place_pipeline_params(mesh, big)
+    fn = pipeline.make_pipeline_fn(mesh, stage_fn)
+    gen = torch.Generator(device).manual_seed(5)
+    xb = torch.randn((w["n_micro"], w["rows"], w["d"]), generator=gen,
+                     device=device)
+    losses = []
+
+    def step():
+        y = fn(placed, xb)
+        loss = (y * y).mean()
+        loss.backward()
+        with torch.no_grad():
+            for v in placed.values():
+                v -= 0.1 * v.grad
+                v.grad = None
+        losses.append(loss.detach())
+
+    ms = _events_ms(step, PARALLEL_STEPS)
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"pipeline step losses {losses}")
+    return {"err": err, "step_ms": ms, "losses": losses}
+
+
+def _parallel_rank(rank: int, p: int, device) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"sp": [_sp_case(rank, p, device, s) for s in SP_SHAPES],
+            "moe": _moe_case(rank, p, device),
+            "pipeline": _pipe_case(rank, p, device)}
+
+
+def phase_parallel(power: str) -> dict:
+    """The parallelism families over min(4, cards) processes, one a card
+    over NCCL (see the module's phase 13). Returns the ring's flash
+    launches and the measurements."""
+    from rabit_tpu_torch import entry as E
+    from rabit_tpu_torch.ops import _build
+    from rabit_tpu_torch.tools import run_world
+    p = min(4, torch.cuda.device_count())
+    _build.build(["flash_block", "flash_block_bwd"])  # once, not per rank
+    t0 = time.perf_counter()
+    ranks = run_world(_parallel_rank, p, "cuda",
+                      timeout_s=PARALLEL_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    launches = {"flash_block": 0, "flash_block_bwd": 0}
+    for r, got in enumerate(ranks):
+        for case in got["sp"]:
+            seen = case["ring_launches"]
+            if (seen["flash_block"], seen["flash_block_bwd"]) != (p, p):
+                raise AssertionError(f"rank {r} {case['shape']}: the ring's "
+                                     f"flash launches {seen}, want {p} "
+                                     f"forward and {p} backward block steps")
+            for k in launches:
+                launches[k] += seen[k]
+
+    def med(xs):
+        return float(np.median(xs))
+
+    for i, shape in enumerate(ranks[0]["sp"]):
+        t, h, d = shape["shape"]
+        worst = {impl: max(max(g["sp"][i]["grad_rel"][impl]) for g in ranks)
+                 for impl in ("ring", "ulysses")}
+        ms = {impl: {k: max(med(g["sp"][i]["ms"][impl][k]) for g in ranks)
+                     for k in ("fwd", "fwd_bwd")}
+              for impl in ("ring", "ulysses")}
+        fwd = {k: max(g["sp"][i]["fwd_err"][k] for g in ranks)
+               for k in ("ring", "ulysses")}
+        apart = max(g["sp"][i]["ring_vs_ulysses_grad_rel"] for g in ranks)
+        phase("parallel", f"sequence_parallel_attention T {t} H {h} D {d} "
+              f"causal at world {p}: ring and ulysses against the dense "
+              f"oracle (forward within {SP_FWD_TOL['atol']}: max |diff| "
+              f"ring {fwd['ring']:.2e}, ulysses {fwd['ulysses']:.2e}; "
+              f"gradients of the largest: ring {worst['ring']:.2e}, "
+              f"ulysses {worst['ulysses']:.2e}), ring vs ulysses gradients "
+              f"{apart:.2e}; the ring's flash launches a call {p} + {p} on "
+              f"every rank")
+        phase("parallel", f"  ms (slowest rank's median of {SP_REPS} CUDA-"
+              f"event calls): ring fwd {ms['ring']['fwd']:.3f}, fwd+bwd "
+              f"{ms['ring']['fwd_bwd']:.3f}; ulysses fwd "
+              f"{ms['ulysses']['fwd']:.3f}, fwd+bwd "
+              f"{ms['ulysses']['fwd_bwd']:.3f} [{power}]")
+    moe_ms = max(med(g["moe"]["step_ms"]) for g in ranks)
+    pipe_ms = max(med(g["pipeline"]["step_ms"]) for g in ranks)
+    phase("parallel", f"MoE at world {p}: the dryrun's shapes within "
+          f"{MOE_TOL['atol']} of the dense oracle without drops (max |diff| "
+          f"{max(g['moe']['oracle_err'] for g in ranks):.2e}); a step at "
+          f"d_model {MOE_STEP['d_model']}, d_ff {MOE_STEP['d_ff']}, "
+          f"{MOE_STEP['tokens']} tokens a rank, cf {MOE_STEP['cf']}: "
+          f"{moe_ms:.3f} ms (slowest rank's median of {PARALLEL_STEPS}), "
+          f"loss {ranks[0]['moe']['losses'][0]:.4f} -> "
+          f"{ranks[0]['moe']['losses'][-1]:.4f} [{power}]")
+    phase("parallel", f"pipeline at world {p}: the dryrun's shapes against "
+          f"the stages composed on one card (forward max |diff| "
+          f"{max(g['pipeline']['err']['fwd'] for g in ranks):.2e}, stage "
+          f"gradients {max(g['pipeline']['err']['grad'] for g in ranks):.2e});"
+          f" a step at d {PIPE_STEP['d']}, {PIPE_STEP['n_micro']} "
+          f"microbatches of {PIPE_STEP['rows']} rows: {pipe_ms:.3f} ms "
+          f"(slowest rank's median of {PARALLEL_STEPS}) [{power}]")
+    t1 = time.perf_counter()
+    E.dryrun_multichip(p)
+    dry = time.perf_counter() - t1
+    phase("parallel", f"dryrun_multichip({p}) over NCCL: every family ok in "
+          f"{dry:.1f} s wall (the world's spawn included); the phase's "
+          f"world {wall:.1f} s")
+    if p < 2:
+        phase("parallel", "one card: the p = 1 paths only; worlds of 2 and "
+              "4 need as many cards")
+    return {"world": p, "launches": launches, "dryrun_s": dry,
+            "sp": [{k: c[k] for k in ("shape", "ms")} for c in ranks[0]["sp"]],
+            "moe_step_ms": moe_ms, "pipeline_step_ms": pipe_ms}
+
+
 def card_power() -> str:
     """The first card's name and power limit, as ``nvidia-smi`` gives
     them."""
@@ -1798,6 +2110,7 @@ def main() -> int:
     phase_collectives(dev)
     phase_robust(dev, power)
     bucket = phase_bucket(dev, power)
+    par = phase_parallel(power)
     kernels = []
     for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only"):
         head = timing[name][0]
@@ -1819,11 +2132,14 @@ def main() -> int:
         # phase 12's paths: each bucketed run, counted from 0
         k["bucket_launches"] = {s: r["launches"][k["name"]]
                                 for s, r in bucket.items()}
+        # phase 13's ring calls, summed over its shapes and ranks
+        k["parallel_launches"] = par["launches"][k["name"]]
     print(json.dumps({"train_step": {
         "step_ms": tf_run["step_ms"], "first_step_ms": tf_run["first_step_ms"],
         "losses": tf_run["losses"], "profile": tf_run["profile"]},
         "bucket_steps": {s: {k: r[k] for k in ("median_ms", "ms", "losses")}
-                         for s, r in bucket.items()}}), flush=True)
+                         for s, r in bucket.items()},
+        "parallel": par}), flush=True)
     print(power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

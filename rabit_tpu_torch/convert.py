@@ -8,7 +8,10 @@
 * ``transformer_params_from_jax`` / ``transformer_params_to_jax`` turn
   the JAX transformer's parameter dict (numpy) into the port's module
   state for a tensor-parallel rank, and back; ``mlp_params_from_jax`` /
-  ``mlp_params_to_jax`` do the same for the MLP.
+  ``mlp_params_to_jax`` do the same for the MLP;
+  ``pipeline_params_from_jax`` gives a pipeline rank its rows of the
+  stacked stage parameters and ``moe_params_from_jax`` an expert rank
+  the router and its rows of the experts.
 * ``adopt_checkpoint`` hands checkpoint bytes written by ``rabit_tpu`` to
   the port's engine. Both packages pickle Python and numpy objects, so the
   bytes load unchanged.
@@ -75,10 +78,10 @@ def adopt_checkpoint(version: int, global_bytes: Optional[bytes],
 
 def _shard_params(params: Mapping[str, np.ndarray], specs, tp_rank: int,
                   tp: int, device: DeviceLike) -> Dict[str, torch.Tensor]:
-    """Each parameter of a JAX-layout dict cut along its tp axis
+    """Each parameter of a JAX-layout dict cut along its sharded axis
     (``specs``: name -> axis or None) for rank ``tp_rank`` of ``tp``."""
     if not 0 <= tp_rank < tp:
-        raise ValueError(f"tp_rank {tp_rank} out of range for tp={tp}")
+        raise ValueError(f"rank {tp_rank} out of range for {tp} ranks")
     dev = resolve_device(device)
     out = {}
     for name, axis in specs.items():
@@ -87,7 +90,7 @@ def _shard_params(params: Mapping[str, np.ndarray], specs, tp_rank: int,
             n = a.shape[axis]
             if n % tp:
                 raise ValueError(f"{name}: axis {axis} of size {n} does not "
-                                 f"divide over tp={tp}")
+                                 f"divide over {tp} ranks")
             a = np.take(a, np.arange(tp_rank * n // tp,
                                      (tp_rank + 1) * n // tp), axis=axis)
         out[name] = tensor_from_numpy(a).to(dev)
@@ -143,3 +146,25 @@ def mlp_params_to_jax(states: Sequence[Mapping[str, torch.Tensor]]
     JAX package's full parameter dict."""
     from .models.mlp import param_specs
     return _join_params(states, param_specs())
+
+
+def pipeline_params_from_jax(stacked: Mapping[str, np.ndarray], rank: int,
+                             pp: int, device: DeviceLike = None
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX pipeline's stacked stage parameters ([n_stages, ...] numpy
+    leaves, ``stack_stage_params``) as pipeline rank ``rank`` of ``pp``
+    holds them: its rows of every leaf (one stage: [1, ...]), as
+    ``place_pipeline_params`` shards them."""
+    return _shard_params(stacked, {k: 0 for k in stacked}, rank, pp, device)
+
+
+def moe_params_from_jax(params: Mapping[str, np.ndarray], rank: int,
+                        ep: int, device: DeviceLike = None
+                        ) -> Dict[str, torch.Tensor]:
+    """The JAX MoE's parameters (router [d, e], w_in [e, d, f], w_out
+    [e, f, d], numpy) as expert rank ``rank`` of ``ep`` holds them: the
+    router whole, its rows of w_in and w_out (``moe_param_specs``)."""
+    from .parallel.moe import moe_param_specs   # that module imports this
+    specs = {k: None if axis is None else 0
+             for k, axis in moe_param_specs("ep").items()}
+    return _shard_params(params, specs, rank, ep, device)

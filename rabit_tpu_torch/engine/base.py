@@ -18,6 +18,28 @@ import numpy as np
 
 from ..ops.reducers import SUM
 
+# knobs of the JAX package's engines that the port has no code for yet:
+# set, they raise rather than be ignored (both engines of the port)
+_VALUE_KNOBS = ("rabit_deadline_ms", "rabit_deadline_ms_per_mb",
+                "rabit_hier_phase_deadline_scale",
+                "rabit_metrics_port", "rabit_flight_dir",
+                "rabit_skew_preagg_ms", "rabit_skew_poll_ms",
+                "rabit_skew_sync_rounds")
+_BOOL_KNOBS = ("rabit_telemetry", "rabit_profile", "rabit_events",
+               "rabit_skew_adapt")
+
+
+def refuse_unported(cfg) -> None:
+    """Raise for a configured knob (a ``Config``) whose machinery the
+    port lacks."""
+    bad = [k for k in _VALUE_KNOBS if cfg.get(k)]
+    bad += [k for k in _BOOL_KNOBS if cfg.get_bool(k)]
+    if bad:
+        raise NotImplementedError(
+            f"{bad}: the watchdog and its deadlines, telemetry, profiling, "
+            f"the live plane, the flight recorder and skew adaptation are "
+            f"not ported to rabit_tpu_torch yet")
+
 
 class AllreduceHandle:
     """Awaitable engine-level collective (:meth:`Engine.allreduce_async`).

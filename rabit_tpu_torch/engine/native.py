@@ -17,11 +17,13 @@ pre-LoadCheckPoint collectives; through the C interface those keys are
 lost. The binding rebuilds them from the Python caller's frame and passes
 them through RbtAllreduceEx.
 
-Not ported yet, and refused at init when configured: the watchdog and its
-rungs (``rabit_deadline_ms``), the live plane and flight recorder
-(``rabit_metrics_port``, ``rabit_flight_dir``), telemetry and profiling
-(``rabit_telemetry``, ``rabit_profile``), skew adaptation
-(``rabit_skew_*``), and ``resize`` (elastic membership).
+Not ported yet, and refused at init when configured: the watchdog and
+its rungs (``rabit_deadline_ms``, ``rabit_hier_phase_deadline_scale``),
+the live plane and flight recorder (``rabit_metrics_port``,
+``rabit_flight_dir``), telemetry and profiling (``rabit_telemetry``,
+``rabit_profile``), skew adaptation (``rabit_skew_*``) --
+``base.refuse_unported``, shared with ``TorchEngine`` -- and ``resize``
+(elastic membership).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import numpy as np
 
 from . import ckpt_store
 from ._native_build import library
-from .base import Engine
+from .base import Engine, refuse_unported
 from ..ops.reducers import DTYPE_ENUM, MAX, MIN
 from ..utils import log, retry
 from ..utils.config import Config
@@ -45,15 +47,6 @@ _PREPARE_CB = ctypes.CFUNCTYPE(None, ctypes.c_void_p)
 DATAPLANE_CB = ctypes.CFUNCTYPE(
     ctypes.c_int, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,
     ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p)
-
-# knobs of the JAX package's binding that the port has no code for yet:
-# set, they raise rather than be ignored
-_VALUE_KNOBS = ("rabit_deadline_ms", "rabit_deadline_ms_per_mb",
-                "rabit_metrics_port", "rabit_flight_dir",
-                "rabit_skew_preagg_ms", "rabit_skew_poll_ms",
-                "rabit_skew_sync_rounds")
-_BOOL_KNOBS = ("rabit_telemetry", "rabit_profile", "rabit_events",
-               "rabit_skew_adapt")
 
 
 def _load() -> ctypes.CDLL:
@@ -96,17 +89,6 @@ def _caller_site(depth: int = 2) -> str:
         return f"{os.path.basename(frame.f_code.co_filename)}::{frame.f_lineno}"
     except ValueError:  # pragma: no cover - shallower stack than depth
         return ""
-
-
-def refuse_unported(cfg: Config) -> None:
-    """Raise for a configured knob whose machinery the port lacks."""
-    bad = [k for k in _VALUE_KNOBS if cfg.get(k)]
-    bad += [k for k in _BOOL_KNOBS if cfg.get_bool(k)]
-    if bad:
-        raise NotImplementedError(
-            f"{bad}: the watchdog, telemetry, live plane, flight recorder "
-            f"and skew adaptation of the native engine are not ported to "
-            f"rabit_tpu_torch yet")
 
 
 class NativeEngine(Engine):

@@ -41,9 +41,18 @@ world 1 the handle is complete at issue. ``init`` exports
 environment (``collectives.configure_async``) for the models' async
 steps.
 
-Checkpoints are kept in memory.
+Checkpoints are kept in memory and, with ``rabit_ckpt_dir``, also in the
+durable store (``engine/ckpt_store.py``, ``rabit_ckpt_keep`` versions a
+rank), as ``XlaEngine`` keeps them (``engine/xla.py:555-623``): each
+``checkpoint`` and each lazy checkpoint once materialised lands on disk,
+and a fresh process's ``load_checkpoint`` at version 0 resumes the
+newest stored version the world agrees on (``_cold_restart``).
+``rabit_debug`` opens the debug log, as in the native engine.
 
-Not ported yet: telemetry, the watchdog, the durable checkpoint store.
+Not ported yet, and refused at init when configured
+(``base.refuse_unported``, the native engine's set): telemetry and
+profiling, the live plane and flight recorder, the watchdog's deadlines
+and ``rabit_hier_phase_deadline_scale``, skew adaptation.
 """
 
 from __future__ import annotations
@@ -56,12 +65,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .base import AllreduceHandle, Engine
+from . import ckpt_store
+from .base import AllreduceHandle, Engine, refuse_unported
 from ..convert import numpy_from_tensor, tensor_from_numpy
+from ..ops.reducers import MAX, MIN
 from ..parallel import collectives as C
 from ..parallel import dispatch, topology
 from ..parallel import wire as wirespec
 from ..parallel.mesh import make_group
+from ..utils import log
 from ..utils.config import Config
 
 
@@ -81,11 +93,14 @@ class TorchEngine(Engine):
         self._local: Optional[bytes] = None
         self._lazy: Optional[Callable[[], bytes]] = None
         self._version = 0
+        # durable cold-restart mirror (rabit_ckpt_dir); None = memory only
+        self._store: Optional[ckpt_store.CheckpointStore] = None
         self._async_ex: Optional[ThreadPoolExecutor] = None
         self._async_pending: List[Future] = []
 
     def init(self, args: List[str]) -> None:
         cfg = Config.from_args(args)
+        refuse_unported(cfg)
         C.configure_async(cfg)
         device = cfg.get("rabit_device") or None
         coord = cfg.get("rabit_coordinator")
@@ -126,6 +141,13 @@ class TorchEngine(Engine):
         self._epoch_reset()
         self._groups = topology.resolve_groups(
             self._world, spec=cfg.get("rabit_hier_group"))
+        log.set_debug(cfg.get_bool("rabit_debug"))
+        log.set_identity(self._rank, self._world)
+        ckpt_dir = cfg.get("rabit_ckpt_dir")
+        if ckpt_dir:
+            self._store = ckpt_store.CheckpointStore(
+                ckpt_dir, rank=self._rank,
+                keep=cfg.get_int("rabit_ckpt_keep", ckpt_store.DEFAULT_KEEP))
 
     def _epoch_reset(self) -> None:
         """Drop what the last world left behind: the parsed dispatch
@@ -283,12 +305,50 @@ class TorchEngine(Engine):
 
     # -- checkpointing ----------------------------------------------------
     # In memory, like the reference's global_checkpoint string
-    # (allreduce_robust.cc:443-451).
+    # (allreduce_robust.cc:443-451), and mirrored to the durable store when
+    # rabit_ckpt_dir is set.
     def load_checkpoint(self, with_local: bool = False
                         ) -> Tuple[int, Optional[bytes], Optional[bytes]]:
-        if self._lazy is not None:
-            self._global, self._lazy = self._lazy(), None
+        self._materialize_lazy()
+        if self._version == 0 and self._store is not None:
+            self._cold_restart(with_local)
         return (self._version, self._global, self._local)
+
+    def _cold_restart(self, with_local: bool) -> None:
+        """A fresh process with a durable store resumes the newest stored
+        version the world agrees on (``XlaEngine._cold_restart``): at
+        world 1 its own newest; else the allreduce MAX of each rank's
+        newest version, the MIN of the ranks that hold it, and a
+        broadcast of that rank's global bytes, so every rank resumes the
+        same version even where some disks lag. Local state never leaves
+        its rank."""
+        store = self._store
+        if self._world == 1:
+            got = store.latest()
+            if got is not None:
+                self._version, self._global = got[0], got[1]
+                self._local = got[2] or None
+            return
+        mine = store.latest_version()
+        word = np.array([mine], dtype=np.int64)
+        self.allreduce(word, MAX)
+        maxv = int(word[0])
+        if maxv <= 0:
+            return
+        word[0] = self._rank if mine >= maxv else self._world
+        self.allreduce(word, MIN)
+        root = int(word[0])
+        payload = None
+        if self._rank == root:
+            got = store.load(maxv)
+            payload = got[0] if got is not None else b""
+        self._global = self.broadcast(payload, root)
+        self._version = maxv
+        if with_local:
+            got = store.load(maxv)
+            self._local = (got[1] or None) if got is not None else None
+        log.log_info("cold restart: resumed at checkpoint version %d "
+                     "(holder rank %d)", maxv, root)
 
     def checkpoint(self, global_bytes: bytes,
                    local_bytes: Optional[bytes] = None) -> None:
@@ -296,11 +356,20 @@ class TorchEngine(Engine):
         self._local = local_bytes
         self._lazy = None
         self._version += 1
+        if self._store is not None:
+            self._store.save(self._version, global_bytes,
+                             local_bytes or b"")
 
     def lazy_checkpoint(self, make_global: Callable[[], bytes]) -> None:
         self._lazy = make_global
         self._local = None
         self._version += 1
+
+    def _materialize_lazy(self) -> None:
+        if self._lazy is not None:
+            self._global, self._lazy = self._lazy(), None
+            if self._store is not None:
+                self._store.save(self._version, self._global)
 
     def restore_checkpoint(self, version: int, global_bytes: Optional[bytes],
                            local_bytes: Optional[bytes] = None) -> None:

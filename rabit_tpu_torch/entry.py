@@ -12,13 +12,25 @@
                      the last four steps must end below the first loss
                      minus 0.8.
 
-Both run on the card unless ``device="cpu"`` is asked for.
+``dryrun_multichip(n)`` the counterpart of
+                     ``__graft_entry__.py::dryrun_multichip``: one
+                     training step (two for the transformer) of each
+                     parallelism family over n processes, one a card
+                     (``tools.run_world``): the transformer over
+                     (dp, tp, sp), the MLP over (dp, tp), the pipeline over
+                     pp = n, the switch MoE over ep = n, and the
+                     quantized-wire ring allreduce (bf16 and int8) over
+                     the world.
+
+Each runs on the card unless ``device="cpu"`` is asked for.
 
     python -m rabit_tpu_torch.entry        # train_flagship on the card
+    python -m rabit_tpu_torch.entry --dryrun 4   # dryrun_multichip(4)
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import Dict, List, Tuple
 
@@ -27,7 +39,7 @@ import torch
 import torch.distributed as dist
 
 from .models import transformer as tf
-from .parallel.mesh import DeviceLike, make_mesh, resolve_device
+from .parallel.mesh import DeviceLike, make_mesh, refuse_tf32, resolve_device
 
 ENTRY_SIZES = dict(vocab=256, n_layers=2, d_model=128, n_heads=8, d_head=16,
                    d_ff=512, max_t=256)
@@ -69,10 +81,7 @@ def train_flagship(steps: int = 16, device: DeviceLike = None) -> Dict:
     raises unless the mean of the last four losses is below the first
     loss minus 0.8. A process group that exists is adopted; one this
     function creates it destroys."""
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("train_flagship holds its f32 projections to "
-                           "f32: set torch.backends.cuda.matmul.allow_tf32 "
-                           "= False")
+    refuse_tf32("train_flagship")
     sizes = FLAGSHIP_SIZES
     owns_group = not dist.is_initialized()
     mesh = make_mesh((1, 1, 1), device)
@@ -112,8 +121,162 @@ def train_flagship(steps: int = 16, device: DeviceLike = None) -> Dict:
     return {"losses": losses, "step_ms": step_ms, "device": name}
 
 
-if __name__ == "__main__":
-    out = train_flagship()
+def _axis_factors(n: int) -> Tuple[int, int, int]:
+    """n processes as (dp, tp, sp), every axis real where n allows (n = 8:
+    2 x 2 x 2; 4: 2 x 2 x 1, sp degrading last; 2: 2 x 1 x 1), the odd
+    factor left riding dp (``__graft_entry__.py:52-64``)."""
+    dp = tp = sp = 1
+    for axis in ("dp", "tp", "sp"):
+        if n % 2 == 0:
+            n //= 2
+            dp, tp, sp = (dp * 2 if axis == "dp" else dp,
+                          tp * 2 if axis == "tp" else tp,
+                          sp * 2 if axis == "sp" else sp)
+    return dp * n, tp, sp
+
+
+DRYRUN_D = 16            # the pipeline's and the MoE's width
+DRYRUN_WIRE_N = 64 * 1024
+
+
+def _finite(*losses: float) -> None:
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"loss went non-finite: {losses}")
+
+
+def _dryrun_rank(rank: int, n: int, device) -> Dict:
+    """One rank of ``dryrun_multichip``: each family in turn, its losses
+    (and the wire's results) for the parent to print and compare."""
+    from .models import mlp
+    from .ops.reducers import SUM
+    from .parallel import collectives as C
+    from .parallel import moe, pipeline
+    out: Dict = {}
+    # the flagship: the transformer over (dp, tp, sp), two steps
+    dp, tp, sp = _axis_factors(n)
+    mesh3 = make_mesh((dp, tp, sp), device)
+    model, x, y = tf.make_sharded_inputs(
+        mesh3, batch=dp * 2, seq=sp * 8, vocab=64, n_layers=2, d_model=32,
+        n_heads=max(2, tp), d_head=8, d_ff=64)
+    step = tf.make_train_step(mesh3, lr=0.1)
+    out["transformer"] = [float(step(model, x, y)) for _ in range(2)]
+    _finite(*out["transformer"])
+    # the MLP over (dp, tp), two steps
+    tp2 = 2 if n % 2 == 0 else 1
+    dp2 = n // tp2
+    mesh2 = make_mesh((dp2, tp2, 1), device)
+    mmodel, mx, my = mlp.make_sharded_inputs(
+        mesh2, batch=max(dp2 * 4, 8), in_dim=32, hidden=16 * tp2, out_dim=8)
+    mstep = mlp.make_train_step(mesh2, lr=0.1)
+    out["mlp"] = [float(mstep(mmodel, mx, my)) for _ in range(2)]
+    _finite(*out["mlp"])
+    # the pipeline over pp = n: one SGD step through the reverse pipeline
+    d = DRYRUN_D
+    rng = np.random.default_rng(0)
+    meshp = make_mesh((n,), device, axes=("pp",))
+    stages = [{"w": (rng.standard_normal((d, d)) / 4).astype(np.float32)}
+              for _ in range(n)]
+    xp = torch.from_numpy(rng.standard_normal((6, 4, d)).astype(
+        np.float32)).to(device)
+    placed = pipeline.place_pipeline_params(meshp, stages)
+    pfn = pipeline.make_pipeline_fn(
+        meshp, lambda prm, h: torch.tanh(h @ prm["w"]))
+    yp = pfn(placed, xp)
+    ploss = (yp * yp).mean()
+    ploss.backward()
+    with torch.no_grad():
+        for v in placed.values():
+            v -= 0.1 * v.grad
+    out["pipeline"] = [float(ploss.detach())]
+    _finite(*out["pipeline"])
+    # the switch MoE over ep = n: one SGD step through router and experts
+    meshe = make_mesh((n,), device, axes=("ep",))
+    group = meshe.group("ep")
+    eparams = moe.place_moe_params(meshe, moe.init_moe_params(
+        7, d_model=d, d_ff=32, n_experts=n))
+    xe = np.random.default_rng(8).standard_normal((8 * n, d)).astype(
+        np.float32)
+    xe = torch.from_numpy(xe[rank * 8:(rank + 1) * 8]).to(device)
+    ye, aux = moe.make_moe_fn(meshe, capacity_factor=4.0)(eparams, xe)
+    eloss = C.psum_identity_grad((ye * ye).sum(), group) / ye.numel() / n \
+        + 0.01 * aux
+    eloss.backward()
+    with torch.no_grad():
+        for v in eparams.values():
+            v -= 0.1 * v.grad
+    out["moe"] = [float(eloss.detach())]
+    _finite(*out["moe"])
+    # the quantized-wire ring allreduce over the world
+    xs = np.random.default_rng(3).standard_normal(
+        (n, DRYRUN_WIRE_N)).astype(np.float32)
+    mine = torch.from_numpy(xs[rank]).to(device)
+    for wire in ("bf16", "int8"):
+        got = C.allreduce(mine, None, SUM, method="ring", wire=wire)
+        out[f"wire_{wire}"] = got.cpu().numpy().tobytes().hex()
+    return out
+
+
+def dryrun_multichip(n_devices: int, device: DeviceLike = None) -> None:
+    """One training step of each parallelism family over ``n_devices``
+    processes, one a card (``device="cpu"``: gloo on the CPU), tiny
+    shapes, in ``__graft_entry__.py``'s order: the transformer over (dp,
+    tp, sp) (two steps), the MLP over (dp, tp), the pipeline over pp, the
+    switch MoE over ep, and the ring allreduce through the bf16 and int8
+    wires, within 2e-2 * sqrt(p) of the dense sum and the same bits on
+    every rank. Prints a line a family; raises if any fails."""
+    from .tools import run_world
+    dev_type = resolve_device(device).type
+    ranks = run_world(_dryrun_rank, n_devices, dev_type)
+    lead = ranks[0]
+    for r, got in enumerate(ranks):
+        for fam in ("transformer", "mlp", "pipeline", "moe"):
+            if not np.allclose(got[fam], lead[fam], rtol=1e-6, atol=1e-6):
+                raise RuntimeError(f"dryrun {fam}: rank {r} loss {got[fam]} "
+                                   f"!= rank 0 {lead[fam]}")
+    dp, tp, sp = _axis_factors(n_devices)
+    t0, t1 = lead["transformer"]
+    print(f"dryrun transformer ok: mesh=({dp}x{tp}x{sp}) loss {t0:.4f} -> "
+          f"{t1:.4f}")
+    tp2 = 2 if n_devices % 2 == 0 else 1
+    m0, m1 = lead["mlp"]
+    print(f"dryrun mlp ok: mesh=({n_devices // tp2}x{tp2}) loss {m0:.4f} -> "
+          f"{m1:.4f}")
+    print(f"dryrun pipeline ok: pp={n_devices} loss "
+          f"{lead['pipeline'][0]:.4f}")
+    print(f"dryrun moe ok: ep={n_devices} loss {lead['moe'][0]:.4f}")
+    xs = np.random.default_rng(3).standard_normal(
+        (n_devices, DRYRUN_WIRE_N)).astype(np.float32)
+    want = xs.sum(axis=0)
+    for wire in ("bf16", "int8"):
+        got = np.frombuffer(bytes.fromhex(lead[f"wire_{wire}"]), np.float32)
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        # quantization error grows about as sqrt(p) over the p - 1 hops
+        if not rel < 2e-2 * np.sqrt(n_devices):
+            raise RuntimeError(f"dryrun wire {wire}: relative error {rel}")
+        for r, other in enumerate(ranks[1:], 1):
+            if other[f"wire_{wire}"] != lead[f"wire_{wire}"]:
+                raise RuntimeError(f"dryrun wire {wire}: rank {r} differs "
+                                   f"from rank 0")
+    print(f"dryrun quantized wire ok: bf16+int8 over {n_devices} devices")
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dryrun", type=int, default=None, metavar="N",
+                    help="dryrun_multichip over N processes, one a card")
+    ap.add_argument("--device", default=None,
+                    help="'cpu' for gloo on the CPU; the card by default")
+    args = ap.parse_args(argv)
+    if args.dryrun is not None:
+        dryrun_multichip(args.dryrun, args.device)
+        return 0
+    out = train_flagship(device=args.device)
     print(f"{out['device']}: loss {out['losses'][0]:.4f} -> "
           f"{out['losses'][-1]:.4f}; median step "
           f"{float(np.median(out['step_ms'][1:])):.3f} ms")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

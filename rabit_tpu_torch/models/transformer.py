@@ -41,7 +41,7 @@ from ..ops.reducers import SUM
 from ..parallel.collectives import (
     async_enabled, bucket_allreduce, grad_buckets_async, ident_psum_grad,
     psum_identity_grad, ring_allreduce, tree_allreduce)
-from ..parallel.mesh import DeviceLike, Mesh
+from ..parallel.mesh import DeviceLike, Mesh, refuse_tf32
 from ..parallel.ring_attention import reference_attention, ring_attention
 
 Tensor = torch.Tensor
@@ -214,10 +214,11 @@ def make_train_step(mesh: Mesh, lr: float = 0.1, grad_sync: str = "psum"):
     ``bucket_allreduce`` with the ring (``"bucket"``, leaves in sorted-key
     order). With ``async_enabled()``, ``"bucket"`` gives the overlapped
     step of ``_make_async_bucket_step``, equal to the sync bucket step bit
-    for bit."""
+    for bit. TF32 products raise (``refuse_tf32``), as in the MLP."""
     if grad_sync not in GRAD_SYNCS:
         raise ValueError(f"grad_sync must be one of {GRAD_SYNCS}, got "
                          f"{grad_sync!r}")
+    refuse_tf32("the transformer's train step")
     if grad_sync == "bucket" and async_enabled():
         return _make_async_bucket_step(mesh, lr)
     dp, sp = mesh.group("dp"), mesh.group("sp")

@@ -1412,3 +1412,104 @@ def ring_shift(x: torch.Tensor, group) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
         return x
     return _RingShift.apply(x, group)
+
+
+def _all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int
+                ) -> torch.Tensor:
+    p = dist.get_world_size(group)
+    n = x.shape[split_axis]
+    if n % p:
+        raise ValueError(f"all_to_all: axis {split_axis} of size {n} does "
+                         f"not split over {p} ranks")
+    # chunk j of the split axis to the front, to go to rank j; one
+    # contiguous buffer of one dtype, as NCCL needs
+    send = x.unflatten(split_axis, (p, n // p)).movedim(split_axis,
+                                                        0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    # recv[j] came from rank j: concatenated along concat_axis in rank order
+    return recv.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.group, ctx.axes = group, (split_axis, concat_axis)
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the transpose of the exchange is the inverse exchange
+        split_axis, concat_axis = ctx.axes
+        return _all_to_all(g, ctx.group, concat_axis, split_axis), None, \
+            None, None
+
+
+def all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int
+               ) -> torch.Tensor:
+    """The tiled all-to-all over ``group``, differentiable: the port of
+    ``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``.
+    ``split_axis`` is cut into p chunks, chunk j goes to rank j, and what
+    arrives is concatenated along ``concat_axis`` in rank order (one
+    ``all_to_all_single``). Its backward is the inverse exchange, the two
+    axes swapped."""
+    if dist.get_world_size(group) == 1:
+        return x
+    split_axis %= x.dim()
+    concat_axis %= x.dim()
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(
+            group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_part(g, ctx.group, ctx.dim), None, None
+
+
+class _ShardAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _own_part(x, group, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherAlong.apply(g, ctx.group, ctx.dim), None, None
+
+
+def _own_part(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    p, idx = dist.get_world_size(group), dist.get_rank(group)
+    n = x.shape[dim] // p
+    return x.narrow(dim, idx * n, n)
+
+
+def shard_along(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's block of a replicated ``x`` along ``dim`` (rank order;
+    the size must divide by p), whose backward gathers the blocks'
+    gradients, so that a replicated input gets its whole gradient on
+    every rank: a ``shard_map`` in-spec ``P(axis)`` over a global
+    array."""
+    if dist.get_world_size(group) == 1:
+        return x
+    if x.shape[dim] % dist.get_world_size(group):
+        raise ValueError(f"axis {dim} of size {x.shape[dim]} does not "
+                         f"divide over {dist.get_world_size(group)} ranks")
+    return _ShardAlong.apply(x, group, dim % x.dim())
+
+
+def gather_along(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The ranks' blocks concatenated along ``dim`` in rank order, on every
+    rank, whose backward takes this rank's block of the gradient (every
+    rank computes the same loss from the replicated result, so no sum):
+    a ``shard_map`` out-spec ``P(axis)`` read back as a global array."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _GatherAlong.apply(x, group, dim % x.dim())

@@ -10,10 +10,13 @@ and writes a schema-versioned ``COLLECTIVE_SWEEP_*.json`` whose
 ``table`` section this module loads. With no table (or an unreadable or
 foreign-schema file) dispatch falls back to the constants below.
 
-Tables are read only from the port's own ``build/artifacts/`` and from
-``RABIT_DISPATCH_TABLE``, never from ``benchmarks/artifacts/``: the
-tables there were measured by the JAX package on a TPU and on a virtual
-CPU mesh, not on the card.
+Tables are read from ``RABIT_DISPATCH_TABLE``, then the port's own
+``build/artifacts/``, then, in an NCCL world only, the table committed
+under ``parallel/tables/`` (a sweep at world 4 on H100s over NVLink: a
+fresh checkout has no ``build/``), never from ``benchmarks/artifacts/``:
+the tables there were measured by the JAX package on a TPU and on a
+virtual CPU mesh, not on the card. The committed table was measured over
+NCCL, so a gloo world on the CPU keeps the fallback constants.
 
 Wire quantization is LOSSY, so it is never auto-enabled: the table (or,
 without a table, the ``rabit_dataplane_wire_mincount`` size gate) only
@@ -33,9 +36,11 @@ import glob
 import json
 import os
 import re
+from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ops.reducers import BITOR, SUM
 from ..tools import ARTIFACTS
@@ -123,6 +128,25 @@ def _newest_sweep() -> Optional[str]:
     return found[-1] if found else None
 
 
+# the committed tables of the port (COLLECTIVE_SWEEP_*.json), read only in
+# an NCCL world
+TABLES = Path(__file__).resolve().parent / "tables"
+
+
+def _nccl_world() -> bool:
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_backend() == "nccl")
+
+
+def _tracked_sweep() -> Optional[str]:
+    """The newest committed table, where the default group is NCCL's."""
+    if not _nccl_world():
+        return None
+    found = sorted(TABLES.glob("COLLECTIVE_SWEEP_*.json"),
+                   key=lambda f: f.name)
+    return str(found[-1]) if found else None
+
+
 def _valid_rows(rows) -> bool:
     if not isinstance(rows, list) or not rows:
         return False
@@ -164,7 +188,8 @@ def load_table(path: Optional[str] = None) -> Optional[dict]:
 
     Resolution order: explicit ``path`` arg, ``RABIT_DISPATCH_TABLE``
     env (``none``/``off``/``0`` disables), newest
-    ``COLLECTIVE_SWEEP_*.json`` under the port's ``build/artifacts/``.
+    ``COLLECTIVE_SWEEP_*.json`` under the port's ``build/artifacts/``,
+    then, in an NCCL world, the newest under ``parallel/tables/``.
     A missing file, a schema outside ``ACCEPTED_SCHEMAS`` or malformed
     rows all yield None -- dispatch degrades to the documented defaults,
     never crashes. (The JAX package counts cache hits in its telemetry;
@@ -174,7 +199,7 @@ def load_table(path: Optional[str] = None) -> Optional[dict]:
         env = os.environ.get(_TABLE_ENV)
         if env in ("none", "off", "0"):
             return None
-        path = env or _newest_sweep()
+        path = env or _newest_sweep() or _tracked_sweep()
     if not path:
         return None
     try:

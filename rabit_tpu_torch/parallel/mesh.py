@@ -4,14 +4,15 @@ In JAX one program sees every device of the mesh; in PyTorch each process
 holds its own shard and the ranks meet in a ``torch.distributed`` process
 group. ``make_group`` sets up (or adopts) that group and resolves the
 device this rank computes on: NCCL on the card, gloo on the CPU.
-``make_mesh`` lays a (dp, tp, sp) mesh over that world and holds the
-three subgroups of this rank.
+``make_mesh`` lays a mesh of named axes over that world ((dp, tp, sp) by
+default, or one axis such as ``("pp",)``) and holds this rank's subgroup
+of each; ``best_mesh_axis`` names its largest axis.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,6 +34,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def refuse_tf32(what: str) -> None:
+    """Raise if ``torch.backends.cuda.matmul.allow_tf32`` is on: ``what``
+    holds its f32 products to f32, as the JAX package computes them."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(f"{what} holds its f32 products to f32: set "
+                           f"torch.backends.cuda.matmul.allow_tf32 = False")
 
 
 def make_group(device: DeviceLike = None, rank: int = 0,
@@ -72,40 +81,45 @@ AXES = ("dp", "tp", "sp")
 
 @dataclass(frozen=True)
 class Mesh:
-    """A (dp, tp, sp) mesh over a ``torch.distributed`` world: this rank's
-    coordinates and the three subgroups it belongs to. The counterpart of
-    ``make_mesh(n, ("dp", "tp", "sp"), shape)`` with ``jax.sharding.Mesh``'s
-    rank layout, row-major over (dp, tp, sp): rank = (d * tp + t) * sp + s.
+    """A mesh over a ``torch.distributed`` world: its named axes, this
+    rank's coordinates and the subgroup of each axis it belongs to. The
+    counterpart of ``make_mesh(n, axes, shape)`` with
+    ``jax.sharding.Mesh``'s rank layout, row-major over the axes: for
+    (dp, tp, sp), rank = (d * tp + t) * sp + s.
     """
 
-    shape: Tuple[int, int, int]
-    coords: Tuple[int, int, int]
-    groups: Tuple[dist.ProcessGroup, dist.ProcessGroup, dist.ProcessGroup]
+    shape: Tuple[int, ...]
+    coords: Tuple[int, ...]
+    groups: Tuple[dist.ProcessGroup, ...]
     device: torch.device
+    axes: Tuple[str, ...] = AXES
 
     def size(self, axis: str) -> int:
-        return self.shape[AXES.index(axis)]
+        return self.shape[self.axes.index(axis)]
 
     def index(self, axis: str) -> int:
-        return self.coords[AXES.index(axis)]
+        return self.coords[self.axes.index(axis)]
 
     def group(self, axis: str) -> dist.ProcessGroup:
-        return self.groups[AXES.index(axis)]
+        return self.groups[self.axes.index(axis)]
 
 
-def make_mesh(shape: Tuple[int, int, int] = (1, 1, 1),
+def make_mesh(shape: Tuple[int, ...] = (1, 1, 1),
               device: DeviceLike = None, rank: int = 0,
-              init_method: Optional[str] = None) -> Mesh:
-    """The (dp, tp, sp) mesh of this rank. The world (dp * tp * sp ranks)
-    is set up or adopted as ``make_group`` does: NCCL on the card, gloo on
-    the CPU. Every rank creates every subgroup, in the same order,
-    including those it is not in (NCCL hangs otherwise); a world of one
-    has three trivial groups."""
+              init_method: Optional[str] = None,
+              axes: Sequence[str] = AXES) -> Mesh:
+    """The mesh of this rank over ``axes`` (by default (dp, tp, sp); one
+    axis, e.g. ``("pp",)`` or ``("ep",)``, for the pipeline and the
+    MoE). The world (the product of ``shape``) is set up or adopted as
+    ``make_group`` does: NCCL on the card, gloo on the CPU. Every rank
+    creates every subgroup, in the same order, including those it is not
+    in (NCCL hangs otherwise); a world of one has trivial groups."""
     shape = tuple(int(n) for n in shape)
-    if len(shape) != 3 or min(shape) < 1:
-        raise ValueError(f"mesh shape must be three positive sizes "
-                         f"(dp, tp, sp), got {shape}")
-    world = shape[0] * shape[1] * shape[2]
+    axes = tuple(axes)
+    if len(shape) != len(axes) or min(shape) < 1:
+        raise ValueError(f"mesh shape must be {len(axes)} positive sizes "
+                         f"{axes}, got {shape}")
+    world = int(np.prod(shape))
     _, dev = make_group(device, rank, world, init_method)
     if dist.get_world_size() != world:
         raise ValueError(f"mesh {shape} needs a world of {world}, the "
@@ -114,8 +128,8 @@ def make_mesh(shape: Tuple[int, int, int] = (1, 1, 1),
     layout = np.arange(world).reshape(shape)
     coords = tuple(int(c) for c in np.argwhere(layout == me)[0])
     groups = []
-    for axis in range(3):
-        # the rank lists along this axis, the other two coordinates fixed
+    for axis in range(len(shape)):
+        # the rank lists along this axis, the other coordinates fixed
         lines = np.moveaxis(layout, axis, -1).reshape(-1, shape[axis])
         mine = None
         for line in lines:
@@ -124,4 +138,11 @@ def make_mesh(shape: Tuple[int, int, int] = (1, 1, 1),
             if me in ranks:
                 mine = g
         groups.append(mine)
-    return Mesh(shape, coords, tuple(groups), dev)
+    return Mesh(shape, coords, tuple(groups), dev, axes)
+
+
+def best_mesh_axis(mesh: Mesh) -> str:
+    """The largest axis, where collectives get the most parallelism; a tie
+    goes to the first in axis order (``rabit_tpu/parallel/mesh.py:43``)."""
+    sizes = dict(zip(mesh.axes, mesh.shape))
+    return max(sizes, key=sizes.get)

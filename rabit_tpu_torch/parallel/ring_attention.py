@@ -7,12 +7,19 @@ rank's queries accumulate an online softmax over every block through the
 flash block step (``ops/flash.py::block_update``: the CUDA kernels for
 CUDA tensors, the plain versions for CPU tensors).
 
+``ulysses_attention`` re-shards from sequence- to head-parallel with the
+tiled all-to-all (``collectives.all_to_all``), runs dense attention over
+the whole sequence for H/p heads, and scatters back; the JAX version has
+no Pallas kernel there, so its products stay torch products.
+``sequence_parallel_attention`` is the wrapper over global [T, H, D]
+arrays: each rank takes its block of the sequence, runs either scheme over
+the axis's group and gathers the whole result, so every rank holds what
+JAX's wrapper returns.
+
 Layouts are the JAX package's: q/k/v are [T, H, D], with any leading batch
 dimensions. JAX ``vmap``s over the batch; the port folds the batch into
 the heads, so [B, T, H, D] runs as one [B*H, T, D] block step under one
 mask.
-
-Not ported yet: ``ulysses_attention`` and ``sequence_parallel_attention``.
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ import torch
 import torch.distributed as dist
 
 from ..ops.flash import NEG_INF, block_update
-from .collectives import ring_shift
+from .collectives import all_to_all, gather_along, ring_shift, shard_along
+from .mesh import Mesh, refuse_tf32
 
 Tensor = torch.Tensor
 
@@ -98,3 +106,73 @@ def ring_attention(q: Tensor, k: Tensor, v: Tensor,
         m, l, o = block(m, l, o, kv[0], kv[1], (idx - s) % p)
     out = o / l[..., None]
     return out.reshape(*lead, h, t, d).movedim(-3, -2).to(q.dtype)
+
+
+def ulysses_attention(q: Tensor, k: Tensor, v: Tensor,
+                      group: Optional[dist.ProcessGroup] = None,
+                      causal: bool = False, sm_scale: Optional[float] = None
+                      ) -> Tensor:
+    """All-to-all (DeepSpeed-Ulysses) sequence parallelism over ``group``
+    (``ring_attention.py:186-214``): this rank's [..., T_local, H, D] with
+    H divisible by p becomes [..., p * T_local, H/p, D] by one tiled
+    all-to-all each, dense ``reference_attention`` runs over the whole
+    sequence for its H/p heads, and one all-to-all scatters the result
+    back to [..., T_local, H, D]. At p = 1 it is ``reference_attention``.
+    """
+    p = 1 if group is None else dist.get_world_size(group)
+    if p == 1:
+        return reference_attention(q, k, v, causal, sm_scale)
+    h = q.shape[-2]
+    if h % p:
+        raise ValueError(f"heads {h} not divisible by axis size {p}")
+
+    def to_headpar(x):   # [..., T, H, D] -> [..., p*T, H/p, D]
+        return all_to_all(x, group, split_axis=-2, concat_axis=-3)
+
+    out = reference_attention(to_headpar(q), to_headpar(k), to_headpar(v),
+                              causal, sm_scale)
+    return all_to_all(out, group, split_axis=-3, concat_axis=-2)
+
+
+IMPLS = ("ring", "ulysses")
+
+
+def sequence_parallel_attention(q: Tensor, k: Tensor, v: Tensor, mesh: Mesh,
+                                causal: bool = False,
+                                axis: Optional[str] = None,
+                                impl: str = "ring",
+                                use_pallas: bool = False) -> Tensor:
+    """Attention over global [T, H, D] arrays (any leading batch
+    dimensions), the sequence sharded over ``axis`` of ``mesh`` (by
+    default its first axis; T divisible by the axis size): the port of
+    ``ring_attention.py:236-262``. Every rank passes the same global q, k,
+    v, computes its block of the sequence by ``impl`` (``"ring"``, the
+    K/V rotation through the flash block step, or ``"ulysses"``, the
+    all-to-all head scatter; H divisible by the axis size) and returns the
+    whole [T, H, D] result, the same on every rank. Gradients reach the
+    global inputs whole on every rank.
+
+    ``use_pallas`` is kept for JAX's signature and its refusal: in the
+    port the ring's block step always runs ``ops/flash.py::block_update``
+    (the CUDA kernels on CUDA tensors, their plain versions on CPU
+    tensors), so it changes nothing there; with ``"ulysses"`` it raises
+    as in JAX. TF32 products raise (``refuse_tf32``)."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be 'ring' or 'ulysses', got {impl!r}")
+    if use_pallas and impl != "ring":
+        raise ValueError(
+            "use_pallas applies only to impl='ring' (the Ulysses path has "
+            "no Pallas kernel); drop use_pallas or use impl='ring'")
+    if axis is None:
+        axis = mesh.axes[0]
+    psize = mesh.size(axis)
+    t = q.shape[-3]
+    if t % psize:
+        raise ValueError(
+            f"sequence length {t} not divisible by axis '{axis}' size "
+            f"{psize}")
+    refuse_tf32("sequence_parallel_attention")
+    group = mesh.group(axis)
+    q, k, v = (shard_along(x, group, -3) for x in (q, k, v))
+    per_shard = ring_attention if impl == "ring" else ulysses_attention
+    return gather_along(per_shard(q, k, v, group, causal), group, -3)
