@@ -2,9 +2,9 @@
 the port's paths on one NVIDIA GPU -- the gradient-histogram allreduce,
 the flagship transformer's training step, the histogram measurement
 path (the sweep, the bench and the kernel proof), the robust engine, the
-bucketed and overlapped train steps of the flagship and the MLP, and the
+bucketed and overlapped train steps of the flagship and the MLP, the
 parallelism families (sequence parallelism, the pipeline, the MoE, the
-multichip dryrun).
+multichip dryrun) and the telemetry and profiling plane.
 
     python3 chip_smoke.py
 
@@ -135,12 +135,42 @@ Phases (each prints a line; any failure exits non-zero):
                 gradient 1e-4) and timed steps at d 1024, 8 microbatches
                 of 512 rows; then ``entry.dryrun_multichip(p)``. With one
                 card it runs the p = 1 paths and says so.
-14. kernels     one JSON line of every kernel with its main-path launches
+14. telemetry   the telemetry and profiling plane (``rabit_telemetry=1``,
+                ``rabit_profile=1``): (a) in a fresh process of an NCCL
+                world of 1, each kernel library loaded twice through its
+                wrapper (the profile's ``build:<name>``: one miss and one
+                compile sample, hits after), then ``allreduce`` (tree and
+                ring), ``device_allreduce_tree``, ``device_broadcast``,
+                ``bucket_allreduce_async`` and ``device_allreduce_async``
+                with the planes off and on: results bit for bit, one span
+                a call with JAX's name, round and ``cost_*`` attributes,
+                each async handle's exposed + overlapped within 1 us of
+                its span, and under ``torch.profiler`` no kernel inside a
+                ``rabit_*`` range that the run without lacks and as many
+                host launches; the host us of one ``telemetry.span`` (a
+                loop of 10,000, recorder on and off); (b) ``train_flagship``
+                (16 steps, psum) with the planes off, on, on, off: losses
+                and flash launches equal, ``device_mem.live_bytes`` equal
+                to ``torch.cuda.memory_allocated()`` at the sample and the
+                peak at least the parameters' bytes; then the same step
+                in 12 turns off/on/on/off, 8 steps a turn, its ms on CUDA
+                events and host wall, one step profiled each way; (c)
+                with two cards or more, the histogram rounds (131,072 x
+                28 x 256, 3 rounds, ``tools.histogram_rounds``) at world
+                min(4, cards) under the port's launcher and tracker with
+                ``TorchEngine`` over NCCL, planes off then on
+                (``RABIT_TELEMETRY_EXPORT`` a temporary directory): the
+                histograms bit for bit, the kernel launched every round on
+                every rank, both files a rank with the JAX package's
+                schema ids, one summary a rank through ``metrics``, the
+                fleet table printed once with ``engine.allreduce`` 3 x
+                ranks.
+15. kernels     one JSON line of every kernel with its main-path launches
                 (and, for the flash kernels, phase 12's and phase 13's).
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
 phase 6, each run of phase 12, each ring call of phase 13, in its rank's
-process) and read just after it, so a kernel's
+process, each run of phase 14 (b)) and read just after it, so a kernel's
 count is its own path's alone: mask_only's is the sweep's. Phase 11's
 histogram launches are counted in its workers, each a fresh process (so
 from 0), and printed there. The last line is the device JSON.
@@ -2052,6 +2082,374 @@ def phase_parallel(power: str) -> dict:
             "moe_step_ms": moe_ms, "pipeline_step_ms": pipe_ms}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the telemetry and profiling plane (rabit_tpu_torch/telemetry/)
+# ---------------------------------------------------------------------------
+
+TEL_SPAN_LOOP = 10_000
+TEL_STEPS = 8          # timed steps a turn in (b)
+TEL_TURNS = (False, True, True, False) * 3   # (b)'s turns: planes on?
+TEL_ROUNDS = dict(rows=131_072, features=28, buckets=256, rounds=3)
+TEL_TIMEOUT_S = 300
+# the entry points of (a) and what JAX's twins record for one call: the
+# span's name, whether it carries cost_* attributes, and whether a round
+TEL_SPANS = {"allreduce tree": ("allreduce", True, False),
+             "allreduce ring": ("allreduce", True, False),
+             "device_allreduce_tree": ("allreduce_tree", False, False),
+             "device_broadcast": ("broadcast", False, False),
+             "bucket_allreduce_async": ("bucket_allreduce", True, True),
+             "device_allreduce_async": ("allreduce", True, True)}
+
+
+def _ops_profile(fn) -> dict:
+    """``fn()`` under ``torch.profiler``: the device kernels by name, the
+    ``rabit_*`` ranges, the host's kernel launches (runtime and driver API
+    events) and the names of the kernels launched by host operations inside
+    a ``rabit_*`` range."""
+    from collections import Counter
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    ranges = [e for e in evs if e.device_type == DeviceType.CPU
+              and e.name.startswith("rabit_")]
+    inside = set()
+
+    def walk(e):
+        inside.update(k.name for k in e.kernels)
+        for c in e.cpu_children:
+            walk(c)
+    for r in ranges:
+        walk(r)
+    return {"kernels": Counter(e.name for e in evs
+                               if e.device_type == DeviceType.CUDA),
+            "ranges": len(ranges), "inside": sorted(inside),
+            "launches": sum(1 for e in evs if e.device_type == DeviceType.CPU
+                            and "Launch" in e.name)}
+
+
+def _same_launches(on: dict, off: dict, what: str) -> None:
+    """No kernel inside a ``rabit_*`` range that the run with the planes off
+    lacks, and the host's launch count unchanged."""
+    extra = [k for k in on["inside"] if k not in off["kernels"]]
+    if extra or on["launches"] != off["launches"]:
+        raise AssertionError(f"{what}: with telemetry on, kernels {extra} "
+                             f"inside rabit_* ranges that the run without "
+                             f"lacks, launches {on['launches']} against "
+                             f"{off['launches']}")
+
+
+def _tree_bits(out) -> list:
+    leaves = [out[k] for k in sorted(out)] if isinstance(out, dict) else [out]
+    return [_bits(t) for t in leaves]
+
+
+def _telemetry_entry_rank(rank: int, p: int, device) -> dict:
+    """Phase 14 (a), in a fresh process of an NCCL world of 1: the kernel
+    libraries' compile probes, then the entry points with the planes off
+    and on."""
+    from rabit_tpu_torch import telemetry as T
+    from rabit_tpu_torch.ops import _build
+    from rabit_tpu_torch.ops import flash as F
+    from rabit_tpu_torch.ops import histogram as K
+    from rabit_tpu_torch.ops.reducers import SUM
+    from rabit_tpu_torch.parallel import collectives as C
+    from rabit_tpu_torch.telemetry import profile as P
+    dev = device
+    T.reset(capacity=4096, enabled=True)
+    P.reset(enabled=True)
+    # each library loaded twice through its wrapper: the first load is this
+    # process's dlopen (the build is phase 1's), a compile sample and a miss
+    bins, g, h = _hist_case(1 << 16, 1024, 5, dev)
+    ins, cts = flash_case(8, 128, 128, 32, "causal", 5, dev)
+    for _ in range(2):
+        K.histogram(bins, g, h, 1024)
+        K.mask_only(bins, 1024)
+        F.flash_block(*ins, 32 ** -0.5)
+        F.flash_block_bwd(*ins, 32 ** -0.5, *cts)
+    torch.cuda.synchronize()
+    prof = P.snapshot()
+    build = {r["fn"]: r for r in prof["jit_cache"]
+             if r["fn"].startswith("build:")}
+    want = {f"build:{n}" for n in _build.sources()}
+    compiles = {r["fn"]: r["count"] for r in prof["compile"]}
+    if set(build) != want or any(
+            r["misses"] != 1 or r["hits"] < 1 or compiles.get(f) != 1
+            for f, r in build.items()):
+        raise AssertionError(f"build probes {build}, compiles {compiles}: "
+                             f"want one miss and one compile a library of "
+                             f"{sorted(want)}, hits after")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn(1 << 20, generator=gen, device=dev)
+    tree = {"w": torch.randn(256, 256, generator=gen, device=dev),
+            "b": torch.randn(256, generator=gen, device=dev),
+            "i": torch.arange(4096, device=dev, dtype=torch.int32)}
+    calls = {"allreduce tree": lambda: C.allreduce(x, None, SUM,
+                                                   method="tree"),
+             "allreduce ring": lambda: C.allreduce(x, None, SUM,
+                                                   method="ring"),
+             "device_allreduce_tree": lambda: C.device_allreduce_tree(
+                 tree, None, SUM),
+             "device_broadcast": lambda: C.device_broadcast(x, None, 0),
+             "bucket_allreduce_async": lambda: C.bucket_allreduce_async(
+                 tree, None, SUM).wait(),
+             "device_allreduce_async": lambda: C.device_allreduce_async(
+                 x, None, SUM).wait()}
+    out = {}
+    for on in (False, True):
+        T.reset(capacity=4096, enabled=on)
+        P.reset(enabled=on)
+        bits, spans = {}, {}
+        for name, fn in calls.items():
+            before = len(T.snapshot()["spans"])
+            bits[name] = _tree_bits(fn())
+            torch.cuda.synchronize()
+            spans[name] = T.snapshot()["spans"][before:]
+        out[on] = {"bits": bits, "spans": spans,
+                   "profile": _ops_profile(lambda: [fn() for fn in
+                                                    calls.values()])}
+    for name in calls:
+        if not all(torch.equal(a, b) for a, b in
+                   zip(out[True]["bits"][name], out[False]["bits"][name])):
+            raise AssertionError(f"{name}: results differ with telemetry on")
+        if out[False]["spans"][name]:
+            raise AssertionError(f"{name}: spans with telemetry off")
+        span, costed, rounded = TEL_SPANS[name]
+        got = [s for s in out[True]["spans"][name]
+               if not s["name"].endswith(".issue")]
+        attrs = got[0].get("attrs", {}) if len(got) >= 1 else {}
+        n_calls = 2 if name == "bucket_allreduce_async" else 1  # 2 dtypes
+        if (len(got) != n_calls or {s["name"] for s in got} != {span}
+                or costed != ("cost_wire_bytes" in attrs)
+                or rounded != ("round" in attrs)):
+            raise AssertionError(f"{name}: spans {got}, want {n_calls} "
+                                 f"{span!r} (cost {costed}, round "
+                                 f"{rounded})")
+        for s in got if rounded else []:   # the async handles' spans
+            a = s["attrs"]
+            split = a["wire_exposed_ms"] + a["wire_overlapped_ms"]
+            if abs(split - s["dur"] * 1e3) > 1e-3:
+                raise AssertionError(f"{name}: exposed + overlapped "
+                                     f"{split} ms against the span's "
+                                     f"{s['dur'] * 1e3} ms")
+    on, off = out[True]["profile"], out[False]["profile"]
+    _same_launches(on, off, "the entry points")
+    return {"build": {f: [r["misses"], r["hits"], compiles[f]]
+                      for f, r in sorted(build.items())},
+            "ranges": on["ranges"], "inside": on["inside"],
+            "launches": [on["launches"], off["launches"]],
+            "spans": {n: len(out[True]["spans"][n]) for n in calls}}
+
+
+def _span_host_us(T) -> tuple:
+    """Host µs of one ``telemetry.span`` enter/exit, recorder on and off,
+    over ``TEL_SPAN_LOOP`` spans each."""
+    us = []
+    for on in (True, False):
+        T.reset(capacity=4096, enabled=on)
+        t0 = time.perf_counter()
+        for _ in range(TEL_SPAN_LOOP):
+            with T.span("allreduce", nbytes=4096, op="sum", method="ring"):
+                pass
+        us.append((time.perf_counter() - t0) * 1e6 / TEL_SPAN_LOOP)
+    return tuple(us)
+
+
+def _flagship_turns(dev, power: str) -> dict:
+    """Phase 14 (b): ``train_flagship`` with the planes off, on, on, off."""
+    from rabit_tpu_torch import entry as E
+    from rabit_tpu_torch import telemetry as T
+    from rabit_tpu_torch.models import transformer as tf
+    from rabit_tpu_torch.parallel.mesh import make_mesh
+    from rabit_tpu_torch.telemetry import profile as P
+    runs, mem = [], None
+    param_bytes = FLAGSHIP_PARAMS[0] * 4
+    for on in (False, True, True, False):
+        T.reset(enabled=on)
+        P.reset(enabled=on)
+        reset_launches()
+        got = E.train_flagship(FLAGSHIP_STEPS, dev)
+        runs.append({"on": on, "losses": got["losses"],
+                     "launches": read_launches()})
+        if on:
+            sample = P.sample_memory()
+            alloc = sum(torch.cuda.memory_allocated(d)
+                        for d in range(torch.cuda.device_count()))
+            peak = P.snapshot()["device_mem"]["peak_bytes"]
+            if sample is None or sample["live_bytes"] != alloc \
+                    or peak < param_bytes:
+                raise AssertionError(f"device_mem {sample} against "
+                                     f"memory_allocated {alloc}, peak "
+                                     f"{peak} below the parameters' "
+                                     f"{param_bytes} B")
+            mem = {"live_bytes": alloc, "peak_bytes": peak}
+    for r in runs[1:]:
+        if r["losses"] != runs[0]["losses"] or r["launches"] != \
+                runs[0]["launches"]:
+            raise AssertionError(f"flagship with telemetry {r['on']}: "
+                                 f"losses or launches {r['launches']} differ "
+                                 f"from {runs[0]['launches']}")
+    # train_flagship's step in turns (TEL_TURNS), timed on CUDA events and
+    # on the host's clock (each step synchronised); the first turn each way
+    # also profiles one step
+    mesh = make_mesh((1, 1, 1), dev)
+    try:
+        prof, timed = {}, []
+        x, y = (torch.from_numpy(a).to(dev) for a in E.flagship_data(
+            0, E.FLAGSHIP_BATCH, E.FLAGSHIP_SEQ, E.FLAGSHIP_SIZES["vocab"]))
+        for on in TEL_TURNS:
+            T.reset(enabled=on)
+            P.reset(enabled=on)
+            model = tf.model_on(tf.init_params(0, **E.FLAGSHIP_SIZES), dev)
+            step = tf.make_train_step(mesh, lr=E.FLAGSHIP_LR)
+            step(model, x, y)
+            torch.cuda.synchronize()
+            ms, wall = [], []
+            for _ in range(TEL_STEPS):
+                t0 = time.perf_counter()
+                ms += _timed_steps(step, model, x, y, 1)[1]
+                wall.append((time.perf_counter() - t0) * 1e3)
+            timed.append({"on": on, "ms": float(np.median(ms)),
+                          "wall_ms": float(np.median(wall))})
+            if on not in prof:
+                prof[on] = _ops_profile(lambda: step(model, x, y))
+        _same_launches(prof[True], prof[False], "the flagship's step")
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        T.reset(enabled=False)
+        P.reset(enabled=False)
+    return {"runs": timed, "mem": mem, "ranges": prof[True]["ranges"],
+            "launches_a_run": runs[0]["launches"],
+            "launches": prof[True]["launches"],
+            "kernels": sum(prof[True]["kernels"].values())}
+
+
+def _telemetry_rounds(p: int, on: bool, tmp: Path) -> tuple:
+    """Phase 14 (c): the histogram rounds under the port's launcher and
+    tracker with ``TorchEngine`` over NCCL, the planes on or off."""
+    import socket
+    from rabit_tpu_torch.tracker.launch import launch
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tag = "on" if on else "off"
+    res, exp = tmp / f"res_{tag}", tmp / f"exp_{tag}"
+    stats = {}
+    cmd = [sys.executable, "-m", "rabit_tpu_torch.tools.histogram_rounds",
+           "--rows", str(TEL_ROUNDS["rows"]),
+           "--features", str(TEL_ROUNDS["features"]),
+           "--buckets", str(TEL_ROUNDS["buckets"]),
+           "--rounds", str(TEL_ROUNDS["rounds"]), "rabit_engine=torch",
+           f"rabit_coordinator=127.0.0.1:{port}",
+           f"rabit_num_processes={p}", f"rabit_telemetry={int(on)}",
+           f"rabit_profile={int(on)}"]
+    import os
+    path = os.pathsep.join(filter(None, [str(Path(__file__).resolve().parent),
+                                         os.environ.get("PYTHONPATH")]))
+    launch(p, cmd, max_attempts=0, timeout=TEL_TIMEOUT_S, quiet=True,
+           stats=stats, env={"RABIT_RESULT_DIR": str(res),
+                             "RABIT_TELEMETRY_EXPORT": str(exp),
+                             "PYTHONPATH": path})
+    docs = [json.loads((res / f"rank{r}.json").read_text())
+            for r in range(p)]
+    return docs, stats, exp
+
+
+def _rounds_checks(p: int, tmp: Path, power: str) -> None:
+    from rabit_tpu_torch.telemetry import matches
+    off, _, _ = _telemetry_rounds(p, False, tmp)
+    on, stats, exp = _telemetry_rounds(p, True, tmp)
+    rounds = TEL_ROUNDS["rounds"]
+    for r in range(p):
+        if on[r]["hist_sha256"] != off[r]["hist_sha256"]:
+            raise AssertionError(f"rank {r}: histograms differ with "
+                                 f"telemetry on")
+        if on[r]["launches"] < rounds or off[r]["launches"] < rounds:
+            raise AssertionError(f"rank {r}: histogram launches "
+                                 f"{on[r]['launches']} / "
+                                 f"{off[r]['launches']}, want {rounds}")
+        for kind in ("summary", "trace"):
+            doc = json.loads((exp / f"telemetry_{kind}_rank{r}.json")
+                             .read_text())
+            if not matches(doc, f"telemetry_{kind}"):
+                raise AssertionError(f"rank {r}: {kind} schema "
+                                     f"{doc.get('schema')}")
+    fleet = stats["fleet"]
+    counts = {c["name"]: c["count"] for c in fleet["counters"]}
+    tables = [m for m in stats["messages"] if m.startswith("telemetry:")]
+    if sorted(fleet["ranks"]) != list(range(p)) or len(tables) != 1 \
+            or counts.get("engine.allreduce") != rounds * p:
+        raise AssertionError(f"fleet ranks {fleet['ranks']}, tables "
+                             f"{len(tables)}, engine.allreduce "
+                             f"{counts.get('engine.allreduce')}, want "
+                             f"{rounds} x {p}")
+    ms = {k: float(np.median([d["allreduce_ms"][1:] for d in docs]))
+          for k, docs in (("off", off), ("on", on))}
+    phase("telemetry", f"(c) world {p}, {TEL_ROUNDS['rows']} x "
+          f"{TEL_ROUNDS['features']} x {TEL_ROUNDS['buckets']}, {rounds} "
+          f"rounds through the launcher and tracker (TorchEngine over "
+          f"NCCL): histograms equal to the run without telemetry bit for "
+          f"bit, the kernel launched {rounds} times on every rank, both "
+          f"files a rank ({fleet['num_ranks']} summaries through metrics); "
+          f"allreduce host-paced ms (median of rounds 2-{rounds}) off "
+          f"{ms['off']:.3f}, on {ms['on']:.3f} [{power}]")
+    for line in tables[0].splitlines():
+        phase("telemetry", "  " + line)
+
+
+def phase_telemetry(dev, power: str) -> dict:
+    """The telemetry and profiling plane (see the module's phase 14)."""
+    import tempfile
+    from rabit_tpu_torch import telemetry as T
+    from rabit_tpu_torch.tools import run_world
+    a = run_world(_telemetry_entry_rank, 1, "cuda",
+                  timeout_s=TEL_TIMEOUT_S)[0]
+    phase("telemetry", f"(a) world 1 over NCCL, planes off then on: "
+          f"{len(TEL_SPANS)} entry points bit for bit, one span a call "
+          f"with JAX's name, round and cost_* attributes (spans a call "
+          f"{a['spans']}), exposed + overlapped = the span within 1 us; "
+          f"build probes [misses, hits, compiles] {a['build']}; "
+          f"torch.profiler: {a['ranges']} rabit_* ranges, kernels inside "
+          f"{a['inside']} all in the run without, host launches on/off "
+          f"{a['launches']}")
+    on_us, off_us = _span_host_us(T)
+    T.reset(enabled=False)
+    phase("telemetry", f"host cost of telemetry.span: {on_us:.3f} us a "
+          f"span with the recorder on, {off_us:.3f} us off (loops of "
+          f"{TEL_SPAN_LOOP}) [{power}]")
+    b = _flagship_turns(dev, power)
+    each = "; ".join(
+        f"{side} " + ", ".join(f"{r['ms']:.3f} ({r['wall_ms']:.3f})"
+                               for r in b["runs"] if r["on"] == on)
+        + f": median {np.median([r['ms'] for r in b['runs'] if r['on'] == on]):.3f}"
+        for side, on in (("off", False), ("on", True)))
+    phase("telemetry", f"(b) train_flagship x {FLAGSHIP_STEPS} steps in "
+          f"turns off/on/on/off: losses equal bit for bit, launches "
+          f"{b['launches_a_run']} in each; device_mem live "
+          f"{b['mem']['live_bytes']} B = torch.cuda.memory_allocated(), "
+          f"peak {b['mem']['peak_bytes']} B; one step profiled each way: "
+          f"{b['ranges']} rabit_* ranges (world 1: the psum step's sums "
+          f"are the identity), {b['launches']} host launches and "
+          f"{b['kernels']} kernels, the same off")
+    phase("telemetry", f"(b) the flagship's step ms in {len(TEL_TURNS)} "
+          f"turns off/on/on/off, each the median of {TEL_STEPS} on CUDA "
+          f"events (host wall of the synchronised step): {each} [{power}]")
+    count = torch.cuda.device_count()
+    if count < 2:
+        phase("telemetry", "(c) did not run: one card; the histogram "
+              "rounds' world needs two or more")
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            _rounds_checks(min(4, count), Path(tmp), power)
+    return {"entry": a, "span_host_us": {"on": on_us, "off": off_us},
+            "flagship": {"runs": [{k: r[k] for k in ("on", "ms", "wall_ms")}
+                                  for r in b["runs"]], "mem": b["mem"]}}
+
+
 def card_power() -> str:
     """The first card's name and power limit, as ``nvidia-smi`` gives
     them."""
@@ -2111,6 +2509,7 @@ def main() -> int:
     phase_robust(dev, power)
     bucket = phase_bucket(dev, power)
     par = phase_parallel(power)
+    tel = phase_telemetry(dev, power)
     kernels = []
     for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only"):
         head = timing[name][0]
@@ -2139,7 +2538,7 @@ def main() -> int:
         "losses": tf_run["losses"], "profile": tf_run["profile"]},
         "bucket_steps": {s: {k: r[k] for k in ("median_ms", "ms", "losses")}
                          for s, r in bucket.items()},
-        "parallel": par}), flush=True)
+        "parallel": par, "telemetry": tel}), flush=True)
     print(power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

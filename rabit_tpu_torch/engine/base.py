@@ -4,9 +4,9 @@ reference keeps a thread-local singleton (engine.cc:33-43), which in
 Python is the module-global in ``rabit_tpu_torch.__init__`` (the API is
 documented not thread-safe, rabit.h:177-178).
 
-The port's copy of ``rabit_tpu/engine/base.py``, without its telemetry
-spans and ``resize`` (elastic membership, not ported yet), and with
-``restore_checkpoint``."""
+The port's copy of ``rabit_tpu/engine/base.py``, with its telemetry spans
+on the base compositions, without ``resize`` (elastic membership, not
+ported yet), and with ``restore_checkpoint``."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from .. import telemetry
 from ..ops.reducers import SUM
 
 # knobs of the JAX package's engines that the port has no code for yet:
@@ -25,19 +26,20 @@ _VALUE_KNOBS = ("rabit_deadline_ms", "rabit_deadline_ms_per_mb",
                 "rabit_metrics_port", "rabit_flight_dir",
                 "rabit_skew_preagg_ms", "rabit_skew_poll_ms",
                 "rabit_skew_sync_rounds")
-_BOOL_KNOBS = ("rabit_telemetry", "rabit_profile", "rabit_events",
-               "rabit_skew_adapt")
+_BOOL_KNOBS = ("rabit_skew_adapt",)
 
 
 def refuse_unported(cfg) -> None:
     """Raise for a configured knob (a ``Config``) whose machinery the
-    port lacks."""
+    port lacks. Telemetry, profiling and the event bus
+    (``rabit_telemetry``, ``rabit_profile``, ``rabit_events``) are
+    ported."""
     bad = [k for k in _VALUE_KNOBS if cfg.get(k)]
     bad += [k for k in _BOOL_KNOBS if cfg.get_bool(k)]
     if bad:
         raise NotImplementedError(
-            f"{bad}: the watchdog and its deadlines, telemetry, profiling, "
-            f"the live plane, the flight recorder and skew adaptation are "
+            f"{bad}: the watchdog and its deadlines, the live plane "
+            f"(metrics port), the flight recorder and the skew plane are "
             f"not ported to rabit_tpu_torch yet")
 
 
@@ -132,9 +134,13 @@ class Engine(ABC):
             raise ValueError(
                 f"reduce_scatter payload of {buf.size} elements must "
                 f"divide by the world size {p} (rank i owns chunk i)")
-        self.allreduce(buf, op)
-        m = buf.size // p
-        return buf[self.rank * m:(self.rank + 1) * m].copy()
+        with telemetry.span("engine.reduce_scatter", nbytes=buf.nbytes,
+                            method="allreduce",
+                            round=telemetry.collective_round(
+                                "engine.reduce_scatter")):
+            self.allreduce(buf, op)
+            m = buf.size // p
+            return buf[self.rank * m:(self.rank + 1) * m].copy()
 
     def allgather(self, buf: np.ndarray) -> np.ndarray:
         """Concatenate every rank's ``buf`` in rank order; every rank
@@ -146,7 +152,11 @@ class Engine(ABC):
         m = buf.size
         out = np.zeros(p * m, dtype=buf.dtype)
         out[self.rank * m:(self.rank + 1) * m] = buf.reshape(-1)
-        self.allreduce(out, SUM)
+        with telemetry.span("engine.allgather", nbytes=out.nbytes,
+                            method="allreduce",
+                            round=telemetry.collective_round(
+                                "engine.allgather")):
+            self.allreduce(out, SUM)
         return out
 
     # -- checkpointing ----------------------------------------------------

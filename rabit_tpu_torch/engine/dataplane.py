@@ -35,6 +35,16 @@ but does not end the process — PyTorch's default ends it, which would
 take the survivors with the dead peer (the NCCL analogue of jaxlib's
 ``LOG(FATAL)``). gloo raises at once when a peer's socket closes.
 
+Telemetry (``rabit_tpu_torch.telemetry``, configured by the engine): each
+allreduce records a ``dataplane.allreduce`` span with its round id and
+the requested wire (``wire_requested``); each formation records a
+``recovery.world_reform`` span (its seconds, the epoch, whether the
+process had a world before), and a formation at a new epoch in a process
+that had one counts ``recovery.epoch_advance``; a retry counts
+``recovery.retry`` and an exhausted one ``recovery.link_reset``, each
+with a fleet event when ``rabit_events`` is on (the JAX data plane's
+records, ``engine/dataplane.py:237``, ``:288``, ``:369``, ``:402``).
+
 APPLICATION STATE CONTRACT: unlike the XLA data plane, whose re-formation
 drops the backend client and invalidates every live ``jax.Array``,
 re-forming a process group leaves CUDA tensors valid: only the
@@ -58,7 +68,9 @@ import torch
 import torch.distributed as dist
 
 from .native import DATAPLANE_CB
-from ..ops.reducers import DTYPE_ENUM
+from .. import telemetry
+from ..ops.reducers import DTYPE_ENUM, OP_NAMES
+from ..telemetry import events
 from ..parallel import collectives as C
 from ..parallel import dispatch, topology
 from ..parallel import wire as wirespec
@@ -156,6 +168,8 @@ class TorchDataPlane:
         self.form_seconds = 0.0
         self.formed_at: Optional[float] = None
         self.first_collective_at: Optional[float] = None
+        # the epoch of the last formation, kept through teardowns
+        self._last_epoch: Optional[int] = None
         # the wire (rabit_dataplane_wire) is validated here even though
         # dispatch reads the env itself: a typo must not silently run
         # unquantized while the user believes the wire is on
@@ -176,8 +190,8 @@ class TorchDataPlane:
                     "RABIT_SKEW_POLL_MS", "RABIT_SKEW_SYNC_ROUNDS"):
             if os.environ.get(env, "").strip() not in ("", "0"):
                 raise NotImplementedError(
-                    f"{env.lower()}: skew adaptation reads telemetry that "
-                    f"rabit_tpu_torch has not ported yet; unset it")
+                    f"{env.lower()}: skew adaptation rides the skew plane, "
+                    f"which rabit_tpu_torch has not ported yet; unset it")
         # keep the ctypes callback object alive for the C side
         self.c_callback = DATAPLANE_CB(self._invoke)
 
@@ -197,6 +211,14 @@ class TorchDataPlane:
 
     def _form_world(self, epoch: int, round_id: int, attempt: int) -> None:
         t0 = time.perf_counter()
+        reformed = self.formations > 0
+        if self._last_epoch is not None and epoch != self._last_epoch:
+            # the epoch advanced under this process: a peer died and the
+            # fleet rewired
+            telemetry.count("recovery.epoch_advance", provenance="recovery")
+            events.emit("recovery.epoch_advance",
+                        f"rank {self._rank} re-forming at epoch {epoch}",
+                        rank=self._rank)
         self._teardown()
         self._rank = int(self._lib.RbtGetRank())
         self._world = int(self._lib.RbtGetWorldSize())
@@ -227,10 +249,13 @@ class TorchDataPlane:
         self._device = dev
         self.backend = backend
         self._groups = topology.resolve_groups(self._world)
-        self._formed_epoch = epoch
+        self._formed_epoch = self._last_epoch = epoch
         self.formations += 1
         self.form_seconds = time.perf_counter() - t0
         self.formed_at, self.first_collective_at = time.time(), None
+        telemetry.record_span("recovery.world_reform", self.form_seconds,
+                              provenance="recovery", epoch=epoch,
+                              reformed=reformed)
         if self.on_world_reformed is not None:
             self.on_world_reformed(epoch)
 
@@ -305,6 +330,12 @@ class TorchDataPlane:
                     # eviction), back off, re-run the round
                     attempt += 1
                     self.retries_total += 1
+                    telemetry.count("recovery.retry", op="dataplane",
+                                    provenance="recovery")
+                    events.emit("recovery.retry",
+                                f"rank {self._rank} round {round_id} attempt "
+                                f"{attempt}/{self._retries}: "
+                                f"{type(e).__name__}", rank=self._rank)
                     print(f"[dataplane] rank {self._rank} round {round_id} "
                           f"retry {attempt}/{self._retries} after "
                           f"{type(e).__name__}: {e}",
@@ -322,6 +353,11 @@ class TorchDataPlane:
                       flush=True)
                 # retries exhausted (or disabled): the nonzero return
                 # becomes a link reset on the C++ side
+                telemetry.count("recovery.link_reset", op="dataplane",
+                                provenance="recovery")
+                events.emit("recovery.link_reset",
+                            f"rank {self._rank} epoch {epoch}: "
+                            f"{type(e).__name__}", rank=self._rank)
                 try:
                     self._teardown()
                 except Exception:  # noqa: BLE001 - best-effort
@@ -341,6 +377,14 @@ class TorchDataPlane:
             # "auto": the env-requested wire engages only at sizes where
             # the table or the mincount says it pays
             wire = "auto"
-        C.allreduce_numpy(buf, self._group, op, self._device,
-                          method=self._method, wire=wire,
-                          groups=self._groups)
+        # the span records the wire REQUEST; whether the codec engaged at
+        # this size is the dispatch counter's provenance row
+        with telemetry.span(
+                "dataplane.allreduce", nbytes=buf.nbytes,
+                op=OP_NAMES.get(op, str(op)), method=self._method,
+                wire_requested=os.environ.get("RABIT_DATAPLANE_WIRE", "")
+                or "off",
+                round=telemetry.collective_round("dataplane.allreduce")):
+            C.allreduce_numpy(buf, self._group, op, self._device,
+                              method=self._method, wire=wire,
+                              groups=self._groups)

@@ -17,11 +17,23 @@ pre-LoadCheckPoint collectives; through the C interface those keys are
 lost. The binding rebuilds them from the Python caller's frame and passes
 them through RbtAllreduceEx.
 
+Telemetry (the JAX binding's wiring, ``rabit_tpu/engine/native.py``):
+``init`` applies ``rabit_telemetry``, ``rabit_profile`` and
+``rabit_events``; ``allreduce`` and the payload of ``broadcast`` record
+``engine.allreduce`` / ``engine.broadcast`` spans (method ``native``)
+with round ids; after each collective the native recovery counters
+(``RbtRecoveryStats``: in-collective retries, frame CRC rejects, link
+resurrections) are drained into ``recovery.retry`` /
+``recovery.frame_reject`` / ``recovery.link_resurrect`` counts (at most
+1000 a drain) and one fleet event a kind; ``shutdown`` writes this rank's
+telemetry files and ships its summary to the tracker BEFORE
+``RbtFinalize``, since the tracker exits once every rank has sent
+``shutdown``.
+
 Not ported yet, and refused at init when configured: the watchdog and
 its rungs (``rabit_deadline_ms``, ``rabit_hier_phase_deadline_scale``),
 the live plane and flight recorder (``rabit_metrics_port``,
-``rabit_flight_dir``), telemetry and profiling (``rabit_telemetry``,
-``rabit_profile``), skew adaptation (``rabit_skew_*``) --
+``rabit_flight_dir``), skew adaptation (``rabit_skew_*``) --
 ``base.refuse_unported``, shared with ``TorchEngine`` -- and ``resize``
 (elastic membership).
 """
@@ -38,7 +50,10 @@ import numpy as np
 from . import ckpt_store
 from ._native_build import library
 from .base import Engine, refuse_unported
-from ..ops.reducers import DTYPE_ENUM, MAX, MIN
+from .. import telemetry
+from ..ops.reducers import DTYPE_ENUM, MAX, MIN, OP_NAMES
+from ..telemetry import events
+from ..telemetry import profile as _profile
 from ..utils import log, retry
 from ..utils.config import Config
 
@@ -77,6 +92,10 @@ def _load() -> ctypes.CDLL:
     lib.RbtWorldEpoch.restype = ctypes.c_int
     lib.RbtCoordAddr.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_size_t), ctypes.c_size_t]
+    lib.RbtRecoveryStats.argtypes = [
+        ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_uint64)]
+    lib.RbtRecoveryStats.restype = ctypes.c_int
     return lib
 
 
@@ -108,6 +127,9 @@ class NativeEngine(Engine):
         # restarts at 0 on a cold restart while the durable store keeps
         # counting, so the app-visible version_number never goes backward
         self._version_offset = 0
+        # last-seen native recovery counters (retries, frame rejects,
+        # link resurrections): _drain_recovery_stats diffs against these
+        self._recovery_seen = (0, 0, 0)
 
     def _cache_key(self, site: str, size: int) -> bytes:
         """Deterministic replay key: caller site + payload size + an
@@ -195,6 +217,8 @@ class NativeEngine(Engine):
             raise
         log.set_debug(cfg.get_bool("rabit_debug"))
         log.set_identity(self.rank, self.world_size)
+        telemetry.configure(cfg)
+        _profile.configure(cfg)
         ckpt_dir = cfg.get("rabit_ckpt_dir")
         if ckpt_dir:
             self._store = ckpt_store.CheckpointStore(
@@ -264,10 +288,50 @@ class NativeEngine(Engine):
             self._store.protect_current()
             self._store.adopt_latest_from_peers()
 
+    def _drain_recovery_stats(self) -> None:
+        """Diff the native recovery counters against the last drain and
+        record the delta as recovery-provenance telemetry: the native
+        plane recovers without unwinding into Python, so this is where
+        those events reach the fleet tables."""
+        r, f, s = ctypes.c_uint64(), ctypes.c_uint64(), ctypes.c_uint64()
+        if self._lib.RbtRecoveryStats(ctypes.byref(r), ctypes.byref(f),
+                                      ctypes.byref(s)) != 0:
+            return
+        cur = (r.value, f.value, s.value)
+        prev, self._recovery_seen = self._recovery_seen, cur
+        kinds = (("recovery.retry", "native_round",
+                  "native in-collective retries"),
+                 ("recovery.frame_reject", "frame_crc", "frame CRC rejects"),
+                 ("recovery.link_resurrect", "link", "link resurrections"))
+        for (name, op, what), c, p in zip(kinds, cur, prev):
+            # monotonic counters; cap the replay so a drain after
+            # thousands of events cannot stall the caller
+            delta = min(max(0, c - p), 1000)
+            for _ in range(delta):
+                telemetry.count(name, op=op, provenance="recovery")
+            if delta:
+                # one fleet event a drained kind: the bus carries the
+                # causal marker, the counters the magnitude
+                events.emit(name, f"{what} ×{delta}", rank=self.rank,
+                            count=delta)
+
     def shutdown(self) -> None:
         if self._dataplane is not None:
             self._dataplane.shutdown()
             self._dataplane = None
+        _profile.stop_poller()
+        # telemetry flushes BEFORE finalize: RbtFinalize sends the tracker
+        # its shutdown command, and the tracker exits (printing the fleet
+        # table) once every rank has. Best-effort: a run without telemetry
+        # or a tracker skips them.
+        if telemetry.enabled():
+            try:
+                rank, world = self.rank, self.world_size
+                telemetry.export_at_shutdown(rank, world)
+                if self.is_distributed:
+                    telemetry.ship_to_tracker(rank, world)
+            except Exception as e:  # noqa: BLE001 - never block shutdown
+                log.log_warn("telemetry flush failed: %s", e)
         self._restore_env()
         # the shutdown handshake is a fresh tracker connection per
         # attempt and idempotent tracker-side, so retry a brief outage
@@ -291,10 +355,15 @@ class NativeEngine(Engine):
             def trampoline(_arg, fn=prepare_fun):
                 fn()
             cb = _PREPARE_CB(trampoline)
-        rc = self._lib.RbtAllreduceEx(
-            buf.ctypes.data_as(ctypes.c_void_p), buf.size, dtype_enum,
-            op, cb, None, cache_key)
+        with telemetry.span("engine.allreduce", nbytes=buf.nbytes,
+                            op=OP_NAMES.get(op, str(op)), method="native",
+                            round=telemetry.collective_round(
+                                "engine.allreduce")):
+            rc = self._lib.RbtAllreduceEx(
+                buf.ctypes.data_as(ctypes.c_void_p), buf.size, dtype_enum,
+                op, cb, None, cache_key)
         self._check(rc, "allreduce")
+        self._drain_recovery_stats()
 
     def broadcast(self, data: Optional[bytes], root: int) -> bytes:
         # two-phase: 8-byte length then payload (reference rabit.py:171-206)
@@ -313,10 +382,15 @@ class NativeEngine(Engine):
         if self.rank == root and n:
             payload.raw = data
         if n:
-            rc = self._lib.RbtBroadcastEx(
-                ctypes.cast(payload, ctypes.c_void_p), n, root,
-                self._cache_key(site + "/payload", n))
+            with telemetry.span("engine.broadcast", nbytes=n,
+                                method="native", root=root,
+                                round=telemetry.collective_round(
+                                    "engine.broadcast")):
+                rc = self._lib.RbtBroadcastEx(
+                    ctypes.cast(payload, ctypes.c_void_p), n, root,
+                    self._cache_key(site + "/payload", n))
             self._check(rc, "broadcast(payload)")
+        self._drain_recovery_stats()
         return payload.raw[:n]
 
     def load_checkpoint(self, with_local: bool = False
@@ -396,6 +470,11 @@ class NativeEngine(Engine):
             if got is not None and got[1]:
                 local = got[1]
         self._seed_native(maxv, g, local)
+        telemetry.count("recovery.cold_restart", nbytes=len(g),
+                        provenance="recovery")
+        events.emit("recovery.cold_restart",
+                    f"resumed at checkpoint version {maxv} "
+                    f"(holder rank {root})", rank=self.rank)
         log.log_warn("cold restart: resumed at checkpoint version %d "
                      "(holder rank %d)", maxv, root)
         return (maxv, g, local)

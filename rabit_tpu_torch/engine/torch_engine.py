@@ -10,8 +10,9 @@ rank's device, reduced over the process group (NCCL on the card, gloo on
 the CPU), and copied back in place — the reference's in-place
 ``sendrecvbuf`` contract (engine.h:74-96).
 
-``rabit_device`` picks the device: ``cuda`` unless told ``cpu``; asking
-for the card where there is none raises. The schedule and the wire of
+``rabit_device`` picks the device: ``cuda`` unless told ``cpu`` (rank r
+of a world it forms on card r % cards, as the data plane places them);
+asking for the card where there is none raises. The schedule and the wire of
 each allreduce follow ``XlaEngine``'s keys (``engine/xla.py:102-132``):
 
 * ``rabit_reduce_method``: ``auto`` (the default) or one of
@@ -49,15 +50,27 @@ and a fresh process's ``load_checkpoint`` at version 0 resumes the
 newest stored version the world agrees on (``_cold_restart``).
 ``rabit_debug`` opens the debug log, as in the native engine.
 
+Telemetry (``XlaEngine``'s wiring, ``engine/xla.py``): ``init`` applies
+``rabit_telemetry``, ``rabit_profile`` and ``rabit_events``
+(``telemetry.configure``, ``profile.configure``); each collective of a
+world above 1 records its ``engine.*`` span with a round id (the async
+allreduce: an ``engine.allreduce.issue`` span and an ``async.issued``
+count at issue, the real span with its exposed/overlapped split at
+``wait()``); a cold restart counts ``recovery.cold_restart``; ``shutdown``
+stops the memory poller, writes this rank's summary and Chrome trace into
+``RABIT_TELEMETRY_EXPORT`` and ships the summary to the tracker when one
+is named (``RABIT_TRACKER_URI``).
+
 Not ported yet, and refused at init when configured
-(``base.refuse_unported``, the native engine's set): telemetry and
-profiling, the live plane and flight recorder, the watchdog's deadlines
-and ``rabit_hier_phase_deadline_scale``, skew adaptation.
+(``base.refuse_unported``, the native engine's set): the live plane and
+flight recorder, the watchdog's deadlines and
+``rabit_hier_phase_deadline_scale``, skew adaptation.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, List, Optional, Tuple
 
@@ -67,8 +80,11 @@ import torch.distributed as dist
 
 from . import ckpt_store
 from .base import AllreduceHandle, Engine, refuse_unported
+from .. import telemetry
 from ..convert import numpy_from_tensor, tensor_from_numpy
-from ..ops.reducers import MAX, MIN
+from ..ops.reducers import MAX, MIN, OP_NAMES
+from ..telemetry import events
+from ..telemetry import profile as _profile
 from ..parallel import collectives as C
 from ..parallel import dispatch, topology
 from ..parallel import wire as wirespec
@@ -101,6 +117,8 @@ class TorchEngine(Engine):
     def init(self, args: List[str]) -> None:
         cfg = Config.from_args(args)
         refuse_unported(cfg)
+        telemetry.configure(cfg)
+        _profile.configure(cfg)
         C.configure_async(cfg)
         device = cfg.get("rabit_device") or None
         coord = cfg.get("rabit_coordinator")
@@ -134,6 +152,11 @@ class TorchEngine(Engine):
         self._wire_mincount = cfg.get_size(
             "rabit_dataplane_wire_mincount", dispatch.WIRE_MINCOUNT_DEFAULT)
         self._owns_group = not dist.is_initialized()
+        if device is None and world > 1 and self._owns_group and \
+                torch.cuda.is_available():
+            # one rank a card, as the data plane places them: NCCL
+            # refuses two ranks of a world on one device
+            device = f"cuda:{rank % torch.cuda.device_count()}"
         self._group, self._device = make_group(
             device, rank=rank, world_size=world, init_method=init_method)
         self._rank = dist.get_rank(self._group)
@@ -162,6 +185,11 @@ class TorchEngine(Engine):
             if self._async_ex is not None:
                 self._async_ex.shutdown(wait=True)
                 self._async_ex = None
+        _profile.stop_poller()
+        if telemetry.enabled():
+            telemetry.export_at_shutdown(self._rank, self._world)
+            if self._world > 1:
+                telemetry.ship_to_tracker(self._rank, self._world)
         if self._owns_group and dist.is_initialized():
             dist.destroy_process_group()
         self._group = None
@@ -185,10 +213,15 @@ class TorchEngine(Engine):
         if self._world == 1:
             return
         self._drain_async()
-        self._allreduce_now(buf, op)
-
-    def _allreduce_now(self, buf: np.ndarray, op: int) -> None:
         method, wire = self._resolve_method_wire(buf.size)
+        with telemetry.span("engine.allreduce", nbytes=buf.nbytes,
+                            op=OP_NAMES.get(op, str(op)), method=method,
+                            wire=wire, round=telemetry.collective_round(
+                                "engine.allreduce")):
+            self._allreduce_now(buf, op, method, wire)
+
+    def _allreduce_now(self, buf: np.ndarray, op: int, method: str,
+                       wire: Optional[str]) -> None:
         C.allreduce_numpy(buf, self._group, op, self._device, method=method,
                           wire=wire, groups=self._groups)
 
@@ -202,14 +235,35 @@ class TorchEngine(Engine):
             prepare_fun()
         if self._world == 1:
             return AllreduceHandle(value=buf)
-        fut = self._async_executor().submit(self._allreduce_now, buf, op)
+        method, wire = self._resolve_method_wire(buf.size)
+        opname, nbytes = OP_NAMES.get(op, str(op)), buf.nbytes
+        rnd = telemetry.collective_round("engine.allreduce")
+        telemetry.count("async.issued", nbytes=nbytes, op=opname,
+                        method=method, wire=wire, provenance="engine")
+        t_issue = time.perf_counter()
+        with telemetry.span("engine.allreduce.issue", nbytes=nbytes,
+                            op=opname, method=method, wire=wire, round=rnd):
+            fut = self._async_executor().submit(self._allreduce_now, buf, op,
+                                                method, wire)
         self._async_pending.append(fut)
 
         def wait_fn():
+            t_wait = time.perf_counter()
             try:
                 fut.result()
             finally:
                 self._forget(fut)
+            t_done = time.perf_counter()
+            exposed = t_done - t_wait
+            overlapped = max(0.0, (t_done - t_issue) - exposed)
+            telemetry.record_span(
+                "engine.allreduce", t_done - t_issue, nbytes=nbytes,
+                op=opname, method=method, wire=wire, provenance="engine",
+                **{"round": rnd, "async": 1,
+                   "wire_exposed_ms": exposed * 1e3,
+                   "wire_overlapped_ms": overlapped * 1e3})
+            _profile.record_overlap("engine.allreduce", method, exposed,
+                                    overlapped)
             return buf
 
         return AllreduceHandle(wait_fn=wait_fn, ready_fn=fut.done)
@@ -255,8 +309,12 @@ class TorchEngine(Engine):
             raise ValueError(
                 f"reduce_scatter payload of {buf.size} elements must "
                 f"divide by the world size {self._world}")
-        return self._device_collective(
-            buf, lambda x: C.device_reduce_scatter(x, self._group, op))
+        with telemetry.span("engine.reduce_scatter", nbytes=buf.nbytes,
+                            op=OP_NAMES.get(op, str(op)), method="ring",
+                            round=telemetry.collective_round(
+                                "engine.reduce_scatter")):
+            return self._device_collective(
+                buf, lambda x: C.device_reduce_scatter(x, self._group, op))
 
     def allgather(self, buf: np.ndarray) -> np.ndarray:
         """The rank-order concatenation of every rank's ``buf``, by the
@@ -264,8 +322,12 @@ class TorchEngine(Engine):
         if self._world == 1:
             return buf.reshape(-1).copy()
         self._drain_async()
-        return self._device_collective(
-            buf, lambda x: C.device_allgather(x, self._group))
+        with telemetry.span("engine.allgather",
+                            nbytes=buf.nbytes * self._world, method="ring",
+                            round=telemetry.collective_round(
+                                "engine.allgather")):
+            return self._device_collective(
+                buf, lambda x: C.device_allgather(x, self._group))
 
     def _device_collective(self, buf: np.ndarray, fn) -> np.ndarray:
         """``fn`` on ``buf`` staged onto the device as
@@ -290,17 +352,20 @@ class TorchEngine(Engine):
                 raise ValueError(
                     "single-process broadcast must originate data")
             return data
-        self._drain_async()
-        # Two phases like the reference binding (rabit.py:171-206):
-        # the length, then the payload.
+        # Two phases like the reference binding (rabit.py:171-206) and
+        # XlaEngine: the length by a MAX allreduce, then the payload.
         is_root = self._rank == root
-        nlen = torch.tensor([len(data) if is_root else 0],
-                            dtype=torch.int64, device=self._device)
-        size = int(C.bcast_from_root(nlen, self._group, root).item())
+        nlen = np.array([len(data) if is_root else 0], dtype=np.int64)
+        self.allreduce(nlen, MAX)
+        size = int(nlen[0])
         payload = (torch.frombuffer(bytearray(data), dtype=torch.uint8)
                    if is_root and size else
                    torch.zeros(size, dtype=torch.uint8))
-        out = C.bcast_from_root(payload.to(self._device), self._group, root)
+        with telemetry.span("engine.broadcast", nbytes=size, root=root,
+                            round=telemetry.collective_round(
+                                "engine.broadcast")):
+            out = C.device_broadcast(payload.to(self._device), self._group,
+                                     root)
         return numpy_from_tensor(out, np.dtype(np.uint8)).tobytes()
 
     # -- checkpointing ----------------------------------------------------
@@ -349,6 +414,11 @@ class TorchEngine(Engine):
             self._local = (got[1] or None) if got is not None else None
         log.log_info("cold restart: resumed at checkpoint version %d "
                      "(holder rank %d)", maxv, root)
+        telemetry.count("recovery.cold_restart",
+                        nbytes=len(self._global), provenance="recovery")
+        events.emit("recovery.cold_restart",
+                    f"resumed at checkpoint version {maxv} "
+                    f"(holder rank {root})", rank=self._rank)
 
     def checkpoint(self, global_bytes: bytes,
                    local_bytes: Optional[bytes] = None) -> None:

@@ -14,6 +14,12 @@ happen at first use; ``build()`` starts one nvcc per source, all at once,
 and waits for them together. nvcc's output, with ptxas's registers and
 spills of every kernel (``-Xptxas -v``), is kept beside the library
 (``ptxas_log``).
+
+With profiling on (``rabit_profile``), every ``load`` runs under the
+profiling plane's compile probe ``build:<name>`` over ``load._cache_size``
+(the libraries loaded in this process): a library's first load in a
+process is a compile sample (the build when there is one, and the
+``dlopen``) and a cache miss, every later load a hit.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional
+
+from ..telemetry import profile as _profile
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rabit_tpu_torch"
@@ -118,6 +126,13 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built first if needed."""
+    if not _profile.enabled():
+        return _load(name)
+    with _profile.jit_probe(f"build:{name}", load):
+        return _load(name)
+
+
+def _load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         build([name])
@@ -125,6 +140,14 @@ def load(name: str) -> ctypes.CDLL:
         lib.rabit_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rabit_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _cache_size() -> int:
+    """The libraries loaded in this process: the compile probe's cache."""
+    return len(_loaded)
+
+
+load._cache_size = _cache_size
 
 
 def entry(name: str, symbol: str, argtypes: List) -> Callable[..., int]:

@@ -46,6 +46,21 @@ contract, so unquantized f32 results carry the JAX schedules' bits:
   pair) and ``ring_shift`` (one differentiable ring rotation): autograd
   Functions for the transformer's tensor- and sequence-parallel regions.
 
+Telemetry (``rabit_tpu_torch.telemetry``, off unless ``rabit_telemetry``
+/ ``rabit_profile``): every host-level entry point -- ``allreduce``,
+``device_reduce_scatter``, ``device_allgather``, ``device_hier_allreduce``
+(a span a phase, one ``round``), ``device_allreduce_tree``,
+``device_broadcast`` and the ``*_async`` issues -- records the JAX
+package's span with its analytic cost (``cost_*`` attributes); while a
+span is live the entry point waits for its result (an event on the
+result's stream) so that the span times the collective, and stamps
+``wire_exposed_ms`` / ``wire_overlapped_ms``. An ``AsyncHandle`` records
+its span at ``wait()`` with the measured split. The schedules the models
+call (``tree_allreduce``, ``ring_allreduce``, ``bidir_ring_allreduce``,
+``swing_allreduce``, ``hier_allreduce``, ``preagg_allreduce``) get only
+JAX's ``rabit_*`` labels (``telemetry.trace_annotation``), which add no
+operation and no wait.
+
 ``wire`` (``parallel/wire.py``) compresses only the exchanged bytes of
 float SUM payloads: every received contribution decodes to f32 and folds
 in f32, and the all-gather owner encodes its chunk once, the encoding
@@ -70,6 +85,7 @@ import contextlib
 import functools
 import os
 import threading
+import time
 import warnings
 import weakref
 from dataclasses import dataclass
@@ -80,7 +96,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import telemetry
 from ..convert import numpy_from_tensor, tensor_from_numpy
+from ..telemetry import profile as _profile
 from ..ops.reducers import BITOR, MAX, MIN, OP_NAMES, SUM, torch_reduce_fn
 from . import dispatch as _dispatch
 from . import topology as _topology
@@ -144,6 +162,58 @@ def _exchange(send: Sequence[torch.Tensor], to: Optional[int],
     got = [torch.empty_like(t) for t in send]
     _post([(send, got, to, frm)], group)
     return got
+
+
+def _allreduce_label(method: str, wire: Optional[str]) -> str:
+    """JAX's profile label of a schedule (``collectives.py:873-878``): the
+    wire spec's separators (``:@``) as underscores."""
+    wtag = wire.replace(":", "_").replace("@", "_") if wire else ""
+    return f"rabit_allreduce_{method}" + (f"_{wtag}" if wtag else "")
+
+
+def _annotated(method: str):
+    """Run the decorated schedule (``fn(x, group, op, [wire], ...)``) under
+    its ``rabit_allreduce_<method>`` label when telemetry is on."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def run(x, group=None, op=SUM, *args, **kw):
+            if not telemetry.enabled():
+                return fn(x, group, op, *args, **kw)
+            wire = kw.get("wire", args[0] if args else None)
+            with telemetry.trace_annotation(_allreduce_label(method, wire)):
+                return fn(x, group, op, *args, **kw)
+        return run
+    return deco
+
+
+def _cost_attrs(cost) -> dict:
+    """A ``profile.record_cost`` estimate as span attributes (none when
+    profiling is off)."""
+    return ({"cost_flops": cost["flops"], "cost_wire_bytes": cost["wire_bytes"],
+             "cost_hops": cost["hops"]} if cost else {})
+
+
+def _stamp_exposed(sp, t0: float) -> None:
+    """A synchronous collective blocks its caller for its whole span: all
+    of it exposed, nothing overlapped (``collectives.py:972-983`` of the
+    JAX package); the async handles stamp the measured split instead."""
+    sp.attrs["wire_exposed_ms"] = (time.perf_counter() - t0) * 1e3
+    sp.attrs["wire_overlapped_ms"] = 0.0
+
+
+def _finish(sp, out, t0: float) -> None:
+    """Close out a live span's measurement: wait for ``out`` (a tensor or a
+    tree of them) on its stream, as JAX's ``block_until_ready``, then stamp
+    the split. A span that is not live costs nothing here: no wait."""
+    if not sp.live:
+        return
+    leaves = _flatten(out)[0] if not isinstance(out, torch.Tensor) else [out]
+    if leaves and leaves[0].is_cuda:
+        dev = leaves[0].device
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+        done.synchronize()
+    _stamp_exposed(sp, t0)
 
 
 def _group_tables(groups, p: int):
@@ -221,6 +291,7 @@ def _check_flat(x: torch.Tensor, name: str, op: int = SUM) -> None:
         raise ValueError(f"unknown op {op}")
 
 
+@_annotated("tree")
 def tree_allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
                    op: int = SUM) -> torch.Tensor:
     """Latency-optimal allreduce: the backend's own reduction
@@ -417,6 +488,7 @@ def ring_all_gather(x: torch.Tensor,
     return back(lane.buf.reshape((size * y.shape[0],) + tuple(y.shape[1:])))
 
 
+@_annotated("ring")
 def ring_allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
                    op: int = SUM, wire: Optional[str] = None,
                    reverse: bool = False, groups=None) -> torch.Tensor:
@@ -437,6 +509,7 @@ def ring_allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
     return back(out[:n])
 
 
+@_annotated("bidir")
 def bidir_ring_allreduce(x: torch.Tensor,
                          group: Optional[dist.ProcessGroup] = None,
                          op: int = SUM, wire: Optional[str] = None,
@@ -520,6 +593,7 @@ def _swing_rows(size: int, pos: int, device: torch.device):
                  for s, r in zip(send_idx, recv_idx))
 
 
+@_annotated("swing")
 def swing_allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
                     op: int = SUM, wire: Optional[str] = None,
                     groups=None) -> torch.Tensor:
@@ -587,6 +661,7 @@ def swing_allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
     return back(out.reshape(size * m)[:n])
 
 
+@_annotated("hier")
 def hier_allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
                    op: int = SUM, groups=None, wire: Optional[str] = None,
                    inter_method: str = "ring") -> torch.Tensor:
@@ -619,36 +694,70 @@ def hier_allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
     wire = _normalize_wire(wire, op, x.dtype)  # eligibility; pad below
     y, back = _as_reducible(x.contiguous(), op)
     return back(_hier_phases(y, group, op, groups, wire, inter_method,
-                             _no_guard))
+                             _labelled_phase))
 
 
-def _no_guard(name: str, nbytes: int):
-    return contextlib.nullcontext()
+@dataclass(frozen=True)
+class _Phase:
+    """One phase of the hierarchical schedule, as the JAX package's
+    ``device_hier_allreduce`` describes it to its span, its cost model and
+    its guard: ``name`` (``hier.reduce_scatter``, ``hier.inter``,
+    ``hier.allgather``), the ``phase`` attribute, the payload bytes, the
+    phase's method and wire, and the cost model's element count, world and
+    direction."""
+    name: str
+    phase: str
+    nbytes: int
+    method: str
+    wire: Optional[str]
+    cost_n: int
+    cost_axis: int
+    cost_phase: Optional[str]
+
+
+def _labelled_phase(ph: _Phase, fn: Callable[[], torch.Tensor]
+                    ) -> torch.Tensor:
+    """A phase under JAX's ``rabit_hier_*`` label (``collectives.py:682-
+    691``) when telemetry is on; the schedule's own phases run so."""
+    if not telemetry.enabled():
+        return fn()
+    with telemetry.trace_annotation("rabit_" + ph.name.replace(".", "_")):
+        return fn()
 
 
 def _hier_phases(y: torch.Tensor, group, op: int, groups, wire,
-                 inter_method: str, guard) -> torch.Tensor:
+                 inter_method: str, run_phase) -> torch.Tensor:
     """The three phases of the hierarchical schedule over a two-level
     ``groups`` (``y`` flat, in a reducible dtype, ``wire`` normalized),
-    each inside ``guard(phase, nbytes)`` with JAX's phase names."""
+    each through ``run_phase(phase, fn)`` (a :class:`_Phase` and the call
+    that runs it)."""
     p = dist.get_world_size(group)
     groups = tuple(tuple(int(r) for r in grp) for grp in groups)
     g, _ = _group_tables(groups, p)
+    hosts = len(groups)
     slots = _topology.slot_rings(groups)
     flat_fn = swing_allreduce if inter_method == "swing" else ring_allreduce
     # pad so the intra shard (n/g) splits evenly into inter chunks (n/p);
     # the int8 block constraint lands on the inter phase's chunk
     yp, n = _pad_to_multiple(y, _wire_pad_mult(wire, p))
     isz = y.element_size()
-    with guard("hier.reduce_scatter", n * isz):
-        mine = ring_reduce_scatter(yp, group, op, groups=groups)
-    with guard("hier.inter", yp.shape[0] // g * isz):
-        mine = flat_fn(mine, group, op, wire=wire, groups=slots)
-    with guard("hier.allgather", n * isz):
-        full = ring_all_gather(mine, group, groups=groups)
+    n_pad = yp.shape[0]
+    mine = run_phase(
+        _Phase("hier.reduce_scatter", "reduce_scatter", n * isz, "ring",
+               None, n, g, "rs"),
+        lambda: ring_reduce_scatter(yp, group, op, groups=groups))
+    mine = run_phase(
+        _Phase("hier.inter", "inter", n_pad // g * isz, inter_method, wire,
+               n_pad // g, hosts, None),
+        lambda: flat_fn(mine, group, op, wire=wire, groups=slots))
+    full = run_phase(
+        _Phase("hier.allgather", "allgather", n * isz, "ring", None, n_pad,
+               g, "ag"),
+        lambda: ring_all_gather(mine, group, groups=groups))
     return full[:n]
 
 
+@_annotated("preagg")
 def preagg_allreduce(x: torch.Tensor,
                      group: Optional[dist.ProcessGroup] = None,
                      op: int = SUM, groups=None) -> torch.Tensor:
@@ -733,7 +842,8 @@ def allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
               op: int = SUM, method: str = "auto",
               wire: Optional[str] = "auto", groups=None) -> torch.Tensor:
     """Allreduce this rank's ``x`` (any shape) over ``group``; the port of
-    ``device_allreduce`` (without its skew plan, telemetry spans and jit).
+    ``device_allreduce`` (without its skew plan and jit), under its
+    ``allreduce`` span and cost stamp.
 
     ``method="auto"`` picks among {tree, ring, bidir, swing, hier} per
     payload size from the port's measured dispatch table
@@ -745,21 +855,50 @@ def allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
     host grouping for ``hier`` (and the laggard split for ``preagg``),
     else the ``RABIT_HIER_GROUP`` override (``parallel/topology.py``);
     flat methods drop it."""
-    return _allreduce_plan(x, group, op, method, wire, groups)()
+    plan = _allreduce_plan(x, group, op, method, wire, groups)
+    sp = telemetry.span("allreduce", nbytes=plan.nbytes, op=plan.opname,
+                        method=plan.method, wire=plan.wire, **plan.extra)
+    with sp:
+        t0 = time.perf_counter()
+        out = plan.run()
+        _finish(sp, out, t0)
+    return out
+
+
+@dataclass
+class _Plan:
+    """``allreduce``'s resolution: the schedule it chose, the call that
+    runs it, and what its span and cost stamp say."""
+    run: Callable[[], torch.Tensor]
+    method: str
+    wire: Optional[str]
+    opname: str
+    nbytes: int
+    extra: dict           # cost_* attributes (profiling on), hosts (hier)
 
 
 def _allreduce_plan(x: torch.Tensor, group, op: int, method: str, wire,
-                    groups) -> Callable[[], torch.Tensor]:
-    """``allreduce``'s resolution (grouping, then method and wire), and
-    the call that runs the schedule it chose."""
+                    groups) -> _Plan:
+    """``allreduce``'s resolution (grouping, then method and wire) and its
+    analytic cost, recorded when profiling is on."""
     p = dist.get_world_size(group)
     groups = _topology.resolve_groups(p, explicit=groups)
-    method, wire = _dispatch.resolve(x.numel(), x.dtype, op, p,
-                                     method=method, wire=wire, groups=groups)
+    n = x.numel()
+    method, wire = _dispatch.resolve(n, x.dtype, op, p, method=method,
+                                     wire=wire, groups=groups)
     if method not in ("hier", "preagg"):
         groups = None
-    return lambda: _per_shard_allreduce(x.reshape(-1), group, op, method,
-                                        wire, groups).reshape(x.shape)
+    extra = _cost_attrs(_profile.record_cost(
+        "allreduce", method, wire, n, x.element_size(), p,
+        group_size=len(groups[0]) if groups else None))
+    if method == "hier" and groups:
+        extra["hosts"] = len(groups)
+
+    def run() -> torch.Tensor:
+        return _per_shard_allreduce(x.reshape(-1), group, op, method, wire,
+                                    groups).reshape(x.shape)
+    return _Plan(run, method, wire, OP_NAMES.get(op, str(op)),
+                 n * x.element_size(), extra)
 
 
 def allreduce_numpy(buf: np.ndarray, group: Optional[dist.ProcessGroup],
@@ -836,7 +975,18 @@ def device_reduce_scatter(x: torch.Tensor,
         _, wire = _dispatch.resolve(n, x.dtype, op, p, method="ring",
                                     wire="auto")
     wire = _normalize_wire(_canonical_wire(wire), op, x.dtype, n // p)
-    return ring_reduce_scatter(x.reshape(-1), group, op, wire=wire)
+    isz = x.element_size()
+    cost = _profile.record_cost("reduce_scatter", "ring", wire, n, isz, p,
+                                phase="rs")
+    sp = telemetry.span("reduce_scatter", nbytes=n * isz,
+                        op=OP_NAMES.get(op, str(op)), method="ring",
+                        wire=wire, **_cost_attrs(cost))
+    with sp:
+        t0 = time.perf_counter()
+        with telemetry.trace_annotation("rabit_reduce_scatter"):
+            out = ring_reduce_scatter(x.reshape(-1), group, op, wire=wire)
+        _finish(sp, out, t0)
+    return out
 
 
 def device_allgather(x: torch.Tensor,
@@ -851,7 +1001,17 @@ def device_allgather(x: torch.Tensor,
         _, wire = _dispatch.resolve(p * m, x.dtype, SUM, p, method="ring",
                                     wire="auto")
     wire = _normalize_wire(_canonical_wire(wire), SUM, x.dtype, m)
-    return ring_all_gather(x.reshape(-1), group, wire=wire)
+    isz = x.element_size()
+    cost = _profile.record_cost("allgather", "ring", wire, p * m, isz, p,
+                                phase="ag")
+    sp = telemetry.span("allgather", nbytes=p * m * isz, method="ring",
+                        wire=wire, **_cost_attrs(cost))
+    with sp:
+        t0 = time.perf_counter()
+        with telemetry.trace_annotation("rabit_allgather"):
+            out = ring_all_gather(x.reshape(-1), group, wire=wire)
+        _finish(sp, out, t0)
+    return out
 
 
 def _hier_setup(x: torch.Tensor, group, op: int, groups, wire,
@@ -878,10 +1038,16 @@ def _hier_setup(x: torch.Tensor, group, op: int, groups, wire,
 
 
 def _hier_run(x: torch.Tensor, group, op: int, groups, wire,
-              inter_method: str, guard) -> torch.Tensor:
+              inter_method: str, run_phase) -> torch.Tensor:
     y, back = _as_reducible(x.reshape(-1).contiguous(), op)
     return back(_hier_phases(y, group, op, groups, wire, inter_method,
-                             guard)).reshape(x.shape)
+                             run_phase)).reshape(x.shape)
+
+
+def _phase_cost(ph: _Phase, itemsize: int, g: int) -> dict:
+    return _cost_attrs(_profile.record_cost(
+        ph.name, ph.method, ph.wire, ph.cost_n, itemsize, ph.cost_axis,
+        phase=ph.cost_phase, group_size=g))
 
 
 def device_hier_allreduce(x: torch.Tensor,
@@ -895,15 +1061,32 @@ def device_hier_allreduce(x: torch.Tensor,
     rings (``wire`` applies there only), intra-group all-gather, each run
     inside ``phase_guard(phase, nbytes)`` (a factory of context managers,
     JAX's phase names ``hier.reduce_scatter``, ``hier.inter`` and
-    ``hier.allgather``; by default none). ``groups``: explicit, else the
-    ``RABIT_HIER_GROUP`` grouping. A grouping that is not two-level runs
-    the flat ``inter_method`` through :func:`allreduce` (one group: without
-    the wire), unguarded, as in the JAX package."""
+    ``hier.allgather``; by default none). Each phase has its own span under
+    its name, the three sharing one ``round`` and carrying ``phase``,
+    ``hosts``, ``group_size`` and the phase's cost. ``groups``: explicit,
+    else the ``RABIT_HIER_GROUP`` grouping. A grouping that is not
+    two-level runs the flat ``inter_method`` through :func:`allreduce` (one
+    group: without the wire), unguarded, as in the JAX package."""
     groups, wire = _hier_setup(x, group, op, groups, wire, inter_method)
     if groups is None:
         return allreduce(x, group, op, method=inter_method, wire=wire)
-    return _hier_run(x, group, op, groups, wire, inter_method,
-                     phase_guard or _no_guard)
+    guard = phase_guard or (lambda name, nbytes: contextlib.nullcontext())
+    rnd = telemetry.collective_round("hier_allreduce")
+    opname, isz = OP_NAMES.get(op, str(op)), x.element_size()
+    g, hosts = len(groups[0]), len(groups)
+
+    def run_phase(ph: _Phase, fn):
+        cost = _phase_cost(ph, isz, g)
+        sp = telemetry.span(ph.name, nbytes=ph.nbytes, op=opname,
+                            method=ph.method, wire=ph.wire, round=rnd,
+                            phase=ph.phase, hosts=hosts, group_size=g,
+                            **cost)
+        with guard(ph.name, ph.nbytes), sp:
+            t0 = time.perf_counter()
+            out = _labelled_phase(ph, fn)
+            _finish(sp, out, t0)
+        return out
+    return _hier_run(x, group, op, groups, wire, inter_method, run_phase)
 
 
 def _flatten(tree) -> Tuple[List[torch.Tensor], Callable]:
@@ -996,17 +1179,41 @@ def device_allreduce_tree(tree, group: Optional[dist.ProcessGroup] = None,
     if not leaves:
         return tree
     p = dist.get_world_size(group)
-
-    def plan(dt, n):
-        return _dispatch.resolve(n, dt, op, p, method=method, wire=wire)
-    return rebuild(_bucketed(leaves, group, op, plan))
+    plans, nbytes = {}, 0
+    for dt, idxs in _by_dtype(leaves).items():
+        n = sum(leaves[i].numel() for i in idxs)
+        plans[dt] = _dispatch.resolve(n, dt, op, p, method=method, wire=wire)
+        isz = leaves[idxs[0]].element_size()
+        nbytes += n * isz
+        _profile.record_cost("allreduce_tree", plans[dt][0], plans[dt][1],
+                             n, isz, p)
+    sp = telemetry.span(
+        "allreduce_tree", nbytes=nbytes, op=OP_NAMES.get(op, str(op)),
+        method=",".join(sorted({m for m, _ in plans.values()})),
+        buckets=len(plans), leaves=len(leaves))
+    with sp:
+        t0 = time.perf_counter()
+        out = rebuild(_bucketed(leaves, group, op, lambda dt, n: plans[dt]))
+        _finish(sp, out, t0)
+    return out
 
 
 def device_broadcast(x: torch.Tensor,
                      group: Optional[dist.ProcessGroup] = None,
                      root: int = 0) -> torch.Tensor:
-    """Every rank gets rank ``root``'s ``x``: :func:`bcast_from_root`."""
-    return bcast_from_root(x, group, root)
+    """Every rank gets rank ``root``'s ``x``: :func:`bcast_from_root`,
+    under the JAX package's ``broadcast`` span."""
+    n, isz = x.numel(), x.element_size()
+    _profile.record_cost("broadcast", "psum_mask", None, n, isz,
+                         dist.get_world_size(group))
+    sp = telemetry.span("broadcast", nbytes=n * isz, method="psum_mask",
+                        root=root)
+    with sp:
+        t0 = time.perf_counter()
+        with telemetry.trace_annotation("rabit_broadcast"):
+            out = bcast_from_root(x, group, root)
+        _finish(sp, out, t0)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1037,7 +1244,14 @@ def device_broadcast(x: torch.Tensor,
 # At most ``async_max_inflight()`` handles are in flight: admitting one
 # past the cap waits on the oldest first. The window holds weak
 # references, so a handle dropped without ``wait()`` is still found: it
-# warns, disarms its guard and leaves the window.
+# warns, counts ``async.dropped_handle``, disarms its guard and leaves the
+# window.
+#
+# Telemetry: the issue is an ``<name>.issue`` span (the enqueue alone) and
+# an ``async.issued`` count; ``wait()`` records the real span from issue
+# to completion with ``wire_exposed_ms`` (the time the caller blocked in
+# ``wait``) and ``wire_overlapped_ms`` (the rest), and the profiling
+# plane's overlap (``collectives.py:1592-1686`` of the JAX package).
 # ---------------------------------------------------------------------------
 
 _ASYNC_ENV = "RABIT_ASYNC_COLLECTIVES"
@@ -1114,20 +1328,26 @@ class AsyncHandle:
     """An async collective's result. ``value`` is the result, usable at
     once on the caller's stream (the stream waits for it on the card);
     ``ready()`` says without blocking whether it is complete; ``wait()``
-    blocks until it is, disarms the guard, leaves the in-flight window and
-    returns the result (after ``postprocess``); it is idempotent. Dropping
-    a handle without ``wait()`` warns (``RuntimeWarning``): the collective
-    still completes."""
+    blocks until it is, disarms the guard, leaves the in-flight window,
+    records the span ``name`` (``nbytes``, ``attrs``) with its
+    exposed/overlapped split, and returns the result (after
+    ``postprocess``); it is idempotent. Dropping a handle without
+    ``wait()`` warns (``RuntimeWarning``): the collective still
+    completes."""
 
     def __init__(self, out: torch.Tensor, *, name: str, event=None,
-                 guard=None, postprocess=None):
+                 guard=None, postprocess=None, nbytes: int = 0,
+                 attrs: Optional[dict] = None):
         self._out = out
         self._name = name
         self._event = event
         self._guard = guard            # armed by the issuing entry point
         self._post = postprocess
+        self._nbytes = int(nbytes)
+        self._attrs = attrs or {}
         self._done = False
         self._result = None
+        self._t_issue = time.perf_counter()
         _admit(self)
 
     @property
@@ -1144,6 +1364,7 @@ class AsyncHandle:
     def wait(self):
         if self._done:
             return self._result
+        t_wait = time.perf_counter()
         try:
             out = self.value
             if self._event is not None:
@@ -1151,9 +1372,22 @@ class AsyncHandle:
         finally:
             self._done = True
             self._release()
+        if telemetry.enabled() or _profile.enabled():
+            self._account(t_wait, time.perf_counter())
         post, self._post = self._post, None
         self._result = post(out) if post else out
         return self._result
+
+    def _account(self, t_wait: float, t_done: float) -> None:
+        total = t_done - self._t_issue
+        exposed = t_done - t_wait
+        overlapped = max(0.0, total - exposed)
+        attrs = dict(self._attrs, wire_exposed_ms=exposed * 1e3,
+                     wire_overlapped_ms=overlapped * 1e3)
+        telemetry.record_span(self._name, total, nbytes=self._nbytes,
+                              **attrs)
+        _profile.record_overlap(self._name, self._attrs.get("method"),
+                                exposed, overlapped)
 
     def _release(self) -> None:
         guard, self._guard = self._guard, None
@@ -1167,8 +1401,9 @@ class AsyncHandle:
                 self._done = True
                 warnings.warn(
                     f"async collective handle '{self._name}' dropped "
-                    "without wait(); result discarded", RuntimeWarning,
-                    stacklevel=2)
+                    "without wait(); result discarded and wire time "
+                    "unaccounted", RuntimeWarning, stacklevel=2)
+                telemetry.count("async.dropped_handle")
                 self._release()
         except Exception:
             pass  # interpreter teardown: modules may be half-gone
@@ -1202,33 +1437,48 @@ class AsyncTreeHandle:
 
 
 def _issue(run: Callable[[], torch.Tensor], inputs: Sequence[torch.Tensor],
-           name: str, guard=None, postprocess=None) -> AsyncHandle:
+           name: str, attrs: dict, nbytes: int, issue=telemetry.NULL_SPAN,
+           guard=None, postprocess=None) -> AsyncHandle:
     """Run ``run`` (a sync schedule over ``inputs``) as an async
     collective: on a CUDA device on its side stream, after the caller's
-    stream, with an event behind it; on the CPU at once. ``guard`` (an
-    unentered context manager) is armed now and disarmed by the handle."""
+    stream, with an event behind it; on the CPU at once, inside the
+    ``issue`` span (the entry point's ``<name>.issue``). ``guard`` (an
+    unentered context manager) is armed now and disarmed by the handle.
+    The handle records the span ``name`` of ``nbytes`` with ``attrs`` (op,
+    method, wire, round, cost) at ``wait()``."""
     if guard is not None:
         guard.__enter__()
     try:
         dev = inputs[0].device
         event = None
-        if dev.type == "cuda":
-            side = _side_stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
+        with issue:
+            if dev.type == "cuda":
+                side = _side_stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    out = run()
+                    event = torch.cuda.Event()
+                    event.record(side)
+                for t in inputs:
+                    t.record_stream(side)
+            else:
                 out = run()
-                event = torch.cuda.Event()
-                event.record(side)
-            for t in inputs:
-                t.record_stream(side)
-        else:
-            out = run()
     except BaseException:
         if guard is not None:
             guard.__exit__(None, None, None)
         raise
     return AsyncHandle(out, name=name, event=event, guard=guard,
-                       postprocess=postprocess)
+                       postprocess=postprocess, nbytes=nbytes, attrs=attrs)
+
+
+def _async_attrs(opname: str, method: str, wire: Optional[str], rnd: int,
+                 extra: dict) -> dict:
+    """An async handle's span attributes, as JAX's entry points build
+    them."""
+    attrs = {"op": opname, "method": method, "wire": wire, "round": rnd,
+             "async": 1}
+    attrs.update(extra)
+    return attrs
 
 
 def device_allreduce_async(x: torch.Tensor,
@@ -1239,8 +1489,16 @@ def device_allreduce_async(x: torch.Tensor,
     """:func:`allreduce`, split into issue and wait; the method and wire
     are resolved at issue. ``guard`` (an unentered context manager, e.g. a
     watchdog's) covers issue to completion."""
-    return _issue(_allreduce_plan(x, group, op, method, wire, groups), [x],
-                  "allreduce", guard=guard)
+    plan = _allreduce_plan(x, group, op, method, wire, groups)
+    rnd = telemetry.collective_round("allreduce")
+    telemetry.count("async.issued", nbytes=plan.nbytes, op=plan.opname,
+                    method=plan.method, wire=plan.wire)
+    issue = telemetry.span("allreduce.issue", nbytes=plan.nbytes,
+                           op=plan.opname, method=plan.method,
+                           wire=plan.wire, round=rnd, **plan.extra)
+    return _issue(plan.run, [x], "allreduce",
+                  _async_attrs(plan.opname, plan.method, plan.wire, rnd,
+                               plan.extra), plan.nbytes, issue, guard=guard)
 
 
 def grad_bucket_allreduce_async(x: torch.Tensor,
@@ -1258,9 +1516,21 @@ def grad_bucket_allreduce_async(x: torch.Tensor,
                                     dist.get_world_size(group),
                                     method=method, wire="auto")
     wire = _normalize_wire(_canonical_wire(wire), op, x.dtype)
+    nbytes, opname = flat.numel() * x.element_size(), OP_NAMES.get(op, str(op))
+    extra = _cost_attrs(_profile.record_cost(
+        "bucket_allreduce", method, wire, flat.numel(), x.element_size(),
+        dist.get_world_size(group)))
+    rnd = telemetry.collective_round("bucket_allreduce")
+    telemetry.count("async.issued", nbytes=nbytes, op=opname, method=method,
+                    wire=wire)
+    issue = telemetry.span("bucket_allreduce.issue", nbytes=nbytes,
+                           op=opname, method=method, wire=wire, round=rnd,
+                           **extra)
     return _issue(lambda: _per_shard_allreduce(flat, group, op, method,
                                                wire),
-                  [flat], "bucket_allreduce", guard=guard)
+                  [flat], "bucket_allreduce",
+                  _async_attrs(opname, method, wire, rnd, extra), nbytes,
+                  issue, guard=guard)
 
 
 def grad_buckets_async(grads: Mapping[str, torch.Tensor],
@@ -1296,16 +1566,26 @@ def bucket_allreduce_async(tree, group: Optional[dist.ProcessGroup] = None,
     if not leaves:
         return AsyncTreeHandle([], lambda parts: tree)
     p = dist.get_world_size(group)
+    opname = OP_NAMES.get(op, str(op))
     handles, issued = [], []
     for dt, idxs in reversed(list(_by_dtype(leaves).items())):
         flat = _concat(leaves, idxs)
-        mth, w = _dispatch.resolve(flat.numel(), dt, op, p, method=method,
-                                   wire=wire)
+        n, isz = flat.numel(), flat.element_size()
+        mth, w = _dispatch.resolve(n, dt, op, p, method=method, wire=wire)
         if mth in ("hier", "preagg"):
             mth = "ring"  # the bucket path runs flat schedules only
+        extra = _cost_attrs(_profile.record_cost("bucket_allreduce", mth, w,
+                                                 n, isz, p))
+        rnd = telemetry.collective_round("bucket_allreduce")
+        telemetry.count("async.issued", nbytes=n * isz, op=opname,
+                        method=mth, wire=w)
+        issue = telemetry.span("bucket_allreduce.issue", nbytes=n * isz,
+                               op=opname, method=mth, wire=w, round=rnd,
+                               buckets=1, leaves=len(idxs), **extra)
         handles.append(_issue(
             functools.partial(_per_shard_allreduce, flat, group, op, mth, w),
             [flat], "bucket_allreduce",
+            _async_attrs(opname, mth, w, rnd, extra), n * isz, issue,
             postprocess=functools.partial(_split, leaves=leaves,
                                           idxs=idxs)))
         issued.append(idxs)
@@ -1334,9 +1614,27 @@ def device_hier_allreduce_async(x: torch.Tensor,
     if groups is None:
         return device_allreduce_async(x, group, op, method=inter_method,
                                       wire=wire, guard=guard)
+    rnd = telemetry.collective_round("hier_allreduce")
+    opname, isz = OP_NAMES.get(op, str(op)), x.element_size()
+    g, hosts = len(groups[0]), len(groups)
+
+    def issue_phase(ph: _Phase, fn):
+        cost = _phase_cost(ph, isz, g)
+        with telemetry.span(ph.name + ".issue", nbytes=ph.nbytes, op=opname,
+                            method=ph.method, wire=ph.wire, round=rnd,
+                            phase=ph.phase, hosts=hosts, group_size=g,
+                            **cost):
+            return _labelled_phase(ph, fn)
+
+    nbytes = x.numel() * isz
+    telemetry.count("async.issued", nbytes=nbytes, op=opname, method="hier",
+                    wire=wire)
+    attrs = _async_attrs(opname, "hier", wire, rnd,
+                         {"hosts": hosts, "group_size": g})
+    # no issue span of its own: each phase opens one
     return _issue(lambda: _hier_run(x, group, op, groups, wire,
-                                    inter_method, _no_guard),
-                  [x], "hier_allreduce", guard=guard)
+                                    inter_method, issue_phase),
+                  [x], "hier_allreduce", attrs, nbytes, guard=guard)
 
 
 # ---------------------------------------------------------------------------

@@ -24,10 +24,17 @@ decides *when* a wire the user explicitly requested (per-call ``wire=``
 beats the gate; ``rabit_dataplane_wire`` config/env is gated) actually
 engages.
 
-Not ported yet (ROADMAP Queue 1 item 7, with the port's telemetry): skew
-adaptation (``rabit_skew_adapt``) and the adaptive wire election
-(``rabit_wire_adaptive``), both of which read telemetry. :func:`resolve`
-raises ``NotImplementedError`` when either knob is on.
+With telemetry on (``rabit_tpu_torch.telemetry``) every :func:`resolve`
+counts its outcome (``dispatch`` rows with the provenance ``explicit``,
+``table`` or ``fallback``, and ``wire.quantized`` rows with the wire's),
+and the table loader counts its cache hits and misses in the profiling
+plane (``dispatch_table``), as the JAX package does.
+
+Not ported yet: skew adaptation (``rabit_skew_adapt``) and the adaptive
+wire election (``rabit_wire_adaptive``). Both wait for the skew plane:
+the JAX package's election returns no decision in a multi-process world
+until it rides the skew digest, and in the port every card is a process.
+:func:`resolve` raises ``NotImplementedError`` when either knob is on.
 """
 
 from __future__ import annotations
@@ -42,7 +49,10 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from ..ops.reducers import BITOR, SUM
+from .. import telemetry
+from ..ops.reducers import BITOR, OP_NAMES, SUM
+from ..telemetry import profile as _profile
+from ..telemetry import schema as _schema
 from ..tools import ARTIFACTS
 from . import topology
 from . import wire as _wirespec
@@ -63,7 +73,7 @@ METHODS = ("tree", "ring", "bidir", "swing", "hier")
 # relative to a measured laggard.
 EXPLICIT_METHODS = METHODS + ("preagg",)
 
-SCHEMA_PREFIX = "rabit_tpu.collective_sweep/"
+SCHEMA_PREFIX = _schema.SCHEMA_PREFIX + "collective_sweep/"
 # v3 adds block-quantized wire-spec columns ("int8:bf16", "@block") and
 # the per-row wire_block field; v2 added the skew/lag columns; v1/v2
 # artifacts keep loading.
@@ -84,14 +94,15 @@ _WIRE_SPEC_RE = re.compile(
 
 
 def _not_ported_knobs() -> None:
-    """Raise for the knobs whose policy reads telemetry the port lacks:
-    silently ignoring them would run another schedule than asked."""
+    """Raise for the knobs whose policy waits for the skew plane, which the
+    port lacks: silently ignoring them would run another schedule than
+    asked."""
     for env, what in ((_SKEW_ADAPT_ENV, "skew adaptation"),
                       (_WIRE_ADAPT_ENV, "the adaptive wire election")):
         if os.environ.get(env, "").strip().lower() in _ON:
             raise NotImplementedError(
-                f"rabit_tpu_torch: {env.lower()} ({what}) reads telemetry "
-                "the port has not ported yet; unset it")
+                f"rabit_tpu_torch: {env.lower()} ({what}) rides the skew "
+                "plane, which the port has not ported yet; unset it")
 
 
 # Last wire actually applied by resolve() -- request vs outcome.
@@ -192,8 +203,8 @@ def load_table(path: Optional[str] = None) -> Optional[dict]:
     then, in an NCCL world, the newest under ``parallel/tables/``.
     A missing file, a schema outside ``ACCEPTED_SCHEMAS`` or malformed
     rows all yield None -- dispatch degrades to the documented defaults,
-    never crashes. (The JAX package counts cache hits in its telemetry;
-    the port has none yet.)
+    never crashes. Each read of a file counts a ``dispatch_table`` hit or
+    miss of the mtime cache in the profiling plane.
     """
     if path is None:
         env = os.environ.get(_TABLE_ENV)
@@ -208,7 +219,9 @@ def load_table(path: Optional[str] = None) -> Optional[dict]:
         return None
     hit = _cache.get(path)
     if hit is not None and hit[0] == mtime:
+        _profile.cache_event("dispatch_table", hit=True)
         return hit[1]
+    _profile.cache_event("dispatch_table", hit=False)
     table = None
     try:
         with open(path) as f:
@@ -238,6 +251,14 @@ def _is_floating(dtype) -> bool:
         return dtype.is_floating_point
     import numpy as np
     return np.issubdtype(np.dtype(dtype), np.floating)
+
+
+def _itemsize(dtype) -> int:
+    """Bytes an element, for torch, numpy and string dtypes alike."""
+    if isinstance(dtype, torch.dtype):
+        return torch.empty((), dtype=dtype).element_size()
+    import numpy as np
+    return np.dtype(dtype).itemsize
 
 
 def resolve(n: int, dtype, op: int, axis_size: int,
@@ -314,5 +335,16 @@ def resolve(n: int, dtype, op: int, axis_size: int,
         wire = _wirespec.canonical_wire(wire)
     provenance = ("explicit" if requested != "auto"
                   else "table" if table is not None else "fallback")
-    note_wire(wire, "explicit" if requested_wire != "auto" else provenance)
+    wire_prov = "explicit" if requested_wire != "auto" else provenance
+    if telemetry.enabled():
+        itemsize = _itemsize(dtype)
+        opname = OP_NAMES.get(op, str(op))
+        if wire is not None:
+            # bytes entering the quantized data plane, by spec
+            telemetry.count("wire.quantized", nbytes=n * itemsize,
+                            op=opname, method=method, wire=wire,
+                            provenance=wire_prov)
+        telemetry.record_dispatch(n, itemsize, opname, method, wire,
+                                  provenance)
+    note_wire(wire, wire_prov)
     return method, wire

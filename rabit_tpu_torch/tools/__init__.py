@@ -21,7 +21,6 @@ share, among it ``run_world``, which starts a world of processes.
 
 from __future__ import annotations
 
-import datetime
 import json
 import os
 import subprocess
@@ -33,6 +32,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..telemetry.schema import timestamp_utc as timestamp  # noqa: F401
 
 ARTIFACTS = Path(__file__).resolve().parents[2] / "build" / "artifacts"
 
@@ -49,11 +50,6 @@ def card(device: torch.device) -> dict:
     ).stdout.strip()
     return {"name": torch.cuda.get_device_name(device),
             "power_limit": smi.rsplit(",", 1)[-1].strip(), "nvidia_smi": smi}
-
-
-def timestamp() -> str:
-    return datetime.datetime.now(datetime.timezone.utc).strftime(
-        "%Y%m%dT%H%M%SZ")
 
 
 def write_json(path: Path, doc: dict) -> None:

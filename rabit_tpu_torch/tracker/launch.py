@@ -37,7 +37,9 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
     respawned with an incremented attempt counter (``RABIT_NUM_TRIAL``)
     until it has failed ``max_attempts`` times. ``env`` is added to each
     worker's environment. ``stats``, when given, receives the attempts
-    by rank, the last epoch and the stores still hosted. The tracker hosts
+    by rank, the last epoch, the stores still hosted, the tracker's
+    messages (the fleet table among them) and the merged telemetry
+    document (``fleet``, None when no worker shipped a summary). The tracker hosts
     an epoch's rendezvous store when the workers' registrations ask for
     one (they do under ``rabit_dataplane=torch``)."""
     tracker = Tracker(nworkers).start()
@@ -78,6 +80,9 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
                           f"{attempts[i]}", file=sys.stderr, flush=True)
                 spawn(i)
             if all(finished.values()):
+                # engines that never register (TorchEngine) send no
+                # shutdown: the run's end is the workers' exit
+                tracker.print_fleet_metrics()
                 return 0
             time.sleep(0.05)
         raise RuntimeError(
@@ -90,6 +95,8 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
             stats["epoch"] = tracker.epoch
             stats["stores_retained"] = tracker.store_count()
             stats["messages"] = list(tracker.messages)
+            # the merged telemetry summaries the workers shipped, if any
+            stats["fleet"] = tracker.merged_metrics()
         for p in procs.values():
             if p.poll() is None:
                 p.kill()

@@ -24,6 +24,10 @@ Wire protocol (binary, little-endian, length-prefixed strings):
     topo:          (no extra fields) tracker -> worker: a JSON str
                    {"epoch","groups","delegates","single_host"} of the
                    host topology at the last assignment ("{}" before it)
+    metrics:       + summary str (a rank's ``telemetry_summary`` JSON,
+                   ``telemetry.ship_to_tracker``), kept by task id;
+                   tracker -> worker: u32 1 (0 for a payload that is not
+                   a JSON object)
     shutdown:      (no extra fields) tracker -> worker: u32 1
   tracker -> worker (start/recover): rank u32, world u32, epoch u32,
     coord_host str, coord_port u32 (this epoch's store; ""/0 when none is
@@ -36,11 +40,18 @@ The epoch counts completed registration batches: every live worker
 re-registers in the same batch during recovery, so all members of a
 batch observe the same epoch.
 
+At the end of the run (every rank sent ``shutdown``, or the launcher's
+``print_fleet_metrics`` once its workers have exited, for engines such
+as ``TorchEngine`` that do not register) the tracker merges the
+summaries it received (``merged_metrics``, the port's
+``telemetry.aggregate``) and prints the fleet table, once.
+
 Any other command closes the connection. Not ported yet (the JAX
 package's tracker has them): the write-ahead log and resume, the hot
 standby, multi-job, elastic membership, the ``join``/``resume``/
-``evict``/``repl``/``submit``/``skew``/``metrics``/``endpoint``/``world``
-commands, the fleet event and incident planes, and chaos link rewrites.
+``evict``/``repl``/``submit``/``skew``/``endpoint``/``world`` commands,
+the folding of the summaries' events into a fleet event log, the
+incident plane, and chaos link rewrites.
 """
 
 from __future__ import annotations
@@ -54,6 +65,8 @@ import sys
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
+
+from ..telemetry.aggregate import format_fleet_table, merge_summaries
 
 MAGIC = 0x52425401
 NO_RANK = 0xFFFFFFFF
@@ -83,6 +96,16 @@ def _recv_str(conn) -> str:
     if n > _MAX_WIRE_STR:
         raise ConnectionError(f"wire string claims {n} bytes")
     return _recv_all(conn, n).decode()
+
+
+def _send_u32(conn, v: int) -> None:
+    conn.sendall(struct.pack("<I", v))
+
+
+def _send_str(conn, s: str) -> None:
+    b = s.encode()
+    _send_u32(conn, len(b))
+    conn.sendall(b)
 
 
 def _pack_u32(buf: bytearray, v: int) -> None:
@@ -133,6 +156,8 @@ class Tracker:
         self._shutdown_ranks: set = set()
         self._topo: dict = {}
         self._stores: List[tuple] = []   # (epoch, TCPStore)
+        self._metrics: Dict[str, dict] = {}   # task id -> its summary
+        self._fleet_printed = False
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "Tracker":
@@ -212,6 +237,16 @@ class Tracker:
                 self.messages.append(msg)
                 print(msg, flush=True)
                 self._reply_u32(conn, 1)
+            elif cmd == "metrics":
+                try:
+                    doc = json.loads(_recv_str(conn))
+                except ValueError:
+                    doc = None
+                ok = isinstance(doc, dict)
+                if ok:
+                    with self._lock:
+                        self._metrics[task_id] = doc
+                self._reply_u32(conn, 1 if ok else 0)
             elif cmd == "shutdown":
                 with self._lock:
                     rank = self._ranks.get(task_id)
@@ -220,6 +255,7 @@ class Tracker:
                     all_down = len(self._shutdown_ranks) >= self.nworkers
                 self._reply_u32(conn, 1)
                 if all_down:
+                    self.print_fleet_metrics()
                     self._done.set()
             elif cmd == "topo":
                 with self._lock:
@@ -231,6 +267,28 @@ class Tracker:
                 conn.close()
         except (ConnectionError, OSError, struct.error, UnicodeDecodeError):
             conn.close()
+
+    def merged_metrics(self) -> Optional[dict]:
+        """The ``telemetry_fleet`` document merged from the summaries
+        received so far, or None when no worker sent one."""
+        with self._lock:
+            snap = dict(self._metrics)
+        return merge_summaries(snap) if snap else None
+
+    def print_fleet_metrics(self) -> None:
+        """Print the end-of-run fleet table (once), and keep it in
+        ``messages`` like a print command, so launchers and tests see
+        it. Nothing when no summary with a counter arrived."""
+        fleet = self.merged_metrics()
+        if fleet is None or not fleet.get("counters"):
+            return
+        with self._lock:
+            if self._fleet_printed:
+                return
+            self._fleet_printed = True
+        table = format_fleet_table(fleet)
+        self.messages.append(table)
+        print(table, flush=True)
 
     @staticmethod
     def _reply_u32(conn: socket.socket, v: int) -> None:

@@ -242,7 +242,15 @@ def test_import_leaves_out_jax_and_rabit_tpu():
         "'rabit_tpu_torch.tracker.tracker', "
         "'rabit_tpu_torch.tracker.launch', "
         "'rabit_tpu_torch.tools.boosted_trees', "
-        "'rabit_tpu_torch.models.mlp'}\n"
+        "'rabit_tpu_torch.models.mlp', "
+        "'rabit_tpu_torch.telemetry', 'rabit_tpu_torch.telemetry.schema', "
+        "'rabit_tpu_torch.telemetry.clock', "
+        "'rabit_tpu_torch.telemetry.events', "
+        "'rabit_tpu_torch.telemetry.recorder', "
+        "'rabit_tpu_torch.telemetry.profile', "
+        "'rabit_tpu_torch.telemetry.export', "
+        "'rabit_tpu_torch.telemetry.aggregate', "
+        "'rabit_tpu_torch.tools.histogram_rounds'}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -281,9 +289,11 @@ def test_no_jax_or_rabit_tpu_import_in_the_kernel_variants_script():
 
 
 def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
-    """The modules of the robust engine's slice and of the bucketed steps'
-    (the MLP, the step timing script), by name (the package scan above
-    covers the package too), and the port's own test workers."""
+    """The modules of the robust engine's slice, of the bucketed steps'
+    (the MLP, the step timing script) and of the telemetry plane
+    (``telemetry/*``, the histogram rounds' worker), by name (the package
+    scan above covers the package too), and the port's own test
+    workers."""
     new = [PKG / "utils" / "log.py", PKG / "utils" / "retry.py",
            PKG / "engine" / "ckpt_store.py", PKG / "engine" / "_native_build.py",
            PKG / "engine" / "native.py", PKG / "engine" / "dataplane.py",
@@ -292,5 +302,9 @@ def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
            ROOT / "tests" / "workers" / "torch_recover_worker.py",
            ROOT / "tests" / "workers" / "torch_dataplane_fail_worker.py",
            PKG / "models" / "mlp.py", ROOT / "train_step_timing.py"]
+    new += [PKG / "telemetry" / f"{m}.py"
+            for m in ("__init__", "schema", "clock", "events", "recorder",
+                      "profile", "export", "aggregate")]
+    new += [PKG / "tools" / "histogram_rounds.py"]
     assert all(p.is_file() for p in new)
     assert _jax_imports(new) == []

@@ -9,14 +9,18 @@
   a version behind, rank 2 empty): every rank resumes version 3 with rank
   0's global bytes, and local state stays on its rank;
 * the knobs the port lacks raise ``NotImplementedError`` at init, one
-  family a case (the set ``engine/native.py`` refuses too), and
-  ``rabit_debug`` opens the debug log."""
+  family a case (the set ``engine/native.py`` refuses too), while the
+  telemetry plane's (``rabit_telemetry``, ``rabit_profile``,
+  ``rabit_events``) are honoured, and ``rabit_debug`` opens the debug
+  log."""
 
 import numpy as np
 import pytest
 import torch.distributed as dist
 
 from rabit_tpu.engine.xla import XlaEngine
+from rabit_tpu_torch import telemetry
+from rabit_tpu_torch.telemetry import events, profile
 from rabit_tpu_torch.engine.ckpt_store import CheckpointStore
 from rabit_tpu_torch.engine.torch_engine import TorchEngine
 from rabit_tpu_torch.utils import log
@@ -120,14 +124,34 @@ def test_lagging_disks_resume_one_version_in_a_world_of_three(tmp_path):
         assert 4 in got["stored"].tolist(), r
 
 
+# the telemetry plane's knobs are ported: those cases hold that init
+# honours them (each knob's module reports it on), the rest that init
+# refuses
+_HONOURED = {"rabit_telemetry": telemetry.enabled,
+             "rabit_profile": profile.enabled,
+             "rabit_events": events.enabled}
+
+
 @pytest.mark.parametrize("args", [
-    ["rabit_telemetry=1"], ["rabit_profile=1"], ["rabit_metrics_port=0"],
-    ["rabit_deadline_ms=500"], ["rabit_deadline_ms_per_mb=10"],
+    ["rabit_telemetry=1"], ["rabit_profile=1"], ["rabit_events=1"],
+    ["rabit_metrics_port=0"], ["rabit_deadline_ms=500"],
+    ["rabit_deadline_ms_per_mb=10"],
     ["rabit_hier_phase_deadline_scale=0.5"]],
-    ids=["telemetry", "profile", "metrics_port", "deadline",
+    ids=["telemetry", "profile", "events", "metrics_port", "deadline",
          "deadline_per_mb", "hier_phase_deadline_scale"])
 def test_unported_knobs_raise_rather_than_be_ignored(args):
     e = TorchEngine()
+    knob = args[0].split("=")[0]
+    if knob in _HONOURED:
+        try:
+            e.init(args + [CPU])
+            assert _HONOURED[knob]()
+        finally:
+            e.shutdown()
+            e.init([CPU, f"{knob}=0"])
+            e.shutdown()
+        assert not _HONOURED[knob]()
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         e.init(args + [CPU])
     assert not dist.is_initialized()

@@ -190,12 +190,27 @@ def test_host_api_under_robust_engine_matches_rabit_tpu(tmp_path):
 
 
 def test_unported_knobs_raise_rather_than_be_ignored():
+    """The knobs the port lacks raise; the telemetry plane's are honoured
+    (``rabit_telemetry``, ``rabit_profile``, ``rabit_events``)."""
+    from rabit_tpu_torch import telemetry
+    from rabit_tpu_torch.telemetry import events, profile
     rabit_tpu_torch.finalize()
     for arg in ("rabit_deadline_ms=500", "rabit_metrics_port=0",
-                "rabit_skew_adapt=1", "rabit_telemetry=1"):
+                "rabit_skew_adapt=1"):
         with pytest.raises(NotImplementedError, match="not ported"):
             rabit_tpu_torch.init([arg], engine="robust")
     assert rabit_tpu_torch._engine is None
+    knobs = ["rabit_telemetry=1", "rabit_profile=1", "rabit_events=1"]
+    try:
+        rabit_tpu_torch.init(knobs, engine="robust")
+        assert telemetry.enabled() and profile.enabled()
+        assert events.enabled()
+    finally:
+        rabit_tpu_torch.finalize()
+        rabit_tpu_torch.init([k.replace("=1", "=0") for k in knobs],
+                             engine="robust")
+        rabit_tpu_torch.finalize()
+    assert not telemetry.enabled() and not events.enabled()
 
 
 def test_torch_dataplane_refuses_the_cpu_fallback(monkeypatch):

@@ -205,7 +205,14 @@ def test_print_topo_shutdown_and_unknown_commands():
         conn = _request(addr, "print", "t0", "hello from rank 0")
         assert struct.unpack("<I", _recv_exact(conn, 4))[0] == 1
         assert tr.messages == ["hello from rank 0"]
-        for cmd in ("evict", "metrics", "join"):
+        # metrics keeps a JSON object by task id (1), refuses anything
+        # else (0); with no counter in any summary, no fleet table prints
+        conn = _request(addr, "metrics", "t0", '{"schema": "x"}')
+        assert struct.unpack("<I", _recv_exact(conn, 4))[0] == 1
+        conn = _request(addr, "metrics", "t1", "not json")
+        assert struct.unpack("<I", _recv_exact(conn, 4))[0] == 0
+        assert tr.merged_metrics()["num_ranks"] == 0   # foreign schema
+        for cmd in ("evict", "join"):
             conn = _request(addr, cmd, "t0")
             assert conn.recv(1) == b""   # closed without an answer
         bad = socket.create_connection(addr, timeout=10)
