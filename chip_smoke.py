@@ -4,7 +4,8 @@ the flagship transformer's training step, the histogram measurement
 path (the sweep, the bench and the kernel proof), the robust engine, the
 bucketed and overlapped train steps of the flagship and the MLP, the
 parallelism families (sequence parallelism, the pipeline, the MoE, the
-multichip dryrun) and the telemetry and profiling plane.
+multichip dryrun), the telemetry and profiling plane, and the skew plane
+with the live plane that feeds it.
 
     python3 chip_smoke.py
 
@@ -165,7 +166,54 @@ Phases (each prints a line; any failure exits non-zero):
                 schema ids, one summary a rank through ``metrics``, the
                 fleet table printed once with ``engine.allreduce`` 3 x
                 ranks.
-15. kernels     one JSON line of every kernel with its main-path launches
+15. skew        the skew plane and the live plane (``telemetry/skew.py``,
+                ``live.py``; no kernel): (a) in a fresh process of an
+                NCCL world of 1, with ``rabit_skew_adapt`` off and a digest
+                in the environment, ``allreduce`` and the issue of
+                ``device_allreduce_async`` never enter the skew plane (its
+                hooks made to raise), launch no broadcast kernel, make no
+                host synchronisation and advance no dispatch counter; with
+                the knob on, the agreement boundary adopts the local
+                candidate with no broadcast and no host synchronisation;
+                ``adapt_plan`` re-roots the tree at world 2 (the JAX
+                package's skew smoke); the rank endpoint answers
+                ``/metrics``, ``/healthz`` and ``/summary``; (b) with two
+                cards or more, at world p = min(4, cards) over NCCL, a
+                forced digest naming rank p - 1, one boundary a call: on
+                f32 and i32 integer-valued payloads of 4,096 and 2,097,152
+                elements, ``allreduce`` by "auto", ring, bidir, swing, hier
+                at 2 x 2 (``RABIT_HIER_GROUP``) and preagg for SUM, MAX and
+                MIN, ``device_reduce_scatter``, ``device_allgather``,
+                ``device_allreduce_async`` and ``bucket_allreduce_async``,
+                adapted, equal to the flat run and to the same calls on a
+                gloo world bit for bit, the same plans on every rank and on
+                gloo, one broadcast a boundary (its NCCL kernels under
+                ``torch.profiler`` printed), and a boundary's host cost: a
+                rotated ring allreduce of 4,096 f32 with the knob off, on
+                between boundaries and on with a boundary every call, in
+                turns; then every rank forces a
+                candidate that accuses itself and after the boundary every
+                rank applies rank 0's; at world 4, with those candidates,
+                calls over the pairs {0, 1}, {2, 3} and the crossing pairs
+                {0, 2}, {1, 3} plan nothing and broadcast nothing (a
+                sub-group adopts no digest); (c) ``tools.skew_bench`` at world p
+                (2,000,000 f32, rank 2 80 ms late, 6 rounds after 2), flat
+                against adapted, each series' mean and rounds; (d) the
+                tracker-driven run: ``tools.skew_round_worker --mode
+                tracker`` under the port's launcher and tracker
+                (``metrics_port`` 0, ``RABIT_METRICS_POLL_MS`` 200; the
+                workers ``rabit_telemetry=1 rabit_metrics_port=0
+                rabit_skew_adapt=1 rabit_skew_poll_ms=100
+                rabit_skew_sync_rounds=4``, no forced digest), rank 2 (p -
+                1 below world 4) 80 ms late before each of 40 allreduces of
+                2,000,000 f32: the tracker's ``/straggler`` names it, its
+                ``skew`` digest has it with an epoch of at least 1, every
+                rank counts ``dispatch.skew_sync`` and
+                ``dispatch.skew_adapted``, adopts at the same round, and
+                every round's result is its exact sum with equal CRCs on
+                every rank; the round of adoption. With one card it prints
+                that (b)-(d) did not run.
+16. kernels     one JSON line of every kernel with its main-path launches
                 (and, for the flash kernels, phase 12's and phase 13's).
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
@@ -2450,6 +2498,526 @@ def phase_telemetry(dev, power: str) -> dict:
                                   for r in b["runs"]], "mem": b["mem"]}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the skew plane and the live plane that feeds it
+# (rabit_tpu_torch/telemetry/skew.py, live.py; the tracker's poll loop)
+# ---------------------------------------------------------------------------
+
+SKEW_SIZES = (4096, 2_097_152)   # tools/collective_sweep.py:72's end sizes
+SKEW_LAG_MS = 80                 # benchmarks/skew_round_worker.py's lag
+SKEW_TRACKER_ROUNDS = 40
+SKEW_TIMEOUT_S = 300
+SKEW_BOUNDARY_TURNS = 4          # (b)'s boundary cost: turns a mode
+SKEW_BOUNDARY_CALLS = 50         # calls a turn
+SKEW_ENV = ("RABIT_SKEW_ADAPT", "RABIT_SKEW_DIGEST", "RABIT_SKEW_PREAGG_MS",
+            "RABIT_SKEW_SYNC_ROUNDS", "RABIT_HIER_GROUP")
+
+
+def _skew_digest(p: int, lag: int, epoch: int = 1) -> str:
+    return json.dumps({"epoch": epoch, "laggard": lag, "offsets_ms": {
+        str(r): (float(SKEW_LAG_MS) if r == lag else 0.0) for r in range(p)}})
+
+
+def _skew_set(on: bool, p: int, lag: int, preagg: str = "0",
+              sync_rounds: str = "1") -> None:
+    import os
+    from rabit_tpu_torch.telemetry import skew
+    for k in SKEW_ENV:
+        os.environ.pop(k, None)
+    if on:
+        os.environ.update({"RABIT_SKEW_ADAPT": "1",
+                           "RABIT_SKEW_PREAGG_MS": preagg,
+                           "RABIT_SKEW_SYNC_ROUNDS": sync_rounds,
+                           "RABIT_SKEW_DIGEST": _skew_digest(p, lag)})
+    skew.reset_monitor()
+
+
+_SYNCS = ("cudaDeviceSynchronize", "cudaStreamSynchronize",
+          "cudaEventSynchronize", "cudaMemcpy")
+
+
+def _host_syncs(prof: dict, empty: dict) -> int:
+    """The host's waits on the card in a ``_cpu_ops`` profile beyond those
+    of an empty window (the profiler's own and the closing one)."""
+    return sum(prof["cpu"].get(k, 0) - empty["cpu"].get(k, 0)
+               for k in _SYNCS)
+
+
+def _cpu_ops(fn) -> dict:
+    """``fn()`` under ``torch.profiler``, closed by one device
+    synchronisation: the host's operations and runtime calls by name, and
+    the device kernels by name."""
+    from collections import Counter
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    return {"cpu": Counter(e.name for e in evs
+                           if e.device_type == DeviceType.CPU
+                           and e.name != "Activity Buffer Request"),
+            "kernels": Counter(e.name for e in evs
+                               if e.device_type == DeviceType.CUDA)}
+
+
+def _skew_one_card_rank(rank: int, p: int, device) -> dict:
+    """Phase 15 (a), in a fresh process of an NCCL world of 1."""
+    import os
+    import torch.distributed as dist
+    from rabit_tpu_torch.ops.reducers import SUM
+    from rabit_tpu_torch.parallel import collectives as C
+    from rabit_tpu_torch.telemetry import live, skew
+    os.environ["RABIT_DISPATCH_TABLE"] = "none"
+    x = torch.arange(1 << 20, dtype=torch.float32, device=device)
+    handles = []    # the async issue is profiled, its wait() after
+    calls = {"allreduce": lambda: C.allreduce(x, None, SUM),
+             "device_allreduce_async": lambda: handles.append(
+                 C.device_allreduce_async(x, None, SUM))}
+    # the plan the JAX package's smoke holds at world 2 (pre-aggregation
+    # off): the re-rooted tree
+    os.environ["RABIT_SKEW_PREAGG_MS"] = "0"
+    plan = skew.adapt_plan("tree", 2, 256, "sum", digest=skew.parse_digest(
+        {"epoch": 1, "offsets_ms": {"0": 40.0, "1": 0.0}, "laggard": 0}))
+    os.environ.pop("RABIT_SKEW_PREAGG_MS")
+    if plan is None or plan["kind"] != "tree_reroot" or plan["root"] != 1:
+        raise AssertionError(f"adapt_plan at world 2: {plan}")
+    empty = _cpu_ops(lambda: None)
+    # the knob off, a digest present: the skew plane is never entered
+    _skew_set(False, p, 0)
+    os.environ["RABIT_SKEW_DIGEST"] = _skew_digest(1, 0)
+    hooks = (C._skew_sync_point, skew.adapt_plan, skew.note_applied)
+
+    def entered(*a, **k):
+        raise AssertionError("the skew plane was entered with the knob off")
+    off = {}
+    try:
+        C._skew_sync_point = skew.adapt_plan = skew.note_applied = entered
+        for name, fn in calls.items():
+            fn()
+            off[name] = _cpu_ops(fn)
+    finally:
+        C._skew_sync_point, skew.adapt_plan, skew.note_applied = hooks
+    while handles:
+        handles.pop().wait()
+    for name, prof in off.items():
+        bcast = [k for k in prof["kernels"] if "roadcast" in k]
+        if bcast or _host_syncs(prof, empty) or skew._dispatch_round:
+            raise AssertionError(f"{name} with the knob off: broadcast "
+                                 f"kernels {bcast}, host syncs "
+                                 f"{_host_syncs(prof, empty)} "
+                                 f"({dict(prof['cpu'])}), dispatch counter "
+                                 f"{skew._dispatch_round}")
+    # the knob on at world 1: the boundary adopts the local candidate
+    _skew_set(True, p, 0)
+    os.environ.pop("RABIT_SKEW_DIGEST")
+    skew.reset_monitor()
+    skew.monitor().observe(json.loads(_skew_digest(1, 0, epoch=3)))
+    sent = []
+    real = dist.broadcast
+    dist.broadcast = lambda *a, **k: sent.append(a) or real(*a, **k)
+    try:
+        on = {name: _cpu_ops(fn) for name, fn in calls.items()}
+    finally:
+        dist.broadcast = real
+    while handles:
+        handles.pop().wait()
+    applied = skew.monitor().applied()
+    # at world 1 the plane adds no operation: the same host operations and
+    # kernels as with the knob off
+    if sent or applied is None or applied["epoch"] != 3 \
+            or skew.last_applied() is not None \
+            or any(on[n]["cpu"] != off[n]["cpu"]
+                   or on[n]["kernels"] != off[n]["kernels"] for n in on):
+        raise AssertionError(f"world 1, knob on: {len(sent)} broadcasts, "
+                             f"applied {applied}, tag {skew.last_applied()}, "
+                             f"operations {[dict(on[n]['cpu']) for n in on]} "
+                             f"against {[dict(off[n]['cpu']) for n in off]}")
+    _skew_set(False, p, 0)
+    # the rank's endpoint
+    from rabit_tpu_torch import telemetry
+    telemetry.reset(capacity=64, enabled=True)
+    C.allreduce(x, None, SUM)
+    srv = live.start_rank_server(0, 0, 1)
+    try:
+        import urllib.request
+        got = {}
+        for path in ("/metrics", "/healthz", "/summary"):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}{path}", timeout=5) as r:
+                got[path] = r.read().decode()
+    finally:
+        srv.stop()
+        telemetry.reset(enabled=False)
+    if 'rabit_collective_total{rank="0",name="allreduce"' not in \
+            got["/metrics"] or json.loads(got["/healthz"])["world"] != 1 \
+            or json.loads(got["/summary"])["rank"] != 0:
+        raise AssertionError(f"rank endpoint: {got}")
+    return {"ops": {n: dict(p_["cpu"]) for n, p_ in off.items()},
+            "endpoint_bytes": {k: len(v) for k, v in got.items()}}
+
+
+def _skew_payloads(rank: int) -> dict:
+    out = {}
+    for n in SKEW_SIZES:
+        ints = np.random.default_rng([15, n, rank]).integers(-60, 60, n)
+        out[f"f32_{n}"] = ints.astype(np.float32)
+        out[f"i32_{n}"] = (ints * 3).astype(np.int32)
+    return out
+
+
+def _skew_cases(p: int) -> dict:
+    """name -> (entry point, kwargs, the preagg threshold, payload key)."""
+    from rabit_tpu_torch.ops.reducers import MAX, MIN, SUM
+    c = {}
+    for key in _skew_payloads(0):
+        for m in ("auto", "ring", "bidir", "swing"):
+            c[f"{m}.{key}"] = ("allreduce", {"method": m}, "0", key)
+        if p == 4:
+            c[f"hier.{key}"] = ("allreduce", {"method": "hier"}, "0", key)
+        for op, name in ((SUM, "sum"), (MAX, "max"), (MIN, "min")):
+            c[f"preagg_{name}.{key}"] = ("allreduce", {
+                "op": op, "method": "preagg" if op != SUM else "auto"},
+                "0.0001", key)
+        c[f"rs.{key}"] = ("device_reduce_scatter", {}, "0", key)
+        c[f"ag.{key}"] = ("device_allgather", {}, "0", key)
+        c[f"async.{key}"] = ("device_allreduce_async", {}, "0", key)
+    c["bucket_async"] = ("bucket_allreduce_async", {}, "0",
+                         f"f32_{SKEW_SIZES[1]},i32_{SKEW_SIZES[0]}")
+    return c
+
+
+def _skew_call(fn: str, kw: dict, pay: dict, key: str, p: int, lag: int):
+    from rabit_tpu_torch.parallel import collectives as C
+    from rabit_tpu_torch.telemetry import skew
+    kw = dict(kw)
+    if kw.get("method") == "preagg":
+        kw["groups"] = skew.preagg_groups(p, lag)
+    if "," in key:
+        out = C.bucket_allreduce_async({k: pay[k] for k in key.split(",")},
+                                       None).wait()
+        return {f"|{k}": v for k, v in out.items()}
+    out = getattr(C, fn)(pay[key], None, **kw)
+    return {"": out.wait() if hasattr(out, "wait") else out}
+
+
+def _skew_world_rank(rank: int, p: int, device) -> dict:
+    """Phase 15 (b) on one rank of a world of ``p`` (NCCL or gloo): every
+    case flat, then adapted around laggard p - 1 (one agreement boundary a
+    call), then divergent candidates."""
+    import os
+    import torch.distributed as dist
+    from rabit_tpu_torch.ops.reducers import SUM
+    from rabit_tpu_torch.parallel import collectives as C
+    from rabit_tpu_torch.telemetry import skew
+    os.environ["RABIT_DISPATCH_TABLE"] = "none"
+    lag = p - 1
+    pay = {k: torch.from_numpy(v).to(device)
+           for k, v in _skew_payloads(rank).items()}
+    sent = []
+    real = dist.broadcast
+
+    def counted(*a, **k):
+        sent.append(1)
+        return real(*a, **k)
+    dist.broadcast = counted
+    got, tags = {}, []
+    try:
+        for adapted in (False, True):
+            for name, (fn, kw, preagg, key) in _skew_cases(p).items():
+                _skew_set(adapted, p, lag, preagg)
+                if p == 4 and name.startswith("hier"):
+                    os.environ["RABIT_HIER_GROUP"] = "0,1|2,3"
+                before = len(sent)
+                out = _skew_call(fn, kw, pay, key, p, lag)
+                if adapted:
+                    tags.append(f"{name}={skew.last_applied()}:"
+                                f"{len(sent) - before}")
+                for k, v in out.items():
+                    got[f"{'adapted' if adapted else 'flat'}|{name}{k}"] = \
+                        v.cpu().numpy()
+        # divergent candidates: each rank accuses itself, rank 0's wins
+        _skew_set(True, p, rank, sync_rounds="32")
+        os.environ["RABIT_SKEW_DIGEST"] = _skew_digest(p, rank, epoch=2)
+        skew.reset_monitor()
+        skew.monitor().current()
+        os.environ.pop("RABIT_SKEW_DIGEST")
+        before = len(sent)
+        x = pay[f"i32_{SKEW_SIZES[1]}"]
+        got["divergent"] = C.allreduce(x, None, SUM,
+                                       method="ring").cpu().numpy()
+        applied = skew.monitor().applied()
+        got["divergent_state"] = np.array(
+            [applied["laggard"], applied["epoch"], len(sent) - before])
+        got["divergent_tag"] = np.array(str(skew.last_applied()))
+        if p == 4:
+            _skew_subgroups(rank, x, got, sent)
+        # one boundary, profiled: one broadcast call, and the broadcast
+        # kernels the profiler records for it
+        if device.type == "cuda":
+            _skew_set(True, p, lag)
+            before = len(sent)
+            prof = _cpu_ops(lambda: C.allreduce(x, None, SUM, method="ring"))
+            got["boundary_calls"] = np.array(len(sent) - before)
+            got["boundary_kernels"] = np.array(sorted(
+                f"{k} x{n}" for k, n in prof["kernels"].items()
+                if "roadcast" in k))
+            got["boundary_ms"] = _boundary_ms(
+                pay[f"f32_{SKEW_SIZES[0]}"], p, lag)
+    finally:
+        dist.broadcast = real
+        _skew_set(False, p, lag)
+    got["tags"] = np.array(tags)
+    return got
+
+
+SKEW_SUBGROUPS = ("; with them, calls over pairs and crossing pairs planned "
+                  "and broadcast nothing")
+
+
+def _skew_subgroups(rank: int, x: torch.Tensor, got: dict,
+                    sent: list) -> None:
+    """Phase 15 (b) at world 4: each rank's candidate accuses itself (the
+    divergent case above), a boundary every call, and calls over the
+    pairs {0, 1}, {2, 3}, then over the crossing pairs {0, 2}, {1, 3}:
+    a sub-group adopts no digest and plans nothing, so no member runs
+    another ring than its peer, and nothing is broadcast."""
+    import os
+    import torch.distributed as dist
+    from rabit_tpu_torch.ops.reducers import SUM
+    from rabit_tpu_torch.parallel import collectives as C
+    from rabit_tpu_torch.telemetry import skew
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    crossing = [dist.new_group([0, 2]), dist.new_group([1, 3])]
+    os.environ["RABIT_SKEW_SYNC_ROUNDS"] = "1"
+    before, tags = len(sent), []
+    for name, g in (("pair", pairs[rank // 2]),
+                    ("cross", crossing[rank % 2])):
+        for method in ("ring", "auto"):
+            got[f"sub|{name}_{method}"] = C.allreduce(
+                x, g, SUM, method=method).cpu().numpy()
+            tags.append(f"{name}_{method}={skew.last_applied()}")
+    got["sub_tags"] = np.array(tags)
+    got["sub_state"] = np.array([len(sent) - before,
+                                 int(skew.monitor().applied() is None)])
+
+
+def _boundary_ms(x: torch.Tensor, p: int, lag: int) -> np.ndarray:
+    """The host ms of one rotated-ring allreduce of ``x``, a boundary
+    every call (``sync_rounds`` 1) against none (the knob off, and on
+    with the boundary passed): ``SKEW_BOUNDARY_TURNS`` turns of
+    ``SKEW_BOUNDARY_CALLS`` calls each way, rows [off, on without, on
+    with a boundary]. A turn's calls run back to back and end with a
+    device synchronisation."""
+    from rabit_tpu_torch.ops.reducers import SUM
+    from rabit_tpu_torch.parallel import collectives as C
+    modes = ((False, "1"), (True, str(1 << 30)), (True, "1"))
+    out = np.zeros((len(modes), SKEW_BOUNDARY_TURNS))
+    for t in range(SKEW_BOUNDARY_TURNS):
+        for m, (on, rounds) in enumerate(modes):
+            _skew_set(on, p, lag, sync_rounds=rounds)
+            C.allreduce(x, None, SUM, method="ring")   # the first boundary
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SKEW_BOUNDARY_CALLS):
+                C.allreduce(x, None, SUM, method="ring")
+            torch.cuda.synchronize()
+            out[m, t] = (time.perf_counter() - t0) * 1e3 / SKEW_BOUNDARY_CALLS
+    return out
+
+
+def _skew_world(p: int) -> dict:
+    """Phase 15 (b): the world over NCCL against the same world over gloo."""
+    from rabit_tpu_torch.tools import run_world
+    t0 = time.perf_counter()
+    nccl = run_world(_skew_world_rank, p, "cuda", arrays=True,
+                     timeout_s=SKEW_TIMEOUT_S)
+    gloo = run_world(_skew_world_rank, p, "cpu", arrays=True,
+                     timeout_s=SKEW_TIMEOUT_S)
+    lag, n_cases = p - 1, 0
+    for r in range(p):
+        for key, flat in nccl[r].items():
+            if not key.startswith("flat|"):
+                continue
+            n_cases += 1
+            name = key[len("flat|"):]
+            for what, other in (("adapted", nccl[r]["adapted|" + name]),
+                                ("gloo", gloo[r][key]),
+                                ("gloo adapted", gloo[r]["adapted|" + name])):
+                if other.dtype != flat.dtype or \
+                        other.tobytes() != flat.tobytes():
+                    raise AssertionError(f"world {p} rank {r}: {name} "
+                                         f"{what} differs from the flat run")
+        tags = nccl[r]["tags"].tolist()
+        if tags != nccl[0]["tags"].tolist() or \
+                tags != gloo[r]["tags"].tolist():
+            raise AssertionError(f"rank {r}: plans {tags} differ")
+        for t in tags:
+            name, rest = t.rsplit("=", 1)
+            plan, bcasts = rest.rsplit(":", 1)
+            explicit = name.startswith(("preagg_max", "preagg_min",
+                                        "bucket_async"))
+            if bcasts != "1" or (plan == "None") != explicit or \
+                    (not explicit and not plan.endswith(f"@{lag}")):
+                raise AssertionError(f"{t}: want one boundary and a plan "
+                                     f"around laggard {lag}")
+        state = nccl[r]["divergent_state"].tolist()
+        if state != [0, 2, 1] or str(nccl[r]["divergent_tag"]) != "rotate@0" \
+                or nccl[r]["divergent"].tobytes() != \
+                gloo[r]["divergent"].tobytes():
+            raise AssertionError(f"rank {r}: divergent candidates gave "
+                                 f"{state}, {nccl[r]['divergent_tag']}")
+        if p == 4:
+            x = np.stack([_skew_payloads(q)[f"i32_{SKEW_SIZES[1]}"]
+                          for q in range(p)])
+            want = {"pair": x[r // 2 * 2] + x[r // 2 * 2 + 1],
+                    "cross": x[r % 2] + x[r % 2 + 2]}
+            for key, out in nccl[r].items():
+                if key.startswith("sub|") and out.tobytes() != \
+                        want[key[4:].split("_")[0]].tobytes():
+                    raise AssertionError(f"rank {r}: {key} is not its "
+                                         f"group's sum")
+            sub = [t.split("=", 1)[1] for t in nccl[r]["sub_tags"].tolist()]
+            if set(sub) != {"None"} or \
+                    nccl[r]["sub_state"].tolist() != [0, 1]:
+                raise AssertionError(f"rank {r}: sub-groups planned "
+                                     f"{nccl[r]['sub_tags']}, state "
+                                     f"{nccl[r]['sub_state']}")
+        if int(nccl[r]["boundary_calls"]) != 1 or \
+                not nccl[r]["boundary_kernels"].size:
+            raise AssertionError(f"rank {r}: {nccl[r]['boundary_calls']} "
+                                 f"broadcasts at one boundary, kernels "
+                                 f"{nccl[r]['boundary_kernels']}")
+    plans = sorted({t.rsplit("=", 1)[1].rsplit(":", 1)[0]
+                    for t in nccl[0]["tags"].tolist()})
+    # the slowest rank's median turn, a mode
+    bms = np.max([np.median(g["boundary_ms"], axis=1) for g in nccl], axis=0)
+    return {"cases": n_cases // p, "plans": plans,
+            "boundary_kernels": nccl[0]["boundary_kernels"].tolist(),
+            "boundary_ms": bms.tolist(),
+            "boundary_turns_ms": nccl[0]["boundary_ms"].tolist(),
+            "wall_s": time.perf_counter() - t0}
+
+
+def _skew_tracker_run(p: int) -> dict:
+    """Phase 15 (d): the launcher and tracker, no forced digest."""
+    import os
+    import socket
+    import tempfile
+    from rabit_tpu_torch.tools.skew_bench import worker_env
+    from rabit_tpu_torch.tracker.launch import launch
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "rabit_tpu_torch.tools.skew_round_worker",
+           "--mode", "tracker", "rabit_engine=torch",
+           f"rabit_coordinator=127.0.0.1:{port}", f"rabit_num_processes={p}",
+           "rabit_telemetry=1", "rabit_metrics_port=0", "rabit_skew_adapt=1",
+           "rabit_skew_poll_ms=100", "rabit_skew_sync_rounds=4"]
+    stats = {}
+    saved = os.environ.get("RABIT_METRICS_POLL_MS")
+    os.environ["RABIT_METRICS_POLL_MS"] = "200"   # the tracker's sweep
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            launch(p, cmd, max_attempts=0, timeout=SKEW_TIMEOUT_S, quiet=True,
+                   stats=stats, metrics_port=0,
+                   env=dict(worker_env(), RABIT_RESULT_DIR=tmp,
+                            N_ROUNDS=str(SKEW_TRACKER_ROUNDS),
+                            LAG_MS=str(SKEW_LAG_MS)))
+            docs = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                    for r in range(p)]
+    finally:
+        if saved is None:
+            os.environ.pop("RABIT_METRICS_POLL_MS", None)
+        else:
+            os.environ["RABIT_METRICS_POLL_MS"] = saved
+    lag = docs[0]["lag_rank"]
+    live = stats["live"]
+    adopted = {d["adopted_round"] for d in docs}
+    bad = [d["rank"] for d in docs
+           if not (d["exact"] and d["crc_agree"]
+                   and d["counts"].get("dispatch.skew_sync", 0) > 0
+                   and d["counts"].get("dispatch.skew_adapted", 0) > 0
+                   and d["tags"] == docs[0]["tags"])]
+    if live["straggler"]["lagging_rank"] != lag or \
+            live["skew"].get("laggard") != lag or \
+            live["skew"].get("epoch", 0) < 1 or len(adopted) != 1 or \
+            None in adopted or bad:
+        raise AssertionError(f"tracker-driven run: straggler "
+                             f"{live['straggler']}, digest {live['skew']}, "
+                             f"adopted at {adopted}, ranks at fault {bad}")
+    return {"lag_rank": lag, "adopted_round": adopted.pop(),
+            "digest": live["skew"], "polls": live["polls"],
+            "busy_skew_s": live["straggler"]["busy_skew_s"],
+            "tags": sorted({t for t in docs[0]["tags"] if t}),
+            "counts": docs[0]["counts"], "device": docs[0]["device"]}
+
+
+def phase_skew(dev, power: str) -> dict:
+    """The skew plane and the live plane (see the module's phase 15)."""
+    from rabit_tpu_torch.tools import run_world
+    from rabit_tpu_torch.tools import skew_bench
+    a = run_world(_skew_one_card_rank, 1, "cuda", timeout_s=SKEW_TIMEOUT_S)[0]
+    phase("skew", f"(a) world 1 over NCCL: with the knob off allreduce and "
+          f"device_allreduce_async never enter the skew plane (its hooks "
+          f"raise), no broadcast kernel, no host synchronisation beyond "
+          f"an empty profile's, no counter advance (host operations "
+          f"{a['ops']}); on, the boundary adopts the local candidate with "
+          f"no broadcast and the same operations; adapt_plan re-roots the "
+          f"tree at "
+          f"world 2; the rank endpoint answers /metrics, /healthz, /summary "
+          f"({a['endpoint_bytes']} B)")
+    count = torch.cuda.device_count()
+    if count < 2:
+        phase("skew", "(b)-(d) did not run: one card; the NCCL world of the "
+              "adapted schedules, the skew bench and the tracker-driven run "
+              "need two or more")
+        return {"a": a}
+    p = min(4, count)
+    b = _skew_world(p)
+    phase("skew", f"(b) world {p} over NCCL, forced digest naming rank "
+          f"{p - 1}: {b['cases']} calls (allreduce by auto, ring, bidir, "
+          f"swing{', hier 2 x 2' if p == 4 else ''}, preagg SUM/MAX/MIN; "
+          f"reduce-scatter, all-gather, the async allreduce and bucket "
+          f"tree; f32 and i32 of {' and '.join(map(str, SKEW_SIZES))}) "
+          f"adapted equal to the flat run and to gloo bit for bit, plans "
+          f"{b['plans']}, one broadcast a boundary (its kernels under "
+          f"torch.profiler: {b['boundary_kernels']}); divergent "
+          f"candidates reconciled to rank 0's on every rank"
+          f"{SKEW_SUBGROUPS if p == 4 else ''} ({b['wall_s']:.1f} s)")
+    off, quiet, every = b["boundary_ms"]
+    phase("skew", f"(b) a rotated ring allreduce of {SKEW_SIZES[0]} f32, "
+          f"host ms a call (slowest rank's median of "
+          f"{SKEW_BOUNDARY_TURNS} turns of {SKEW_BOUNDARY_CALLS}, the "
+          f"modes in turns): knob off {off:.4f}, on between boundaries "
+          f"{quiet:.4f}, on with a boundary every call {every:.4f}: a "
+          f"boundary {every - quiet:.4f} ms (rank 0's turns "
+          f"{[[round(v, 4) for v in r] for r in b['boundary_turns_ms']]}) "
+          f"[{power}]")
+    ranks = skew_bench.run_fleet(p, torch.device("cuda", 0), smoke=False)
+    c = skew_bench.summary(ranks)
+    if not c["correct"]:
+        raise AssertionError("skew bench: a round's result was not exact")
+    phase("skew", f"(c) skew bench, world {p} over NCCL, "
+          f"{c['payload_elems']} f32 a rank, rank {c['lag_rank']} "
+          f"{c['lag_ms']:.0f} ms late, {c['rounds']} rounds after "
+          f"{c['warmup']}: flat {c['skew_round_ms_flat']:.3f} ms "
+          f"{[round(v, 3) for v in c['round_ms']['flat']]}, adapted "
+          f"({c['applied']}) {c['skew_round_ms_adapted']:.3f} ms "
+          f"{[round(v, 3) for v in c['round_ms']['adapted']]} [{power}]")
+    d = _skew_tracker_run(p)
+    phase("skew", f"(d) tracker-driven, world {p} over NCCL: rank "
+          f"{d['lag_rank']} {SKEW_LAG_MS} ms late in {SKEW_TRACKER_ROUNDS} "
+          f"rounds of 2000000 f32; the tracker's /straggler names it (busy "
+          f"skew {d['busy_skew_s']:.3f} s, {d['polls']} sweeps), its skew "
+          f"digest {d['digest']}; every rank adopted at round "
+          f"{d['adopted_round']} with plans {d['tags']}, counts "
+          f"{d['counts']}, every result exact and equal across ranks "
+          f"[{power}]")
+    return {"a": a, "b": b, "c": c, "d": d}
+
+
 def card_power() -> str:
     """The first card's name and power limit, as ``nvidia-smi`` gives
     them."""
@@ -2510,6 +3078,7 @@ def main() -> int:
     bucket = phase_bucket(dev, power)
     par = phase_parallel(power)
     tel = phase_telemetry(dev, power)
+    skew_doc = phase_skew(dev, power)
     kernels = []
     for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only"):
         head = timing[name][0]
@@ -2538,7 +3107,7 @@ def main() -> int:
         "losses": tf_run["losses"], "profile": tf_run["profile"]},
         "bucket_steps": {s: {k: r[k] for k in ("median_ms", "ms", "losses")}
                          for s, r in bucket.items()},
-        "parallel": par, "telemetry": tel}), flush=True)
+        "parallel": par, "telemetry": tel, "skew": skew_doc}), flush=True)
     print(power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

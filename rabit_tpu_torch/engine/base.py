@@ -10,6 +10,7 @@ ported yet), and with ``restore_checkpoint``."""
 
 from __future__ import annotations
 
+import os
 import socket
 from abc import ABC, abstractmethod
 from typing import Callable, List, Optional, Tuple
@@ -22,25 +23,26 @@ from ..ops.reducers import SUM
 # knobs of the JAX package's engines that the port has no code for yet:
 # set, they raise rather than be ignored (both engines of the port)
 _VALUE_KNOBS = ("rabit_deadline_ms", "rabit_deadline_ms_per_mb",
-                "rabit_hier_phase_deadline_scale",
-                "rabit_metrics_port", "rabit_flight_dir",
-                "rabit_skew_preagg_ms", "rabit_skew_poll_ms",
-                "rabit_skew_sync_rounds")
-_BOOL_KNOBS = ("rabit_skew_adapt",)
+                "rabit_hier_phase_deadline_scale", "rabit_flight_dir",
+                "rabit_tracker_standby")
+_STANDBY_ENV = "RABIT_TRACKER_STANDBY"
 
 
 def refuse_unported(cfg) -> None:
     """Raise for a configured knob (a ``Config``) whose machinery the
-    port lacks. Telemetry, profiling and the event bus
-    (``rabit_telemetry``, ``rabit_profile``, ``rabit_events``) are
+    port lacks: the watchdog's deadlines, the flight recorder and the hot
+    standby (``rabit_tracker_standby``, or ``RABIT_TRACKER_STANDBY`` in
+    the environment: the skew poller's failover to it is not ported).
+    Telemetry, profiling, the event bus, the live plane
+    (``rabit_metrics_port``) and the skew plane (``rabit_skew_*``) are
     ported."""
     bad = [k for k in _VALUE_KNOBS if cfg.get(k)]
-    bad += [k for k in _BOOL_KNOBS if cfg.get_bool(k)]
+    if os.environ.get(_STANDBY_ENV) and "rabit_tracker_standby" not in bad:
+        bad.append(_STANDBY_ENV)
     if bad:
         raise NotImplementedError(
-            f"{bad}: the watchdog and its deadlines, the live plane "
-            f"(metrics port), the flight recorder and the skew plane are "
-            f"not ported to rabit_tpu_torch yet")
+            f"{bad}: the watchdog and its deadlines, the flight recorder "
+            f"and the hot standby are not ported to rabit_tpu_torch yet")
 
 
 class AllreduceHandle:
@@ -77,6 +79,88 @@ class AllreduceHandle:
             self._done = True
             self._ready_fn = None
         return self._value
+
+
+class EnvExports:
+    """Engine config params exported to the environment, so that code
+    which never sees the config (the data plane, dispatch, the skew
+    monitor, a respawned process) reads one consistent setting; tracked
+    so ``restore`` can undo them at shutdown -- an engine configured
+    WITHOUT the param must not inherit a previous engine's value, while
+    a value the user set independently in the environment survives."""
+
+    def __init__(self) -> None:
+        # env name -> (value before our first export, our exported value)
+        self._saved: dict = {}
+
+    def export(self, name: str, value: str) -> None:
+        if value:
+            if name not in self._saved:
+                # first export only: a retried init must not snapshot
+                # the engine's own exported value as "the user's"
+                self._saved[name] = (os.environ.get(name), value)
+            else:
+                self._saved[name] = (self._saved[name][0], value)
+            os.environ[name] = value
+
+    def restore(self) -> None:
+        # only touch a var if it still holds OUR export
+        for name, (prev, ours) in self._saved.items():
+            if os.environ.get(name) == ours:
+                if prev is None:
+                    os.environ.pop(name, None)
+                else:
+                    os.environ[name] = prev
+        self._saved = {}
+
+
+def export_skew(env: EnvExports, cfg) -> None:
+    """The skew-adaptation knobs (``rabit_skew_adapt``,
+    ``rabit_skew_preagg_ms``, ``rabit_skew_poll_ms``,
+    ``rabit_skew_sync_rounds``) to the environment, where
+    ``telemetry/skew.py`` reads them on each dispatch, and with the knob
+    on the tracker's address (``RABIT_SKEW_TRACKER``) for the
+    ``SkewMonitor``'s poller; then validated, so a garbage value fails
+    here and not mid-training (the JAX package's
+    ``NativeEngine._export_skew`` and ``XlaDataPlane``'s check)."""
+    from ..telemetry import skew
+    for key in ("rabit_skew_adapt", "rabit_skew_preagg_ms",
+                "rabit_skew_poll_ms", "rabit_skew_sync_rounds"):
+        env.export(key.upper(), cfg.get(key, "") or "")
+    if cfg.get_bool("rabit_skew_adapt"):
+        host = cfg.get("rabit_tracker_uri")
+        port = cfg.get_int("rabit_tracker_port", 0)
+        if host and host != "NULL" and port:
+            env.export("RABIT_SKEW_TRACKER", f"{host}:{port}")
+    try:
+        skew.preagg_ms_per_mib()   # each raises ValueError on garbage
+        skew.poll_interval_s()
+        skew.sync_rounds()
+    except ValueError:
+        env.restore()
+        raise
+
+
+def start_live_plane(cfg, rank: int, world: int, gauges_fn,
+                     announce: bool):
+    """The per-rank metrics endpoint (``telemetry/live.py``), off unless
+    ``rabit_metrics_port`` is configured (0 picks a free port); with
+    ``announce`` its address goes to the tracker (the ``endpoint``
+    command) for the tracker's poll loop. Returns the server, or None.
+    A port that does not bind is a warning, never an init failure."""
+    if "rabit_metrics_port" not in cfg:
+        return None
+    from ..telemetry import live
+    from ..utils import log
+    try:
+        server = live.start_rank_server(cfg.get_int("rabit_metrics_port", 0),
+                                        rank, world, gauges_fn=gauges_fn)
+    except OSError as e:
+        log.log_warn("metrics endpoint failed to start: %s", e)
+        return None
+    if announce:
+        live.announce_endpoint(server.host, server.port, rank)
+    return server
 
 
 class Engine(ABC):

@@ -71,6 +71,7 @@ from .native import DATAPLANE_CB
 from .. import telemetry
 from ..ops.reducers import DTYPE_ENUM, OP_NAMES
 from ..telemetry import events
+from ..telemetry import skew as _skew
 from ..parallel import collectives as C
 from ..parallel import dispatch, topology
 from ..parallel import wire as wirespec
@@ -186,12 +187,12 @@ class TorchDataPlane:
                 f"rabit_reduce_method must be one of "
                 f"{('auto',) + dispatch.METHODS}, got {method!r}")
         self._method = method
-        for env in ("RABIT_SKEW_ADAPT", "RABIT_SKEW_PREAGG_MS",
-                    "RABIT_SKEW_POLL_MS", "RABIT_SKEW_SYNC_ROUNDS"):
-            if os.environ.get(env, "").strip() not in ("", "0"):
-                raise NotImplementedError(
-                    f"{env.lower()}: skew adaptation rides the skew plane, "
-                    f"which rabit_tpu_torch has not ported yet; unset it")
+        # the skew-adaptation knobs: validated here for the same reason
+        # as the wire -- a garbage value must fail at init, not silently
+        # disable adaptation mid-training; dispatch reads them live
+        _skew.preagg_ms_per_mib()   # each raises ValueError on garbage
+        _skew.poll_interval_s()
+        _skew.sync_rounds()
         # keep the ctypes callback object alive for the C side
         self.c_callback = DATAPLANE_CB(self._invoke)
 
@@ -250,6 +251,11 @@ class TorchDataPlane:
         self.backend = backend
         self._groups = topology.resolve_groups(self._world)
         self._formed_epoch = self._last_epoch = epoch
+        # re-arm the skew agreement boundary: every process of the new
+        # world passes here before its first collective, so the dispatch
+        # counters restart together and the first dispatch re-agrees
+        # before anything adapts (ranks may have been reassigned)
+        _skew.reset_sync()
         self.formations += 1
         self.form_seconds = time.perf_counter() - t0
         self.formed_at, self.first_collective_at = time.time(), None
@@ -377,14 +383,21 @@ class TorchDataPlane:
             # "auto": the env-requested wire engages only at sizes where
             # the table or the mincount says it pays
             wire = "auto"
-        # the span records the wire REQUEST; whether the codec engaged at
-        # this size is the dispatch counter's provenance row
+        # the span records the wire REQUEST and, once the call is done,
+        # the OUTCOME: the wire dispatch resolved and the skew plan applied
         with telemetry.span(
                 "dataplane.allreduce", nbytes=buf.nbytes,
                 op=OP_NAMES.get(op, str(op)), method=self._method,
                 wire_requested=os.environ.get("RABIT_DATAPLANE_WIRE", "")
                 or "off",
-                round=telemetry.collective_round("dataplane.allreduce")):
+                round=telemetry.collective_round("dataplane.allreduce")
+        ) as sp:
             C.allreduce_numpy(buf, self._group, op, self._device,
                               method=self._method, wire=wire,
                               groups=self._groups)
+            if sp.live:
+                # label adapted rounds for cross-rank stitching
+                tag = _skew.last_applied()
+                if tag:
+                    sp.attrs["adapted"] = tag
+                sp.attrs["wire_applied"] = dispatch.last_wire() or "off"

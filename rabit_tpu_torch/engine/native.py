@@ -30,12 +30,19 @@ telemetry files and ships its summary to the tracker BEFORE
 ``RbtFinalize``, since the tracker exits once every rank has sent
 ``shutdown``.
 
+The live plane and the skew plane (the JAX binding's wiring,
+``native.py:312-353``): ``rabit_metrics_port`` starts this rank's
+metrics endpoint (``/metrics``, ``/healthz``, ``/summary``) at init and
+announces it to the tracker (the ``endpoint`` command), whose poll loop
+scrapes it; with the torch data plane the ``rabit_skew_*`` knobs and
+the tracker's address (``RABIT_SKEW_TRACKER``) are exported for the
+data plane's collectives, and validated there.
+
 Not ported yet, and refused at init when configured: the watchdog and
 its rungs (``rabit_deadline_ms``, ``rabit_hier_phase_deadline_scale``),
-the live plane and flight recorder (``rabit_metrics_port``,
-``rabit_flight_dir``), skew adaptation (``rabit_skew_*``) --
-``base.refuse_unported``, shared with ``TorchEngine`` -- and ``resize``
-(elastic membership).
+the flight recorder (``rabit_flight_dir``) and the hot standby
+(``rabit_tracker_standby``) -- ``base.refuse_unported``, shared with
+``TorchEngine`` -- and ``resize`` (elastic membership).
 """
 
 from __future__ import annotations
@@ -49,7 +56,8 @@ import numpy as np
 
 from . import ckpt_store
 from ._native_build import library
-from .base import Engine, refuse_unported
+from .base import (Engine, EnvExports, export_skew, refuse_unported,
+                   start_live_plane)
 from .. import telemetry
 from ..ops.reducers import DTYPE_ENUM, MAX, MIN, OP_NAMES
 from ..telemetry import events
@@ -119,8 +127,10 @@ class NativeEngine(Engine):
         self._loaded = False
         self._dataplane_kind = dataplane
         self._dataplane = None
-        # env name -> (value before our first export, our exported value)
-        self._env_exports: dict = {}
+        # config params exported to the environment, undone at shutdown
+        self._env = EnvExports()
+        # the per-rank metrics endpoint (rabit_metrics_port), or None
+        self._metrics_server = None
         # durable cold-restart mirror (rabit_ckpt_dir); None = memory-only
         self._store: Optional[ckpt_store.CheckpointStore] = None
         # absolute version = native version + offset: the native counter
@@ -145,32 +155,6 @@ class NativeEngine(Engine):
         n = self._key_counts.get(base, 0)
         self._key_counts[base] = n + 1
         return f"{base}@{n}".encode()
-
-    def _export_env(self, name: str, value: str) -> None:
-        """config param -> env so the data plane (and any respawned
-        process) sees one consistent setting; tracked so finalize can
-        undo it — an engine configured WITHOUT the param must not
-        inherit a previous engine's value, while a value the user set
-        independently in the environment must survive finalize."""
-        if value:
-            if name not in self._env_exports:
-                # first export only: a retried init must not snapshot
-                # the engine's own exported value as "the user's"
-                self._env_exports[name] = (os.environ.get(name), value)
-            else:
-                self._env_exports[name] = (self._env_exports[name][0],
-                                           value)
-            os.environ[name] = value
-
-    def _restore_env(self) -> None:
-        # only touch a var if it still holds OUR export
-        for name, (prev, ours) in self._env_exports.items():
-            if os.environ.get(name) == ours:
-                if prev is None:
-                    os.environ.pop(name, None)
-                else:
-                    os.environ[name] = prev
-        self._env_exports = {}
 
     def _check(self, rc: int, what: str) -> None:
         if rc != 0:
@@ -200,12 +184,13 @@ class NativeEngine(Engine):
                 # validated before any rendezvous: a typo must fail here,
                 # not at the first collective
                 from .dataplane import TorchDataPlane
-                self._export_env("RABIT_DATAPLANE_WIRE",
+                self._env.export("RABIT_DATAPLANE_WIRE",
                                  cfg.get("rabit_dataplane_wire", ""))
-                self._export_env("RABIT_DATAPLANE_WIRE_MINCOUNT",
+                self._env.export("RABIT_DATAPLANE_WIRE_MINCOUNT",
                                  cfg.get("rabit_dataplane_wire_mincount", ""))
-                self._export_env("RABIT_REDUCE_METHOD",
+                self._env.export("RABIT_REDUCE_METHOD",
                                  cfg.get("rabit_reduce_method", ""))
+                export_skew(self._env, cfg)
                 self._dataplane = TorchDataPlane(
                     self._lib, device=cfg.get("rabit_device") or None)
             arr = (ctypes.c_char_p * len(argv))(*[a.encode() for a in argv])
@@ -213,12 +198,17 @@ class NativeEngine(Engine):
         except BaseException:
             # a failed init leaves no exported knob behind
             self._dataplane = None
-            self._restore_env()
+            self._env.restore()
             raise
         log.set_debug(cfg.get_bool("rabit_debug"))
         log.set_identity(self.rank, self.world_size)
         telemetry.configure(cfg)
         _profile.configure(cfg)
+        # the C++ side composed the start handshake; the endpoint is
+        # announced right after, over the same rendezvous (best-effort)
+        self._metrics_server = start_live_plane(
+            cfg, self.rank, self.world_size, self._live_gauges,
+            announce=self.is_distributed)
         ckpt_dir = cfg.get("rabit_ckpt_dir")
         if ckpt_dir:
             self._store = ckpt_store.CheckpointStore(
@@ -243,7 +233,7 @@ class NativeEngine(Engine):
         Best-effort: an unreachable tracker leaves hierarchy off, never
         fails init."""
         from ..parallel import topology
-        self._export_env("RABIT_HIER", cfg.get("rabit_hier", ""))
+        self._env.export("RABIT_HIER", cfg.get("rabit_hier", ""))
         group = cfg.get("rabit_hier_group", "")
         if not group and topology.hier_enabled():
             host = cfg.get("rabit_tracker_uri")
@@ -254,7 +244,31 @@ class NativeEngine(Engine):
                 if groups is not None and topology.is_hierarchical(
                         groups, self.world_size):
                     group = topology.groups_spec(groups)
-        self._export_env("RABIT_HIER_GROUP", group)
+        self._env.export("RABIT_HIER_GROUP", group)
+
+    def _live_gauges(self) -> list:
+        """Recovery gauges served on ``/metrics`` beside the recorder's
+        counters (the JAX binding's, less the watchdog's), and this
+        rank's SLO burn (``telemetry/slo.py``)."""
+        from ..telemetry import slo as _slo
+        retries, rejects, links = (ctypes.c_uint64(), ctypes.c_uint64(),
+                                   ctypes.c_uint64())
+        self._lib.RbtRecoveryStats(ctypes.byref(retries),
+                                   ctypes.byref(rejects), ctypes.byref(links))
+        dp = self._dataplane
+        py_retries = dp.retries_total if dp is not None else 0
+        return [
+            ("rabit_world_epoch",
+             "Tracker link-registration epoch (advances on recovery).",
+             "gauge", [({}, int(self._lib.RbtWorldEpoch()))]),
+            ("rabit_dataplane_retries_total",
+             "In-collective recovery retries (rounds re-run in place).",
+             "counter", [({}, int(retries.value) + py_retries)]),
+            ("rabit_frame_crc_rejects_total",
+             "CRC-rejected collective frames (retransmitted hop-local).",
+             "counter", [({}, int(rejects.value))]),
+            *_slo.rank_gauges(),
+        ]
 
     @property
     def world_epoch(self) -> int:
@@ -276,14 +290,17 @@ class NativeEngine(Engine):
 
     def epoch_reset(self, world: int) -> None:
         """Drop everything keyed on the old world size: the exported host
-        grouping's parsed form and the dispatch table cache; pin the
-        newest checkpoint against pruning until the new world commits its
-        own and seed a re-admitted rank's store from its siblings'."""
+        grouping's parsed form, the dispatch table cache and the skew
+        plane's agreed digest and dispatch counter; pin the newest
+        checkpoint against pruning until the new world commits its own
+        and seed a re-admitted rank's store from its siblings'."""
         from ..parallel import dispatch as _dispatch
         from ..parallel import topology as _topology
+        from ..telemetry import skew as _skew
         world = int(world)
         _topology.epoch_reset(world)
         _dispatch.epoch_reset(world)
+        _skew.epoch_reset(world)
         if self._store is not None:
             self._store.protect_current()
             self._store.adopt_latest_from_peers()
@@ -319,6 +336,9 @@ class NativeEngine(Engine):
         if self._dataplane is not None:
             self._dataplane.shutdown()
             self._dataplane = None
+        if self._metrics_server is not None:
+            self._metrics_server.stop()
+            self._metrics_server = None
         _profile.stop_poller()
         # telemetry flushes BEFORE finalize: RbtFinalize sends the tracker
         # its shutdown command, and the tracker exits (printing the fleet
@@ -332,7 +352,7 @@ class NativeEngine(Engine):
                     telemetry.ship_to_tracker(rank, world)
             except Exception as e:  # noqa: BLE001 - never block shutdown
                 log.log_warn("telemetry flush failed: %s", e)
-        self._restore_env()
+        self._env.restore()
         # the shutdown handshake is a fresh tracker connection per
         # attempt and idempotent tracker-side, so retry a brief outage
         retry.retry_call(

@@ -61,10 +61,25 @@ stops the memory poller, writes this rank's summary and Chrome trace into
 ``RABIT_TELEMETRY_EXPORT`` and ships the summary to the tracker when one
 is named (``RABIT_TRACKER_URI``).
 
+The live plane and the skew plane (``XlaEngine``'s wiring,
+``engine/xla.py:173-191``, ``:222-236``, ``:318-323``):
+``rabit_metrics_port`` starts this rank's metrics endpoint
+(``telemetry/live.py``: ``/metrics`` with ``slo.rank_gauges``,
+``/healthz``, ``/summary``) and, at world > 1, announces it to the
+tracker named by ``RABIT_TRACKER_URI`` (the ``endpoint`` command), whose
+poll loop scrapes it; the ``rabit_skew_*`` knobs and, with
+``rabit_skew_adapt``, the tracker's address (``RABIT_SKEW_TRACKER``) are
+exported to the environment for the collectives (the native engine's
+``_export_skew``) and undone at shutdown; every world (re)set calls
+``skew.epoch_reset``; an allreduce's span carries the skew plan it ran
+(``adapted``). Adapted schedules agree at boundaries that every rank
+reaches in program order: the async worker is drained before each
+synchronous collective, so both threads' collectives form one order.
+
 Not ported yet, and refused at init when configured
-(``base.refuse_unported``, the native engine's set): the live plane and
-flight recorder, the watchdog's deadlines and
-``rabit_hier_phase_deadline_scale``, skew adaptation.
+(``base.refuse_unported``, the native engine's set): the flight
+recorder, the watchdog's deadlines and
+``rabit_hier_phase_deadline_scale``, the hot standby.
 """
 
 from __future__ import annotations
@@ -79,12 +94,14 @@ import torch
 import torch.distributed as dist
 
 from . import ckpt_store
-from .base import AllreduceHandle, Engine, refuse_unported
+from .base import (AllreduceHandle, Engine, EnvExports, export_skew,
+                   refuse_unported, start_live_plane)
 from .. import telemetry
 from ..convert import numpy_from_tensor, tensor_from_numpy
 from ..ops.reducers import MAX, MIN, OP_NAMES
 from ..telemetry import events
 from ..telemetry import profile as _profile
+from ..telemetry import skew as _skew
 from ..parallel import collectives as C
 from ..parallel import dispatch, topology
 from ..parallel import wire as wirespec
@@ -113,6 +130,10 @@ class TorchEngine(Engine):
         self._store: Optional[ckpt_store.CheckpointStore] = None
         self._async_ex: Optional[ThreadPoolExecutor] = None
         self._async_pending: List[Future] = []
+        # config params exported to the environment, undone at shutdown
+        self._env = EnvExports()
+        # the per-rank metrics endpoint (rabit_metrics_port), or None
+        self._metrics_server = None
 
     def init(self, args: List[str]) -> None:
         cfg = Config.from_args(args)
@@ -120,6 +141,15 @@ class TorchEngine(Engine):
         telemetry.configure(cfg)
         _profile.configure(cfg)
         C.configure_async(cfg)
+        try:
+            self._init(cfg)
+        except BaseException:
+            # a failed init leaves no exported knob behind
+            self._env.restore()
+            raise
+
+    def _init(self, cfg: Config) -> None:
+        export_skew(self._env, cfg)
         device = cfg.get("rabit_device") or None
         coord = cfg.get("rabit_coordinator")
         nproc = cfg.get_int("rabit_num_processes", 0)
@@ -152,10 +182,11 @@ class TorchEngine(Engine):
         self._wire_mincount = cfg.get_size(
             "rabit_dataplane_wire_mincount", dispatch.WIRE_MINCOUNT_DEFAULT)
         self._owns_group = not dist.is_initialized()
-        if device is None and world > 1 and self._owns_group and \
+        if device in (None, "cuda") and world > 1 and self._owns_group and \
                 torch.cuda.is_available():
             # one rank a card, as the data plane places them: NCCL
-            # refuses two ranks of a world on one device
+            # refuses two ranks of a world on one device (a card named
+            # without its index means the same as none named)
             device = f"cuda:{rank % torch.cuda.device_count()}"
         self._group, self._device = make_group(
             device, rank=rank, world_size=world, init_method=init_method)
@@ -171,12 +202,23 @@ class TorchEngine(Engine):
             self._store = ckpt_store.CheckpointStore(
                 ckpt_dir, rank=self._rank,
                 keep=cfg.get_int("rabit_ckpt_keep", ckpt_store.DEFAULT_KEEP))
+        self._metrics_server = start_live_plane(
+            cfg, self._rank, self._world, self._live_gauges,
+            announce=self._world > 1)
+
+    def _live_gauges(self) -> list:
+        """This rank's SLO burn on ``/metrics`` (``telemetry/slo.py``:
+        its p99 collective latency against the fleet objective)."""
+        from ..telemetry import slo as _slo
+        return _slo.rank_gauges()
 
     def _epoch_reset(self) -> None:
         """Drop what the last world left behind: the parsed dispatch
-        table and a grouping that does not describe this world."""
+        table, a grouping that does not describe this world, and the skew
+        plane's agreed digest, applied tag and dispatch counter."""
         topology.epoch_reset(self._world)
         dispatch.epoch_reset(self._world)
+        _skew.epoch_reset(self._world)
 
     def shutdown(self) -> None:
         try:
@@ -185,6 +227,9 @@ class TorchEngine(Engine):
             if self._async_ex is not None:
                 self._async_ex.shutdown(wait=True)
                 self._async_ex = None
+        if self._metrics_server is not None:
+            self._metrics_server.stop()
+            self._metrics_server = None
         _profile.stop_poller()
         if telemetry.enabled():
             telemetry.export_at_shutdown(self._rank, self._world)
@@ -195,6 +240,7 @@ class TorchEngine(Engine):
         self._group = None
         self._owns_group = False
         self._epoch_reset()
+        self._env.restore()
 
     @property
     def device(self) -> torch.device:
@@ -217,8 +263,14 @@ class TorchEngine(Engine):
         with telemetry.span("engine.allreduce", nbytes=buf.nbytes,
                             op=OP_NAMES.get(op, str(op)), method=method,
                             wire=wire, round=telemetry.collective_round(
-                                "engine.allreduce")):
+                                "engine.allreduce")) as sp:
             self._allreduce_now(buf, op, method, wire)
+            if sp.live:
+                # the skew plan the device layer applied, for cross-rank
+                # stitching (telemetry/crossrank.py)
+                tag = _skew.last_applied()
+                if tag:
+                    sp.attrs["adapted"] = tag
 
     def _allreduce_now(self, buf: np.ndarray, op: int, method: str,
                        wire: Optional[str]) -> None:

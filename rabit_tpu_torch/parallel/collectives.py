@@ -99,6 +99,7 @@ import torch.distributed as dist
 from .. import telemetry
 from ..convert import numpy_from_tensor, tensor_from_numpy
 from ..telemetry import profile as _profile
+from ..telemetry import skew as _skew
 from ..ops.reducers import BITOR, MAX, MIN, OP_NAMES, SUM, torch_reduce_fn
 from . import dispatch as _dispatch
 from . import topology as _topology
@@ -838,12 +839,125 @@ def _per_shard_allreduce(flat: torch.Tensor, group, op: int, method: str,
     return _METHOD_FNS[method](flat, group, op, wire=wire, groups=groups)
 
 
+# ---------------------------------------------------------------------------
+# The skew plane's hooks (``telemetry/skew.py``): the agreement boundary and
+# the plans that only it may steer. With ``rabit_skew_adapt`` unset none of
+# them runs: no broadcast, no host synchronisation, no counter advance.
+# ---------------------------------------------------------------------------
+
+def _skew_sync_point(group, device: torch.device) -> None:
+    """The fleet agreement boundary of skew adaptation (JAX
+    ``_skew_sync_point``). Every rank must run the same schedule for the
+    same round, so ranks may only act on a digest they all hold: at
+    deterministic dispatch counts (``skew.sync_due``; program order is the
+    rendezvous, the same on every rank) group rank 0 broadcasts its
+    candidate as the fixed-shape float vector of ``skew.encode_digest``
+    and every rank adopts the decoded result (``SkewMonitor.applied``);
+    only that digest reaches ``adapt_plan`` or dispatch. A world of one
+    process adopts its own candidate and broadcasts nothing. A proper
+    sub-group (a dp or sp group of a mesh) adopts None, as the JAX
+    package's multi-axis meshes do: each sub-group's rank 0 would
+    broadcast its own candidate, and the groups could adopt different
+    ones.
+
+    The vector travels on ``device`` over NCCL (it must be a CUDA device:
+    a CPU tensor there raises rather than skip the broadcast) and on the
+    CPU over gloo; reading the result back is the one host
+    synchronisation a boundary costs."""
+    if not _skew.sync_due():
+        return
+    mon = _skew.monitor()
+    if dist.get_world_size() == 1:
+        mon.set_applied(mon.current())
+        return
+    if not _whole_world(group):
+        mon.set_applied(None)
+        return
+    p = dist.get_world_size(group)
+    if dist.get_backend(group) == "nccl":
+        if device.type != "cuda":
+            raise RuntimeError(
+                "skew agreement over an NCCL group needs a CUDA tensor, "
+                f"got one on {device}; pass the payload on the card")
+        at = device
+    else:
+        at = torch.device("cpu")
+    vec = torch.tensor(_skew.encode_digest(mon.current(), p),
+                       dtype=torch.float32, device=at)
+    g = group if group is not None else dist.group.WORLD
+    dist.broadcast(vec, src=dist.get_global_rank(g, 0), group=group)
+    mon.set_applied(_skew.decode_digest(vec.cpu().tolist()))
+    telemetry.count("dispatch.skew_sync")
+
+
+def _whole_world(group) -> bool:
+    """Whether ``group`` holds every process of the world. The agreed
+    digest names its laggard and root by global rank, and only in such a
+    group is that the rank a plan permutes (``new_group`` orders its
+    ranks by global rank)."""
+    return dist.get_world_size(group) == dist.get_world_size()
+
+
+def _agreed_digest(group):
+    """The fleet-agreed digest that may steer a call over ``group``:
+    None on a proper sub-group, which plans nothing."""
+    return _skew.monitor().applied() if _whole_world(group) else None
+
+
+def _rotation_for(group, device: torch.device, world: int):
+    """Skew adaptation for the reduce-scatter and all-gather primitives:
+    ``(order, adapted)``. Rotation is the only plan they admit (no tree to
+    re-root, nothing to pre-aggregate), so this reads the fleet-agreed
+    digest directly: a laggard inside this world walks the ring in
+    laggard-last order; anything else gives ``(None, None)``, the flat
+    ring."""
+    if not _skew.adapt_enabled() or world < 2:
+        return None, None
+    _skew_sync_point(group, device)
+    lag = _skew.laggard_of(_agreed_digest(group))
+    if lag is None or not 0 <= lag < world:
+        _skew.note_applied(None)
+        return None, None
+    adapted = f"rotate@{lag}"
+    _skew.note_applied(adapted)
+    telemetry.count("dispatch.skew_adapted")
+    return _skew.rotation_order(world, lag), adapted
+
+
+def _skew_hier(x: torch.Tensor, group, op: int, groups):
+    """Skew adaptation of a two-level hierarchical allreduce: ``(groups,
+    adapted)``, the lagging delegate demoted to the tail of its host group
+    (``skew.demote_delegate``) when the agreed digest names one. A
+    grouping that is not two-level, or the knob off, passes through."""
+    p = dist.get_world_size(group)
+    if not _skew.adapt_enabled() or not groups \
+            or not _topology.is_hierarchical(groups, p):
+        return groups, None
+    _skew_sync_point(group, x.device)
+    plan = _skew.adapt_plan("hier", p, x.numel() * x.element_size(),
+                            OP_NAMES.get(op, str(op)), groups=groups,
+                            digest=_agreed_digest(group))
+    adapted = None
+    if plan is not None:
+        groups = plan["groups"]
+        adapted = f"{plan['kind']}@{plan['laggard']}"
+    _skew.note_applied(adapted)
+    return groups, adapted
+
+
 def allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
               op: int = SUM, method: str = "auto",
               wire: Optional[str] = "auto", groups=None) -> torch.Tensor:
     """Allreduce this rank's ``x`` (any shape) over ``group``; the port of
-    ``device_allreduce`` (without its skew plan and jit), under its
-    ``allreduce`` span and cost stamp.
+    ``device_allreduce``, under its ``allreduce`` span and cost stamp.
+
+    With ``rabit_skew_adapt`` on, the call first passes the skew
+    agreement boundary (:func:`_skew_sync_point`), then applies the plan
+    of ``skew.adapt_plan`` for the fleet-agreed digest: the ring family
+    rotated laggard-last, the tree re-rooted, hier with its lagging
+    delegate demoted, or pre-aggregation (which drops the wire); the span
+    carries ``adapted="<kind>@<laggard>"``. Every plan only permutes the
+    schedule, so integer-valued payloads give the flat run's bits.
 
     ``method="auto"`` picks among {tree, ring, bidir, swing, hier} per
     payload size from the port's measured dispatch table
@@ -874,25 +988,47 @@ class _Plan:
     wire: Optional[str]
     opname: str
     nbytes: int
-    extra: dict           # cost_* attributes (profiling on), hosts (hier)
+    extra: dict           # cost_* attributes (profiling on), hosts (hier),
+    #                       adapted (a skew plan)
 
 
 def _allreduce_plan(x: torch.Tensor, group, op: int, method: str, wire,
                     groups) -> _Plan:
-    """``allreduce``'s resolution (grouping, then method and wire) and its
-    analytic cost, recorded when profiling is on."""
+    """``allreduce``'s resolution (the skew boundary, grouping, method
+    and wire, then the skew plan) and its analytic cost, recorded when
+    profiling is on."""
     p = dist.get_world_size(group)
+    if _skew.adapt_enabled():
+        # BEFORE resolve: dispatch's method-family election reads the
+        # agreed digest too, so it must be current at this boundary
+        _skew_sync_point(group, x.device)
     groups = _topology.resolve_groups(p, explicit=groups)
     n = x.numel()
     method, wire = _dispatch.resolve(n, x.dtype, op, p, method=method,
-                                     wire=wire, groups=groups)
+                                     wire=wire, groups=groups,
+                                     skew=_whole_world(group))
     if method not in ("hier", "preagg"):
         groups = None
+    adapted = None
+    if _skew.adapt_enabled():
+        # only the fleet-AGREED digest steers the plan: a per-process
+        # candidate would run different schedules on different ranks
+        plan = _skew.adapt_plan(method, p, n * x.element_size(),
+                                OP_NAMES.get(op, str(op)), groups=groups,
+                                digest=_agreed_digest(group))
+        if plan is not None:
+            method, groups = plan["method"], plan["groups"]
+            if method == "preagg":
+                wire = None  # raw exchanges: the codec never applies
+            adapted = f"{plan['kind']}@{plan['laggard']}"
+        _skew.note_applied(adapted)
     extra = _cost_attrs(_profile.record_cost(
         "allreduce", method, wire, n, x.element_size(), p,
         group_size=len(groups[0]) if groups else None))
     if method == "hier" and groups:
         extra["hosts"] = len(groups)
+    if adapted:
+        extra["adapted"] = adapted
 
     def run() -> torch.Tensor:
         return _per_shard_allreduce(x.reshape(-1), group, op, method, wire,
@@ -915,6 +1051,7 @@ def allreduce_numpy(buf: np.ndarray, group: Optional[dist.ProcessGroup],
     world into a ring that keeps the wire; the result is copied back."""
     x = tensor_from_numpy(buf).to(device)
     if method == "hier":
+        groups, _ = _skew_hier(x, group, op, groups)
         out = hier_allreduce(x.reshape(-1), group, op, groups=groups,
                              wire=wire)
     else:
@@ -949,8 +1086,8 @@ def shard_over(xs: np.ndarray, rank: int,
 # ``device_broadcast``): each rank passes its own tensor and the group
 # where JAX takes a global [p, ...] array over a mesh axis, and gets back
 # what that rank holds in JAX's output sharding. Where the JAX entry point
-# reads the skew plan, the port raises while ``rabit_skew_adapt`` is on
-# (``dispatch._not_ported_knobs``).
+# reads the skew plan, so does the port's (``_rotation_for``, ``_skew_hier``,
+# ``_allreduce_plan``).
 # ---------------------------------------------------------------------------
 
 def device_reduce_scatter(x: torch.Tensor,
@@ -963,8 +1100,9 @@ def device_reduce_scatter(x: torch.Tensor,
     :func:`device_allgather` inverts). n must divide by p: the caller
     owns the chunk layout (:func:`allreduce` pads and slices). ``wire``
     as in :func:`ring_reduce_scatter`; ``"auto"`` asks
-    ``dispatch.resolve``."""
-    _dispatch._not_ported_knobs()
+    ``dispatch.resolve``. Under skew adaptation the ring walks in
+    laggard-last order (:func:`_rotation_for`): the input's chunks are
+    permuted by the same order, so rank i still owns chunk i."""
     p, n = dist.get_world_size(group), x.numel()
     if n % p:
         raise ValueError(
@@ -975,16 +1113,28 @@ def device_reduce_scatter(x: torch.Tensor,
         _, wire = _dispatch.resolve(n, x.dtype, op, p, method="ring",
                                     wire="auto")
     wire = _normalize_wire(_canonical_wire(wire), op, x.dtype, n // p)
+    order, adapted = _rotation_for(group, x.device, p)
     isz = x.element_size()
-    cost = _profile.record_cost("reduce_scatter", "ring", wire, n, isz, p,
-                                phase="rs")
+    extra = _cost_attrs(_profile.record_cost("reduce_scatter", "ring", wire,
+                                             n, isz, p, phase="rs"))
+    if adapted:
+        extra["adapted"] = adapted
     sp = telemetry.span("reduce_scatter", nbytes=n * isz,
                         op=OP_NAMES.get(op, str(op)), method="ring",
-                        wire=wire, **_cost_attrs(cost))
+                        wire=wire, **extra)
     with sp:
         t0 = time.perf_counter()
         with telemetry.trace_annotation("rabit_reduce_scatter"):
-            out = ring_reduce_scatter(x.reshape(-1), group, op, wire=wire)
+            flat = x.reshape(-1)
+            if order is None:
+                out = ring_reduce_scatter(flat, group, op, wire=wire)
+            else:
+                # the grouped ring lands ownership on the ring position,
+                # so the chunks enter in ring order: rank order[j] owns
+                # chunk order[j] of the original layout
+                rot = flat.reshape(p, -1)[list(order)].reshape(-1)
+                out = ring_reduce_scatter(rot, group, op, wire=wire,
+                                          groups=(order,))
         _finish(sp, out, t0)
     return out
 
@@ -994,34 +1144,47 @@ def device_allgather(x: torch.Tensor,
                      wire: Optional[str] = None) -> torch.Tensor:
     """All-gather of this rank's ``x`` (m elements, flattened): every rank
     gets the p*m rank-order concatenation. ``wire`` as in
-    :func:`ring_all_gather`; ``"auto"`` asks ``dispatch.resolve``."""
-    _dispatch._not_ported_knobs()
+    :func:`ring_all_gather`; ``"auto"`` asks ``dispatch.resolve``. Under
+    skew adaptation the ring walks in laggard-last order and the result
+    is put back into rank order."""
     p, m = dist.get_world_size(group), x.numel()
     if wire == "auto":
         _, wire = _dispatch.resolve(p * m, x.dtype, SUM, p, method="ring",
                                     wire="auto")
     wire = _normalize_wire(_canonical_wire(wire), SUM, x.dtype, m)
+    order, adapted = _rotation_for(group, x.device, p)
     isz = x.element_size()
-    cost = _profile.record_cost("allgather", "ring", wire, p * m, isz, p,
-                                phase="ag")
+    extra = _cost_attrs(_profile.record_cost("allgather", "ring", wire,
+                                             p * m, isz, p, phase="ag"))
+    if adapted:
+        extra["adapted"] = adapted
     sp = telemetry.span("allgather", nbytes=p * m * isz, method="ring",
-                        wire=wire, **_cost_attrs(cost))
+                        wire=wire, **extra)
     with sp:
         t0 = time.perf_counter()
         with telemetry.trace_annotation("rabit_allgather"):
-            out = ring_all_gather(x.reshape(-1), group, wire=wire)
+            out = ring_all_gather(x.reshape(-1), group, wire=wire,
+                                  groups=None if order is None
+                                  else (order,))
+            if order is not None:
+                # the grouped gather concatenates in ring order: chunk j
+                # is rank order[j]'s, back to rank order
+                inv = [0] * p
+                for j, r in enumerate(order):
+                    inv[r] = j
+                out = out.reshape(p, -1)[inv].reshape(-1)
         _finish(sp, out, t0)
     return out
 
 
 def _hier_setup(x: torch.Tensor, group, op: int, groups, wire,
                 inter_method: str):
-    """``device_hier_allreduce``'s set-up: ``(groups, wire)``, the
-    two-level grouping and the inter phase's normalized wire; or, where
-    the grouping is not two-level, ``(None, wire)`` for the flat
-    ``inter_method`` call it degrades to (JAX's rules: a single group
-    drops the wire, every link being local)."""
-    _dispatch._not_ported_knobs()
+    """``device_hier_allreduce``'s set-up: ``(groups, wire, adapted)``,
+    the two-level grouping (its lagging delegate demoted under skew
+    adaptation, :func:`_skew_hier`), the inter phase's normalized wire and
+    the skew plan's tag; or, where the grouping is not two-level, ``(None,
+    wire, None)`` for the flat ``inter_method`` call it degrades to (JAX's
+    rules: a single group drops the wire, every link being local)."""
     if inter_method not in ("ring", "swing"):
         raise ValueError(
             f"inter_method must be 'ring' or 'swing', got {inter_method!r}")
@@ -1030,11 +1193,13 @@ def _hier_setup(x: torch.Tensor, group, op: int, groups, wire,
     if not _topology.is_hierarchical(groups, p):
         if groups and len(groups) == 1:
             wire = None
-        return None, wire or "none"
+        return None, wire or "none", None
+    groups, adapted = _skew_hier(x, group, op, groups)
     if wire == "auto":
         _, wire = _dispatch.resolve(x.numel() // len(groups[0]), x.dtype, op,
                                     len(groups), method="ring", wire="auto")
-    return groups, _normalize_wire(_canonical_wire(wire), op, x.dtype)
+    return (groups, _normalize_wire(_canonical_wire(wire), op, x.dtype),
+            adapted)
 
 
 def _hier_run(x: torch.Tensor, group, op: int, groups, wire,
@@ -1066,8 +1231,11 @@ def device_hier_allreduce(x: torch.Tensor,
     ``hosts``, ``group_size`` and the phase's cost. ``groups``: explicit,
     else the ``RABIT_HIER_GROUP`` grouping. A grouping that is not
     two-level runs the flat ``inter_method`` through :func:`allreduce` (one
-    group: without the wire), unguarded, as in the JAX package."""
-    groups, wire = _hier_setup(x, group, op, groups, wire, inter_method)
+    group: without the wire), unguarded, as in the JAX package. Under skew
+    adaptation a lagging delegate is demoted to the tail of its group and
+    each phase's span carries ``adapted``."""
+    groups, wire, adapted = _hier_setup(x, group, op, groups, wire,
+                                        inter_method)
     if groups is None:
         return allreduce(x, group, op, method=inter_method, wire=wire)
     guard = phase_guard or (lambda name, nbytes: contextlib.nullcontext())
@@ -1077,6 +1245,8 @@ def device_hier_allreduce(x: torch.Tensor,
 
     def run_phase(ph: _Phase, fn):
         cost = _phase_cost(ph, isz, g)
+        if adapted:
+            cost["adapted"] = adapted
         sp = telemetry.span(ph.name, nbytes=ph.nbytes, op=opname,
                             method=ph.method, wire=ph.wire, round=rnd,
                             phase=ph.phase, hosts=hosts, group_size=g,
@@ -1182,7 +1352,8 @@ def device_allreduce_tree(tree, group: Optional[dist.ProcessGroup] = None,
     plans, nbytes = {}, 0
     for dt, idxs in _by_dtype(leaves).items():
         n = sum(leaves[i].numel() for i in idxs)
-        plans[dt] = _dispatch.resolve(n, dt, op, p, method=method, wire=wire)
+        plans[dt] = _dispatch.resolve(n, dt, op, p, method=method, wire=wire,
+                                      skew=_whole_world(group))
         isz = leaves[idxs[0]].element_size()
         nbytes += n * isz
         _profile.record_cost("allreduce_tree", plans[dt][0], plans[dt][1],
@@ -1508,9 +1679,12 @@ def grad_bucket_allreduce_async(x: torch.Tensor,
                                 guard=None) -> AsyncHandle:
     """One flat gradient bucket's data-parallel allreduce over ``group``
     (the dp group), issued without blocking: the models' async bucket
-    steps. JAX's [dp, tp, n] bucket is this rank's row."""
-    _dispatch._not_ported_knobs()
+    steps. JAX's [dp, tp, n] bucket is this rank's row. Under skew
+    adaptation it passes the agreement boundary at issue; its ``method``
+    is explicit, so no plan applies (the JAX package's rule)."""
     flat = x.reshape(-1)
+    if _skew.adapt_enabled():
+        _skew_sync_point(group, flat.device)
     if wire == "auto":
         _, wire = _dispatch.resolve(flat.numel(), x.dtype, op,
                                     dist.get_world_size(group),
@@ -1560,18 +1734,23 @@ def bucket_allreduce_async(tree, group: Optional[dist.ProcessGroup] = None,
     blocking, in reverse bucket order (the late layers' gradients exist
     first under backpropagation: DDP's ready order). Each bucket's method
     and wire resolve on its total count; ``hier`` and ``preagg`` run the
-    ring. ``wait()`` returns the reduced tree."""
-    _dispatch._not_ported_knobs()
+    ring. Under skew adaptation the tree passes one agreement boundary at
+    issue, and ``"auto"`` takes dispatch's skew-tolerant family (the JAX
+    package's rules: no per-bucket plan). ``wait()`` returns the reduced
+    tree."""
     leaves, rebuild = _flatten(tree)
     if not leaves:
         return AsyncTreeHandle([], lambda parts: tree)
+    if _skew.adapt_enabled():
+        _skew_sync_point(group, leaves[0].device)
     p = dist.get_world_size(group)
     opname = OP_NAMES.get(op, str(op))
     handles, issued = [], []
     for dt, idxs in reversed(list(_by_dtype(leaves).items())):
         flat = _concat(leaves, idxs)
         n, isz = flat.numel(), flat.element_size()
-        mth, w = _dispatch.resolve(n, dt, op, p, method=method, wire=wire)
+        mth, w = _dispatch.resolve(n, dt, op, p, method=method, wire=wire,
+                                   skew=_whole_world(group))
         if mth in ("hier", "preagg"):
             mth = "ring"  # the bucket path runs flat schedules only
         extra = _cost_attrs(_profile.record_cost("bucket_allreduce", mth, w,
@@ -1609,8 +1788,10 @@ def device_hier_allreduce_async(x: torch.Tensor,
     """:func:`device_hier_allreduce`, issued without blocking: the three
     phases are enqueued back to back; the one ``guard`` covers all of
     them (per-phase guards need the sync variant's boundaries). A grouping
-    that is not two-level issues :func:`device_allreduce_async`."""
-    groups, wire = _hier_setup(x, group, op, groups, wire, inter_method)
+    that is not two-level issues :func:`device_allreduce_async`. Skew
+    adaptation as in :func:`device_hier_allreduce`, at issue."""
+    groups, wire, adapted = _hier_setup(x, group, op, groups, wire,
+                                        inter_method)
     if groups is None:
         return device_allreduce_async(x, group, op, method=inter_method,
                                       wire=wire, guard=guard)
@@ -1620,6 +1801,8 @@ def device_hier_allreduce_async(x: torch.Tensor,
 
     def issue_phase(ph: _Phase, fn):
         cost = _phase_cost(ph, isz, g)
+        if adapted:
+            cost["adapted"] = adapted
         with telemetry.span(ph.name + ".issue", nbytes=ph.nbytes, op=opname,
                             method=ph.method, wire=ph.wire, round=rnd,
                             phase=ph.phase, hosts=hosts, group_size=g,
@@ -1631,6 +1814,8 @@ def device_hier_allreduce_async(x: torch.Tensor,
                     wire=wire)
     attrs = _async_attrs(opname, "hier", wire, rnd,
                          {"hosts": hosts, "group_size": g})
+    if adapted:
+        attrs["adapted"] = adapted
     # no issue span of its own: each phase opens one
     return _issue(lambda: _hier_run(x, group, op, groups, wire,
                                     inter_method, issue_phase),

@@ -30,11 +30,15 @@ counts its outcome (``dispatch`` rows with the provenance ``explicit``,
 and the table loader counts its cache hits and misses in the profiling
 plane (``dispatch_table``), as the JAX package does.
 
-Not ported yet: skew adaptation (``rabit_skew_adapt``) and the adaptive
-wire election (``rabit_wire_adaptive``). Both wait for the skew plane:
-the JAX package's election returns no decision in a multi-process world
-until it rides the skew digest, and in the port every card is a process.
-:func:`resolve` raises ``NotImplementedError`` when either knob is on.
+With ``rabit_skew_adapt`` on and the fleet-agreed skew digest
+(``telemetry/skew.py``) naming a laggard of this world, ``"auto"``
+prefers the skew-tolerant schedules and records the provenance
+``skew_adapted`` and a ``dispatch.skew_adapted`` count; the concrete
+plan is applied by the collectives. ``rabit_wire_adaptive`` is
+accepted and keeps the static wire gate: the JAX package's
+bandwidth-learned election decides only in a world of one process,
+where each of the port's groups has one rank and no wire to elect, and
+keeps the static gate in a world of several, as the port does.
 """
 
 from __future__ import annotations
@@ -83,26 +87,11 @@ ACCEPTED_SCHEMAS = (SCHEMA, SCHEMA_PREFIX + "v2", SCHEMA_PREFIX + "v1")
 _TABLE_ENV = "RABIT_DISPATCH_TABLE"
 _WIRE_ENV = "RABIT_DATAPLANE_WIRE"
 _WIRE_MINCOUNT_ENV = "RABIT_DATAPLANE_WIRE_MINCOUNT"
-_WIRE_ADAPT_ENV = "RABIT_WIRE_ADAPTIVE"
-_SKEW_ADAPT_ENV = "RABIT_SKEW_ADAPT"
-_ON = ("1", "true", "yes", "on")
 
 # Table wire columns may hold any canonical wire spec
 # ("<rs>[:<ag>][@<block>]", parallel/wire.py grammar).
 _WIRE_SPEC_RE = re.compile(
     r"^(bf16|int8|none)(:(bf16|int8|none))?(@[1-9][0-9]*)?$")
-
-
-def _not_ported_knobs() -> None:
-    """Raise for the knobs whose policy waits for the skew plane, which the
-    port lacks: silently ignoring them would run another schedule than
-    asked."""
-    for env, what in ((_SKEW_ADAPT_ENV, "skew adaptation"),
-                      (_WIRE_ADAPT_ENV, "the adaptive wire election")):
-        if os.environ.get(env, "").strip().lower() in _ON:
-            raise NotImplementedError(
-                f"rabit_tpu_torch: {env.lower()} ({what}) rides the skew "
-                "plane, which the port has not ported yet; unset it")
 
 
 # Last wire actually applied by resolve() -- request vs outcome.
@@ -256,7 +245,7 @@ def _is_floating(dtype) -> bool:
 def _itemsize(dtype) -> int:
     """Bytes an element, for torch, numpy and string dtypes alike."""
     if isinstance(dtype, torch.dtype):
-        return torch.empty((), dtype=dtype).element_size()
+        return dtype.itemsize   # no tensor: resolve adds no operation
     import numpy as np
     return np.dtype(dtype).itemsize
 
@@ -264,7 +253,7 @@ def _itemsize(dtype) -> int:
 def resolve(n: int, dtype, op: int, axis_size: int,
             method: str = "auto",
             wire: Optional[str] = "auto",
-            groups=None) -> Tuple[str, Optional[str]]:
+            groups=None, skew: bool = True) -> Tuple[str, Optional[str]]:
     """Resolve ``(method, wire)`` for an ``n``-element payload over a
     world of ``axis_size`` ranks; the JAX package's contract.
 
@@ -279,18 +268,29 @@ def resolve(n: int, dtype, op: int, axis_size: int,
     world degrades to ``ring``, the same contract as swing on a world
     that is not a power of two.
 
+    With ``rabit_skew_adapt`` on and the fleet-agreed digest (adopted
+    at the last agreement boundary; never a per-process candidate)
+    naming a laggard inside this world, ``"auto"`` prefers the
+    skew-tolerant shapes (swing/bidir -> tree/ring by size) and stamps
+    the provenance ``skew_adapted`` and the ``dispatch.skew_adapted``
+    count; the concrete re-root / rotation / pre-aggregation plan is
+    applied by the collectives (``telemetry/skew.py::adapt_plan``).
+    ``skew=False`` (the collectives' call over a proper sub-group, which
+    plans nothing) leaves the digest unread.
+
     ``wire="auto"`` engages the env-requested wire (the
     ``RABIT_DATAPLANE_WIRE`` base codec composed with the
     ``rabit_wire_rs``/``rabit_wire_ag`` phase overrides and the
     ``rabit_wire_block`` block size) only where measurement says it
-    pays: the table bucket's wire field, else ``n >= wire_mincount()``.
-    An explicitly configured mincount (the env var is set) beats the
+    pays: the table bucket's wire field, else ``n >= wire_mincount()``
+    (also under ``rabit_wire_adaptive``). An explicitly configured
+    mincount (the env var is set) beats the
     table's wire column. No env wire (or a tree method) -> None. An
     explicit wire spec passes through, canonicalized;
     ``wire="none"``/None force it off. The applied wire and its
     provenance are noted (:func:`note_wire`).
     """
-    _not_ported_knobs()
+    from ..telemetry import skew as _skew
     requested = method
     table = load_table()
     wire_eligible = op == SUM and _is_floating(dtype)
@@ -317,6 +317,19 @@ def resolve(n: int, dtype, op: int, axis_size: int,
         #                  inter-host path (degradation contract)
     if method == "swing" and axis_size & (axis_size - 1):
         method = "ring"  # swing needs a power-of-two world
+    adapted = False
+    if requested == "auto" and skew and _skew.adapt_enabled():
+        # the fleet-AGREED digest only (never a per-process candidate,
+        # which would elect different methods on different ranks); the
+        # fixed-topology involutions (swing, bidir) have no good place
+        # to park a laggard, while the tree re-roots and the ring
+        # rotates. A laggard outside this world yields no plan
+        # downstream, so provenance must not claim adaptation for it.
+        lag = _skew.laggard_of(_skew.monitor().applied())
+        if lag is not None and 0 <= lag < axis_size and axis_size >= 2:
+            adapted = True
+            if method in ("swing", "bidir"):
+                method = ("tree" if n < RING_MINCOUNT_DEFAULT else "ring")
     requested_wire = wire
     if wire == "auto":
         env_wire = _wirespec.phase_request(
@@ -334,11 +347,14 @@ def resolve(n: int, dtype, op: int, axis_size: int,
     else:
         wire = _wirespec.canonical_wire(wire)
     provenance = ("explicit" if requested != "auto"
+                  else "skew_adapted" if adapted
                   else "table" if table is not None else "fallback")
     wire_prov = "explicit" if requested_wire != "auto" else provenance
     if telemetry.enabled():
         itemsize = _itemsize(dtype)
         opname = OP_NAMES.get(op, str(op))
+        if adapted:
+            telemetry.count("dispatch.skew_adapted")
         if wire is not None:
             # bytes entering the quantized data plane, by spec
             telemetry.count("wire.quantized", nbytes=n * itemsize,

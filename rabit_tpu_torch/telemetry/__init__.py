@@ -23,6 +23,14 @@ Engines turn it on with ``rabit_telemetry=1`` (spans and counters),
 ``telemetry_summary_rank<r>.json`` and ``telemetry_trace_rank<r>.json``
 into ``RABIT_TELEMETRY_EXPORT`` and ships its summary to the tracker,
 which prints the merged fleet table at the end of the run.
+
+The live plane serves the recorder while the run is alive:
+``rabit_metrics_port`` starts a rank's HTTP endpoint (``live.py``:
+``/metrics`` in the Prometheus text of ``prom.py`` with the SLO gauges
+of ``slo.py``, ``/healthz``, ``/summary``), which the tracker's poll
+loop scrapes into its straggler snapshot (``crossrank.py``) and fleet
+skew election; the skew plane (``skew.py``) feeds that election back
+into the collectives' schedules under ``rabit_skew_adapt``.
 """
 
 from __future__ import annotations
@@ -116,9 +124,7 @@ def snapshot() -> dict:
 
 
 def counter_rows(name: str) -> list:
-    """Aggregated counter rows for one name (recorder keying) — the
-    policy-plane read that the JAX package's adaptive wire election
-    makes (in the port it waits for the skew plane)."""
+    """Aggregated counter rows for one name (recorder keying)."""
     return _REC.counter_rows(name)
 
 

@@ -8,7 +8,11 @@ advance).
 
 Usage:
     python -m rabit_tpu_torch.tracker.launch -n 4 [--max-attempts 20] \\
-        [--timeout 300] prog arg1 key=value ...
+        [--timeout 300] [--metrics-port 0] prog arg1 key=value ...
+
+``--metrics-port`` (else ``RABIT_METRICS_PORT`` in the environment)
+turns on the tracker's live plane: its metrics endpoint, the poll loop
+over the workers' announced endpoints and the skew election it serves.
 
 Not ported yet: chaos proxies, the tracker's write-ahead log and its
 supervision, the hot standby, elastic re-admission and ``--submit`` to a
@@ -30,7 +34,8 @@ from .tracker import Tracker
 def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
            timeout: float = 300.0, quiet: bool = False,
            stats: Optional[Dict] = None,
-           env: Optional[Dict[str, str]] = None) -> int:
+           env: Optional[Dict[str, str]] = None,
+           metrics_port: Optional[int] = None) -> int:
     """Run ``cmd`` as ``nworkers`` local processes under a tracker.
     Returns 0 on success; raises when a worker exhausts its budget or the
     run outlasts ``timeout`` seconds. A worker exiting nonzero is
@@ -41,8 +46,10 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
     messages (the fleet table among them) and the merged telemetry
     document (``fleet``, None when no worker shipped a summary). The tracker hosts
     an epoch's rendezvous store when the workers' registrations ask for
-    one (they do under ``rabit_dataplane=torch``)."""
-    tracker = Tracker(nworkers).start()
+    one (they do under ``rabit_dataplane=torch``). ``metrics_port`` starts
+    the tracker's live plane (None: ``RABIT_METRICS_PORT``, else off); its
+    state at the end lands in ``stats["live"]``."""
+    tracker = Tracker(nworkers, metrics_port=metrics_port).start()
     procs: Dict[int, subprocess.Popen] = {}
     attempts: Dict[int, int] = {i: 0 for i in range(nworkers)}
     finished: Dict[int, bool] = {i: False for i in range(nworkers)}
@@ -97,6 +104,7 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
             stats["messages"] = list(tracker.messages)
             # the merged telemetry summaries the workers shipped, if any
             stats["fleet"] = tracker.merged_metrics()
+            stats["live"] = tracker.live_stats()
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
@@ -109,6 +117,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("-n", "--num-workers", type=int, required=True)
     ap.add_argument("--max-attempts", type=int, default=20)
     ap.add_argument("--timeout", type=float, default=300.0)
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="the tracker's live metrics port (0: a free one)")
     ap.add_argument("cmd", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
     if args.cmd and args.cmd[0] == "--":
@@ -116,7 +126,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not args.cmd:
         ap.error("missing worker command")
     return launch(args.num_workers, args.cmd, args.max_attempts,
-                  args.timeout)
+                  args.timeout, metrics_port=args.metrics_port)
 
 
 if __name__ == "__main__":

@@ -28,6 +28,12 @@ Wire protocol (binary, little-endian, length-prefixed strings):
                    ``telemetry.ship_to_tracker``), kept by task id;
                    tracker -> worker: u32 1 (0 for a payload that is not
                    a JSON object)
+    endpoint:      + JSON str {"host","port","rank"}: where the rank's
+                   metrics endpoint listens (``live.announce_endpoint``);
+                   tracker -> worker: u32 1 (0 for a malformed payload)
+    skew:          (no extra fields) tracker -> worker: a JSON str, the
+                   fleet skew digest {"epoch","offsets_ms","laggard"}
+                   ("{}" before the poll loop's first election)
     shutdown:      (no extra fields) tracker -> worker: u32 1
   tracker -> worker (start/recover): rank u32, world u32, epoch u32,
     coord_host str, coord_port u32 (this epoch's store; ""/0 when none is
@@ -46,12 +52,28 @@ as ``TorchEngine`` that do not register) the tracker merges the
 summaries it received (``merged_metrics``, the port's
 ``telemetry.aggregate``) and prints the fleet table, once.
 
+The live plane (``metrics_port``, else ``RABIT_METRICS_PORT``; off when
+neither is set, 0 picks a free port): a ``telemetry.live.MetricsServer``
+serves ``/metrics`` (every polled rank's counters, labelled by rank,
+and the tracker's gauges: endpoints, poll sweeps, the host topology,
+the straggler and the skew digest), ``/healthz``, ``/summary`` (the
+merged fleet document), ``/straggler`` and ``/slo``; a poll thread
+scrapes each announced endpoint's ``/summary`` every
+``RABIT_METRICS_POLL_MS`` (``live.poll_interval_s``) into the same
+per-task dict the end-of-run merge reads, builds
+``crossrank.straggler_snapshot`` from it, folds the snapshot's digest
+through one ``skew.FleetElection`` and serves the result over the
+``skew`` command, and prints a straggler line every five sweeps while
+someone is behind (the JAX tracker's single-job poll loop,
+``tracker.py:1785-1866``).
+
 Any other command closes the connection. Not ported yet (the JAX
 package's tracker has them): the write-ahead log and resume, the hot
-standby, multi-job, elastic membership, the ``join``/``resume``/
-``evict``/``repl``/``submit``/``skew``/``endpoint``/``world`` commands,
-the folding of the summaries' events into a fleet event log, the
-incident plane, and chaos link rewrites.
+standby, multi-job, elastic membership and with it the poll loop's
+eviction of a silent endpoint and its resume grace, the ``join``/
+``resume``/``evict``/``repl``/``submit``/``world`` commands, the folding
+of the summaries' events into a fleet event log with ``/events`` and the
+incident plane with ``/incidents``, and chaos link rewrites.
 """
 
 from __future__ import annotations
@@ -137,7 +159,8 @@ def _default_ready_timeout() -> float:
 
 class Tracker:
     def __init__(self, nworkers: int, host: str = "127.0.0.1", port: int = 0,
-                 ready_timeout: Optional[float] = None):
+                 ready_timeout: Optional[float] = None,
+                 metrics_port: Optional[int] = None):
         self.nworkers = nworkers
         self.sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -158,12 +181,28 @@ class Tracker:
         self._stores: List[tuple] = []   # (epoch, TCPStore)
         self._metrics: Dict[str, dict] = {}   # task id -> its summary
         self._fleet_printed = False
+        # the live plane (off unless a metrics port is configured):
+        # workers announce their endpoints (``endpoint``), the poll thread
+        # scrapes them into _metrics and elects the fleet's laggard
+        if metrics_port is None:
+            raw = os.environ.get("RABIT_METRICS_PORT")
+            metrics_port = int(raw) if raw not in (None, "") else None
+        self._metrics_port = metrics_port
+        self._metrics_server = None
+        self._poll_thread: Optional[threading.Thread] = None
+        self._poll_stop = threading.Event()
+        self._poll_count = 0                   # completed poll sweeps
+        self._endpoints: Dict[str, dict] = {}  # task id -> host, port, rank
+        self._skew: dict = {}                  # the served skew digest
+        self._skew_election = None             # skew.FleetElection
+        self._last_straggler: Optional[dict] = None
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "Tracker":
         self._thread = threading.Thread(target=self._serve, daemon=True,
                                         name="rabit-tracker")
         self._thread.start()
+        self._start_live_plane()
         return self
 
     def join(self, timeout: Optional[float] = None) -> bool:
@@ -171,6 +210,10 @@ class Tracker:
 
     def stop(self) -> None:
         self._done.set()
+        self._poll_stop.set()
+        if self._metrics_server is not None:
+            self._metrics_server.stop()
+            self._metrics_server = None
         try:
             self.sock.close()
         except OSError:
@@ -257,9 +300,23 @@ class Tracker:
                 if all_down:
                     self.print_fleet_metrics()
                     self._done.set()
-            elif cmd == "topo":
+            elif cmd == "endpoint":
+                try:
+                    doc = json.loads(_recv_str(conn))
+                except ValueError:
+                    doc = None
+                ok = (isinstance(doc, dict) and "host" in doc
+                      and "port" in doc)
+                if ok:
+                    with self._lock:
+                        self._endpoints[task_id] = {
+                            "host": str(doc["host"]),
+                            "port": int(doc["port"]),
+                            "rank": int(doc.get("rank", -1))}
+                self._reply_u32(conn, 1 if ok else 0)
+            elif cmd in ("topo", "skew"):
                 with self._lock:
-                    doc = dict(self._topo)
+                    doc = dict(self._topo if cmd == "topo" else self._skew)
                 b = json.dumps(doc).encode()
                 conn.sendall(struct.pack("<I", len(b)) + b)
                 conn.close()
@@ -267,6 +324,163 @@ class Tracker:
                 conn.close()
         except (ConnectionError, OSError, struct.error, UnicodeDecodeError):
             conn.close()
+
+    # -- the live plane -------------------------------------------------------
+    def _start_live_plane(self) -> None:
+        """The fleet metrics endpoint and the poll thread, when a metrics
+        port is configured. A port that does not bind is a warning, never
+        a failed rendezvous."""
+        if self._metrics_port is None:
+            return
+        from ..telemetry import live
+        try:
+            self._metrics_server = live.MetricsServer(
+                port=self._metrics_port,
+                sources_fn=self._metric_sources,
+                summary_fn=lambda: self.merged_metrics() or {},
+                gauges_fn=self._live_gauges,
+                identity={"role": "tracker", "nworkers": self.nworkers},
+                routes={"/straggler": self._straggler_doc,
+                        "/slo": self._slo_doc},
+            ).start()
+        except OSError as e:
+            print(f"[tracker] metrics server failed to bind port "
+                  f"{self._metrics_port}: {e}", file=sys.stderr, flush=True)
+            return
+        # port 0 picks one: without this line it could not be found
+        print(f"[tracker] live metrics on {self._metrics_server.host}:"
+              f"{self._metrics_server.port}", file=sys.stderr, flush=True)
+        self._poll_stop.clear()
+        self._poll_thread = threading.Thread(
+            target=self._poll_loop, name="rabit-tracker-poll", daemon=True)
+        self._poll_thread.start()
+
+    def _metric_sources(self) -> list:
+        """One Prometheus source a polled rank: its summary, labelled with
+        its rank."""
+        with self._lock:
+            return [({"rank": str(doc.get("rank", -1))}, doc)
+                    for doc in self._metrics.values()]
+
+    def _live_gauges(self) -> list:
+        with self._lock:
+            nend, polls = len(self._endpoints), self._poll_count
+            topo, skew = dict(self._topo), dict(self._skew)
+            strag = self._last_straggler
+        gauges = [
+            ("rabit_tracker_endpoints",
+             "Worker metrics endpoints known to the tracker.", "gauge",
+             [({}, nend)]),
+            ("rabit_tracker_polls_total", "Completed endpoint poll sweeps.",
+             "counter", [({}, polls)]),
+        ]
+        if topo.get("groups"):
+            sizes = [len(g) for g in topo["groups"]]
+            gauges.append((
+                "rabit_tracker_topology_hosts",
+                "Distinct hosts in the current link-registration epoch.",
+                "gauge", [({}, len(topo["groups"]))]))
+            gauges.append((
+                "rabit_tracker_topology_ranks_per_host",
+                "Ranks per host (max label distinguishes ragged "
+                "groupings, which disable the hierarchical schedule).",
+                "gauge", [({"stat": "min"}, min(sizes)),
+                          ({"stat": "max"}, max(sizes))]))
+        if strag is not None and strag.get("lagging_rank") is not None:
+            gauges.append((
+                "rabit_straggler_lag_collectives",
+                "Collectives the laggard is behind the leader.", "gauge",
+                [({"rank": str(strag["lagging_rank"])},
+                  strag["lag_collectives"])]))
+            gauges.append((
+                "rabit_straggler_busy_skew_seconds",
+                "Spread of per-rank collective busy time.", "gauge",
+                [({}, strag["busy_skew_s"])]))
+        if skew.get("offsets_ms"):
+            gauges.append((
+                "rabit_skew_offset_ms",
+                "Per-rank mean arrival offset behind the earliest rank "
+                "(the skew digest served to workers).", "gauge",
+                [({"rank": str(r)}, v) for r, v in
+                 sorted(skew["offsets_ms"].items(),
+                        key=lambda kv: int(kv[0]))]))
+            gauges.append((
+                "rabit_skew_epoch",
+                "Fleet skew election epoch (bumps when the served "
+                "laggard verdict changes).", "gauge",
+                [({}, skew.get("epoch", 0))]))
+        return gauges
+
+    def _straggler_doc(self) -> dict:
+        """The ``/straggler`` route: the last poll sweep's snapshot."""
+        with self._lock:
+            strag = self._last_straggler
+        return (dict(strag) if strag is not None
+                else {"ranks": [], "signal": False})
+
+    def _slo_doc(self) -> dict:
+        """The ``/slo`` route: the objectives a tracker can judge on its
+        own (failover time, admission shed rate) -- without a hot standby
+        or a multi-job admission plane, both ``no_data``."""
+        from ..telemetry import slo as _slo
+        slos = [s for s in _slo.default_slos()
+                if s.name in ("failover_ms", "shed_rate")]
+        return _slo.burn_doc(_slo.evaluate_all(slos, {}))
+
+    def _poll_loop(self) -> None:
+        from ..telemetry import crossrank, live, skew
+        interval = live.poll_interval_s()
+        since_snapshot = 0
+        while not self._poll_stop.wait(interval):
+            with self._lock:
+                endpoints = dict(self._endpoints)
+            since_snapshot += 1
+            if not endpoints:
+                continue
+            for tid, ep in endpoints.items():
+                doc = live.scrape_json(ep["host"], ep["port"])
+                if doc is not None:
+                    with self._lock:
+                        self._metrics[tid] = doc
+            with self._lock:
+                summaries = dict(self._metrics)
+            strag = crossrank.straggler_snapshot(summaries)
+            # each sweep's raw offsets fold through the ONE election; the
+            # served digest is its smoothed, hysteretic verdict, whose
+            # epoch bumps exactly when the election changes
+            if self._skew_election is None:
+                self._skew_election = skew.FleetElection()
+            digest = self._skew_election.fold(
+                skew.digest_from_snapshot(strag))
+            with self._lock:
+                self._last_straggler = strag
+                if digest is not None:
+                    self._skew = digest
+                self._poll_count += 1
+            # one line every ~5 sweeps, only while someone is behind: in
+            # the round sequence, or by more than 1 s of in-collective wait
+            behind = bool(strag.get("signal")) \
+                and strag.get("lagging_rank") is not None
+            if since_snapshot >= 5 and behind:
+                since_snapshot = 0
+                print(f"[tracker] straggler: rank {strag['lagging_rank']} "
+                      f"is {strag['lag_collectives']} collectives behind "
+                      f"(busy skew {strag['busy_skew_s']:.3f}s)",
+                      file=sys.stderr, flush=True)
+
+    def live_stats(self) -> dict:
+        """The live plane's state, for launchers and tests: the metrics
+        address, the endpoints, the sweeps, the last straggler snapshot
+        and the served skew digest."""
+        with self._lock:
+            srv = self._metrics_server
+            return {"metrics_addr": (None if srv is None
+                                     else list(srv.address)),
+                    "endpoints": {t: dict(e)
+                                  for t, e in self._endpoints.items()},
+                    "polls": self._poll_count,
+                    "straggler": self._last_straggler,
+                    "skew": dict(self._skew)}
 
     def merged_metrics(self) -> Optional[dict]:
         """The ``telemetry_fleet`` document merged from the summaries

@@ -250,7 +250,13 @@ def test_import_leaves_out_jax_and_rabit_tpu():
         "'rabit_tpu_torch.telemetry.profile', "
         "'rabit_tpu_torch.telemetry.export', "
         "'rabit_tpu_torch.telemetry.aggregate', "
-        "'rabit_tpu_torch.tools.histogram_rounds'}\n"
+        "'rabit_tpu_torch.tools.histogram_rounds', "
+        "'rabit_tpu_torch.telemetry.prom', 'rabit_tpu_torch.telemetry.slo', "
+        "'rabit_tpu_torch.telemetry.live', "
+        "'rabit_tpu_torch.telemetry.crossrank', "
+        "'rabit_tpu_torch.telemetry.skew', "
+        "'rabit_tpu_torch.tools.skew_bench', "
+        "'rabit_tpu_torch.tools.skew_round_worker'}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

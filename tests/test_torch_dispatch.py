@@ -297,9 +297,35 @@ def test_the_port_never_reads_benchmarks_artifacts(clean, tmp_path):
 
 @pytest.mark.parametrize("knob", ["RABIT_SKEW_ADAPT", "RABIT_WIRE_ADAPTIVE"])
 def test_knobs_that_read_telemetry_raise(clean, knob):
+    """The two knobs that read telemetry are accepted now (the skew
+    plane): ``resolve`` under each, with what it reads present (a forced
+    digest naming rank 2; an env wire, whose static gate the adaptive
+    knob keeps), resolves like JAX's, and the skew knob's provenance is
+    ``skew_adapted``."""
+    from rabit_tpu.telemetry import skew as js
+    from rabit_tpu_torch.telemetry import skew as ts
     clean.setenv(knob, "1")
-    with pytest.raises(NotImplementedError, match=knob.lower()):
-        td.resolve(2048, torch.float32, SUM, 4)
+    clean.setenv("RABIT_DISPATCH_TABLE", "none")
+    clean.setenv("RABIT_DATAPLANE_WIRE", "bf16")
+    clean.setenv("RABIT_SKEW_DIGEST", json.dumps(
+        {"epoch": 1, "laggard": 2,
+         "offsets_ms": {"0": 0.0, "1": 0.0, "2": 40.0, "3": 0.0}}))
+    ts.reset_monitor()
+    js.reset_monitor()
+    try:
+        for n in (2048, 1 << 20):
+            for method in ("auto", "swing", "bidir"):
+                got = td.resolve(n, torch.float32, SUM, 4, method=method)
+                assert got == jd.resolve(n, np.float32, SUM, 4,
+                                         method=method), (n, method)
+                assert td.last_wire_provenance() == \
+                    jd.last_wire_provenance()
+        want = "skew_adapted" if knob == "RABIT_SKEW_ADAPT" else "fallback"
+        td.resolve(1 << 20, torch.float32, SUM, 4)
+        assert td.last_wire_provenance() == want
+    finally:
+        ts.reset_monitor()
+        js.reset_monitor()
 
 
 def test_unknown_method_raises(clean):

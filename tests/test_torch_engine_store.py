@@ -124,12 +124,14 @@ def test_lagging_disks_resume_one_version_in_a_world_of_three(tmp_path):
         assert 4 in got["stored"].tolist(), r
 
 
-# the telemetry plane's knobs are ported: those cases hold that init
-# honours them (each knob's module reports it on), the rest that init
+# the telemetry plane's knobs and the live plane's metrics port are
+# ported: those cases hold that init honours them (each knob's module, or
+# the engine's metrics endpoint, reports it on), the rest that init
 # refuses
-_HONOURED = {"rabit_telemetry": telemetry.enabled,
-             "rabit_profile": profile.enabled,
-             "rabit_events": events.enabled}
+_HONOURED = {"rabit_telemetry": lambda e: telemetry.enabled(),
+             "rabit_profile": lambda e: profile.enabled(),
+             "rabit_events": lambda e: events.enabled(),
+             "rabit_metrics_port": lambda e: e._metrics_server is not None}
 
 
 @pytest.mark.parametrize("args", [
@@ -145,12 +147,14 @@ def test_unported_knobs_raise_rather_than_be_ignored(args):
     if knob in _HONOURED:
         try:
             e.init(args + [CPU])
-            assert _HONOURED[knob]()
+            assert _HONOURED[knob](e)
         finally:
             e.shutdown()
-            e.init([CPU, f"{knob}=0"])
+            # port 0 picks a free port: that knob's off is its absence
+            e.init([CPU] if knob == "rabit_metrics_port"
+                   else [CPU, f"{knob}=0"])
             e.shutdown()
-        assert not _HONOURED[knob]()
+        assert not _HONOURED[knob](e)
         return
     with pytest.raises(NotImplementedError, match="not ported"):
         e.init(args + [CPU])
@@ -169,3 +173,30 @@ def test_rabit_debug_opens_the_debug_log(capsys):
         log.clear_identity()
     log.log_debug("probe %d", 8)
     assert "probe 8" not in capsys.readouterr().err
+
+
+class _Placed(Exception):
+    pass
+
+
+@pytest.mark.parametrize("spec,want", [(None, "cuda:2"), ("cuda", "cuda:2"),
+                                       ("cuda:1", "cuda:1"), ("cpu", "cpu")])
+def test_a_world_it_forms_puts_rank_r_on_card_r(monkeypatch, spec, want):
+    """``TorchEngine`` forming a world of 4 on a machine of 4 cards places
+    rank 2 on card 2 whether the card is named without an index
+    (``rabit_device=cuda``) or not at all; NCCL refuses two ranks on one
+    device. An explicit index or the CPU is kept."""
+    import torch
+    from rabit_tpu_torch.engine import torch_engine
+
+    def placed(device, **kw):
+        raise _Placed(device)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch_engine, "make_group", placed)
+    args = ["rabit_coordinator=127.0.0.1:1", "rabit_num_processes=4",
+            "rabit_process_id=2"] + ([] if spec is None
+                                     else [f"rabit_device={spec}"])
+    with pytest.raises(_Placed) as got:
+        TorchEngine().init(args)
+    assert got.value.args[0] == want
