@@ -4,8 +4,9 @@ the flagship transformer's training step, the histogram measurement
 path (the sweep, the bench and the kernel proof), the robust engine, the
 bucketed and overlapped train steps of the flagship and the MLP, the
 parallelism families (sequence parallelism, the pipeline, the MoE, the
-multichip dryrun), the telemetry and profiling plane, and the skew plane
-with the live plane that feeds it.
+multichip dryrun), the telemetry and profiling plane, the skew plane
+with the live plane that feeds it, and the watchdog's ladder with the
+flight recorder and the overlap bench.
 
     python3 chip_smoke.py
 
@@ -213,7 +214,46 @@ Phases (each prints a line; any failure exits non-zero):
                 every round's result is its exact sum with equal CRCs on
                 every rank; the round of adoption. With one card it prints
                 that (b)-(d) did not run.
-16. kernels     one JSON line of every kernel with its main-path launches
+16. watchdog    the watchdog's escalation ladder, the flight recorder and
+                the overlap bench (``utils/watchdog.py``,
+                ``telemetry/flight.py``, ``tools/overlap_bench.py``; no
+                kernel; the stalls are ``tests/workers/torch_stall_worker.py``;
+                every deadline well below the process groups' own timeouts):
+                (a) ``python -m rabit_tpu_torch.telemetry --smoke``;
+                ``overlap_bench``'s smoke on the card's tensors at world
+                min(4, cards) (async = sync bit for bit, a live guard
+                untripped, the in-flight window drained, async hier = sync
+                hier); the robust engine's hung bootstrap with
+                ``rabit_device=cuda`` (a tracker of 2 slots, one worker,
+                ``rabit_deadline_ms`` 1500): exit 86 within 1.5 + 2 x 1.5 s
+                plus 5 s and one ``watchdog_abort`` bundle naming
+                ``engine.init`` with the threads' stacks; the host us of a
+                guard armed and of ``NULL_GUARD``; (b) with two cards or
+                more, at world p = min(4, cards) over NCCL: the overlap
+                bench at the JAX worker's defaults (4 buckets of 1,000,000
+                f32, compute dim 384, 5 steps after 2), both paths (the
+                host API through ``TorchEngine``'s worker; device tensors
+                through ``bucket_allreduce_async``), sync and overlap equal
+                bit for bit and exact, the recorder's exposed/overlapped
+                split and one bucket's compute and allreduce alone; the
+                device path again at the least compute dim (384, 512, 768,
+                ..., 3072) whose chain on card 0 takes at least a bucket's
+                allreduce; ``TorchEngine`` with rank
+                p - 1 asleep 5 s before an allreduce (deadline 2000 ms,
+                abort off): every survivor's retry and reform rungs with
+                their counters, events and notes, every sum exact; rank p -
+                1 stopped with SIGSTOP (deadline 2000 ms): every survivor
+                exits 86 within 2 + 2 x 2 + 5 s of the stall with a bundle
+                whose stacks show the allreduce, then the stopped rank is
+                killed and no worker holds a card (``nvidia-smi
+                --query-compute-apps=pid``); the robust engine with the
+                torch data plane, rank p - 1's data plane asleep 4 s inside
+                a collective (deadline 3000 ms): every rank's retry rung
+                marks the NCCL world aborted, the round fails once its
+                collective ends and replays at a new epoch, every result
+                equal to the clean run's bit for bit. With one
+                card it says that (b) did not run.
+17. kernels     one JSON line of every kernel with its main-path launches
                 (and, for the flash kernels, phase 12's and phase 13's).
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
@@ -3018,6 +3058,375 @@ def phase_skew(dev, power: str) -> dict:
     return {"a": a, "b": b, "c": c, "d": d}
 
 
+# phase 16: the watchdog's ladder, the flight recorder and the overlap bench
+STALL_WORKER = Path(__file__).resolve().parent / "tests" / "workers" / \
+    "torch_stall_worker.py"
+# deadlines well below the process groups' own timeouts (the data plane's
+# 30 s TIMEOUT_S, NCCL's 10 min default for TorchEngine), so the ladder
+# acts first
+WD_BOOT_MS = 1500               # the hung bootstrap: exit at 1.5 + 2 x 1.5 s
+WD_STALL = (2000, 5.0)          # TorchEngine: rungs at 2 s and 4 s, a 5 s sleep
+WD_STOP_MS = 2000               # SIGSTOP: the abort rung at 2 + 2 x 2 = 6 s
+WD_EXIT_MARGIN_S = 5.0          # the bundle's dump, the exit, the clocks' skew
+WD_ROBUST = (3000, 4.0)         # the data plane: retry at 3 s, a 4 s sleep
+WD_TIMEOUT_S = 300
+WD_GUARD_LOOP = 10_000
+OVERLAP_DEVICE_DIMS = (384, 512, 768, 1024, 1280, 1536, 2048, 2560, 3072)
+OVERLAP_TIMEOUT_S = 900
+
+
+def _stall_env(**kw) -> dict:
+    import os
+    path = os.pathsep.join(filter(None, [str(STALL_WORKER.parents[2]),
+                                         os.environ.get("PYTHONPATH")]))
+    return dict(os.environ, PYTHONPATH=path,
+                **{k: str(v) for k, v in kw.items()})
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _exit_bound(deadline_ms: int) -> float:
+    d = deadline_ms / 1e3
+    return d + 2 * max(0.5, d) + WD_EXIT_MARGIN_S
+
+
+def _guard_host_us() -> dict:
+    """Host us of one guard around nothing: armed (a 60 s deadline) and
+    the disabled watchdog's shared no-op guard."""
+    from rabit_tpu_torch.utils.watchdog import Watchdog
+    out = {}
+    for name, wd in (("null", Watchdog()),
+                     ("armed", Watchdog(floor_ms=60000, abort=False))):
+        t0 = time.perf_counter()
+        for _ in range(WD_GUARD_LOOP):
+            with wd.guard("engine.allreduce", nbytes=8192):
+                pass
+        out[name] = (time.perf_counter() - t0) / WD_GUARD_LOOP * 1e6
+        wd.close()
+    return out
+
+
+def _wd_bootstrap(tmp: Path) -> dict:
+    """The robust engine with the torch data plane on the card, its
+    tracker waiting for a second worker that never comes."""
+    from rabit_tpu_torch.tracker.tracker import Tracker
+    fdir = tmp / "flight"
+    tr = Tracker(2, ready_timeout=120.0).start()
+    try:
+        env = _stall_env(RABIT_TELEMETRY=1, RABIT_FLIGHT_DIR=fdir)
+        env.update(tr.env(task_id="0"))
+        p = subprocess.run(
+            [sys.executable, str(STALL_WORKER), "bootstrap",
+             f"rabit_deadline_ms={WD_BOOT_MS}", "rabit_dataplane=torch",
+             "rabit_device=cuda"], env=env, capture_output=True, text=True,
+            timeout=WD_TIMEOUT_S)
+        t_exit = time.time()
+    finally:
+        tr.stop()
+    bundles = sorted(fdir.glob("*_watchdog_abort.json")) \
+        if fdir.is_dir() else []
+    if p.returncode != 86 or len(bundles) != 1:
+        raise AssertionError(f"hung bootstrap: exit {p.returncode}, bundles "
+                             f"{bundles}:\n{p.stderr[-3000:]}")
+    doc = json.loads(bundles[0].read_text())
+    notes = {e["kind"]: e["t_unix"] for e in doc["events"]}
+    if doc["reason"] != "watchdog_abort" or "engine.init" not in \
+            doc["detail"] or "Thread" not in doc["stacks"] or \
+            "watchdog_expired" not in notes:
+        raise AssertionError(f"hung bootstrap's bundle: {doc['reason']}, "
+                             f"{doc['detail']}, notes {list(notes)}")
+    t0 = notes["watchdog_expired"] - WD_BOOT_MS / 1e3
+    return {"exit_s": t_exit - t0, "bundle": bundles[0].name,
+            "bound_s": _exit_bound(WD_BOOT_MS)}
+
+
+def _stall_world(p: int, mode: str, tmp: Path, args: list, env: dict,
+                 wait_for: int) -> tuple:
+    """``p`` stall workers of ``mode`` (rank r on card r), their output in
+    files; waits for the first ``wait_for`` ranks and returns the
+    processes and each waited rank's exit time."""
+    port = _free_port()
+    procs, logs = [], []
+    for r in range(p):
+        log = open(tmp / f"log{r}.txt", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(STALL_WORKER), mode, "rabit_device=cuda",
+             f"rabit_coordinator=127.0.0.1:{port}",
+             f"rabit_num_processes={p}", f"rabit_process_id={r}", *args],
+            env=env, stdout=log, stderr=subprocess.STDOUT))
+    exits = {}
+    deadline = time.monotonic() + WD_TIMEOUT_S
+    try:
+        while len(exits) < wait_for:
+            for r in range(wait_for):
+                if r not in exits and procs[r].poll() is not None:
+                    exits[r] = time.time()
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{mode} world: ranks "
+                                     f"{sorted(set(range(wait_for)) - set(exits))}"
+                                     f" did not end in {WD_TIMEOUT_S} s")
+            time.sleep(0.02)
+    except BaseException:
+        for q in procs:
+            q.kill()
+        raise
+    finally:
+        for log in logs:
+            log.close()
+    return procs, exits
+
+
+def _wd_engine_stall(p: int, tmp: Path) -> dict:
+    """TorchEngine over NCCL: rank p - 1 sleeps before op 2, abort off."""
+    deadline_ms, sleep_s = WD_STALL
+    env = _stall_env(RABIT_RESULT_DIR=tmp, STALL_RANK=p - 1, STALL_S=sleep_s)
+    procs, _ = _stall_world(
+        p, "engine", tmp, [f"rabit_deadline_ms={deadline_ms}",
+                           "rabit_watchdog_abort=0", "rabit_telemetry=1",
+                           "rabit_events=1"], env, p)
+    bad = [r for r, q in enumerate(procs) if q.returncode != 0]
+    if bad:
+        raise AssertionError(f"TorchEngine stall: ranks {bad} failed:\n" +
+                             (tmp / f"log{bad[0]}.txt").read_text()[-3000:])
+    docs = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(p)]
+    rungs = []
+    for d in docs[:-1]:
+        c, kinds = d["counters"], [n["kind"] for n in d["notes"]]
+        if not d["exact"] or d["crcs"] != docs[-1]["crcs"] or \
+                c.get("watchdog.expired|engine.allreduce") != 1 or \
+                c.get("watchdog.reform|engine.allreduce") != 1 or \
+                d["events"] != ["watchdog.retry", "watchdog.reform"] or \
+                kinds != ["watchdog_expired", "watchdog.stall"]:
+            raise AssertionError(f"TorchEngine stall, rank {d['rank']}: "
+                                 f"exact {d['exact']}, counters {c}, events "
+                                 f"{d['events']}, notes {kinds}")
+        rungs.append([round(n["t_unix"] - d["t_call"], 3)
+                      for n in d["notes"]])
+    if not docs[-1]["exact"] or docs[-1]["expired_total"] != 0:
+        raise AssertionError(f"TorchEngine stall, the sleeper: {docs[-1]}")
+    return {"rungs_s": rungs,
+            "done_s": [round(d["t_done"] - d["t_call"], 3) for d in docs]}
+
+
+def _wd_stop(p: int, tmp: Path) -> dict:
+    """TorchEngine over NCCL: rank p - 1 stops itself (SIGSTOP) before op
+    2; the survivors' abort rung ends them with exit 86 and a bundle."""
+    fdir = tmp / "flight"
+    env = _stall_env(RABIT_RESULT_DIR=tmp, STALL_RANK=p - 1,
+                     RABIT_FLIGHT_DIR=fdir)
+    procs, exits = _stall_world(
+        p, "stop", tmp, [f"rabit_deadline_ms={WD_STOP_MS}",
+                         "rabit_telemetry=1"], env, p - 1)
+    stopped = procs[-1]
+    try:
+        t_stall = json.loads((tmp / f"rank{p - 1}.json").read_text())[
+            "t_stall"]
+        if stopped.poll() is not None:
+            raise AssertionError(f"the stopped rank exited "
+                                 f"{stopped.returncode}")
+    finally:
+        stopped.kill()   # SIGKILL ends a stopped process
+        stopped.wait(timeout=60)
+    codes = [q.returncode for q in procs[:-1]]
+    exit_s = [exits[r] - t_stall for r in range(p - 1)]
+    bound = _exit_bound(WD_STOP_MS)
+    if any(c != 86 for c in codes) or max(exit_s) > bound:
+        raise AssertionError(f"SIGSTOP: survivors' exits {codes} after "
+                             f"{exit_s} s (bound {bound} s)")
+    stacks_ok = []
+    for r in range(p - 1):
+        bundles = list(fdir.glob(f"*_rank{r}_watchdog_abort.json"))
+        if len(bundles) != 1:
+            raise AssertionError(f"SIGSTOP: rank {r} left {bundles}")
+        doc = json.loads(bundles[0].read_text())
+        stacks_ok.append("allreduce" in doc["stacks"] and
+                         "engine.allreduce" in doc["detail"])
+    if not all(stacks_ok):
+        raise AssertionError(f"SIGSTOP: a bundle's stacks lack the "
+                             f"allreduce: {stacks_ok}")
+    pids = {q.pid for q in procs}
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.split()
+    held = [int(x) for x in smi if x.isdigit() and int(x) in pids]
+    if held:
+        raise AssertionError(f"SIGSTOP: workers {held} still hold a card")
+    return {"exit_s": [round(x, 3) for x in exit_s], "bound_s": bound,
+            "codes": codes, "compute_apps": smi}
+
+
+def _wd_robust(p: int, tmp: Path) -> dict:
+    """The robust engine over NCCL: rank p - 1's data plane sleeps inside
+    a collective; the retry rung marks the NCCL world aborted and the
+    round replays to the clean run's bits."""
+    from rabit_tpu_torch.tracker.launch import launch
+    deadline_ms, sleep_s = WD_ROBUST
+    cmd = [sys.executable, str(STALL_WORKER), "robust",
+           "rabit_dataplane=torch", "rabit_dataplane_minbytes=0",
+           "rabit_device=cuda", f"rabit_deadline_ms={deadline_ms}",
+           "rabit_watchdog_abort=0", "rabit_telemetry=1", "rabit_events=1"]
+    runs = {}
+    for name, stall in (("clean", 0), ("stall", sleep_s)):
+        out = tmp / name
+        out.mkdir()
+        stats = {}
+        t0 = time.monotonic()
+        launch(p, cmd, max_attempts=0, timeout=WD_TIMEOUT_S, quiet=True,
+               stats=stats, env={"PYTHONPATH": _stall_env()["PYTHONPATH"],
+                                 "STALL_S": str(stall),
+                                 "STALL_RANK": str(p - 1),
+                                 "RABIT_RESULT_DIR": str(out)})
+        docs = [json.loads((out / f"rank{r}.json").read_text())
+                for r in range(p)]
+        runs[name] = (docs, stats, time.monotonic() - t0)
+    clean, stall = runs["clean"][0], runs["stall"][0]
+    epoch = runs["stall"][1]["epoch"]
+    bad = [d["rank"] for d in stall
+           if d["crcs"] != clean[0]["crcs"] or not d["exact"]
+           or d["counters"].get("recovery.retry|watchdog_rung") != 1
+           or d["epoch"] < 2]
+    if bad or epoch < 2 or any(d["crcs"] != clean[0]["crcs"] for d in clean):
+        raise AssertionError(f"robust stall: ranks {bad} at fault (epoch "
+                             f"{epoch}): {stall}")
+    t_stall = stall[-1]["t_stall"]
+    retry = [round(next(n["t_unix"] for n in d["notes"]
+                        if n["kind"] == "watchdog_expired") - t_stall, 3)
+             for d in stall]
+    return {"epoch": epoch, "retry_s": retry,
+            "replayed_s": [round(d["t_done"] - t_stall, 3) for d in stall],
+            "formations": [d["formations"] for d in stall],
+            "wall_s": {k: round(v[2], 1) for k, v in runs.items()}}
+
+
+def _chain_ms(dim: int, reps: int, dev) -> float:
+    """Median ms of the overlap worker's device chain (``reps`` f32
+    products of [dim, dim], TF32 off) on ``dev``, synchronised."""
+    a = torch.full((dim, dim), 1.0 / dim, device=dev)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        acc = a
+        for _ in range(reps):
+            acc = torch.matmul(acc, a)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _device_dim(allreduce_ms: float, reps: int, dev) -> tuple:
+    """The least dim of ``OVERLAP_DEVICE_DIMS`` whose chain on the card
+    takes at least one bucket's allreduce (the largest if none does):
+    at the worker's 384 the chain is bound by its launches, so its time
+    says nothing of the dim that would match."""
+    chain = {}
+    for dim in OVERLAP_DEVICE_DIMS:
+        chain[dim] = _chain_ms(dim, reps, dev)
+        if chain[dim] >= allreduce_ms:
+            break
+    return dim, chain
+
+
+def _overlap_line(tag: str, res: dict, power: str) -> None:
+    for name, q in res["paths"].items():
+        phase("watchdog", f"{tag} {name}: step ms sync "
+              f"{q['bucket_step_ms_sync']:.3f} "
+              f"{[round(v, 3) for v in q['step_ms_sync']]}, overlap "
+              f"{q['bucket_step_ms_overlap']:.3f} "
+              f"{[round(v, 3) for v in q['step_ms_overlap']]}, "
+              f"overlap/sync {q['overlap_over_sync']:.3f}; the recorder's "
+              f"split a step: wire exposed {q['wire_exposed_ms']:.3f} ms, "
+              f"overlapped {q['wire_overlapped_ms']:.3f} ms "
+              f"({q['async_ops']} async ops); one bucket alone: compute "
+              f"{q['compute_ms']:.3f} ms, allreduce {q['allreduce_ms']:.3f} "
+              f"ms; sync = overlap bit for bit and exact [{power}]")
+
+
+def phase_watchdog(dev, power: str) -> dict:
+    """The watchdog, the flight recorder and the overlap bench (see the
+    module's phase 16)."""
+    import tempfile
+    from rabit_tpu_torch.tools import overlap_bench as B
+    from rabit_tpu_torch.tools import overlap_round_worker as W
+    r = subprocess.run([sys.executable, "-m", "rabit_tpu_torch.telemetry",
+                        "--smoke"], env=_stall_env(), capture_output=True,
+                       text=True, timeout=WD_TIMEOUT_S)
+    if r.returncode != 0:
+        raise AssertionError(f"telemetry --smoke: {r.stdout}{r.stderr}")
+    count = torch.cuda.device_count()
+    p = min(4, count)
+    B.smoke(torch.device("cuda", 0), p)
+    guard_us = _guard_host_us()
+    with tempfile.TemporaryDirectory() as tmp:
+        boot = _wd_bootstrap(Path(tmp))
+    phase("watchdog", f"(a) telemetry --smoke ok; overlap_bench --smoke at "
+          f"world {p} over NCCL ok (async = sync bit for bit, a live guard "
+          f"untripped, the window drained); the robust engine's hung "
+          f"bootstrap (rabit_device=cuda, deadline {WD_BOOT_MS} ms) exited "
+          f"86 {boot['exit_s']:.3f} s after its guard armed (bound "
+          f"{boot['bound_s']:.1f} s) with bundle {boot['bundle']} naming "
+          f"engine.init; host us a guard around nothing (loops of "
+          f"{WD_GUARD_LOOP}): armed {guard_us['armed']:.3f}, NULL_GUARD "
+          f"{guard_us['null']:.3f} [{power}]")
+    doc = {"bootstrap": boot, "guard_us": guard_us}
+    if count < 2:
+        phase("watchdog", "(b) did not run: one card; the overlap bench's "
+              "world and the stall scenarios need two or more")
+        return doc
+    cfg = W.config({})
+    base = B.run(dev, p, cfg)
+    ddim, chain = _device_dim(base["paths"]["device"]["allreduce_ms"],
+                              cfg["COMPUTE_REPS"], dev)
+    matched = B.run(dev, p, dict(cfg, COMPUTE_DIM=ddim, PATHS=("device",)))
+    for res in (base, matched):
+        if not res["correct"]:
+            raise AssertionError(f"overlap bench: {res['paths']}")
+    _overlap_line(f"(b) overlap bench, world {p} over NCCL, "
+                  f"{cfg['N_BUCKETS']} buckets of {cfg['BUCKET_ELEMS']} f32, "
+                  f"compute dim {cfg['COMPUTE_DIM']}:", base, power)
+    phase("watchdog", f"(b) the device chain's ms by dim on card 0: "
+          f"{ {d: round(t, 3) for d, t in chain.items()} }")
+    _overlap_line(f"(b) overlap bench, compute dim {ddim} (a bucket's compute "
+                  f"on the card about its allreduce):", matched, power)
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "e").mkdir()
+        (Path(tmp) / "s").mkdir()
+        (Path(tmp) / "r").mkdir()
+        eng = _wd_engine_stall(p, Path(tmp) / "e")
+        stop = _wd_stop(p, Path(tmp) / "s")
+        rob = _wd_robust(p, Path(tmp) / "r")
+    phase("watchdog", f"(b) TorchEngine over NCCL, rank {p - 1} asleep "
+          f"{WD_STALL[1]} s before an allreduce, deadline {WD_STALL[0]} ms, "
+          f"abort off: every survivor counted watchdog.expired and "
+          f"watchdog.reform, emitted watchdog.retry and watchdog.reform, "
+          f"noted watchdog.stall; seconds from its call to each rung "
+          f"{eng['rungs_s']}, to the result {eng['done_s']}; every sum "
+          f"exact [{power}]")
+    phase("watchdog", f"(b) rank {p - 1} stopped (SIGSTOP), deadline "
+          f"{WD_STOP_MS} ms: the survivors exited {stop['codes']} "
+          f"{stop['exit_s']} s after the stall (bound {stop['bound_s']:.1f} "
+          f"s), each bundle's stacks in the allreduce; the stopped rank "
+          f"killed, no worker holds a card (compute apps "
+          f"{stop['compute_apps']}) [{power}]")
+    phase("watchdog", f"(b) the robust engine over NCCL, rank {p - 1}'s data "
+          f"plane asleep {WD_ROBUST[1]} s inside a collective, deadline "
+          f"{WD_ROBUST[0]} ms: the retry rung on every rank "
+          f"{rob['retry_s']} s after the stall marked the NCCL world "
+          f"aborted, the round failed and replayed at epoch {rob['epoch']} "
+          f"{rob['replayed_s']} s after the stall (formations "
+          f"{rob['formations']}); every result equal to the clean run's "
+          f"bit for bit (wall s {rob['wall_s']}) [{power}]")
+    doc.update(overlap={"base": base, "matched": matched, "chain_ms": chain},
+               engine_stall=eng, stop=stop, robust=rob)
+    return doc
+
+
 def card_power() -> str:
     """The first card's name and power limit, as ``nvidia-smi`` gives
     them."""
@@ -3079,6 +3488,7 @@ def main() -> int:
     par = phase_parallel(power)
     tel = phase_telemetry(dev, power)
     skew_doc = phase_skew(dev, power)
+    phase_watchdog(dev, power)
     kernels = []
     for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only"):
         head = timing[name][0]

@@ -20,29 +20,28 @@ import numpy as np
 from .. import telemetry
 from ..ops.reducers import SUM
 
-# knobs of the JAX package's engines that the port has no code for yet:
-# set, they raise rather than be ignored (both engines of the port)
-_VALUE_KNOBS = ("rabit_deadline_ms", "rabit_deadline_ms_per_mb",
-                "rabit_hier_phase_deadline_scale", "rabit_flight_dir",
-                "rabit_tracker_standby")
+# the one knob of the JAX package's engines that the port has no code for
+# yet: set, it raises rather than be ignored (both engines of the port)
+_STANDBY_KNOB = "rabit_tracker_standby"
 _STANDBY_ENV = "RABIT_TRACKER_STANDBY"
 
 
 def refuse_unported(cfg) -> None:
-    """Raise for a configured knob (a ``Config``) whose machinery the
-    port lacks: the watchdog's deadlines, the flight recorder and the hot
-    standby (``rabit_tracker_standby``, or ``RABIT_TRACKER_STANDBY`` in
-    the environment: the skew poller's failover to it is not ported).
+    """Raise for a configured hot standby (``rabit_tracker_standby``, or
+    ``RABIT_TRACKER_STANDBY`` in the environment), whose machinery the
+    port lacks: the skew poller's failover to it is not ported.
     Telemetry, profiling, the event bus, the live plane
-    (``rabit_metrics_port``) and the skew plane (``rabit_skew_*``) are
-    ported."""
-    bad = [k for k in _VALUE_KNOBS if cfg.get(k)]
-    if os.environ.get(_STANDBY_ENV) and "rabit_tracker_standby" not in bad:
+    (``rabit_metrics_port``), the skew plane (``rabit_skew_*``), the
+    watchdog (``rabit_deadline_ms``, ``rabit_deadline_ms_per_mb``,
+    ``rabit_watchdog_abort``, ``rabit_hier_phase_deadline_scale``) and
+    the flight recorder (``rabit_flight_dir``, ``rabit_flight_keep``)
+    are ported."""
+    bad = [_STANDBY_KNOB] if cfg.get(_STANDBY_KNOB) else []
+    if os.environ.get(_STANDBY_ENV) and not bad:
         bad.append(_STANDBY_ENV)
     if bad:
         raise NotImplementedError(
-            f"{bad}: the watchdog and its deadlines, the flight recorder "
-            f"and the hot standby are not ported to rabit_tpu_torch yet")
+            f"{bad}: the hot standby is not ported to rabit_tpu_torch yet")
 
 
 class AllreduceHandle:

@@ -43,7 +43,26 @@ process had a world before), and a formation at a new epoch in a process
 that had one counts ``recovery.epoch_advance``; a retry counts
 ``recovery.retry`` and an exhausted one ``recovery.link_reset``, each
 with a fleet event when ``rabit_events`` is on (the JAX data plane's
-records, ``engine/dataplane.py:237``, ``:288``, ``:369``, ``:402``).
+records, ``engine/dataplane.py:237``, ``:288``, ``:369``, ``:402``); the
+same three recovery steps go to the flight recorder's ring
+(``telemetry/flight.py``: ``recovery.retry`` at each failed attempt and
+after a round recovered in place, with the result's CRC; ``link_reset``
+when the retries are spent).
+
+The watchdog's retry rung (``engine/native.py::_rung_retry``) calls
+:meth:`TorchDataPlane.abort` from its monitor thread while this process's
+thread may be blocked inside ``_invoke``'s collective. It only marks the
+world aborted: ``_invoke``'s thread fails the round in flight once its
+collective ends, however it ends (the stalled peer arrives; NCCL's
+blocking wait times out at ``TIMEOUT_S``; a dead peer's socket closes),
+or the next round, and tears the group down itself, so no teardown races
+a blocked wait. Every rank whose rung fired fails the same round, and the
+round replays (a link reset, or an in-place retry with
+``RABIT_COLLECTIVE_RETRIES``). The communicators are not aborted from the
+monitor thread: gloo's abort wakes no blocked wait and may close the
+pairs under it, and over NCCL on four H100s an abort there ended the wait
+at once but the processes' next NCCL world then failed its first
+collective (``ncclProxyClientGetFd`` ... failed).
 
 APPLICATION STATE CONTRACT: unlike the XLA data plane, whose re-formation
 drops the backend client and invalidates every live ``jax.Array``,
@@ -61,6 +80,7 @@ import datetime
 import os
 import sys
 import time
+import zlib
 from typing import Callable, Optional
 
 import numpy as np
@@ -70,7 +90,7 @@ import torch.distributed as dist
 from .native import DATAPLANE_CB
 from .. import telemetry
 from ..ops.reducers import DTYPE_ENUM, OP_NAMES
-from ..telemetry import events
+from ..telemetry import events, flight
 from ..telemetry import skew as _skew
 from ..parallel import collectives as C
 from ..parallel import dispatch, topology
@@ -171,6 +191,8 @@ class TorchDataPlane:
         self.first_collective_at: Optional[float] = None
         # the epoch of the last formation, kept through teardowns
         self._last_epoch: Optional[int] = None
+        # the watchdog's retry rung aborted this world (see abort)
+        self._aborted = False
         # the wire (rabit_dataplane_wire) is validated here even though
         # dispatch reads the env itself: a typo must not silently run
         # unquantized while the user believes the wire is on
@@ -208,6 +230,7 @@ class TorchDataPlane:
     def _teardown(self) -> None:
         self._group = None
         self._formed_epoch = None
+        self._aborted = False
         _abort_default_group()
 
     def _form_world(self, epoch: int, round_id: int, attempt: int) -> None:
@@ -242,6 +265,11 @@ class TorchDataPlane:
         store = dist.TCPStore(host, int(port), is_master=False,
                               timeout=self._timeout)
         key = f"rabit/e{epoch}/r{round_id}/a{attempt}"
+        # torch names the default group by a counter that only a destroy
+        # resets: a formation that failed on this rank alone (a store
+        # timeout) would leave it ahead of the other ranks', and the next
+        # formation's keys would never meet theirs
+        dist.distributed_c10d._world.group_count = 0
         with _nccl_env():
             dist.init_process_group(
                 backend, store=dist.PrefixStore(key, store), rank=self._rank,
@@ -269,6 +297,21 @@ class TorchDataPlane:
         if self._formed_epoch is None:
             return
         self._teardown()
+
+    def abort(self) -> None:
+        """The watchdog's retry rung, from its monitor thread: mark the
+        world aborted; ``_invoke`` fails the round in flight once its
+        collective ends (or the next round) and tears the group down on
+        its own thread (see the module docstring)."""
+        if self._formed_epoch is not None:
+            self._aborted = True
+
+    def _check_aborted(self) -> None:
+        if self._aborted:
+            # the round fails however its collective ended, so that every
+            # rank whose rung fired replays it
+            raise RuntimeError("the world was aborted by the watchdog's "
+                               "retry rung")
 
     @property
     def formed(self) -> bool:
@@ -322,12 +365,21 @@ class TorchDataPlane:
                         # cache the round's input so a retry reduces the
                         # SAME operands (buf is reduced in place)
                         pristine = buf.copy()
+                self._check_aborted()
                 if self._formed_epoch != epoch:
                     self._form_world(epoch, self._epoch_round, attempt)
                 self._allreduce(buf, int(op))
+                self._check_aborted()
                 self._epoch_round += 1
                 if self.first_collective_at is None:
                     self.first_collective_at = time.time()
+                if attempt > 0:
+                    flight.note(
+                        "recovery.retry",
+                        f"rank {self._rank} round {round_id} recovered "
+                        f"in-collective after {attempt} retr"
+                        f"{'y' if attempt == 1 else 'ies'} "
+                        f"crc={zlib.crc32(buf.tobytes()):08x}")
                 return 0
             except Exception as e:  # noqa: BLE001 — must not unwind into C
                 if attempt < self._retries:
@@ -338,6 +390,11 @@ class TorchDataPlane:
                     self.retries_total += 1
                     telemetry.count("recovery.retry", op="dataplane",
                                     provenance="recovery")
+                    flight.note(
+                        "recovery.retry",
+                        f"rank {self._rank} round {round_id} attempt "
+                        f"{attempt}/{self._retries}: "
+                        f"{type(e).__name__}: {e}")
                     events.emit("recovery.retry",
                                 f"rank {self._rank} round {round_id} attempt "
                                 f"{attempt}/{self._retries}: "
@@ -361,6 +418,9 @@ class TorchDataPlane:
                 # becomes a link reset on the C++ side
                 telemetry.count("recovery.link_reset", op="dataplane",
                                 provenance="recovery")
+                flight.note("link_reset",
+                            f"rank {self._rank} epoch {epoch}: "
+                            f"{type(e).__name__}: {e}")
                 events.emit("recovery.link_reset",
                             f"rank {self._rank} epoch {epoch}: "
                             f"{type(e).__name__}", rank=self._rank)

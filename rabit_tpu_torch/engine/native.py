@@ -38,9 +38,21 @@ scrapes it; with the torch data plane the ``rabit_skew_*`` knobs and
 the tracker's address (``RABIT_SKEW_TRACKER``) are exported for the
 data plane's collectives, and validated there.
 
-Not ported yet, and refused at init when configured: the watchdog and
-its rungs (``rabit_deadline_ms``, ``rabit_hier_phase_deadline_scale``),
-the flight recorder (``rabit_flight_dir``) and the hot standby
+The watchdog and the flight recorder (the JAX binding's wiring,
+``native.py:239-248``, ``:391-425``, ``:559-611``): ``rabit_flight_dir``
+installs the recorder before the bootstrap, with rank -1, and stamps the
+rank once it is known; ``rabit_deadline_ms`` guards the bootstrap
+(``engine.init``: a tracker that never completes the assignment ends in
+exit 86 with a bundle), ``allreduce``, both phases of ``broadcast``
+(``engine.broadcast.size``, ``engine.broadcast``) and
+``load_checkpoint``, each guard with the two hooks of the ladder:
+``_rung_retry`` marks the torch data plane's world aborted (the blocked
+round fails once its collective ends, and replays) and ``_rung_reform``
+raises the native core's out-of-band
+interrupt (``RbtInterruptEx``), which bails a blocked socket collective
+out into the robust layer's global re-formation.
+
+Not ported yet, and refused at init when configured: the hot standby
 (``rabit_tracker_standby``) -- ``base.refuse_unported``, shared with
 ``TorchEngine`` -- and ``resize`` (elastic membership).
 """
@@ -64,6 +76,7 @@ from ..telemetry import events
 from ..telemetry import profile as _profile
 from ..utils import log, retry
 from ..utils.config import Config
+from ..utils.watchdog import Watchdog
 
 _PREPARE_CB = ctypes.CFUNCTYPE(None, ctypes.c_void_p)
 # C hook signature (native/include/rabit_tpu_c.h RbtDataPlaneFn)
@@ -104,6 +117,11 @@ def _load() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
         ctypes.POINTER(ctypes.c_uint64)]
     lib.RbtRecoveryStats.restype = ctypes.c_int
+    # the out-of-band interrupt (the watchdog's reform rung): any thread
+    lib.RbtInterrupt.restype = ctypes.c_int
+    lib.RbtInterruptEx.argtypes = [ctypes.c_char_p]
+    lib.RbtInterruptEx.restype = ctypes.c_int
+    lib.RbtInterruptReason.restype = ctypes.c_char_p
     return lib
 
 
@@ -140,6 +158,9 @@ class NativeEngine(Engine):
         # last-seen native recovery counters (retries, frame rejects,
         # link resurrections): _drain_recovery_stats diffs against these
         self._recovery_seen = (0, 0, 0)
+        self._watchdog = Watchdog()  # disabled until init reads config
+        # the flight recorder (rabit_flight_dir), or None
+        self._flight = None
 
     def _cache_key(self, site: str, size: int) -> bytes:
         """Deterministic replay key: caller site + payload size + an
@@ -194,12 +215,27 @@ class NativeEngine(Engine):
                 self._dataplane = TorchDataPlane(
                     self._lib, device=cfg.get("rabit_device") or None)
             arr = (ctypes.c_char_p * len(argv))(*[a.encode() for a in argv])
-            self._check(self._lib.RbtInit(len(argv), arr), "init")
+            self._watchdog = Watchdog.from_config(cfg)
+            # the flight recorder arms BEFORE the guarded bootstrap: a hung
+            # rendezvous escalated to the abort must still leave a bundle
+            # (the rank is unknown yet; stamped once init succeeds)
+            from ..telemetry import flight
+            self._flight = flight.FlightRecorder.from_config(cfg, rank=-1)
+            # a tracker that accepted the connection but never completes
+            # the assignment would otherwise hang the worker forever
+            with self._watchdog.guard("engine.init"):
+                self._check(self._lib.RbtInit(len(argv), arr), "init")
         except BaseException:
-            # a failed init leaves no exported knob behind
+            # a failed init leaves no exported knob or hook behind
             self._dataplane = None
             self._env.restore()
+            self._watchdog.close()
+            if self._flight is not None:
+                self._flight.uninstall()
+                self._flight = None
             raise
+        if self._flight is not None:
+            self._flight.rank = self.rank
         log.set_debug(cfg.get_bool("rabit_debug"))
         log.set_identity(self.rank, self.world_size)
         telemetry.configure(cfg)
@@ -247,8 +283,8 @@ class NativeEngine(Engine):
         self._env.export("RABIT_HIER_GROUP", group)
 
     def _live_gauges(self) -> list:
-        """Recovery gauges served on ``/metrics`` beside the recorder's
-        counters (the JAX binding's, less the watchdog's), and this
+        """The watchdog's and the recovery gauges served on ``/metrics``
+        beside the recorder's counters (the JAX binding's), and this
         rank's SLO burn (``telemetry/slo.py``)."""
         from ..telemetry import slo as _slo
         retries, rejects, links = (ctypes.c_uint64(), ctypes.c_uint64(),
@@ -258,6 +294,9 @@ class NativeEngine(Engine):
         dp = self._dataplane
         py_retries = dp.retries_total if dp is not None else 0
         return [
+            ("rabit_watchdog_expired_total",
+             "Watchdog deadline expiries in this process.", "counter",
+             [({}, self._watchdog.expired_total)]),
             ("rabit_world_epoch",
              "Tracker link-registration epoch (advances on recovery).",
              "gauge", [({}, int(self._lib.RbtWorldEpoch()))]),
@@ -275,6 +314,46 @@ class NativeEngine(Engine):
         """The tracker's link-registration epoch — advances exactly when
         the worker set was rewired (a recovery happened)."""
         return int(self._lib.RbtWorldEpoch())
+
+    def _rung_retry(self) -> None:
+        """The watchdog's retry rung (first escalation): fail the stalled
+        device collective's round by marking the data plane's world
+        aborted (``TorchDataPlane.abort``; ``_invoke`` fails the round
+        once its collective ends and tears the group down on its own
+        thread): the data plane then re-runs the round in place
+        (``RABIT_COLLECTIVE_RETRIES`` > 0) or returns nonzero to C++,
+        which takes it for a link reset and replays. A stall in the
+        native core's own sockets is out of its reach; the reform rung
+        handles those."""
+        telemetry.count("recovery.retry", op="watchdog_rung",
+                        provenance="recovery")
+        events.emit("recovery.retry", "watchdog retry rung: device "
+                    "world torn down for in-collective replay",
+                    rank=self.rank)
+        dp = self._dataplane
+        if dp is not None and dp.formed:
+            dp.abort()
+
+    def _rung_reform(self) -> None:
+        """The watchdog's reform rung (second escalation): the retry rung
+        did not unstick the phase, so the stall is inside a socket
+        collective of the native core. ``RbtInterruptEx`` raises the
+        out-of-band flag every native poll loop checks; the blocked
+        collective bails out into the robust layer's global re-formation
+        (reconnect and replay) without the process exiting. Safe from
+        the monitor thread."""
+        telemetry.count("recovery.world_reform", op="watchdog_rung",
+                        provenance="recovery")
+        events.emit("recovery.world_reform",
+                    "watchdog reform rung: out-of-band interrupt into "
+                    "global re-formation", rank=self.rank)
+        self._lib.RbtInterruptEx(b"watchdog_reform")
+
+    def _guard(self, name: str, nbytes: int = 0):
+        """A guard of this engine's watchdog with the ladder's hooks."""
+        return self._watchdog.guard(name, nbytes=nbytes,
+                                    on_expire=self._rung_retry,
+                                    on_reform=self._rung_reform)
 
     @property
     def dataplane(self):
@@ -339,6 +418,9 @@ class NativeEngine(Engine):
         if self._metrics_server is not None:
             self._metrics_server.stop()
             self._metrics_server = None
+        if self._flight is not None:
+            self._flight.uninstall()
+            self._flight = None
         _profile.stop_poller()
         # telemetry flushes BEFORE finalize: RbtFinalize sends the tracker
         # its shutdown command, and the tracker exits (printing the fleet
@@ -353,6 +435,7 @@ class NativeEngine(Engine):
             except Exception as e:  # noqa: BLE001 - never block shutdown
                 log.log_warn("telemetry flush failed: %s", e)
         self._env.restore()
+        self._watchdog.close()
         # the shutdown handshake is a fresh tracker connection per
         # attempt and idempotent tracker-side, so retry a brief outage
         retry.retry_call(
@@ -375,10 +458,11 @@ class NativeEngine(Engine):
             def trampoline(_arg, fn=prepare_fun):
                 fn()
             cb = _PREPARE_CB(trampoline)
-        with telemetry.span("engine.allreduce", nbytes=buf.nbytes,
-                            op=OP_NAMES.get(op, str(op)), method="native",
-                            round=telemetry.collective_round(
-                                "engine.allreduce")):
+        with self._guard("engine.allreduce", buf.nbytes), \
+                telemetry.span("engine.allreduce", nbytes=buf.nbytes,
+                               op=OP_NAMES.get(op, str(op)), method="native",
+                               round=telemetry.collective_round(
+                                   "engine.allreduce")):
             rc = self._lib.RbtAllreduceEx(
                 buf.ctypes.data_as(ctypes.c_void_p), buf.size, dtype_enum,
                 op, cb, None, cache_key)
@@ -393,19 +477,21 @@ class NativeEngine(Engine):
             if data is None:
                 raise ValueError("root must provide broadcast data")
             length[0] = len(data)
-        rc = self._lib.RbtBroadcastEx(
-            length.ctypes.data_as(ctypes.c_void_p), 8, root,
-            self._cache_key(site + "/len", 8))
+        with self._guard("engine.broadcast.size", 8):
+            rc = self._lib.RbtBroadcastEx(
+                length.ctypes.data_as(ctypes.c_void_p), 8, root,
+                self._cache_key(site + "/len", 8))
         self._check(rc, "broadcast(size)")
         n = int(length[0])
         payload = ctypes.create_string_buffer(n)
         if self.rank == root and n:
             payload.raw = data
         if n:
-            with telemetry.span("engine.broadcast", nbytes=n,
-                                method="native", root=root,
-                                round=telemetry.collective_round(
-                                    "engine.broadcast")):
+            with self._guard("engine.broadcast", n), \
+                    telemetry.span("engine.broadcast", nbytes=n,
+                                   method="native", root=root,
+                                   round=telemetry.collective_round(
+                                       "engine.broadcast")):
                 rc = self._lib.RbtBroadcastEx(
                     ctypes.cast(payload, ctypes.c_void_p), n, root,
                     self._cache_key(site + "/payload", n))
@@ -417,16 +503,17 @@ class NativeEngine(Engine):
                         ) -> Tuple[int, Optional[bytes], Optional[bytes]]:
         gptr = ctypes.POINTER(ctypes.c_char)()
         glen = ctypes.c_uint64()
-        if with_local:
-            lptr = ctypes.POINTER(ctypes.c_char)()
-            llen = ctypes.c_uint64()
-            version = self._lib.RbtLoadCheckpoint(
-                ctypes.byref(gptr), ctypes.byref(glen),
-                ctypes.byref(lptr), ctypes.byref(llen))
-        else:
-            lptr = llen = None
-            version = self._lib.RbtLoadCheckpoint(
-                ctypes.byref(gptr), ctypes.byref(glen), None, None)
+        lptr = llen = None
+        with self._guard("engine.load_checkpoint"):
+            if with_local:
+                lptr = ctypes.POINTER(ctypes.c_char)()
+                llen = ctypes.c_uint64()
+                version = self._lib.RbtLoadCheckpoint(
+                    ctypes.byref(gptr), ctypes.byref(glen),
+                    ctypes.byref(lptr), ctypes.byref(llen))
+            else:
+                version = self._lib.RbtLoadCheckpoint(
+                    ctypes.byref(gptr), ctypes.byref(glen), None, None)
         if version < 0:
             self._check(-1, "load_checkpoint")
         gbytes = bytes(gptr[:glen.value]) if version > 0 else None

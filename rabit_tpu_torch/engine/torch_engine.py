@@ -76,10 +76,22 @@ exported to the environment for the collectives (the native engine's
 reaches in program order: the async worker is drained before each
 synchronous collective, so both threads' collectives form one order.
 
+The watchdog and the flight recorder (``XlaEngine``'s wiring,
+``engine/xla.py:133-213``, ``:348-384``, ``:460-479``):
+``rabit_deadline_ms`` (with ``rabit_deadline_ms_per_mb`` and
+``rabit_watchdog_abort``, ``utils/watchdog.py``) guards ``allreduce``,
+``reduce_scatter``, ``allgather`` and each phase of a ``hier`` allreduce
+(its deadline scaled by ``rabit_hier_phase_deadline_scale``); an
+``allreduce_async`` arms its guard at issue and the worker disarms it when
+the op ends. As in ``XlaEngine`` the guards carry no hooks: a stall climbs
+the ladder's counters, events and notes to the abort (exit 86), or, with
+``rabit_watchdog_abort=0``, stops at the reform rung and drops the guard.
+``rabit_flight_dir`` (``rabit_flight_keep`` bundles a rank,
+``telemetry/flight.py``) installs the flight recorder with the live
+plane; ``shutdown`` uninstalls it.
+
 Not ported yet, and refused at init when configured
-(``base.refuse_unported``, the native engine's set): the flight
-recorder, the watchdog's deadlines and
-``rabit_hier_phase_deadline_scale``, the hot standby.
+(``base.refuse_unported``, the native engine's set): the hot standby.
 """
 
 from __future__ import annotations
@@ -108,6 +120,7 @@ from ..parallel import wire as wirespec
 from ..parallel.mesh import make_group
 from ..utils import log
 from ..utils.config import Config
+from ..utils.watchdog import Watchdog, scale_deadline_s
 
 
 class TorchEngine(Engine):
@@ -134,6 +147,10 @@ class TorchEngine(Engine):
         self._env = EnvExports()
         # the per-rank metrics endpoint (rabit_metrics_port), or None
         self._metrics_server = None
+        self._watchdog = Watchdog()  # disabled until init reads config
+        self._hier_scale = 1.0
+        # the flight recorder (rabit_flight_dir), or None
+        self._flight = None
 
     def init(self, args: List[str]) -> None:
         cfg = Config.from_args(args)
@@ -181,6 +198,12 @@ class TorchEngine(Engine):
         self._wire = wire
         self._wire_mincount = cfg.get_size(
             "rabit_dataplane_wire_mincount", dispatch.WIRE_MINCOUNT_DEFAULT)
+        # each hier phase moves ~1/g (intra) or ~1/H (inter) of the flat
+        # payload, so a deployment can tighten the phases' deadlines below
+        # the whole collective's
+        self._hier_scale = float(
+            cfg.get("rabit_hier_phase_deadline_scale", 1.0) or 1.0)
+        self._watchdog = Watchdog.from_config(cfg)
         self._owns_group = not dist.is_initialized()
         if device in (None, "cuda") and world > 1 and self._owns_group and \
                 torch.cuda.is_available():
@@ -202,15 +225,29 @@ class TorchEngine(Engine):
             self._store = ckpt_store.CheckpointStore(
                 ckpt_dir, rank=self._rank,
                 keep=cfg.get_int("rabit_ckpt_keep", ckpt_store.DEFAULT_KEEP))
+        from ..telemetry import flight
+        self._flight = flight.FlightRecorder.from_config(cfg, rank=self._rank)
         self._metrics_server = start_live_plane(
             cfg, self._rank, self._world, self._live_gauges,
             announce=self._world > 1)
 
     def _live_gauges(self) -> list:
-        """This rank's SLO burn on ``/metrics`` (``telemetry/slo.py``:
-        its p99 collective latency against the fleet objective)."""
+        """The watchdog's expiries and this rank's SLO burn on
+        ``/metrics`` (``telemetry/slo.py``: its p99 collective latency
+        against the fleet objective)."""
         from ..telemetry import slo as _slo
-        return _slo.rank_gauges()
+        return [("rabit_watchdog_expired_total",
+                 "Watchdog deadline expiries in this process.", "counter",
+                 [({}, self._watchdog.expired_total)]),
+                *_slo.rank_gauges()]
+
+    def _hier_phase_guard(self, name: str, nbytes: int):
+        """A hier phase's guard: the usual payload-proportional deadline
+        times ``rabit_hier_phase_deadline_scale`` (a disabled watchdog
+        still hands back the shared no-op guard)."""
+        d = scale_deadline_s(nbytes, self._watchdog.floor_ms,
+                             self._watchdog.ms_per_mb) * self._hier_scale
+        return self._watchdog.guard(name, nbytes=nbytes, deadline_s=d)
 
     def _epoch_reset(self) -> None:
         """Drop what the last world left behind: the parsed dispatch
@@ -230,6 +267,10 @@ class TorchEngine(Engine):
         if self._metrics_server is not None:
             self._metrics_server.stop()
             self._metrics_server = None
+        if self._flight is not None:
+            self._flight.uninstall()
+            self._flight = None
+        self._watchdog.close()
         _profile.stop_poller()
         if telemetry.enabled():
             telemetry.export_at_shutdown(self._rank, self._world)
@@ -260,10 +301,11 @@ class TorchEngine(Engine):
             return
         self._drain_async()
         method, wire = self._resolve_method_wire(buf.size)
-        with telemetry.span("engine.allreduce", nbytes=buf.nbytes,
+        sp = telemetry.span("engine.allreduce", nbytes=buf.nbytes,
                             op=OP_NAMES.get(op, str(op)), method=method,
                             wire=wire, round=telemetry.collective_round(
-                                "engine.allreduce")) as sp:
+                                "engine.allreduce"))
+        with self._watchdog.guard("engine.allreduce", nbytes=buf.nbytes), sp:
             self._allreduce_now(buf, op, method, wire)
             if sp.live:
                 # the skew plan the device layer applied, for cross-rank
@@ -275,14 +317,17 @@ class TorchEngine(Engine):
     def _allreduce_now(self, buf: np.ndarray, op: int, method: str,
                        wire: Optional[str]) -> None:
         C.allreduce_numpy(buf, self._group, op, self._device, method=method,
-                          wire=wire, groups=self._groups)
+                          wire=wire, groups=self._groups,
+                          phase_guard=self._hier_phase_guard)
 
     def allreduce_async(self, buf: np.ndarray, op: int,
                         prepare_fun: Optional[Callable[[], None]] = None,
                         key: str = "") -> AllreduceHandle:
         """Issue the allreduce of ``buf`` (in place) on the engine's
         worker and return a handle; the caller's thread goes on while it
-        runs. ``buf`` must be left alone until ``wait()`` returns it."""
+        runs. The watchdog's guard arms now and disarms when the op ends,
+        so every op in flight keeps its deadline. ``buf`` must be left
+        alone until ``wait()`` returns it."""
         if prepare_fun is not None:
             prepare_fun()
         if self._world == 1:
@@ -292,11 +337,19 @@ class TorchEngine(Engine):
         rnd = telemetry.collective_round("engine.allreduce")
         telemetry.count("async.issued", nbytes=nbytes, op=opname,
                         method=method, wire=wire, provenance="engine")
+        guard = self._watchdog.guard("engine.allreduce", nbytes=nbytes)
+        guard.__enter__()
         t_issue = time.perf_counter()
+
+        def task():
+            try:
+                self._allreduce_now(buf, op, method, wire)
+            finally:
+                guard.__exit__(None, None, None)
+
         with telemetry.span("engine.allreduce.issue", nbytes=nbytes,
                             op=opname, method=method, wire=wire, round=rnd):
-            fut = self._async_executor().submit(self._allreduce_now, buf, op,
-                                                method, wire)
+            fut = self._async_executor().submit(task)
         self._async_pending.append(fut)
 
         def wait_fn():
@@ -364,7 +417,9 @@ class TorchEngine(Engine):
         with telemetry.span("engine.reduce_scatter", nbytes=buf.nbytes,
                             op=OP_NAMES.get(op, str(op)), method="ring",
                             round=telemetry.collective_round(
-                                "engine.reduce_scatter")):
+                                "engine.reduce_scatter")), \
+                self._watchdog.guard("engine.reduce_scatter",
+                                     nbytes=buf.nbytes):
             return self._device_collective(
                 buf, lambda x: C.device_reduce_scatter(x, self._group, op))
 
@@ -374,10 +429,11 @@ class TorchEngine(Engine):
         if self._world == 1:
             return buf.reshape(-1).copy()
         self._drain_async()
-        with telemetry.span("engine.allgather",
-                            nbytes=buf.nbytes * self._world, method="ring",
+        nbytes = buf.nbytes * self._world
+        with telemetry.span("engine.allgather", nbytes=nbytes, method="ring",
                             round=telemetry.collective_round(
-                                "engine.allgather")):
+                                "engine.allgather")), \
+                self._watchdog.guard("engine.allgather", nbytes=nbytes):
             return self._device_collective(
                 buf, lambda x: C.device_allgather(x, self._group))
 

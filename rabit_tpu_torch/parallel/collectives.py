@@ -665,7 +665,8 @@ def swing_allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
 @_annotated("hier")
 def hier_allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
                    op: int = SUM, groups=None, wire: Optional[str] = None,
-                   inter_method: str = "ring") -> torch.Tensor:
+                   inter_method: str = "ring",
+                   phase_guard=None) -> torch.Tensor:
     """Two-level hierarchical allreduce over host groups:
 
     1. intra-group reduce-scatter (the grouped ring; the JAX package uses
@@ -679,7 +680,10 @@ def hier_allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
     Degenerate worlds short-circuit as in the JAX package: unknown
     topology, one rank a group or ragged groups run the flat
     ``inter_method`` schedule; a single group runs one flat unquantized
-    ring. All ranks end bit-identical."""
+    ring. All ranks end bit-identical. ``phase_guard(name, nbytes)``, where
+    given, wraps each of the three phases (a watchdog's per-phase guard,
+    as ``device_hier_allreduce`` takes it); the flat degradations run
+    unguarded."""
     _check_flat(x, "hier_allreduce", op)
     if inter_method not in ("ring", "swing"):
         raise ValueError(
@@ -694,8 +698,13 @@ def hier_allreduce(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
         return flat_fn(x, group, op, wire=wire)
     wire = _normalize_wire(wire, op, x.dtype)  # eligibility; pad below
     y, back = _as_reducible(x.contiguous(), op)
+    run_phase = _labelled_phase
+    if phase_guard is not None:
+        def run_phase(ph: _Phase, fn):
+            with phase_guard(ph.name, ph.nbytes):
+                return _labelled_phase(ph, fn)
     return back(_hier_phases(y, group, op, groups, wire, inter_method,
-                             _labelled_phase))
+                             run_phase))
 
 
 @dataclass(frozen=True)
@@ -1039,7 +1048,8 @@ def _allreduce_plan(x: torch.Tensor, group, op: int, method: str, wire,
 
 def allreduce_numpy(buf: np.ndarray, group: Optional[dist.ProcessGroup],
                     op: int, device: torch.device, method: str = "auto",
-                    wire: Optional[str] = "auto", groups=None) -> None:
+                    wire: Optional[str] = "auto", groups=None,
+                    phase_guard=None) -> None:
     """Allreduce the host buffer ``buf`` in place through ``device``: the
     reference's in-place ``sendrecvbuf`` contract (engine.h:74-96), shared
     by ``TorchEngine`` and the robust engine's ``TorchDataPlane``. The
@@ -1048,12 +1058,14 @@ def allreduce_numpy(buf: np.ndarray, group: Optional[dist.ProcessGroup],
     ``groups`` with that function's own degradation (one group: a flat
     ring without the wire; one rank a group or ragged groups: a flat ring
     with it), where the dispatcher turns an explicit ``hier`` on such a
-    world into a ring that keeps the wire; the result is copied back."""
+    world into a ring that keeps the wire; the result is copied back.
+    ``phase_guard`` goes to ``hier_allreduce`` (``TorchEngine``'s
+    per-phase watchdog guards)."""
     x = tensor_from_numpy(buf).to(device)
     if method == "hier":
         groups, _ = _skew_hier(x, group, op, groups)
         out = hier_allreduce(x.reshape(-1), group, op, groups=groups,
-                             wire=wire)
+                             wire=wire, phase_guard=phase_guard)
     else:
         out = allreduce(x, group, op, method=method, wire=wire)
     np.copyto(buf, numpy_from_tensor(out.reshape(x.shape), buf.dtype))

@@ -256,7 +256,13 @@ def test_import_leaves_out_jax_and_rabit_tpu():
         "'rabit_tpu_torch.telemetry.crossrank', "
         "'rabit_tpu_torch.telemetry.skew', "
         "'rabit_tpu_torch.tools.skew_bench', "
-        "'rabit_tpu_torch.tools.skew_round_worker'}\n"
+        "'rabit_tpu_torch.tools.skew_round_worker', "
+        "'rabit_tpu_torch.utils.watchdog', "
+        "'rabit_tpu_torch.telemetry.flight', "
+        "'rabit_tpu_torch.telemetry.history', "
+        "'rabit_tpu_torch.telemetry.__main__', "
+        "'rabit_tpu_torch.tools.overlap_bench', "
+        "'rabit_tpu_torch.tools.overlap_round_worker'}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -297,8 +303,10 @@ def test_no_jax_or_rabit_tpu_import_in_the_kernel_variants_script():
 def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
     """The modules of the robust engine's slice, of the bucketed steps'
     (the MLP, the step timing script) and of the telemetry plane
-    (``telemetry/*``, the histogram rounds' worker), by name (the package
-    scan above covers the package too), and the port's own test
+    (``telemetry/*``, the histogram rounds' worker), of the watchdog's
+    (``utils/watchdog.py``, ``telemetry/flight.py``, ``history.py``,
+    ``__main__.py``, the overlap bench and its worker), by name (the
+    package scan above covers the package too), and the port's own test
     workers."""
     new = [PKG / "utils" / "log.py", PKG / "utils" / "retry.py",
            PKG / "engine" / "ckpt_store.py", PKG / "engine" / "_native_build.py",
@@ -312,5 +320,10 @@ def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
             for m in ("__init__", "schema", "clock", "events", "recorder",
                       "profile", "export", "aggregate")]
     new += [PKG / "tools" / "histogram_rounds.py"]
+    new += [PKG / "utils" / "watchdog.py", PKG / "telemetry" / "flight.py",
+            PKG / "telemetry" / "history.py", PKG / "telemetry" / "__main__.py",
+            PKG / "tools" / "overlap_bench.py",
+            PKG / "tools" / "overlap_round_worker.py",
+            ROOT / "tests" / "workers" / "torch_stall_worker.py"]
     assert all(p.is_file() for p in new)
     assert _jax_imports(new) == []

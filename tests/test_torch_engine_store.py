@@ -124,14 +124,19 @@ def test_lagging_disks_resume_one_version_in_a_world_of_three(tmp_path):
         assert 4 in got["stored"].tolist(), r
 
 
-# the telemetry plane's knobs and the live plane's metrics port are
-# ported: those cases hold that init honours them (each knob's module, or
-# the engine's metrics endpoint, reports it on), the rest that init
-# refuses
+# the telemetry plane's knobs, the live plane's metrics port and the
+# watchdog's are ported: those cases hold that init honours them (each
+# knob's module, the engine's metrics endpoint, its watchdog or its hier
+# phases' scale carries it), the rest that init refuses
 _HONOURED = {"rabit_telemetry": lambda e: telemetry.enabled(),
              "rabit_profile": lambda e: profile.enabled(),
              "rabit_events": lambda e: events.enabled(),
-             "rabit_metrics_port": lambda e: e._metrics_server is not None}
+             "rabit_metrics_port": lambda e: e._metrics_server is not None,
+             "rabit_deadline_ms": lambda e: e._watchdog.floor_ms == 500,
+             "rabit_deadline_ms_per_mb":
+                 lambda e: e._watchdog.ms_per_mb == 10,
+             "rabit_hier_phase_deadline_scale":
+                 lambda e: e._hier_scale == 0.5}
 
 
 @pytest.mark.parametrize("args", [

@@ -189,31 +189,40 @@ def test_host_api_under_robust_engine_matches_rabit_tpu(tmp_path):
         assert a == b
 
 
-def test_unported_knobs_raise_rather_than_be_ignored():
-    """The knobs the port lacks raise (``rabit_deadline_ms``); the
+def test_unported_knobs_raise_rather_than_be_ignored(tmp_path):
+    """The knob the port lacks raises (``rabit_tracker_standby``); the
     telemetry plane's are honoured (``rabit_telemetry``, ``rabit_profile``,
     ``rabit_events``), and so are the live plane's ``rabit_metrics_port``
-    (the engine serves its endpoint) and the skew plane's
-    ``rabit_skew_adapt`` (accepted at init)."""
+    (the engine serves its endpoint), the skew plane's
+    ``rabit_skew_adapt`` (accepted at init), the watchdog's
+    ``rabit_deadline_ms`` (the engine's watchdog carries it) and the
+    flight recorder's ``rabit_flight_dir`` (installed, with the rank)."""
     from rabit_tpu_torch import telemetry
-    from rabit_tpu_torch.telemetry import events, profile
+    from rabit_tpu_torch.telemetry import events, flight, profile
     rabit_tpu_torch.finalize()
     with pytest.raises(NotImplementedError, match="not ported"):
-        rabit_tpu_torch.init(["rabit_deadline_ms=500"], engine="robust")
+        rabit_tpu_torch.init(["rabit_tracker_standby=127.0.0.1:9"],
+                             engine="robust")
     assert rabit_tpu_torch._engine is None
     knobs = ["rabit_telemetry=1", "rabit_profile=1", "rabit_events=1",
-             "rabit_metrics_port=0", "rabit_skew_adapt=1"]
+             "rabit_metrics_port=0", "rabit_skew_adapt=1",
+             "rabit_deadline_ms=500", f"rabit_flight_dir={tmp_path}"]
     try:
         rabit_tpu_torch.init(knobs, engine="robust")
+        eng = rabit_tpu_torch._engine
         assert telemetry.enabled() and profile.enabled()
         assert events.enabled()
-        assert rabit_tpu_torch._engine._metrics_server is not None
+        assert eng._metrics_server is not None
+        assert eng._watchdog.enabled and eng._watchdog.floor_ms == 500
+        assert flight.installed() is eng._flight and eng._flight.rank == 0
     finally:
         rabit_tpu_torch.finalize()
         rabit_tpu_torch.init([k.replace("=1", "=0") for k in knobs
-                              if "metrics_port" not in k], engine="robust")
+                              if "metrics_port" not in k
+                              and "flight_dir" not in k], engine="robust")
         rabit_tpu_torch.finalize()
     assert not telemetry.enabled() and not events.enabled()
+    assert flight.installed() is None
 
 
 def test_torch_dataplane_refuses_the_cpu_fallback(monkeypatch):
