@@ -5,8 +5,9 @@ path (the sweep, the bench and the kernel proof), the robust engine, the
 bucketed and overlapped train steps of the flagship and the MLP, the
 parallelism families (sequence parallelism, the pipeline, the MoE, the
 multichip dryrun), the telemetry and profiling plane, the skew plane
-with the live plane that feeds it, and the watchdog's ladder with the
-flight recorder and the overlap bench.
+with the live plane that feeds it, the watchdog's ladder with the
+flight recorder and the overlap bench, and elastic membership with the
+in-process resize.
 
     python3 chip_smoke.py
 
@@ -253,15 +254,48 @@ Phases (each prints a line; any failure exits non-zero):
                 collective ends and replays at a new epoch, every result
                 equal to the clean run's bit for bit. With one
                 card it says that (b) did not run.
-17. kernels     one JSON line of every kernel with its main-path launches
-                (and, for the flash kernels, phase 12's and phase 13's).
+17. elastic     elastic membership and the in-process resize
+                (``tracker/membership.py``, the tracker's ``world``/
+                ``evict``/``join``, the launcher's ``elastic``,
+                ``rabit_tpu_torch.resize``): (a) in a fresh process on the
+                card at world 1, ``resize("recover")``, ``("join")`` and
+                ``("grow")`` under ``robust_torch`` (world 1 stays; a
+                ValueError), ``empty`` and ``torch`` (NotImplementedError),
+                as the JAX package's engines do; ``python -m
+                rabit_tpu_torch.tracker.membership --smoke``; (b) with three
+                cards or more, at world p = min(4, cards):
+                ``tests/workers/torch_resize_worker.py`` under the port's
+                launcher with ``elastic=True``, the robust engine,
+                ``rabit_dataplane=torch`` and ``rabit_device=cuda``, once
+                in a fixed world and once p -> p - 1 -> p in process (task
+                1 evicts itself, the survivors ``resize("recover")``, task
+                1 ``resize("join")``); each round an int64 allreduce of 256
+                and a histogram of 2^21 rows x 1024 bins a rank built on
+                the rank's card by the ``histogram`` kernel (grad and hess
+                integers in [-8, 8] from the seed and the rank, so every
+                f32 sum is exact) and allreduced over NCCL: every MID round
+                its exact sum, every POST round equal to the fixed world's
+                bit for bit, no respawn, each process on one card before,
+                between and after the resizes (its current device and its
+                data plane's), no two members of an epoch on one card, the
+                kernel launched once a round on every member, a formation
+                at every new epoch, and no worker left on a card
+                (``nvidia-smi --query-compute-apps=pid``); the seconds from
+                the victim's evict to the survivors' first MID collective,
+                from its join to the first POST collective, and of each
+                formation (``recovery.world_reform``). With fewer than
+                three cards it says that (b) did not run.
+18. kernels     one JSON line of every kernel with its main-path launches
+                (and, for the flash kernels, phase 12's and phase 13's; for
+                the histogram, phase 17 (b)'s, null where (b) did not run).
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
 phase 6, each run of phase 12, each ring call of phase 13, in its rank's
 process, each run of phase 14 (b)) and read just after it, so a kernel's
 count is its own path's alone: mask_only's is the sweep's. Phase 11's
 histogram launches are counted in its workers, each a fresh process (so
-from 0), and printed there. The last line is the device JSON.
+from 0), and printed there; phase 17's in its workers, a launch a
+round a member. The last line is the device JSON.
 Without CUDA, or without the package beside this file, the script exits
 non-zero and prints no result.
 """
@@ -3159,7 +3193,12 @@ def _stall_world(p: int, mode: str, tmp: Path, args: list, env: dict,
             [sys.executable, str(STALL_WORKER), mode, "rabit_device=cuda",
              f"rabit_coordinator=127.0.0.1:{port}",
              f"rabit_num_processes={p}", f"rabit_process_id={r}", *args],
-            env=env, stdout=log, stderr=subprocess.STDOUT))
+            env=env, stdout=log, stderr=subprocess.STDOUT,
+            # a session of its own: a worker that stops itself (SIGSTOP)
+            # in this script's process group would have the kernel send
+            # the whole group SIGHUP, this script too, once the group is
+            # orphaned (its parent shell exits)
+            start_new_session=True))
     exits = {}
     deadline = time.monotonic() + WD_TIMEOUT_S
     try:
@@ -3427,6 +3466,207 @@ def phase_watchdog(dev, power: str) -> dict:
     return doc
 
 
+# phase 17: elastic membership and the in-process resize. The worker of
+# tests/test_torch_resize.py at the headline histogram (bench.py:311-312)
+RESIZE_WORKER = Path(__file__).resolve().parent / "tests" / "workers" / \
+    "torch_resize_worker.py"
+RESIZE_HIST = (1 << 21, 1024)
+RESIZE_SEED = 17
+RESIZE_TIMEOUT_S = 300
+
+
+def _resize_world_one() -> dict:
+    """Phase 17 (a), in a fresh process on the card at world 1: what
+    ``rabit_tpu_torch.resize`` does under each engine, as JAX's does."""
+    code = (
+        "import json, torch, rabit_tpu_torch as R\n"
+        "out = {}\n"
+        "for eng, args in (('robust_torch', ['rabit_device=cuda']),\n"
+        "                  ('empty', []), ('torch', ['rabit_device=cuda'])):\n"
+        "    R.init(args, engine=eng)\n"
+        "    got = []\n"
+        "    for cmd in ('recover', 'join', 'grow'):\n"
+        "        try:\n"
+        "            R.resize(cmd)\n"
+        "            got.append(R.get_world_size())\n"
+        "        except (NotImplementedError, ValueError) as e:\n"
+        "            got.append(type(e).__name__)\n"
+        "    R.finalize()\n"
+        "    out[eng] = got\n"
+        "out['cuda'] = torch.cuda.is_initialized()\n"
+        "print(json.dumps(out))\n")
+    r = subprocess.run([sys.executable, "-c", code], env=_stall_env(),
+                       capture_output=True, text=True,
+                       timeout=RESIZE_TIMEOUT_S)
+    if r.returncode != 0:
+        raise AssertionError(f"resize at world 1: {r.stdout}{r.stderr}")
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    want = {"robust_torch": [1, 1, "ValueError"],
+            "empty": ["NotImplementedError"] * 3,
+            "torch": ["NotImplementedError"] * 3, "cuda": True}
+    if got != want:
+        raise AssertionError(f"resize at world 1: {got}, want {want}")
+    r = subprocess.run([sys.executable, "-m",
+                        "rabit_tpu_torch.tracker.membership", "--smoke"],
+                       env=_stall_env(), capture_output=True, text=True,
+                       timeout=RESIZE_TIMEOUT_S)
+    if r.returncode != 0 or "elastic smoke ok" not in r.stdout:
+        raise AssertionError(f"membership --smoke: {r.stdout}{r.stderr}")
+    return got
+
+
+def _resize_run(p: int, tmp: Path, resize: bool) -> tuple:
+    """The resize worker as ``p`` ranks under the port's launcher with
+    elastic membership, the robust engine and the torch data plane on
+    the cards; each task's document and the launcher's stats."""
+    from rabit_tpu_torch.tracker.launch import launch
+    out = tmp / ("resize" if resize else "base")
+    out.mkdir()
+    env = {"RESIZE_OUT": str(out), "KILL_TASK": "1",
+           "RESIZE_DEADLINE": str(RESIZE_TIMEOUT_S - 60),
+           "RESIZE_HIST_ROWS": str(RESIZE_HIST[0]),
+           "RESIZE_HIST_BINS": str(RESIZE_HIST[1]),
+           "RESIZE_SEED": str(RESIZE_SEED),
+           "PYTHONPATH": _stall_env()["PYTHONPATH"]}
+    if resize:
+        env["RESIZE_ENABLE"] = "1"
+    stats = {}
+    launch(p, [sys.executable, str(RESIZE_WORKER), "rabit_device=cuda",
+               "rabit_telemetry=1"], max_attempts=0,
+           timeout=RESIZE_TIMEOUT_S, quiet=True, stats=stats, env=env,
+           elastic=True)
+    docs = {t: json.loads((out / f"r{t}.json").read_text())
+            for t in range(p)}
+    return docs, stats
+
+
+def _resize_checks(p: int, base: dict, docs: dict, stats: dict) -> dict:
+    """Phase 17 (b)'s verdicts on the resize run against the baseline."""
+    victim = docs[1]
+    if stats["total_attempts"] != 0 or stats["membership"]["epoch"] != 3 \
+            or stats["membership"]["world"] != p:
+        raise AssertionError(f"resize: attempts {stats['total_attempts']}, "
+                             f"membership {stats['membership']}")
+    launches = 0
+    for t, d in docs.items():
+        post = [(r["round"], r["crc"], r["hist_crc"])
+                for r in d["rounds"] if r["tag"] == "post"]
+        want = [(r["round"], r["crc"], r["hist_crc"])
+                for r in base[t]["rounds"] if r["tag"] == "post"]
+        if post != want or len(post) != 5:
+            raise AssertionError(f"task {t}: POST rounds {post} differ from "
+                                 f"the fixed world's {want}")
+        mids = [r for r in d["rounds"] if r["tag"] == "mid"]
+        if len(mids) != (0 if t == 1 else 3) or \
+                any(r["world"] != p - 1 for r in mids):
+            raise AssertionError(f"task {t}: MID rounds {mids}")
+        cards = {(x["current"], x["dataplane"]) for x in d["devices"]}
+        if len(cards) != 1 or len(d["devices"]) != 3:
+            raise AssertionError(f"task {t} changed its card: "
+                                 f"{d['devices']}")
+        cur, dpdev = cards.pop()
+        if dpdev != f"cuda:{cur}":
+            raise AssertionError(f"task {t}: current device {cur}, data "
+                                 f"plane {dpdev}")
+        if d["backend"] != "nccl" or d["launches"] != \
+                [1] * len(d["rounds"]):
+            raise AssertionError(f"task {t}: backend {d['backend']}, "
+                                 f"histogram launches {d['launches']}")
+        launches += sum(d["launches"])
+        epochs = [w["epoch"] for w in d["world_reform"]]
+        if epochs != ([1, 3] if t == 1 else [1, 2, 3]):
+            raise AssertionError(f"task {t}: formations at epochs {epochs}")
+    cards = [d["devices"][0]["current"] for d in docs.values()]
+    if len(set(cards)) != p:
+        raise AssertionError(f"two members on one card: {cards}")
+    survivors = [d for t, d in docs.items() if t != 1]
+
+    def first(d, tag):
+        return next(r for r in d["rounds"] if r["tag"] == tag)
+
+    def slowest(values):
+        return round(max(values), 4)
+
+    join = victim["resizes"][0]
+    return {"shrink_s": max(first(d, "mid")["t_int64"] for d in survivors)
+            - victim["evicted_at"],
+            "grow_s": max(first(d, "post")["t_int64"]
+                          for d in docs.values()) - join["t0"],
+            # the slowest member's share of each step: the evict to its
+            # resize call (the world-doc poll), the resize, the first
+            # collective of the new world (its formation inside)
+            "shrink_split": {
+                "to_resize": slowest(d["resizes"][0]["t0"]
+                                     - victim["evicted_at"]
+                                     for d in survivors),
+                "resize": slowest(d["resizes"][0]["t1"]
+                                  - d["resizes"][0]["t0"]
+                                  for d in survivors),
+                "first_collective": slowest(
+                    first(d, "mid")["t_int64"] - first(d, "mid")["t_start"]
+                    for d in survivors)},
+            "grow_split": {
+                "to_resize": slowest(d["resizes"][1]["t0"] - join["t0"]
+                                     for d in survivors),
+                "resize": slowest([d["resizes"][1]["t1"]
+                                   - d["resizes"][1]["t0"]
+                                   for d in survivors]
+                                  + [join["t1"] - join["t0"]]),
+                "first_collective": slowest(
+                    first(d, "post")["t_int64"] - first(d, "post")["t_start"]
+                    for d in docs.values())},
+            "formations": {t: [round(w["dur"], 4) for w in d["world_reform"]]
+                           for t, d in docs.items()},
+            "cards": cards, "launches": launches,
+            "pids": [d["pid"] for d in docs.values()]}
+
+
+def phase_elastic(power: str) -> dict:
+    """Elastic membership and the in-process resize (see the module's
+    phase 17)."""
+    import tempfile
+    one = _resize_world_one()
+    phase("elastic", f"(a) world 1 on the card: resize('recover'), "
+          f"('join') and ('grow') under robust_torch {one['robust_torch']}, "
+          f"under empty {one['empty']} and torch {one['torch']}, as JAX's "
+          f"engines; membership --smoke ok (a tracker of 2: 2 -> 1 -> 2)")
+    count = torch.cuda.device_count()
+    if count < 3:
+        phase("elastic", f"(b) did not run: {count} card(s); the resize "
+              f"p -> p - 1 -> p needs three or more")
+        return {"world_one": one, "launches": None}
+    p = min(4, count)
+    with tempfile.TemporaryDirectory() as tmp:
+        base, bstats = _resize_run(p, Path(tmp), False)
+        docs, stats = _resize_run(p, Path(tmp), True)
+    if bstats["total_attempts"] != 0:
+        raise AssertionError(f"the fixed-world run respawned: {bstats}")
+    res = _resize_checks(p, base, docs, stats)
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.split()
+    pids = set(res["pids"]) | {d["pid"] for d in base.values()}
+    held = [int(x) for x in smi if x.isdigit() and int(x) in pids]
+    if held:
+        raise AssertionError(f"resize: workers {held} still hold a card")
+    phase("elastic", f"(b) world {p} -> {p - 1} -> {p} in process (robust "
+          f"engine, rabit_dataplane=torch over NCCL, the launcher elastic): "
+          f"each round an int64 allreduce of 256 and a histogram of "
+          f"{RESIZE_HIST[0]} x {RESIZE_HIST[1]} a rank by the kernel on the "
+          f"rank's card, allreduced; MID rounds exact, POST equal to the "
+          f"fixed world's bit for bit, 0 respawns, cards {res['cards']} "
+          f"kept by every process through both resizes, the kernel "
+          f"launched once a round on every member ({res['launches']} in "
+          f"all), no worker left on a card (compute apps {smi})")
+    phase("elastic", f"(b) the victim's evict to the survivors' first MID "
+          f"collective {res['shrink_s']:.3f} s (slowest survivor's s to its "
+          f"resize call, in it, in the first collective: "
+          f"{res['shrink_split']}); its join to the first POST collective "
+          f"{res['grow_s']:.3f} s ({res['grow_split']}); each formation's s "
+          f"(recovery.world_reform, by task) {res['formations']} [{power}]")
+    return dict(res, world_one=one)
+
+
 def card_power() -> str:
     """The first card's name and power limit, as ``nvidia-smi`` gives
     them."""
@@ -3489,6 +3729,7 @@ def main() -> int:
     tel = phase_telemetry(dev, power)
     skew_doc = phase_skew(dev, power)
     phase_watchdog(dev, power)
+    elastic = phase_elastic(power)
     kernels = []
     for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only"):
         head = timing[name][0]
@@ -3502,6 +3743,9 @@ def main() -> int:
     for k in kernels:
         head = k["by_shape"][0]
         k["shape"] = head.get("shape", [head.get("rows"), head.get("nbins")])
+    # phase 17 (b)'s resize run: a launch a round on every member; null
+    # where (b) did not run (fewer than three cards)
+    kernels[0]["elastic_launches"] = elastic["launches"]
     kernels[3]["slope_ms"] = timing["mask_only"][0]["slope_ms"]
     kernels[2]["library_bwd_ms"] = timing["flash_block_bwd"][0][
         "library_bwd_ms"]
@@ -3517,7 +3761,8 @@ def main() -> int:
         "losses": tf_run["losses"], "profile": tf_run["profile"]},
         "bucket_steps": {s: {k: r[k] for k in ("median_ms", "ms", "losses")}
                          for s, r in bucket.items()},
-        "parallel": par, "telemetry": tel, "skew": skew_doc}), flush=True)
+        "parallel": par, "telemetry": tel, "skew": skew_doc,
+        "elastic": elastic}), flush=True)
     print(power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

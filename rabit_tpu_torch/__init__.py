@@ -14,7 +14,8 @@ Public API (the reference binding, python/rabit.py:88-364):
     init/finalize, get_rank/get_world_size, is_distributed,
     get_processor_name, tracker_print, allreduce, allreduce_async,
     reduce_scatter, allgather, broadcast, load_checkpoint, checkpoint,
-    lazy_checkpoint, version_number, init_after_exception, and the ops
+    lazy_checkpoint, version_number, init_after_exception, resize, and the
+    ops
     MAX/MIN/SUM/BITOR.
 """
 
@@ -297,10 +298,24 @@ def init_after_exception() -> None:
     _require_engine().init_after_exception()
 
 
+def resize(cmd: str = "recover") -> None:
+    """In-process world resize (elastic membership): tear down and
+    rebuild the link topology from a fresh tracker assignment WITHOUT
+    process exit -- ``get_rank()``/``get_world_size()`` may both change
+    across the call, while checkpoints and the version counter survive.
+    ``cmd`` is ``"recover"`` (a survivor re-forming after an eviction) or
+    ``"join"`` (an evicted rank rejoining at the next epoch boundary;
+    blocks until admitted). Call it at a collective boundary when the
+    membership monitor reports a reformation due. The engines over the
+    native core (``native``, ``base``, ``robust``, ``mock``,
+    ``robust_torch``) honour it; ``empty`` and ``torch`` raise."""
+    _require_engine().resize(cmd)
+
+
 __all__ = [
     "init", "finalize", "get_rank", "get_world_size", "is_distributed",
     "get_processor_name", "tracker_print", "allreduce", "allreduce_async",
     "reduce_scatter", "allgather", "broadcast",
     "load_checkpoint", "checkpoint", "lazy_checkpoint", "version_number",
-    "init_after_exception", "MAX", "MIN", "SUM", "BITOR",
+    "init_after_exception", "resize", "MAX", "MIN", "SUM", "BITOR",
 ]

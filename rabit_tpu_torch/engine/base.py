@@ -5,8 +5,7 @@ Python is the module-global in ``rabit_tpu_torch.__init__`` (the API is
 documented not thread-safe, rabit.h:177-178).
 
 The port's copy of ``rabit_tpu/engine/base.py``, with its telemetry spans
-on the base compositions, without ``resize`` (elastic membership, not
-ported yet), and with ``restore_checkpoint``."""
+on the base compositions and with ``restore_checkpoint``."""
 
 from __future__ import annotations
 
@@ -162,6 +161,15 @@ def start_live_plane(cfg, rank: int, world: int, gauges_fn,
     return server
 
 
+def note_identity(rank: int) -> None:
+    """Record this worker's formed identity (its task id, else its rank;
+    the rank; epoch 0 at init), which a reconnecting poller re-presents
+    to a resumed tracker (``membership.present_resume``)."""
+    from ..tracker import membership
+    membership.note_identity(os.environ.get("RABIT_TASK_ID", str(rank)),
+                             rank, 0)
+
+
 class Engine(ABC):
     """Collective engine. Buffers are 1-D contiguous numpy arrays mutated
     in place, matching the reference's in-place sendrecvbuf contract
@@ -266,6 +274,18 @@ class Engine(ABC):
         allreduce_robust.h:163-169). Only the robust engine can honor it."""
         raise NotImplementedError(
             "InitAfterException requires the robust engine")
+
+    def resize(self, cmd: str = "recover") -> None:
+        """In-process world resize (elastic membership): re-register
+        with the tracker and rebuild the link topology from the fresh
+        assignment without process exit -- rank and world size may both
+        change. ``cmd`` is ``"recover"`` (a survivor re-forming after an
+        eviction) or ``"join"`` (an evicted rank rejoining at the next
+        epoch boundary). Only engines with a tracker-registered link
+        plane can honor it; checkpoints and the version counter survive
+        the transition."""
+        raise NotImplementedError(
+            "in-process resize requires a tracker-registered engine")
 
     def restore_checkpoint(self, version: int, global_bytes: Optional[bytes],
                            local_bytes: Optional[bytes] = None) -> None:

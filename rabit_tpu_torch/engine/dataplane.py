@@ -21,6 +21,26 @@ the epoch and the attempt — so a re-formation at the same epoch (the
 retry rung) never meets the first formation's keys (NCCL's unique id
 among them).
 
+An elastic resize (``NativeEngine.resize``, ``tracker/membership.py``)
+is a re-registration like a recovery's: the epoch advances, the teardown
+sentinel drops the old world, and the next collective forms a world of
+the new size, whose ranks are the members' dense slots. A process keeps
+its card for its whole life. A slot moves when a lower rank is evicted
+(stable ranks 2 and 3 become slots 1 and 2 after rank 1 leaves) and
+moves back on the grow; a card picked from it would leave the process's
+tensors behind and could land on the card that the evicted process,
+alive in its own ``resize("join")``, still holds. The card therefore
+comes from the process's stable identity, picked at its first formation
+and kept (``card_index``): the launcher's task index (``RABIT_TASK_ID``,
+which the port's launcher numbers 0..n-1 and keeps across relaunches and
+re-admissions), or, for a task id that is not an index, its rank at that
+first formation. A process relaunched into a shrunk world thus takes its
+own card back, not the one its slot names. Before each formation on the
+cards every member posts its card to the epoch's store and reads the
+others' (``check_distinct_cards``): two members on one card (NCCL
+refuses that: "Duplicate GPU detected") fail the formation with an error
+that names both ranks and the card.
+
 Failure mapping: any exception here returns nonzero to C++, which treats
 it like a link reset — reconnect (advancing the epoch), replay, retry.
 Nothing unwinds into C.
@@ -78,6 +98,7 @@ import contextlib
 import ctypes
 import datetime
 import os
+import socket
 import sys
 import time
 import zlib
@@ -126,6 +147,39 @@ def _nccl_env():
                 os.environ[k] = v
 
 
+def card_index(rank: int, cards: int,
+               task_id: Optional[str] = None) -> int:
+    """The card of a process's first formation on the cards: its task
+    index (``RABIT_TASK_ID`` when it is one) modulo the cards, else its
+    rank then (module docstring)."""
+    if task_id is None:
+        task_id = os.environ.get("RABIT_TASK_ID", "")
+    return (int(task_id) if task_id.isdigit() else rank) % cards
+
+
+def check_distinct_cards(store, rank: int, world: int, card: str) -> None:
+    """Post this member's ``card`` to a formation's ``store`` and raise
+    if another member of the world posted the same one."""
+    store.set(f"card/{rank}", card)
+    holder = {}
+    for r in range(world):
+        c = store.get(f"card/{r}").decode()
+        if c in holder:
+            raise RuntimeError(
+                f"ranks {holder[c]} and {r} of this world are both on card "
+                f"{c}: a process keeps the card of its first formation, "
+                f"picked from its task index (RABIT_TASK_ID) or else its "
+                f"rank, so two task ids name one card")
+        holder[c] = r
+
+
+def _card_name(dev: torch.device) -> str:
+    """A card's name among the world's: the host and the card's UUID
+    (its index where this torch does not report one)."""
+    uuid = getattr(torch.cuda.get_device_properties(dev), "uuid", None)
+    return f"{socket.gethostname()}/{uuid if uuid is not None else dev.index}"
+
+
 def _abort_default_group() -> None:
     """Abort the default group's communicators, then destroy the group:
     a peer of that world may be dead, and an orderly destroy would wait
@@ -152,6 +206,9 @@ class TorchDataPlane:
         self._formed_epoch: Optional[int] = None
         self._group: Optional[dist.ProcessGroup] = None
         self._device: Optional[torch.device] = None
+        # the card of the first formation (card_index), kept for the
+        # process's life
+        self._card: Optional[torch.device] = None
         self._groups = None
         self._rank = 0
         self._world = 1
@@ -255,9 +312,13 @@ class TorchDataPlane:
                 "rabit_tpu_torch.tracker)")
         dev = self._device_spec
         if dev.type == "cuda":
-            # one rank a card (NCCL refuses two on one device); ranks are
-            # stable across respawns, so is the card
-            dev = torch.device("cuda", self._rank % torch.cuda.device_count())
+            # one rank a card (NCCL refuses two on one device), picked at
+            # the first formation and kept: a later formation's rank is a
+            # dense slot that an elastic resize moves (module docstring)
+            if self._card is None:
+                self._card = torch.device("cuda", card_index(
+                    self._rank, torch.cuda.device_count()))
+            dev = self._card
             torch.cuda.set_device(dev)
             backend, kwargs = "nccl", {"device_id": dev}
         else:
@@ -265,6 +326,9 @@ class TorchDataPlane:
         store = dist.TCPStore(host, int(port), is_master=False,
                               timeout=self._timeout)
         key = f"rabit/e{epoch}/r{round_id}/a{attempt}"
+        if backend == "nccl":
+            check_distinct_cards(dist.PrefixStore(key, store), self._rank,
+                                 self._world, _card_name(dev))
         # torch names the default group by a counter that only a destroy
         # resets: a formation that failed on this rank alone (a store
         # timeout) would leave it ahead of the other ranks', and the next

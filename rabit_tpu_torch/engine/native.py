@@ -52,9 +52,20 @@ raises the native core's out-of-band
 interrupt (``RbtInterruptEx``), which bails a blocked socket collective
 out into the robust layer's global re-formation.
 
+Elastic membership (the JAX binding's ``resize`` and ``epoch_reset``,
+``native.py:476-506``, ``:760-795``): :meth:`NativeEngine.resize`
+re-registers with the tracker in the same process (``RbtResize``:
+``"recover"`` for a survivor of an eviction, ``"join"`` for an evicted
+rank coming back), under a watchdog guard ``engine.resize`` with the
+ladder's hooks and a span of the same name; the data plane's next
+collective forms its world at the new epoch and size. Then
+:meth:`NativeEngine.epoch_reset` drops what the old world left behind.
+``rabit_elastic`` is accepted at init, as the JAX engine accepts it: the
+launcher and the tracker act on it (``tracker/membership.py``).
+
 Not ported yet, and refused at init when configured: the hot standby
 (``rabit_tracker_standby``) -- ``base.refuse_unported``, shared with
-``TorchEngine`` -- and ``resize`` (elastic membership).
+``TorchEngine``.
 """
 
 from __future__ import annotations
@@ -68,8 +79,8 @@ import numpy as np
 
 from . import ckpt_store
 from ._native_build import library
-from .base import (Engine, EnvExports, export_skew, refuse_unported,
-                   start_live_plane)
+from .base import (Engine, EnvExports, export_skew, note_identity,
+                   refuse_unported, start_live_plane)
 from .. import telemetry
 from ..ops.reducers import DTYPE_ENUM, MAX, MIN, OP_NAMES
 from ..telemetry import events
@@ -122,6 +133,9 @@ def _load() -> ctypes.CDLL:
     lib.RbtInterruptEx.argtypes = [ctypes.c_char_p]
     lib.RbtInterruptEx.restype = ctypes.c_int
     lib.RbtInterruptReason.restype = ctypes.c_char_p
+    # in-process re-registration (elastic membership): "recover" / "join"
+    lib.RbtResize.argtypes = [ctypes.c_char_p]
+    lib.RbtResize.restype = ctypes.c_int
     return lib
 
 
@@ -200,6 +214,12 @@ class NativeEngine(Engine):
             # advertises data-plane need so the tracker hosts the
             # epoch's rendezvous store
             argv.append("rabit_dataplane=torch")
+        port = cfg.get("rabit_slave_port")
+        if port is not None and \
+                not any(a.startswith("rabit_slave_port=") for a in argv):
+            # the core reads its link port from argv alone: the env's
+            # (RABIT_SLAVE_PORT, set by the port's launcher) goes there
+            argv.append(f"rabit_slave_port={port}")
         try:
             if kind == "torch":
                 # validated before any rendezvous: a typo must fail here,
@@ -245,6 +265,8 @@ class NativeEngine(Engine):
         self._metrics_server = start_live_plane(
             cfg, self.rank, self.world_size, self._live_gauges,
             announce=self.is_distributed)
+        if self.is_distributed:
+            note_identity(self.rank)
         ckpt_dir = cfg.get("rabit_ckpt_dir")
         if ckpt_dir:
             self._store = ckpt_store.CheckpointStore(
@@ -368,21 +390,35 @@ class NativeEngine(Engine):
         self._dataplane.on_world_reformed = fn
 
     def epoch_reset(self, world: int) -> None:
-        """Drop everything keyed on the old world size: the exported host
-        grouping's parsed form, the dispatch table cache and the skew
-        plane's agreed digest and dispatch counter; pin the newest
-        checkpoint against pruning until the new world commits its own
-        and seed a re-admitted rank's store from its siblings'."""
+        """The elastic-membership epoch hook: the tracker re-formed the
+        world at a new size, so drop everything keyed on the old one --
+        the exported host grouping (its ranks are old-world names), the
+        dispatch table cache, the skew plane's agreed digest and dispatch
+        counter, the membership monitor's formed baseline -- pin the
+        newest old-world checkpoint against pruning until the resized
+        world commits its own, and seed a re-admitted rank's store from
+        its siblings' durable shards. Counts ``membership.epoch_reset``,
+        records a zero-length ``membership.transition`` span, leaves a
+        flight note and emits the event."""
         from ..parallel import dispatch as _dispatch
         from ..parallel import topology as _topology
+        from ..telemetry import flight as _fl
         from ..telemetry import skew as _skew
+        from ..tracker import membership as _membership
         world = int(world)
         _topology.epoch_reset(world)
         _dispatch.epoch_reset(world)
         _skew.epoch_reset(world)
+        _membership.epoch_reset(world)
         if self._store is not None:
             self._store.protect_current()
             self._store.adopt_latest_from_peers()
+        telemetry.count("membership.epoch_reset", provenance="membership")
+        telemetry.record_span("membership.transition", 0.0, op="resize",
+                              provenance="membership", world=world)
+        _fl.note("member_resize", f"world resized to {world}")
+        events.emit("membership.epoch_reset", f"world resized to {world}",
+                    rank=self.rank)
 
     def _drain_recovery_stats(self) -> None:
         """Diff the native recovery counters against the last drain and
@@ -639,6 +675,36 @@ class NativeEngine(Engine):
                 # same signal as the Python-side engines (base.py)
                 raise NotImplementedError(str(e)) from None
             raise
+
+    def resize(self, cmd: str = "recover") -> None:
+        """In-process world resize: re-register with the tracker and
+        rebuild the native link topology (``RbtResize`` ->
+        ``ReconnectLinks``; the data plane drops its world at the new
+        epoch and forms the next one at its first collective), then run
+        :meth:`epoch_reset` -- so a shrink or a grow never spends a
+        respawn. The rank and world size this engine reports may both
+        change; recovery state keyed on the old world is reset in C++,
+        while checkpoints and the version counter survive."""
+        if cmd not in ("recover", "join"):
+            raise ValueError(f"resize cmd must be 'recover' or 'join', "
+                             f"got {cmd!r}")
+        from ..telemetry import flight as _fl
+        old_world = self.world_size
+        with self._watchdog.guard("engine.resize",
+                                  on_expire=self._rung_retry,
+                                  on_reform=self._rung_reform), \
+                telemetry.span("engine.resize", op=cmd,
+                               provenance="membership"):
+            self._check(self._lib.RbtResize(cmd.encode()), "resize")
+        self._drain_recovery_stats()
+        world = self.world_size
+        log.set_identity(self.rank, world)
+        if self.is_distributed:
+            note_identity(self.rank)   # the new epoch may have renamed it
+        self.epoch_reset(world)
+        _fl.note("native_resize",
+                 f"{cmd}: world {old_world} -> {world} "
+                 f"(rank {self.rank}, epoch {self.world_epoch})")
 
     @property
     def rank(self) -> int:

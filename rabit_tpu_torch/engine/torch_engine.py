@@ -107,7 +107,7 @@ import torch.distributed as dist
 
 from . import ckpt_store
 from .base import (AllreduceHandle, Engine, EnvExports, export_skew,
-                   refuse_unported, start_live_plane)
+                   note_identity, refuse_unported, start_live_plane)
 from .. import telemetry
 from ..convert import numpy_from_tensor, tensor_from_numpy
 from ..ops.reducers import MAX, MIN, OP_NAMES
@@ -230,6 +230,8 @@ class TorchEngine(Engine):
         self._metrics_server = start_live_plane(
             cfg, self._rank, self._world, self._live_gauges,
             announce=self._world > 1)
+        if self._world > 1:
+            note_identity(self._rank)
 
     def _live_gauges(self) -> list:
         """The watchdog's expiries and this rank's SLO burn on
@@ -256,6 +258,40 @@ class TorchEngine(Engine):
         topology.epoch_reset(self._world)
         dispatch.epoch_reset(self._world)
         _skew.epoch_reset(self._world)
+
+    def epoch_reset(self, world: int) -> None:
+        """The elastic-membership epoch hook (``XlaEngine.epoch_reset``):
+        adopt a resized world and drop every piece of state derived from
+        the old one. For this engine a resize always arrives through a
+        fresh process group (the group is bound to its members for its
+        life), so the hook's job is the state that OUTLIVES the group:
+        the host grouping, the skew plane's agreed digest and dispatch
+        counter, the dispatch table cache, the membership monitor's
+        formed baseline, and the checkpoint store -- whose newest
+        old-world version is pinned against pruning until the new world
+        commits its first checkpoint, and which a re-admitted joiner
+        seeds from its siblings' durable shards. Counts
+        ``membership.epoch_reset``, records a zero-length
+        ``membership.transition`` span, leaves a flight note and emits
+        the event."""
+        from ..telemetry import flight as _fl
+        from ..tracker import membership as _membership
+        world = int(world)
+        old, self._world = self._world, world
+        self._epoch_reset()
+        _membership.epoch_reset(world)
+        self._groups = topology.resolve_groups(world)
+        log.set_identity(self._rank, world)
+        if self._store is not None:
+            self._store.protect_current()
+            self._store.adopt_latest_from_peers()
+        telemetry.count("membership.epoch_reset", provenance="membership")
+        telemetry.record_span("membership.transition", 0.0, op="resize",
+                              provenance="membership", old_world=old,
+                              world=world)
+        _fl.note("member_resize", f"world {old} -> {world}")
+        events.emit("membership.epoch_reset", f"world {old} -> {world}",
+                    rank=self._rank)
 
     def shutdown(self) -> None:
         try:

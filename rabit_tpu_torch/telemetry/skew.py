@@ -44,8 +44,9 @@ all.
 
 Not ported yet: the poller's failover to a hot standby
 (``rabit_tracker_standby``, which the engines refuse) and the
-``resume`` half of its reconnect (elastic membership); its reconnect
-re-announces the metrics endpoint (``live.reannounce``).
+``resume`` half of its reconnect (``membership.present_resume``, whose
+``resume`` command comes with the tracker's write-ahead log); its
+reconnect re-announces the metrics endpoint (``live.reannounce``).
 """
 
 from __future__ import annotations

@@ -9,21 +9,34 @@ Where the JAX package's tracker hosts a JAX coordination service for an
 epoch whose workers register a data plane, this one hosts a
 ``torch.distributed.TCPStore``: the rendezvous of that epoch's torch world
 (``engine/dataplane.py``). It lives in the tracker process, so it
-outlives any worker, and it is reaped once every member of a newer epoch
-has acked its assignment (no worker holds a client of an older one by
-then: the data plane drops its world before acking).
+outlives any worker. A store is reaped once a newer epoch has been acked
+by every member and every member of the store's own epoch has acked a
+newer one: the data plane drops its world before it acks, so no client
+of the store is left then. A member evicted while its process lives on
+(the in-process ``resize("join")``) still holds its old world until its
+own re-registration tears it down, so its epoch's store stays until it
+has acked a newer epoch.
 
 Wire protocol (binary, little-endian, length-prefixed strings):
   worker -> tracker: magic u32 0x52425401, cmd str, task_id str,
                      num_attempt u32
-    start/recover: + host str, listen_port u32, flags u32 (bit 0: the
-                   worker will register a data plane — the tracker hosts
-                   the epoch's store), uds_token str (random name of the
-                   worker's abstract-UDS listener twin; "" = TCP-only)
+    start/recover/join: + host str, listen_port u32, flags u32 (bit 0:
+                   the worker will register a data plane — the tracker
+                   hosts the epoch's store), uds_token str (random name
+                   of the worker's abstract-UDS listener twin; "" =
+                   TCP-only); ``join`` parks the worker until the next
+                   epoch boundary (elastic only; otherwise a plain
+                   registration)
     print:         + msg str
     topo:          (no extra fields) tracker -> worker: a JSON str
                    {"epoch","groups","delegates","single_host"} of the
                    host topology at the last assignment ("{}" before it)
+    world:         (no extra fields) tracker -> worker: a JSON str, the
+                   membership doc (``membership.MembershipView.doc``; a
+                   static fixed-world doc when elastic is off)
+    evict:         + JSON str {"rank","reason"}; tracker -> worker: u32 1
+                   when the rank left the job, 0 otherwise (elastic off,
+                   out of range, already out)
     metrics:       + summary str (a rank's ``telemetry_summary`` JSON,
                    ``telemetry.ship_to_tracker``), kept by task id;
                    tracker -> worker: u32 1 (0 for a payload that is not
@@ -35,7 +48,7 @@ Wire protocol (binary, little-endian, length-prefixed strings):
                    fleet skew digest {"epoch","offsets_ms","laggard"}
                    ("{}" before the poll loop's first election)
     shutdown:      (no extra fields) tracker -> worker: u32 1
-  tracker -> worker (start/recover): rank u32, world u32, epoch u32,
+  tracker -> worker (start/recover/join): rank u32, world u32, epoch u32,
     coord_host str, coord_port u32 (this epoch's store; ""/0 when none is
     hosted), single_host u32, parent u32 (0xFFFFFFFF = none), ntree u32 +
     tree neighbor ranks, ring_prev u32, ring_next u32, nconnect u32 +
@@ -46,19 +59,39 @@ The epoch counts completed registration batches: every live worker
 re-registers in the same batch during recovery, so all members of a
 batch observe the same epoch.
 
-At the end of the run (every rank sent ``shutdown``, or the launcher's
-``print_fleet_metrics`` once its workers have exited, for engines such
-as ``TorchEngine`` that do not register) the tracker merges the
-summaries it received (``merged_metrics``, the port's
+Elastic membership (``elastic``, else ``RABIT_ELASTIC``; off by default,
+and then every byte on the wire is as without it): one
+``membership.MembershipView`` on the tracker, mutated under the
+tracker's lock. A batch forms once every EXPECTED rank is pending (the
+survivors of the last formed world plus the parked joiners), so an
+eviction (the ``evict`` command, or the poll loop's evidence: an
+endpoint that answered before and stayed silent for
+``membership.EVICT_POLL_MISSES`` sweeps) completes a batch of survivors
+at once; the assignment's ``rank`` is the member's dense slot
+(``membership.dense_slots``) and ``world`` the batch's size. A new task
+id arriving when the target world is full adopts the lowest evicted
+stable rank; a joiner (``join``, an evicted rank, or a rank outside the
+live set) is parked until the next epoch boundary and bounced after
+``rabit_join_grace_ms`` (its connection thread waits on the tracker's
+condition). Every transition counts ``membership.<kind>``, records a
+zero-length ``membership.transition`` span, leaves a flight note and
+emits a ``membership.evict``/``membership.admit`` event (the JAX
+tracker's ``_note_transition``); ``/metrics`` adds ``rabit_world_size``,
+``rabit_member_evictions_total`` and ``rabit_member_admissions_total``.
+
+At the end of the run (every live rank sent ``shutdown``, or the
+launcher's ``print_fleet_metrics`` once its workers have exited, for
+engines such as ``TorchEngine`` that do not register) the tracker merges
+the summaries it received (``merged_metrics``, the port's
 ``telemetry.aggregate``) and prints the fleet table, once.
 
 The live plane (``metrics_port``, else ``RABIT_METRICS_PORT``; off when
 neither is set, 0 picks a free port): a ``telemetry.live.MetricsServer``
 serves ``/metrics`` (every polled rank's counters, labelled by rank,
 and the tracker's gauges: endpoints, poll sweeps, the host topology,
-the straggler and the skew digest), ``/healthz``, ``/summary`` (the
-merged fleet document), ``/straggler`` and ``/slo``; a poll thread
-scrapes each announced endpoint's ``/summary`` every
+the straggler, the skew digest and, elastic, the membership), ``/healthz``,
+``/summary`` (the merged fleet document), ``/straggler`` and ``/slo``; a
+poll thread scrapes each announced endpoint's ``/summary`` every
 ``RABIT_METRICS_POLL_MS`` (``live.poll_interval_s``) into the same
 per-task dict the end-of-run merge reads, builds
 ``crossrank.straggler_snapshot`` from it, folds the snapshot's digest
@@ -68,12 +101,12 @@ someone is behind (the JAX tracker's single-job poll loop,
 ``tracker.py:1785-1866``).
 
 Any other command closes the connection. Not ported yet (the JAX
-package's tracker has them): the write-ahead log and resume, the hot
-standby, multi-job, elastic membership and with it the poll loop's
-eviction of a silent endpoint and its resume grace, the ``join``/
-``resume``/``evict``/``repl``/``submit``/``world`` commands, the folding
-of the summaries' events into a fleet event log with ``/events`` and the
-incident plane with ``/incidents``, and chaos link rewrites.
+package's tracker has them): the write-ahead log and resume (with the
+poll loop's resume grace and the ``resume`` command), the hot standby
+(``repl``), multi-job (``submit``, the per-job state) with the
+autoscaler, the folding of the summaries' events into a fleet event log
+with ``/events`` and the incident plane with ``/incidents``, and chaos
+link rewrites.
 """
 
 from __future__ import annotations
@@ -88,6 +121,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from . import membership as _membership
 from ..telemetry.aggregate import format_fleet_table, merge_summaries
 
 MAGIC = 0x52425401
@@ -160,7 +194,8 @@ def _default_ready_timeout() -> float:
 class Tracker:
     def __init__(self, nworkers: int, host: str = "127.0.0.1", port: int = 0,
                  ready_timeout: Optional[float] = None,
-                 metrics_port: Optional[int] = None):
+                 metrics_port: Optional[int] = None,
+                 elastic: Optional[bool] = None):
         self.nworkers = nworkers
         self.sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -170,6 +205,9 @@ class Tracker:
         self._ready_timeout = (ready_timeout if ready_timeout is not None
                                else _default_ready_timeout())
         self._lock = threading.Lock()
+        # the condition a parked joiner's connection thread waits on: a
+        # formation, an eviction and stop() notify it
+        self._cv = threading.Condition(self._lock)
         self._done = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.messages: List[str] = []
@@ -178,7 +216,16 @@ class Tracker:
         self._epoch = 0
         self._shutdown_ranks: set = set()
         self._topo: dict = {}
-        self._stores: List[tuple] = []   # (epoch, TCPStore)
+        self._stores: List[tuple] = []   # (epoch, TCPStore, members)
+        # stable rank -> the newest epoch it acked (the store reaping)
+        self._acked: Dict[int, int] = {}
+        # elastic membership (off unless asked for, or RABIT_ELASTIC):
+        # with it off every batch is the full fixed world
+        if elastic is None:
+            elastic = _membership.elastic_enabled()
+        self.elastic = bool(elastic)
+        self._member = (_membership.MembershipView(nworkers)
+                        if self.elastic else None)
         self._metrics: Dict[str, dict] = {}   # task id -> its summary
         self._fleet_printed = False
         # the live plane (off unless a metrics port is configured):
@@ -193,6 +240,8 @@ class Tracker:
         self._poll_stop = threading.Event()
         self._poll_count = 0                   # completed poll sweeps
         self._endpoints: Dict[str, dict] = {}  # task id -> host, port, rank
+        # task id -> consecutive failed scrapes (the poll loop's eviction)
+        self._endpoint_misses: Dict[str, int] = {}
         self._skew: dict = {}                  # the served skew digest
         self._skew_election = None             # skew.FleetElection
         self._last_straggler: Optional[dict] = None
@@ -218,12 +267,13 @@ class Tracker:
             self.sock.close()
         except OSError:
             pass
-        with self._lock:
+        with self._cv:
             pending = [p[0] for p in self._pending.values()]
             self._pending.clear()
             # workers have exited (or been killed) by now: no live client
             # is left on these stores
             self._stores = []
+            self._cv.notify_all()   # parked joiners stop waiting
         for conn in pending:
             conn.close()
 
@@ -268,13 +318,14 @@ class Tracker:
             cmd = _recv_str(conn)
             task_id = _recv_str(conn)
             _recv_u32(conn)   # num_attempt (informational)
-            if cmd in ("start", "recover"):
+            if cmd in ("start", "recover", "join"):
                 host = _recv_str(conn)
                 port = _recv_u32(conn)
                 flags = _recv_u32(conn)
                 token = _recv_str(conn)
                 conn.settimeout(None)
-                self._register(conn, task_id, host, port, flags, token)
+                self._register(conn, task_id, host, port, flags, token,
+                               join=cmd == "join")
             elif cmd == "print":
                 msg = _recv_str(conn)
                 self.messages.append(msg)
@@ -295,7 +346,11 @@ class Tracker:
                     rank = self._ranks.get(task_id)
                     if rank is not None:
                         self._shutdown_ranks.add(rank)
-                    all_down = len(self._shutdown_ranks) >= self.nworkers
+                    if self.elastic and self._member.live:
+                        # evicted ranks never send shutdown
+                        all_down = self._member.live <= self._shutdown_ranks
+                    else:
+                        all_down = len(self._shutdown_ranks) >= self.nworkers
                 self._reply_u32(conn, 1)
                 if all_down:
                     self.print_fleet_metrics()
@@ -313,13 +368,29 @@ class Tracker:
                             "host": str(doc["host"]),
                             "port": int(doc["port"]),
                             "rank": int(doc.get("rank", -1))}
+                        # a (re-)announce is proof of life: no earlier
+                        # misses count toward an eviction
+                        self._endpoint_misses[task_id] = 0
+                self._reply_u32(conn, 1 if ok else 0)
+            elif cmd == "world":
+                self._reply_json(conn, self.membership_doc())
+            elif cmd == "evict":
+                try:
+                    doc = json.loads(_recv_str(conn))
+                except ValueError:
+                    doc = None
+                ok = False
+                if isinstance(doc, dict) and doc.get("rank") is not None:
+                    try:
+                        ok = self.evict_rank(int(doc["rank"]),
+                                             str(doc.get("reason", "")))
+                    except (TypeError, ValueError):
+                        ok = False
                 self._reply_u32(conn, 1 if ok else 0)
             elif cmd in ("topo", "skew"):
                 with self._lock:
                     doc = dict(self._topo if cmd == "topo" else self._skew)
-                b = json.dumps(doc).encode()
-                conn.sendall(struct.pack("<I", len(b)) + b)
-                conn.close()
+                self._reply_json(conn, doc)
             else:
                 conn.close()
         except (ConnectionError, OSError, struct.error, UnicodeDecodeError):
@@ -367,6 +438,9 @@ class Tracker:
             nend, polls = len(self._endpoints), self._poll_count
             topo, skew = dict(self._topo), dict(self._skew)
             strag = self._last_straggler
+            m = self._member
+            member = (None if m is None
+                      else (m.world(), m.evictions, m.admissions))
         gauges = [
             ("rabit_tracker_endpoints",
              "Worker metrics endpoints known to the tracker.", "gauge",
@@ -374,6 +448,22 @@ class Tracker:
             ("rabit_tracker_polls_total", "Completed endpoint poll sweeps.",
              "counter", [({}, polls)]),
         ]
+        if member is not None:
+            world, evictions, admissions = member
+            gauges.append((
+                "rabit_world_size",
+                "Live world size of the current membership epoch "
+                "(elastic jobs shrink below the launch target and "
+                "grow back on re-admission).", "gauge", [({}, world)]))
+            gauges.append((
+                "rabit_member_evictions_total",
+                "Ranks evicted from the live job (watchdog/poll "
+                "evidence or the evict command).", "counter",
+                [({}, evictions)]))
+            gauges.append((
+                "rabit_member_admissions_total",
+                "Parked joiners admitted at an epoch boundary.",
+                "counter", [({}, admissions)]))
         if topo.get("groups"):
             sizes = [len(g) for g in topo["groups"]]
             gauges.append((
@@ -442,6 +532,24 @@ class Tracker:
                 if doc is not None:
                     with self._lock:
                         self._metrics[tid] = doc
+                        self._endpoint_misses[tid] = 0
+                    continue
+                # an endpoint that HAS answered before and now stays
+                # silent for several sweeps is, to the fleet, a dead rank:
+                # in an elastic world that is grounds for eviction (the
+                # watchdog catches the same failure from the inside; this
+                # catches a process that is unreachable rather than dead)
+                with self._lock:
+                    seen_before = tid in self._metrics
+                    misses = self._endpoint_misses.get(tid, 0) + 1
+                    self._endpoint_misses[tid] = misses
+                    rank = self._ranks.get(tid)
+                    live_rank = (self.elastic and rank is not None
+                                 and rank in self._member.live)
+                if seen_before and live_rank and \
+                        misses >= _membership.EVICT_POLL_MISSES:
+                    self.evict_rank(
+                        rank, f"endpoint silent for {misses} polls")
             with self._lock:
                 summaries = dict(self._metrics)
             strag = crossrank.straggler_snapshot(summaries)
@@ -509,60 +617,200 @@ class Tracker:
         conn.sendall(struct.pack("<I", v))
         conn.close()
 
+    @staticmethod
+    def _reply_json(conn: socket.socket, doc: dict) -> None:
+        b = json.dumps(doc).encode()
+        conn.sendall(struct.pack("<I", len(b)) + b)
+        conn.close()
+
     def _register(self, conn, task_id: str, host: str, port: int,
-                  flags: int, token: str) -> None:
-        batch = None
-        with self._lock:
+                  flags: int, token: str, join: bool = False) -> None:
+        """Park the registration in ``_pending``; whichever registration
+        (or eviction) completes the batch serves everyone via
+        ``_assign``. A parked joiner's thread waits on the condition
+        until a formation adopts it, or bounces it after
+        ``rabit_join_grace_ms`` (the joiner retries)."""
+        grace_s: Optional[float] = None
+        with self._cv:
             if task_id not in self._ranks:
-                self._ranks[task_id] = len(self._ranks)
+                rank = len(self._ranks)
+                if self.elastic and rank >= self.nworkers \
+                        and self._member.evicted:
+                    # replacement hardware arrives under a NEW task id:
+                    # it adopts the lowest vacated stable rank, so the
+                    # world can grow back to its target (and the newcomer
+                    # inherits that rank's checkpoint shard directory)
+                    rank = min(self._member.evicted)
+                self._ranks[task_id] = rank
             rank = self._ranks[task_id]
             if rank >= self.nworkers:
                 conn.close()
                 return
+            if self.elastic:
+                m = self._member
+                if join or rank in m.evicted or \
+                        (m.live and rank not in m.live):
+                    # (re-)admission: parked until the epoch boundary; a
+                    # joiner never perturbs a world in flight
+                    m.park(rank)
+                    grace_s = _membership.join_grace_ms() / 1e3 or None
             self._shutdown_ranks.discard(rank)
             prev = self._pending.get(rank)
             self._pending[rank] = (conn, host, port, flags, token)
-            if set(range(self.nworkers)) <= set(self._pending):
-                batch = {r: self._pending.pop(r)
-                         for r in range(self.nworkers)}
-                self._epoch += 1
-                epoch = self._epoch
+            got = self._try_complete_batch_locked()
         if prev is not None and prev[0] is not conn:
             # a re-registration superseded a still-parked connection
             prev[0].close()
-        if batch is not None:
-            self._assign(batch, epoch)
+        if got is not None:
+            self._assign(*got)
+            return
+        if grace_s is not None:
+            self._park_joiner(conn, rank, grace_s)
+
+    def _park_joiner(self, conn, rank: int, grace_s: float) -> None:
+        """Hold a parked joiner's connection until a formation adopts it
+        (or a re-registration supersedes it); after ``grace_s`` close it
+        rather than hold the socket open forever."""
+        deadline = time.monotonic() + grace_s
+        with self._cv:
+            while True:
+                pend = self._pending.get(rank)
+                if pend is None or pend[0] is not conn:
+                    return   # adopted (or superseded) in time
+                left = deadline - time.monotonic()
+                if left <= 0 or self._done.is_set():
+                    break
+                self._cv.wait(left)
+            del self._pending[rank]
+        conn.close()
+
+    def _expected_ranks(self) -> set:
+        """Ranks the current registration batch must contain before it
+        forms (caller holds the lock): the fixed world, or, elastic, the
+        survivors of the last formed world plus the parked joiners."""
+        if self.elastic:
+            return self._member.expected()
+        return set(range(self.nworkers))
+
+    def _try_complete_batch_locked(self) -> Optional[tuple]:
+        """``(batch, epoch, admitted)`` when every expected rank is
+        pending, else None. Caller holds the lock and, on success, runs
+        ``_assign`` outside it. An eviction can complete a batch too:
+        survivors re-register and wait for a dead rank until it leaves
+        the expected set."""
+        expected = self._expected_ranks()
+        if not expected or not expected <= set(self._pending):
+            return None
+        batch = {r: self._pending.pop(r) for r in sorted(expected)}
+        self._epoch += 1
+        admitted = (sorted(self._member.formed(batch)) if self.elastic
+                    else [])
+        self._cv.notify_all()
+        return batch, self._epoch, admitted
+
+    # -- elastic membership ---------------------------------------------------
+    def membership_doc(self) -> dict:
+        """The ``world`` command's payload: the live membership view, or
+        a static fixed-world doc when elastic is off (so the command
+        always answers: a worker probing an inelastic tracker learns the
+        world is fixed rather than timing out)."""
+        with self._lock:
+            if self.elastic:
+                return self._member.doc(self._epoch)
+            return {"epoch": self._epoch, "world": self.nworkers,
+                    "target": self.nworkers,
+                    "live": list(range(self.nworkers)), "evicted": [],
+                    "joining": [], "generation": 0, "elastic": False}
+
+    def _note_transition(self, kind: str, rank: int, detail: str) -> None:
+        """Make a membership transition observable: a counter, a
+        zero-length ``membership.transition`` span, a flight note naming
+        the rank (a post-mortem bundle shows WHY the world resized) and a
+        fleet event."""
+        from .. import telemetry
+        from ..telemetry import events, flight
+        telemetry.count(f"membership.{kind}", provenance="membership")
+        telemetry.record_span("membership.transition", 0.0, op=kind,
+                              provenance="membership", rank=rank,
+                              detail=detail)
+        flight.note(f"member_{kind}", f"rank {rank}: {detail}")
+        events.emit(f"membership.{kind}", detail, rank=rank)
+        print(f"[tracker] membership: {kind} rank {rank} ({detail})",
+              file=sys.stderr, flush=True)
+
+    def evict_rank(self, rank: int, reason: str = "") -> bool:
+        """Evict ``rank`` from the live job (the ``evict`` command, or
+        the poll loop's silent-endpoint evidence). The rank leaves the
+        expected set at once, so survivors already waiting in
+        re-registration form their N-1 batch now instead of waiting out
+        the ready timeout on a dead peer. False unless elastic, in range
+        and not already out."""
+        if not self.elastic or not 0 <= int(rank) < self.nworkers:
+            return False
+        rank = int(rank)
+        with self._cv:
+            if not self._member.evict(rank):
+                return False
+            pend = self._pending.pop(rank, None)
+            got = self._try_complete_batch_locked()
+            self._cv.notify_all()
+        self._note_transition("evict", rank, reason or "evicted")
+        if pend is not None:
+            pend[0].close()
+        if got is not None:
+            self._assign(*got)
+        return True
 
     # -- the epoch's rendezvous store -----------------------------------------
-    def _new_store(self, epoch: int) -> Tuple[str, int]:
-        """Start this epoch's rendezvous store on a fresh port."""
+    def _new_store(self, epoch: int, members) -> Tuple[str, int]:
+        """Start this epoch's rendezvous store on a fresh port;
+        ``members`` are the stable ranks of the epoch's batch."""
         import torch.distributed as dist
         store = dist.TCPStore(self.host, 0, is_master=True,
                               wait_for_workers=False,
                               timeout=datetime.timedelta(seconds=300))
         with self._lock:
-            self._stores.append((epoch, store))
+            self._stores.append((epoch, store, frozenset(members)))
         return self.host, store.port
 
     def _reap_old_stores(self, acked_epoch: int) -> None:
-        """Drop the stores older than the epoch whose members ALL acked:
-        the teardown-before-ack contract guarantees no live client of an
-        older epoch exists. Keeps the store count bounded whatever the
-        number of recoveries."""
+        """Once every member of ``acked_epoch`` acked it, drop each older
+        store whose members have all acked a newer epoch: a worker drops
+        its torch world before it acks (the data plane's teardown
+        sentinel), so no client of such a store is left. A member evicted
+        while its process lives on (the in-process ``resize("join")``)
+        keeps the world of its last epoch, and with it a client of that
+        epoch's store, until its own re-registration tears the world
+        down; so that store stays until the member has acked a newer
+        epoch. In a fixed world every batch holds every rank, and this
+        drops every store older than ``acked_epoch``. Keeps the store
+        count bounded whatever the number of recoveries."""
         with self._lock:
-            self._stores = [(e, s) for e, s in self._stores
-                            if e >= acked_epoch]
+            self._stores = [
+                (e, st, members) for e, st, members in self._stores
+                if e >= acked_epoch or
+                any(self._acked.get(r, 0) <= e for r in members)]
 
-    def _assign(self, batch: Dict[int, tuple], epoch: int) -> None:
-        world = self.nworkers
-        conns = {r: c for r, (c, h, p, f, tok) in batch.items()}
-        addr = {r: (h, p, tok) for r, (c, h, p, f, tok) in batch.items()}
+    def _assign(self, batch: Dict[int, tuple], epoch: int,
+                admitted=()) -> None:
+        for r in admitted:
+            self._note_transition("admit", r, f"joined at epoch {epoch}")
+        # an elastic world may be holey in STABLE rank space (rank 1 of
+        # {0, 2, 3} is gone): the schedules are built over dense SLOTS,
+        # and the wire's rank carries the slot. A fixed world's batch is
+        # always the full range, so the map is the identity and nothing
+        # changes on the wire
+        world = len(batch)
+        slot_of = _membership.dense_slots(batch)
+        conns = {slot_of[r]: c for r, (c, h, p, f, tok) in batch.items()}
+        addr = {slot_of[r]: (h, p, tok)
+                for r, (c, h, p, f, tok) in batch.items()}
         # a store only for an epoch whose workers register a data plane
         want_store = any(f & FLAG_DATAPLANE
                          for (c, h, p, f, tok) in batch.values())
         try:
-            coord_host, coord_port = (self._new_store(epoch) if want_store
-                                      else ("", 0))
+            coord_host, coord_port = (self._new_store(epoch, batch)
+                                      if want_store else ("", 0))
         except (RuntimeError, OSError) as e:
             # a silent failure here would hang every worker in this batch;
             # closing their connections surfaces a registration error
@@ -584,7 +832,7 @@ class Tracker:
         by_host: Dict[str, List[int]] = {}
         for rank in sorted(batch):
             c, h, p, f, tok = batch[rank]
-            by_host.setdefault(_src_ip(c) or h, []).append(rank)
+            by_host.setdefault(_src_ip(c) or h, []).append(slot_of[rank])
         groups = list(by_host.values())
         with self._lock:
             self._topo = {"epoch": epoch, "groups": groups,
@@ -628,20 +876,26 @@ class Tracker:
                 print(f"[tracker] rank {rank} lost before its epoch "
                       f"{epoch} assignment ({e})", file=sys.stderr,
                       flush=True)
-        threading.Thread(target=self._await_acks, args=(conns, epoch),
-                         daemon=True).start()
+        stable = {s: r for r, s in slot_of.items()}
+        threading.Thread(target=self._await_acks,
+                         args=(conns, epoch, stable), daemon=True).start()
 
-    def _await_acks(self, conns: Dict[int, socket.socket],
-                    epoch: int) -> None:
-        """The ready-ack barrier. A worker dying before its ack is logged:
-        the epoch still completes (the dead worker re-registers into the
-        next one after its respawn), but no store is reaped on it."""
+    def _await_acks(self, conns: Dict[int, socket.socket], epoch: int,
+                    stable: Dict[int, int]) -> None:
+        """The ready-ack barrier (``conns`` by slot, ``stable`` maps a
+        slot to its stable rank). A worker dying before its ack is
+        logged: the epoch still completes (the dead worker re-registers
+        into the next one after its respawn), but no store is reaped on
+        it."""
         deadline = time.monotonic() + self._ready_timeout
         all_acked = True
         for rank, conn in sorted(conns.items()):
             try:
                 conn.settimeout(max(0.0, deadline - time.monotonic()))
                 _recv_all(conn, 4)
+                with self._lock:
+                    self._acked[stable[rank]] = max(
+                        epoch, self._acked.get(stable[rank], 0))
             except (ConnectionError, OSError) as e:
                 all_acked = False
                 print(f"[tracker] rank {rank} did not ack epoch {epoch} "

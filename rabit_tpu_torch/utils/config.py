@@ -5,7 +5,9 @@ B/K/M/G size-suffix parsing (.cc:156-176) and the documented parameter set
 (doc/parameters.md:1-21).
 
 The port's own copy of ``rabit_tpu/utils/config.py``; it adds
-``RABIT_DEVICE`` (the torch engine's device) to the env list."""
+``RABIT_DEVICE`` (the torch engine's device) and ``RABIT_SLAVE_PORT``
+(the native core's link port, which the port's launcher sets) to the env
+list."""
 
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ ENV_VARS = [
     "RABIT_NUM_TRIAL",
     "RABIT_BOOTSTRAP_CACHE",
     "RABIT_DEBUG",
+    "RABIT_SLAVE_PORT",
     "RABIT_DEVICE",
     "RABIT_ENGINE",
     "RABIT_DATAPLANE",

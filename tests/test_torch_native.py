@@ -196,7 +196,9 @@ def test_unported_knobs_raise_rather_than_be_ignored(tmp_path):
     (the engine serves its endpoint), the skew plane's
     ``rabit_skew_adapt`` (accepted at init), the watchdog's
     ``rabit_deadline_ms`` (the engine's watchdog carries it) and the
-    flight recorder's ``rabit_flight_dir`` (installed, with the rank)."""
+    flight recorder's ``rabit_flight_dir`` (installed, with the rank), and
+    elastic membership's ``rabit_elastic`` is accepted, as the JAX engine
+    accepts it (the launcher and the tracker act on it)."""
     from rabit_tpu_torch import telemetry
     from rabit_tpu_torch.telemetry import events, flight, profile
     rabit_tpu_torch.finalize()
@@ -204,9 +206,15 @@ def test_unported_knobs_raise_rather_than_be_ignored(tmp_path):
         rabit_tpu_torch.init(["rabit_tracker_standby=127.0.0.1:9"],
                              engine="robust")
     assert rabit_tpu_torch._engine is None
+    with pytest.raises(NotImplementedError, match="not ported"):
+        rabit_tpu_torch.init(["rabit_elastic=1",
+                              "rabit_tracker_standby=127.0.0.1:9"],
+                             engine="robust")
+    assert rabit_tpu_torch._engine is None
     knobs = ["rabit_telemetry=1", "rabit_profile=1", "rabit_events=1",
              "rabit_metrics_port=0", "rabit_skew_adapt=1",
-             "rabit_deadline_ms=500", f"rabit_flight_dir={tmp_path}"]
+             "rabit_deadline_ms=500", f"rabit_flight_dir={tmp_path}",
+             "rabit_elastic=1"]
     try:
         rabit_tpu_torch.init(knobs, engine="robust")
         eng = rabit_tpu_torch._engine
