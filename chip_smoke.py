@@ -6,8 +6,9 @@ bucketed and overlapped train steps of the flagship and the MLP, the
 parallelism families (sequence parallelism, the pipeline, the MoE, the
 multichip dryrun), the telemetry and profiling plane, the skew plane
 with the live plane that feeds it, the watchdog's ladder with the
-flight recorder and the overlap bench, and elastic membership with the
-in-process resize.
+flight recorder and the overlap bench, elastic membership with the
+in-process resize, and the tracker's write-ahead log with a world that
+keeps computing through a tracker crash.
 
     python3 chip_smoke.py
 
@@ -285,17 +286,48 @@ Phases (each prints a line; any failure exits non-zero):
                 from its join to the first POST collective, and of each
                 formation (``recovery.world_reform``). With fewer than
                 three cards it says that (b) did not run.
-18. kernels     one JSON line of every kernel with its main-path launches
+18. resume      the tracker's write-ahead log and resume
+                (``tracker/wal.py``, the tracker's journal, ``resume=True``
+                and the ``resume`` handshake, the launcher's supervisor):
+                ``python -m rabit_tpu_torch.tracker.wal --smoke``; then
+                ``tests/workers/torch_resume_worker.py`` under the port's
+                launcher (the robust engine, ``rabit_dataplane=torch``,
+                ``rabit_device=cuda``), 30 rounds 200 ms apart, each an
+                int64 allreduce of 256 and a histogram of 2^21 rows x 1024
+                bins built on the rank's card by the ``histogram`` kernel
+                (grad and hess integers in [-8, 8] from the seed and the
+                rank) and allreduced, once uninterrupted without a WAL and
+                once with ``RABIT_TRACKER_WAL_DIR``, the supervisor killing
+                the tracker once every rank has logged round 5 and resuming
+                it on the same port 1500 ms later: every round present and
+                bit for bit the uninterrupted run's, one restart, no
+                respawn, the kernel launched once a round, and ``resume``,
+                ``epoch``, ``topo`` and a ``down`` a rank that shut down in
+                the replayed journal; (a) at world 1 on card 0 (no
+                eviction, epoch 1 throughout); (b) with two cards or more,
+                at p = min(4, cards) with ``elastic=True``: after the
+                resume task 1 evicts itself at round 20 and leaves, the
+                survivors ``resize("recover")`` through the resumed
+                tracker, which hosts epoch 2's store, and stream the rest
+                at p - 1 (the one scripted eviction, epoch 2 at the end,
+                each process on one card, no worker left on a card). Each
+                part prints the outage as the workers saw it, the replay's
+                records and ms, the journal's ms, and epoch 1's ``init``
+                and formation s with the WAL off and on. With one card it
+                says that (b) did not run.
+19. kernels     one JSON line of every kernel with its main-path launches
                 (and, for the flash kernels, phase 12's and phase 13's; for
-                the histogram, phase 17 (b)'s, null where (b) did not run).
+                the histogram, phase 17 (b)'s, null where (b) did not run,
+                and phase 18's killed runs', (b)'s null where it did not
+                run).
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
 phase 6, each run of phase 12, each ring call of phase 13, in its rank's
 process, each run of phase 14 (b)) and read just after it, so a kernel's
 count is its own path's alone: mask_only's is the sweep's. Phase 11's
 histogram launches are counted in its workers, each a fresh process (so
-from 0), and printed there; phase 17's in its workers, a launch a
-round a member. The last line is the device JSON.
+from 0), and printed there; phases 17's and 18's in their workers, a
+launch a round a member. The last line is the device JSON.
 Without CUDA, or without the package beside this file, the script exits
 non-zero and prints no result.
 """
@@ -3667,6 +3699,261 @@ def phase_elastic(power: str) -> dict:
     return dict(res, world_one=one)
 
 
+# phase 18: the tracker's write-ahead log and resume. The worker of
+# tests/test_torch_resume.py at the headline histogram, as phase 17's
+RESUME_WORKER = Path(__file__).resolve().parent / "tests" / "workers" / \
+    "torch_resume_worker.py"
+RESUME_ROUNDS = 30
+RESUME_SLEEP_MS = 200
+RESUME_KILL_AFTER = 5     # the supervisor's kill once every rank has
+RESUME_OUTAGE_MS = 1500   # logged this round, and the outage it sets
+RESUME_SHRINK_AT = 20     # (b): task 1 leaves at this round
+RESUME_TIMEOUT_S = 300
+
+
+def _logged_round(out: Path, p: int) -> int:
+    """The least round every one of ``p`` tasks has logged (-1: none)."""
+    least = None
+    for t in range(p):
+        path = out / f"r{t}.log"
+        done = [int(m.group(1)) for m in re.finditer(
+            r"^round=(\d+) ", path.read_text() if path.exists() else "",
+            re.M)]
+        least = min(least if least is not None else 1 << 30,
+                    max(done, default=-1))
+    return -1 if least is None else least
+
+
+def _resume_run(p: int, tmp: Path, tag: str, wal: bool, elastic: bool,
+                device: str = "cuda", hist=RESIZE_HIST) -> tuple:
+    """The resume worker as ``p`` ranks under the port's launcher (the
+    robust engine, the torch data plane on ``device``); with ``wal`` the
+    tracker journals into a directory of its own and the supervisor kills
+    it once every rank has logged round ``RESUME_KILL_AFTER``, resuming it
+    ``RESUME_OUTAGE_MS`` later. ``elastic``: task 1 leaves at round
+    ``RESUME_SHRINK_AT`` and the survivors resize (after the resume, when
+    there is a kill). Each task's document, the launcher's stats and the
+    journal's directory."""
+    import os
+    from rabit_tpu_torch.tracker.launch import launch
+    from rabit_tpu_torch.tracker.wal import WAL_DIR_ENV
+    out = tmp / tag
+    out.mkdir()
+    env = {"RESUME_OUT": str(out), "RESUME_ROUNDS": str(RESUME_ROUNDS),
+           "RESUME_ROUND_SLEEP_MS": str(RESUME_SLEEP_MS),
+           "RESUME_HIST_ROWS": str(hist[0]),
+           "RESUME_HIST_BINS": str(hist[1]), "RESUME_SEED": str(RESIZE_SEED),
+           "RESUME_DEADLINE": str(RESUME_TIMEOUT_S - 60),
+           "RABIT_SKEW_POLL_MS": "200",
+           "PYTHONPATH": _stall_env()["PYTHONPATH"]}
+    resumed = out / "resumed"
+    if elastic:
+        env.update(RESUME_SHRINK_AT=str(RESUME_SHRINK_AT), KILL_TASK="1")
+        if wal:
+            env["RESUME_AWAIT"] = str(resumed)
+    def tick(sup):
+        if not wal or resumed.exists():
+            return
+        if not sup.killed_at:
+            if _logged_round(out, p) >= RESUME_KILL_AFTER:
+                sup.kill(RESUME_OUTAGE_MS)
+        elif sup.restarts:
+            resumed.write_text("1")
+
+    wal_dir = tmp / f"{tag}.wal"
+    old = os.environ.pop(WAL_DIR_ENV, None)
+    if wal:
+        os.environ[WAL_DIR_ENV] = str(wal_dir)
+    stats = {}
+    try:
+        launch(p, [sys.executable, str(RESUME_WORKER),
+                   f"rabit_device={device}", "rabit_dataplane=torch",
+                   "rabit_telemetry=1"], max_attempts=0,
+               timeout=RESUME_TIMEOUT_S, quiet=True, stats=stats, env=env,
+               elastic=elastic, tick=tick)
+    finally:
+        os.environ.pop(WAL_DIR_ENV, None)
+        if old is not None:
+            os.environ[WAL_DIR_ENV] = old
+    docs = {t: json.loads((out / f"r{t}.json").read_text())
+            for t in range(p)}
+    return docs, stats, wal_dir
+
+
+def _resume_checks(p: int, base: dict, docs: dict, stats: dict,
+                   wal_dir: Path, elastic: bool, device: str) -> dict:
+    """Phase 18's verdicts on a killed run against its uninterrupted
+    twin: every round present and bit for bit the twin's, one restart,
+    no respawn, the expected epochs and evictions, a launch a round, the
+    journal's records."""
+    from rabit_tpu_torch.tracker.wal import WriteAheadLog
+    w = stats["tracker_wal"]
+    if stats["tracker_restarts"] != 1 or w["restarts"] != 1 or \
+            w["records"] <= 0 or stats["total_attempts"] != 0 or \
+            stats["readmissions"] != 0:
+        raise AssertionError(f"resume: restarts {stats['tracker_restarts']}"
+                             f", journal {w}, attempts "
+                             f"{stats['total_attempts']}, re-admissions "
+                             f"{stats['readmissions']}")
+    member = stats["membership"]
+    want_evicted = [docs[1]["rounds"][0]["rank"]] if elastic else []
+    if member["evicted"] != want_evicted or \
+            member["epoch"] != (2 if elastic else 1):
+        raise AssertionError(f"resume: membership {member}")
+    launches, cards = 0, []
+    for t, d in docs.items():
+        got = [(r["round"], r["world"], r["crc"], r["hist_crc"])
+               for r in d["rounds"]]
+        want = [(r["round"], r["world"], r["crc"], r["hist_crc"])
+                for r in base[t]["rounds"]]
+        n = RESUME_SHRINK_AT if elastic and t == 1 else RESUME_ROUNDS
+        if got != want or [g[0] for g in got] != list(range(n)):
+            raise AssertionError(f"task {t}: rounds {got} differ from the "
+                                 f"uninterrupted run's {want}")
+        # the wrapper counts the kernel's launches: none on the CPU
+        if d["launches"] != [int(device == "cuda")] * n:
+            raise AssertionError(f"task {t}: histogram launches "
+                                 f"{d['launches']}")
+        launches += sum(d["launches"])
+        epochs = [s["epoch"] for s in d["world_reform"]]
+        # at world 1 the native core reduces nothing, and no torch world
+        # forms
+        want = [] if p == 1 else [1, 2] if elastic and t != 1 else [1]
+        if epochs != want:
+            raise AssertionError(f"task {t}: formations at epochs {epochs}")
+        # one device for the kernel and the data plane (none at world 1),
+        # kept for the run
+        devs = {(x["hist"], x["dataplane"] or x["hist"]) for x in d["devices"]}
+        card, dp = devs.pop() if len(devs) == 1 else (None, None)
+        if card != dp or not card.startswith(device):
+            raise AssertionError(f"task {t}: devices {d['devices']}")
+        cards.append(card)
+        if elastic and t != 1 and any(
+                r["world"] != p - 1 for r in d["rounds"][RESUME_SHRINK_AT:]):
+            raise AssertionError(f"task {t}: the shrunk world's rounds")
+    if device == "cuda" and len(set(cards)) != p:
+        raise AssertionError(f"two members on one card: {cards}")
+    kinds = [k for k, _ in WriteAheadLog(str(wal_dir)).replay()]
+    # the evicted task leaves without a shutdown
+    downs = kinds.count("down")
+    if kinds.count("resume") != 1 or "epoch" not in kinds or \
+            "topo" not in kinds or downs != (p - 1 if elastic else p):
+        raise AssertionError(f"resume: journal kinds {kinds}")
+    return {"launches": launches, "cards": cards,
+            "kinds": {k: kinds.count(k) for k in sorted(set(kinds))}}
+
+
+def _resume_numbers(base: dict, docs: dict, stats: dict) -> dict:
+    """The outage as each worker saw it, the replay, and epoch 1's
+    formation with the WAL off (``base``) and on (``docs``)."""
+    def epoch1(d):
+        return next((round(s["dur"], 4) for s in d["world_reform"]
+                     if s["epoch"] == 1), None)
+
+    w = stats["tracker_wal"]
+    return {
+        "outage_s": {t: [round(o["s"], 4) for o in d["outages"]]
+                     for t, d in docs.items()},
+        "kill_to_resume_s": round(w["resumed_at"][0] - w["killed_at"][0], 4),
+        "replayed": w["replayed"], "replay_ms": round(w["replay_ms"], 3),
+        # the killed incarnation's journaling: the formation's records
+        # (an assign a rank, the epoch, the topology) and nothing else
+        "formation_journal_ms": round(w["journal_s"][0] * 1e3, 3),
+        "journal_ms": round(sum(w["journal_s"]) * 1e3, 3),
+        "records": w["records"],
+        "init_s": {"wal_off": [round(d["init_s"], 4) for d in base.values()],
+                   "wal_on": [round(d["init_s"], 4) for d in docs.values()]},
+        "formation_s": {
+            "wal_off": [epoch1(d) for d in base.values()],
+            "wal_on": [epoch1(d) for d in docs.values()]}}
+
+
+def _resume_pair(p: int, tmp: Path, elastic: bool, device: str = "cuda",
+                 hist=RESIZE_HIST) -> tuple:
+    tag = "elastic" if elastic else "fixed"
+    base, bstats, _ = _resume_run(p, tmp, f"{tag}_base", False, elastic,
+                                  device, hist)
+    if bstats["total_attempts"] != 0 or bstats["tracker_restarts"] != 0:
+        raise AssertionError(f"the uninterrupted run: {bstats}")
+    docs, stats, wal_dir = _resume_run(p, tmp, f"{tag}_kill", True, elastic,
+                                       device, hist)
+    res = _resume_checks(p, base, docs, stats, wal_dir, elastic, device)
+    res.update(_resume_numbers(base, docs, stats))
+    res["pids"] = [d["pid"] for d in list(base.values())
+                   + list(docs.values())]
+    return res
+
+
+def phase_resume(power: str) -> dict:
+    """The tracker's write-ahead log and resume (see the module's phase
+    18)."""
+    import tempfile
+    r = subprocess.run([sys.executable, "-m", "rabit_tpu_torch.tracker.wal",
+                        "--smoke"], env=_stall_env(), capture_output=True,
+                       text=True, timeout=RESUME_TIMEOUT_S)
+    if r.returncode != 0 or "wal smoke ok" not in r.stdout:
+        raise AssertionError(f"wal --smoke: {r.stdout}{r.stderr}")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        a = _resume_pair(1, Path(tmp), False)
+    out["a"] = a
+    phase("resume", f"(a) wal --smoke ok; world 1 on card 0 under the "
+          f"launcher with RABIT_TRACKER_WAL_DIR (robust engine, "
+          f"rabit_dataplane=torch; at world 1 no torch world forms): "
+          f"{RESUME_ROUNDS} rounds of an "
+          f"int64 allreduce of 256 and a histogram of {RESIZE_HIST[0]} x "
+          f"{RESIZE_HIST[1]} by the kernel, the tracker killed after round "
+          f"{RESUME_KILL_AFTER} and resumed {RESUME_OUTAGE_MS} ms later: "
+          f"every round bit for bit the uninterrupted run's, 1 restart, 0 "
+          f"respawns, 0 evictions, epoch 1 throughout, the kernel launched "
+          f"once a round ({a['launches']}), journal {a['kinds']}")
+    phase("resume", f"(a) the outage as the worker saw it {a['outage_s']} "
+          f"s (kill to resume {a['kill_to_resume_s']} s); the replay "
+          f"{a['replayed']} records in {a['replay_ms']} ms; journaling "
+          f"{a['journal_ms']} ms in all ({a['records']} records), of which "
+          f"the formation's {a['formation_journal_ms']} ms; epoch 1's "
+          f"init s WAL off {a['init_s']['wal_off']} / on "
+          f"{a['init_s']['wal_on']}, formation s (recovery.world_reform) "
+          f"off {a['formation_s']['wal_off']} / on "
+          f"{a['formation_s']['wal_on']} [{power}]")
+    count = torch.cuda.device_count()
+    if count < 2:
+        phase("resume", f"(b) did not run: {count} card(s); the shrink "
+              f"through the resumed tracker needs two or more")
+        out["b"] = None
+        out["launches"] = {"a": a["launches"], "b": None}
+        return out
+    p = min(4, count)
+    with tempfile.TemporaryDirectory() as tmp:
+        b = _resume_pair(p, Path(tmp), True)
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.split()
+    held = [int(x) for x in smi if x.isdigit() and int(x) in b["pids"]]
+    if held:
+        raise AssertionError(f"resume: workers {held} still hold a card")
+    out["b"] = b
+    out["launches"] = {"a": a["launches"], "b": b["launches"]}
+    phase("resume", f"(b) world {p} elastic, the same kill and resume, then "
+          f"task 1 evicted itself at round {RESUME_SHRINK_AT} and the "
+          f"survivors resize('recover') through the resumed tracker, which "
+          f"hosted epoch 2's store: every round bit for bit the "
+          f"uninterrupted run's (the shrunk world's exact), 1 restart, 0 "
+          f"respawns, the one scripted eviction, cards {b['cards']} kept, "
+          f"the kernel launched once a round ({b['launches']}), journal "
+          f"{b['kinds']}, no worker left on a card (compute apps {smi})")
+    phase("resume", f"(b) outage by task {b['outage_s']} s (kill to resume "
+          f"{b['kill_to_resume_s']} s); replay {b['replayed']} records in "
+          f"{b['replay_ms']} ms; the formation's journaling "
+          f"{b['formation_journal_ms']} ms (the run's "
+          f"{b['journal_ms']} ms); epoch 1's init s off "
+          f"{b['init_s']['wal_off']}"
+          f" / on {b['init_s']['wal_on']}, formation s off "
+          f"{b['formation_s']['wal_off']} / on {b['formation_s']['wal_on']}"
+          f" [{power}]")
+    return out
+
+
 def card_power() -> str:
     """The first card's name and power limit, as ``nvidia-smi`` gives
     them."""
@@ -3730,6 +4017,7 @@ def main() -> int:
     skew_doc = phase_skew(dev, power)
     phase_watchdog(dev, power)
     elastic = phase_elastic(power)
+    resume = phase_resume(power)
     kernels = []
     for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only"):
         head = timing[name][0]
@@ -3746,6 +4034,9 @@ def main() -> int:
     # phase 17 (b)'s resize run: a launch a round on every member; null
     # where (b) did not run (fewer than three cards)
     kernels[0]["elastic_launches"] = elastic["launches"]
+    # phase 18's killed runs: a launch a round on every member; (b) null
+    # where it did not run (one card)
+    kernels[0]["resume_launches"] = resume["launches"]
     kernels[3]["slope_ms"] = timing["mask_only"][0]["slope_ms"]
     kernels[2]["library_bwd_ms"] = timing["flash_block_bwd"][0][
         "library_bwd_ms"]
@@ -3762,7 +4053,7 @@ def main() -> int:
         "bucket_steps": {s: {k: r[k] for k in ("median_ms", "ms", "losses")}
                          for s, r in bucket.items()},
         "parallel": par, "telemetry": tel, "skew": skew_doc,
-        "elastic": elastic}), flush=True)
+        "elastic": elastic, "resume": resume}), flush=True)
     print(power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

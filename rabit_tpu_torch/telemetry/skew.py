@@ -480,11 +480,18 @@ class SkewMonitor:
                 "tripped": misses >= BREAKER_FAILURES}
 
     def _on_reconnect(self) -> None:
-        """Dead->alive transition: re-announce this worker's metrics
-        endpoint so a tracker that came back converges on the fleet's
-        endpoints without any re-registration. Best-effort: the poller
+        """Dead->alive transition: the tracker just reached may be a
+        RESUMED incarnation that replayed its journal -- re-present this
+        worker's identity over the ``resume`` handshake and re-announce
+        its metrics endpoint, so the new incarnation's world view
+        converges without any re-registration. Best-effort: the poller
         must keep polling whatever happens here."""
+        from ..tracker import membership
         from . import live
+        try:
+            membership.present_resume()
+        except Exception:  # noqa: BLE001 - reconnect is best-effort
+            pass
         try:
             live.reannounce()
         except Exception:  # noqa: BLE001 - reconnect is best-effort

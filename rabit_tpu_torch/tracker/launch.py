@@ -30,8 +30,18 @@ default ports (9010 up, probed with ``SO_REUSEADDR``) can be bound twice
 by workers that start together, and the second ``listen`` then fails.
 The port's engines read the variable; the JAX package's do not.
 
-Not ported yet: chaos proxies, the tracker's write-ahead log and its
-supervision, the hot standby and ``--submit`` to a multi-job tracker.
+With ``RABIT_TRACKER_WAL_DIR`` set the tracker journals its control
+plane there, and the launcher supervises it as it does the workers: a
+crash (``_TrackerSupervisor.kill``, scripted by a test through
+``launch(tick=...)``) is followed, after the outage, by a ``resume=True``
+tracker on the same host and port, which replays the journal and
+re-adopts the live world; without a WAL a killed tracker stays dead.
+``stats["tracker_restarts"]`` counts the respawns and
+``stats["tracker_wal"]`` describes the journal.
+
+Not ported yet: chaos proxies (and their ``tracker_kill``), the hot
+standby (the supervisor's adoption of a promoted standby) and
+``--submit`` to a multi-job tracker.
 """
 
 from __future__ import annotations
@@ -40,11 +50,87 @@ import argparse
 import os
 import subprocess
 import sys
+import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from . import membership as _membership
+from . import wal as _wal_mod
 from .tracker import Tracker
+
+
+class _TrackerSupervisor:
+    """Supervise the launcher's tracker the way the launcher supervises
+    its workers (the cold half of the JAX launcher's supervisor): a crash
+    is followed by a ``resume=True`` tracker on the SAME pinned host and
+    port once the scheduled outage has passed, so the environment every
+    worker was launched with stays valid and the replayed journal
+    re-adopts the live world. Without a WAL a killed tracker stays dead:
+    supervision never invents durability."""
+
+    def __init__(self, tracker: Tracker, wal_dir: Optional[str],
+                 factory: Callable[[str, int], Tracker],
+                 quiet: bool = False):
+        self.tracker = tracker
+        self.wal_dir = wal_dir
+        self._factory = factory     # (host, port) -> resumed Tracker
+        self.quiet = quiet
+        self.restarts = 0
+        # crashed incarnations: kept, with the stores they host, until the
+        # launch ends (a kill that exits the process would take them along)
+        self.crashed: List[Tracker] = []
+        self.killed_at: List[float] = []    # wall clock of each kill
+        self.resumed_at: List[float] = []   # and of each resume
+        self._lock = threading.Lock()
+        self._respawn_at: Optional[float] = None
+
+    def kill(self, delay_ms: float = 0.0) -> None:
+        """Crash the live tracker now and, with a WAL, schedule its
+        ``resume=True`` successor ``delay_ms`` later (the outage the
+        world must ride out)."""
+        with self._lock:
+            if self.tracker.crashed:
+                return
+            self.tracker.crash()
+            self.crashed.append(self.tracker)
+            self.killed_at.append(time.time())
+            if not self.quiet:
+                print(f"[launch] tracker killed (outage "
+                      f"{delay_ms / 1e3:.1f}s"
+                      + (", will resume from WAL)" if self.wal_dir
+                         else ", no WAL: stays dead)"),
+                      file=sys.stderr, flush=True)
+            if self.wal_dir is not None:
+                self._respawn_at = time.monotonic() + delay_ms / 1e3
+
+    def poll(self) -> None:
+        """The supervision loop's turn: resume the tracker once its
+        outage has passed."""
+        with self._lock:
+            if self._respawn_at is None or \
+                    time.monotonic() < self._respawn_at:
+                return
+            self._respawn_at = None
+            host, port = self.tracker.host, self.tracker.port
+        # the dead incarnation's listener can linger a moment after the
+        # crash; the pinned port must win before the workers notice
+        deadline = time.monotonic() + 10
+        while True:
+            try:
+                fresh = self._factory(host, port)
+                break
+            except OSError:
+                if time.monotonic() >= deadline:
+                    raise
+                time.sleep(0.05)
+        fresh.start()
+        with self._lock:
+            self.tracker = fresh
+            self.restarts += 1
+            self.resumed_at.append(time.time())
+        if not self.quiet:
+            print(f"[launch] tracker resumed on {host}:{port} "
+                  f"(restart {self.restarts})", file=sys.stderr, flush=True)
 
 
 def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
@@ -52,7 +138,9 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
            stats: Optional[Dict] = None,
            env: Optional[Dict[str, str]] = None,
            metrics_port: Optional[int] = None,
-           elastic: Optional[bool] = None) -> int:
+           elastic: Optional[bool] = None,
+           tick: Optional[Callable[[_TrackerSupervisor], None]] = None
+           ) -> int:
     """Run ``cmd`` as ``nworkers`` local processes under a tracker.
     Returns 0 on success; raises when a worker exhausts its budget or the
     run outlasts ``timeout`` seconds. A worker exiting nonzero is
@@ -70,12 +158,27 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
     end lands in ``stats["live"]``. ``elastic`` (None: ``RABIT_ELASTIC``
     or ``rabit_elastic=1`` in ``cmd``) turns on elastic membership: a
     dead worker's relaunch is a re-admission, exempt from
-    ``max_attempts``."""
+    ``max_attempts``. ``RABIT_TRACKER_WAL_DIR`` journals the tracker's
+    control plane, and a killed tracker is then resumed in place:
+    ``tick``, when given, is called with the tracker's supervisor once a
+    pass of the supervision loop (a test scripts ``kill`` with it);
+    ``stats`` gets ``tracker_restarts`` and ``tracker_wal`` (the
+    directory, the live incarnation's records and restarts, what its
+    resume replayed and in how many ms, the seconds each incarnation
+    spent journaling, and the wall clocks of each kill and resume)."""
     if elastic is None:
         elastic = (_membership.elastic_enabled()
                    or any(a == "rabit_elastic=1" for a in cmd))
-    tracker = Tracker(nworkers, metrics_port=metrics_port,
-                      elastic=elastic).start()
+    wal_dir = os.environ.get(_wal_mod.WAL_DIR_ENV) or None
+    tracker = Tracker(nworkers, metrics_port=metrics_port, elastic=elastic,
+                      wal_dir=wal_dir).start()
+
+    def _resumed_tracker(host: str, port: int) -> Tracker:
+        return Tracker(nworkers, host=host, port=port,
+                       metrics_port=metrics_port, elastic=elastic,
+                       wal_dir=wal_dir, resume=True)
+
+    sup = _TrackerSupervisor(tracker, wal_dir, _resumed_tracker, quiet=quiet)
     procs: Dict[int, subprocess.Popen] = {}
     # every relaunch of worker i, exported as RABIT_NUM_TRIAL so mock kill
     # schedules advance; with elastic membership a relaunch is a
@@ -87,8 +190,9 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
     def spawn(i: int) -> None:
         worker_env = dict(os.environ)
         worker_env.update(env or {})
-        worker_env.update(tracker.env(task_id=str(i),
-                                      num_attempt=attempts[i]))
+        # the live incarnation's: a resumed tracker keeps the address
+        worker_env.update(sup.tracker.env(task_id=str(i),
+                                          num_attempt=attempts[i]))
         # an ephemeral link listener unless the caller names a port: the
         # native core probes its default ports (9010 up) with SO_REUSEADDR,
         # and workers started together can bind one port twice, so that
@@ -103,6 +207,10 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
             spawn(i)
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
+            if tick is not None:
+                tick(sup)
+            # the tracker is supervised like the workers below
+            sup.poll()
             for i in range(nworkers):
                 if finished[i]:
                     continue
@@ -129,13 +237,18 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
             if all(finished.values()):
                 # engines that never register (TorchEngine) send no
                 # shutdown: the run's end is the workers' exit
-                tracker.print_fleet_metrics()
+                sup.tracker.print_fleet_metrics()
                 return 0
             time.sleep(0.05)
         raise RuntimeError(
             f"timeout: finished={sum(finished.values())}/{nworkers} after "
             f"{timeout:.0f} s")
     finally:
+        # a resume replaced the tracker: every read below, and the
+        # teardown, go to the live incarnation (and the dead ones)
+        tracker = sup.tracker
+        incarnations = [t for t in sup.crashed if t is not tracker] + \
+            [tracker]
         if stats is not None:
             stats["attempts_by_rank"] = dict(attempts)
             stats["total_attempts"] = sum(attempts.values())
@@ -147,11 +260,22 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
             # the merged telemetry summaries the workers shipped, if any
             stats["fleet"] = tracker.merged_metrics()
             stats["live"] = tracker.live_stats()
+            stats["tracker_restarts"] = sup.restarts
+            stats["tracker_wal"] = {
+                "dir": wal_dir, "records": tracker.wal_records(),
+                "restarts": tracker.restarts,
+                "replayed": tracker.replayed,
+                "replay_ms": tracker.replay_ms,
+                # by incarnation: the first one's is the formation's
+                "journal_s": [t.journal_s for t in incarnations],
+                "killed_at": list(sup.killed_at),
+                "resumed_at": list(sup.resumed_at)}
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        tracker.stop()
+        for t in incarnations:
+            t.stop()
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -27,11 +27,12 @@ and :class:`MembershipMonitor` polls it so an engine can notice a parked
 joiner and re-form in the job (no process restart) at a collective
 boundary (``rabit_tpu_torch.resize``).
 
-Two parts have no server in the port yet: :func:`present_resume` speaks
-the ``resume`` command, which comes with the tracker's write-ahead log
-(the port's tracker closes that connection, so the call returns False);
-and the monitor's standby probe reads ``RABIT_TRACKER_STANDBY``, which
-``engine/base.py::refuse_unported`` refuses in both engines today.
+:func:`present_resume` speaks the ``resume`` command, which a tracker
+resumed from its write-ahead log answers (``tracker/tracker.py``); the
+monitor and the skew poller call it when the tracker comes back. One part
+has no server in the port yet: the monitor's standby probe reads
+``RABIT_TRACKER_STANDBY``, which ``engine/base.py::refuse_unported``
+refuses in both engines today.
 """
 
 from __future__ import annotations

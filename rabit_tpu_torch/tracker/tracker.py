@@ -47,6 +47,11 @@ Wire protocol (binary, little-endian, length-prefixed strings):
     skew:          (no extra fields) tracker -> worker: a JSON str, the
                    fleet skew digest {"epoch","offsets_ms","laggard"}
                    ("{}" before the poll loop's first election)
+    resume:        + JSON str {"rank","epoch"}: a live worker re-presents
+                   its identity to a (possibly resumed) tracker;
+                   tracker -> worker: u32 1 when it agrees with the
+                   replayed journal (or was adopted), 0 on a
+                   contradiction (the worker should re-register)
     shutdown:      (no extra fields) tracker -> worker: u32 1
   tracker -> worker (start/recover/join): rank u32, world u32, epoch u32,
     coord_host str, coord_port u32 (this epoch's store; ""/0 when none is
@@ -100,13 +105,32 @@ through one ``skew.FleetElection`` and serves the result over the
 someone is behind (the JAX tracker's single-job poll loop,
 ``tracker.py:1785-1866``).
 
+The write-ahead log (``wal_dir``, else ``RABIT_TRACKER_WAL_DIR``; off
+when neither is set, and then nothing is journaled and every byte on the
+wire is as without it): every control-plane transition goes through
+``_wal`` (``tracker/wal.py``) BEFORE it takes effect, under the tracker's
+lock -- ``assign``, ``epoch``, ``topo``, ``park``, ``evict``,
+``endpoint``, ``skew``, ``down`` and ``resume``, the JAX tracker's
+single-job records byte for byte. ``resume=True`` replays the journal
+(``fold_records``'s fold, shared with ``wal.py --compact``), counts the
+restart, journals ``resume`` and opens the resume grace
+(``rabit_tracker_resume_grace_ms``): while it lasts the poll loop takes
+no silence as eviction evidence, since every worker's poller is still
+reconnecting. ``RABIT_WAL_SNAPSHOT_EVERY`` compacts the journal into a
+snapshot off the registration path. ``crash()`` is a kill without the
+process exit: the listener, the threads and every connection die,
+nothing is flushed or reaped (the journal handle and the epochs' stores
+stay as they are). ``python -m rabit_tpu_torch.tracker.tracker -n N
+[--host H] [--port P] [--wal-dir D] [--resume D]`` runs one standalone;
+pin ``--host``/``--port`` to a dead tracker's address to resume it in
+place, so the environment the workers were launched with stays valid.
+
 Any other command closes the connection. Not ported yet (the JAX
-package's tracker has them): the write-ahead log and resume (with the
-poll loop's resume grace and the ``resume`` command), the hot standby
-(``repl``), multi-job (``submit``, the per-job state) with the
-autoscaler, the folding of the summaries' events into a fleet event log
-with ``/events`` and the incident plane with ``/incidents``, and chaos
-link rewrites.
+package's tracker has them): the hot standby (``repl``, the lease
+records), multi-job (``submit``, the per-job state and its journal
+records) with the autoscaler, the folding of the summaries' events into
+a fleet event log with ``/events`` and the incident plane with
+``/incidents``, and chaos link rewrites.
 """
 
 from __future__ import annotations
@@ -122,6 +146,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from . import membership as _membership
+from . import wal as _wal_mod
 from ..telemetry.aggregate import format_fleet_table, merge_summaries
 
 MAGIC = 0x52425401
@@ -181,6 +206,17 @@ def tree_neighbors(rank: int, world: int) -> Tuple[Optional[int], List[int]]:
     return parent, children
 
 
+def _drop(conn: socket.socket) -> None:
+    """Close a connection hard: ``shutdown`` first, which wakes a thread
+    blocked on it (a listener's ``accept`` too); a bare ``close`` wakes
+    neither, and a closed listener would go on accepting."""
+    try:
+        conn.shutdown(socket.SHUT_RDWR)
+    except OSError:
+        pass
+    conn.close()
+
+
 def _default_ready_timeout() -> float:
     """``rabit_tracker_ready_timeout``: how long ``_assign`` waits for
     each worker's ready ack before declaring the epoch partially
@@ -191,11 +227,179 @@ def _default_ready_timeout() -> float:
         return 60.0
 
 
+RESUME_GRACE_MS_DEFAULT = 15_000
+
+# the JAX package's implicit job: a snapshot names the one world by it
+DEFAULT_JOB = "default"
+
+
+def resume_grace_ms() -> int:
+    """``rabit_tracker_resume_grace_ms``: how long a resumed tracker
+    waives poll-miss eviction evidence while worker pollers reconnect --
+    a brief tracker outage must never evict healthy ranks."""
+    v = os.environ.get("RABIT_TRACKER_RESUME_GRACE_MS")
+    if not v:
+        return RESUME_GRACE_MS_DEFAULT
+    try:
+        return max(0, int(v))
+    except ValueError:
+        raise ValueError(
+            f"RABIT_TRACKER_RESUME_GRACE_MS must be an integer (ms), "
+            f"got {v!r}")
+
+
+# -- the journal's read side ------------------------------------------------
+# One fold for both consumers: ``Tracker(resume=True)`` and snapshot
+# compaction (live, and ``wal.py --compact`` through ``fold_records``), so
+# compacted state cannot drift from replayed state. The JAX package's
+# fold (``rabit_tpu/tracker/tracker.py:383-536``) restricted to the one
+# job this tracker serves: a journal of the JAX tracker's multi-job plane
+# or hot standby raises rather than replay part of its history.
+
+_REPLAYED = frozenset({"assign", "epoch", "park", "evict", "topo", "skew",
+                       "endpoint", "down", "resume"})
+
+
+class _ReplayWorld:
+    """The state ``_replay_apply`` and ``snapshot_state`` touch, without
+    the sockets and threads of a real tracker (offline folds)."""
+
+    def __init__(self, nworkers: int, elastic: bool):
+        self.nworkers = int(nworkers)
+        self.elastic = bool(elastic)
+        self.restarts = 0
+        self._ranks: Dict[str, int] = {}
+        self._epoch = 0
+        self._member = (_membership.MembershipView(self.nworkers)
+                        if self.elastic else None)
+        self._topo: dict = {}
+        self._skew: dict = {}
+        self._skew_election = None
+        self._endpoints: Dict[str, dict] = {}
+        self._shutdown_ranks: set = set()
+
+
+def snapshot_state(world) -> dict:
+    """``world``'s replay-reachable state as a ``wal_snapshot/v1`` doc,
+    the JAX tracker's ``snapshot_state`` of a single-job tracker field
+    for field (its scheduler fields at their defaults): ranks, epoch,
+    membership, topology, skew, endpoints, shutdown ranks, restarts --
+    nothing ephemeral (pending registrations, sockets and stores die
+    with the process). The caller holds a live tracker's lock."""
+    jd: Dict[str, object] = {
+        "nworkers": world.nworkers, "elastic": world.elastic,
+        "sched_class": 0, "weight": 1.0, "quota": world.nworkers,
+        "preempted": 0, "closed": False, "closed_reason": "",
+        "ranks": dict(world._ranks), "epoch": world._epoch,
+        "topo": dict(world._topo), "skew": dict(world._skew),
+        "endpoints": {t: dict(d) for t, d in world._endpoints.items()},
+        "down": sorted(world._shutdown_ranks)}
+    if world.elastic and world._member is not None:
+        mv = world._member
+        jd["member"] = {
+            "target": mv.target, "live": sorted(mv.live),
+            "evicted": sorted(mv.evicted), "joining": sorted(mv.joining),
+            "generation": mv.generation, "evictions": mv.evictions,
+            "admissions": mv.admissions}
+    return {"multi_job": False, "restarts": int(world.restarts),
+            "jobs": {DEFAULT_JOB: jd}}
+
+
+def _replay_adopt_into(world, state: dict) -> None:
+    """Adopt one ``wal_snapshot/v1`` doc: it replaces the journaled state,
+    and the journal's tail then replays on top. The world's shape
+    (nworkers, elastic) is the launch's, as a full replay never changes
+    it."""
+    from ..telemetry import skew as _skew_mod
+    jobs = state.get("jobs") or {}
+    if state.get("multi_job") or set(jobs) - {DEFAULT_JOB} or \
+            "lease" in state or "promoted" in state:
+        raise _wal_mod.WalError(
+            "snapshot holds multi-job or standby state, which this "
+            "tracker does not serve")
+    world.restarts = int(state.get("restarts", world.restarts))
+    jd = jobs.get(DEFAULT_JOB) or {}
+    if jd.get("closed"):
+        raise _wal_mod.WalError("snapshot holds a closed job")
+    world._ranks = {str(t): int(r)
+                    for t, r in (jd.get("ranks") or {}).items()}
+    world._epoch = int(jd.get("epoch", 0))
+    world._topo = dict(jd.get("topo") or {})
+    digest = dict(jd.get("skew") or {})
+    if digest:
+        world._skew = digest
+        world._skew_election = _skew_mod.FleetElection.seeded(digest)
+    world._endpoints = {str(t): dict(d) for t, d in
+                        (jd.get("endpoints") or {}).items()}
+    world._shutdown_ranks = {int(r) for r in jd.get("down") or []}
+    m = jd.get("member")
+    if world.elastic and world._member is not None and m:
+        mv = world._member
+        mv.target = int(m.get("target", world.nworkers))
+        mv.live = {int(r) for r in m.get("live") or []}
+        mv.evicted = {int(r) for r in m.get("evicted") or []}
+        mv.joining = {int(r) for r in m.get("joining") or []}
+        mv.generation = int(m.get("generation", 0))
+        mv.evictions = int(m.get("evictions", 0))
+        mv.admissions = int(m.get("admissions", 0))
+
+
+def _replay_apply(world, kind: str, data: dict) -> None:
+    """Apply one journaled ``(kind, data)`` record to ``world`` (a tracker
+    under construction or a :class:`_ReplayWorld`). Raw mutations are
+    deliberate: this IS the journal's read side."""
+    from ..telemetry import skew as _skew_mod
+    if kind == _wal_mod.SNAPSHOT_KIND:
+        _replay_adopt_into(world, data.get("state") or {})
+        return
+    if kind not in _REPLAYED or \
+            str(data.get("job", DEFAULT_JOB)) != DEFAULT_JOB:
+        raise _wal_mod.WalError(
+            f"journal record {kind!r} (job {data.get('job', DEFAULT_JOB)!r})"
+            f" is not one this tracker serves")
+    if kind == "assign":
+        world._ranks[str(data["task"])] = int(data["rank"])
+    elif kind == "epoch":
+        world._epoch = int(data["epoch"])
+        if world.elastic and world._member is not None:
+            world._member.formed(data.get("members", []))
+    elif kind == "park":
+        if world.elastic and world._member is not None:
+            world._member.park(int(data["rank"]))
+    elif kind == "evict":
+        if world.elastic and world._member is not None:
+            world._member.evict(int(data["rank"]))
+    elif kind == "topo":
+        world._topo = dict(data.get("doc") or {})
+    elif kind == "skew":
+        digest = dict(data.get("digest") or {})
+        world._skew = digest
+        world._skew_election = _skew_mod.FleetElection.seeded(digest)
+    elif kind == "endpoint":
+        world._endpoints[str(data["task"])] = dict(data["doc"])
+    elif kind == "down":
+        world._shutdown_ranks.add(int(data["rank"]))
+    elif kind == "resume":
+        world.restarts = int(data.get("restarts", world.restarts))
+
+
+def fold_records(records, nworkers: int = 1, elastic: bool = False) -> dict:
+    """Fold a replayed ``(kind, data)`` list into one ``wal_snapshot/v1``
+    state doc (``wal.py --compact``). ``nworkers``/``elastic`` must match
+    the tracker's launch, as ``--resume`` itself requires."""
+    world = _ReplayWorld(nworkers, elastic)
+    for kind, data in records:
+        _replay_apply(world, kind, data)
+    return snapshot_state(world)
+
+
 class Tracker:
     def __init__(self, nworkers: int, host: str = "127.0.0.1", port: int = 0,
                  ready_timeout: Optional[float] = None,
                  metrics_port: Optional[int] = None,
-                 elastic: Optional[bool] = None):
+                 elastic: Optional[bool] = None,
+                 wal_dir: Optional[str] = None,
+                 resume: bool = False):
         self.nworkers = nworkers
         self.sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -245,6 +449,41 @@ class Tracker:
         self._skew: dict = {}                  # the served skew digest
         self._skew_election = None             # skew.FleetElection
         self._last_straggler: Optional[dict] = None
+        # every connection the serve loop accepted and nobody closed yet:
+        # crash() drops them all (a dead incarnation answers nothing)
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
+        self.crashed = False
+        # the write-ahead log (off unless a directory is given, or
+        # RABIT_TRACKER_WAL_DIR): every transition is journaled before it
+        # takes effect; resume=True replays it and re-adopts a live world
+        if wal_dir is None:
+            wal_dir = os.environ.get(_wal_mod.WAL_DIR_ENV) or None
+        self.wal_dir = wal_dir
+        self._wal_log: Optional[_wal_mod.WriteAheadLog] = None
+        self.restarts = 0                      # resumes of this journal
+        self._grace_until = 0.0                # the resume grace's end
+        self._resumed_ranks: set = set()       # ranks that re-presented
+        self.replayed = 0                      # records the resume read
+        self.replay_ms = 0.0                   # its open and fold
+        self.journal_s = 0.0                   # time inside record()
+        self._snap_every = _wal_mod.snapshot_every()
+        self._snap_pending = False             # one compaction at a time
+        if wal_dir is not None:
+            t0 = time.perf_counter()
+            self._wal_log = _wal_mod.WriteAheadLog(wal_dir)
+            records = self._wal_log.open(resume=resume)
+            if resume:
+                for kind, data in records:
+                    _replay_apply(self, kind, data)
+                self.replayed = len(records)
+                self.replay_ms = (time.perf_counter() - t0) * 1e3
+                self.restarts += 1
+                self._wal("resume", restarts=self.restarts,
+                          epoch=self._epoch)
+                self._grace_until = (time.monotonic()
+                                     + resume_grace_ms() / 1e3)
+                self._note_resume(len(records))
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "Tracker":
@@ -263,10 +502,7 @@ class Tracker:
         if self._metrics_server is not None:
             self._metrics_server.stop()
             self._metrics_server = None
-        try:
-            self.sock.close()
-        except OSError:
-            pass
+        _drop(self.sock)
         with self._cv:
             pending = [p[0] for p in self._pending.values()]
             self._pending.clear()
@@ -275,11 +511,128 @@ class Tracker:
             self._stores = []
             self._cv.notify_all()   # parked joiners stop waiting
         for conn in pending:
-            conn.close()
+            self._close(conn)
+        if self._wal_log is not None and not self.crashed:
+            self._wal_log.close()
+
+    def crash(self) -> None:
+        """A tracker crash without the process exit (tests, the
+        launcher's supervisor): the listener and the background threads
+        die and every connection in flight is dropped hard, but nothing
+        is flushed, closed gracefully or reaped -- the journal's handle
+        and the epochs' stores stay as a kill leaves them (every record
+        was fsynced on append), ready for a ``resume=True`` successor on
+        the same pinned port. Parked joiners are woken and dropped."""
+        with self._lock:
+            # under the lock, where every record is written: no record
+            # lands after this (``_wal`` refuses once crashed)
+            self.crashed = True
+        with self._conns_lock:
+            conns = list(self._conns)
+            self._conns.clear()
+        self._done.set()
+        self._poll_stop.set()
+        if self._metrics_server is not None:
+            self._metrics_server.stop()
+            self._metrics_server = None
+        _drop(self.sock)
+        for conn in conns:
+            _drop(conn)
+        with self._cv:
+            self._cv.notify_all()   # parked joiners stop waiting
 
     @property
     def epoch(self) -> int:
         return self._epoch
+
+    def wal_records(self) -> int:
+        """Records in the journal (0 when the WAL is off): a resumed
+        tracker counts the replayed ones too."""
+        return 0 if self._wal_log is None else self._wal_log.records_total
+
+    def snapshot_seq(self) -> int:
+        """Seq of the newest snapshot in the journal (0: none, or no
+        WAL)."""
+        return 0 if self._wal_log is None else self._wal_log.snapshot_seq
+
+    def in_resume_grace(self) -> bool:
+        """True while poll-miss eviction evidence is waived after a resume
+        (the workers' pollers are still reconnecting)."""
+        return time.monotonic() < self._grace_until
+
+    # -- the write-ahead log ----------------------------------------------------
+    def _wal(self, kind: str, **data) -> None:
+        """Journal one control-plane transition (a no-op with the WAL
+        off). Callers hold the tracker's lock and call this BEFORE acting
+        on the transition: a crash between the two replays the intent,
+        never loses it. A crashed tracker journals nothing more (its
+        successor may own the file already)."""
+        if self._wal_log is None:
+            return
+        if self.crashed:
+            raise ConnectionError("the tracker crashed")
+        t0 = time.perf_counter()
+        seq = self._wal_log.record(kind, **data)
+        self.journal_s += time.perf_counter() - t0
+        if self._snap_every and not self._snap_pending and \
+                seq - self._wal_log.snapshot_seq >= self._snap_every:
+            # compact off the journaling path: a thread of its own folds
+            # the state under the lock once this caller has released it
+            self._snap_pending = True
+            threading.Thread(target=self._take_snapshot, daemon=True,
+                             name="rabit-wal-snapshot").start()
+
+    def _take_snapshot(self) -> None:
+        """One live compaction: serialize the replay-reachable state under
+        the tracker's lock and atomically rewrite the journal as
+        snapshot-root + future tail."""
+        try:
+            with self._lock:
+                if self._wal_log is None or self.crashed:
+                    return
+                self._wal_log.snapshot(snapshot_state(self))
+        finally:
+            self._snap_pending = False
+
+    def _note_resume(self, nrecords: int) -> None:
+        """Make a resume observable: a counter, a zero-length span, a
+        flight note, an event in the process's ring and a line on
+        stderr. The JAX tracker also folds the event into its fleet event
+        log (``_fleet_emit``), which the port's tracker has not yet
+        (ROADMAP Queue 1 item 1, ``/events``)."""
+        from .. import telemetry
+        from ..telemetry import events, flight
+        detail = (f"replayed {nrecords} WAL records, restart "
+                  f"#{self.restarts}, epoch {self._epoch}")
+        telemetry.count("tracker.resume", provenance="tracker")
+        telemetry.record_span("tracker.resume", 0.0, op="resume",
+                              provenance="tracker", records=nrecords,
+                              restarts=self.restarts)
+        flight.note("tracker_resume", detail)
+        events.emit("tracker.resume", detail)
+        print(f"[tracker] resumed from WAL ({nrecords} records, restart "
+              f"#{self.restarts}, epoch {self._epoch}, {len(self._ranks)} "
+              f"known ranks)", file=sys.stderr, flush=True)
+
+    def _resume_present(self, task_id: str, rank: int, epoch: int) -> bool:
+        """Reconcile one worker's ``resume`` handshake against the
+        replayed journal: a matching identity confirms it, an unknown task
+        id with a free rank is adopted (a torn tail can lose the last
+        ``assign``: the live worker is the authority on its own rank), and
+        a contradiction is refused, so the worker falls back to a full
+        re-registration."""
+        with self._lock:
+            known = self._ranks.get(task_id)
+            if known is None and 0 <= rank < self.nworkers \
+                    and rank not in self._ranks.values():
+                self._wal("assign", task=task_id, rank=rank)
+                self._ranks[task_id] = rank
+                known = rank
+            ok = known == rank and epoch <= self._epoch + 1
+            if ok:
+                self._endpoint_misses[task_id] = 0
+                self._resumed_ranks.add(rank)
+        return ok
 
     def store_count(self) -> int:
         """Rendezvous stores still hosted (old epochs are reaped)."""
@@ -302,9 +655,19 @@ class Tracker:
             try:
                 conn, _ = self.sock.accept()
             except OSError:
-                return   # stop() closed the listener
+                return   # stop() or crash() shut the listener
+            with self._conns_lock:
+                if self.crashed:
+                    _drop(conn)
+                    return
+                self._conns.add(conn)
             threading.Thread(target=self._handle, args=(conn,),
                              daemon=True).start()
+
+    def _close(self, conn: socket.socket) -> None:
+        with self._conns_lock:
+            self._conns.discard(conn)
+        conn.close()
 
     def _handle(self, conn: socket.socket) -> None:
         """One request. A registration's connection stays open, parked in
@@ -313,7 +676,7 @@ class Tracker:
         try:
             conn.settimeout(_REQUEST_TIMEOUT_S)
             if _recv_u32(conn) != MAGIC:
-                conn.close()
+                self._close(conn)
                 return
             cmd = _recv_str(conn)
             task_id = _recv_str(conn)
@@ -345,6 +708,10 @@ class Tracker:
                 with self._lock:
                     rank = self._ranks.get(task_id)
                     if rank is not None:
+                        # journaled, so a tracker resumed mid-teardown
+                        # still sees the job complete (a worker sends
+                        # shutdown once)
+                        self._wal("down", rank=rank)
                         self._shutdown_ranks.add(rank)
                     if self.elastic and self._member.live:
                         # evicted ranks never send shutdown
@@ -363,18 +730,18 @@ class Tracker:
                 ok = (isinstance(doc, dict) and "host" in doc
                       and "port" in doc)
                 if ok:
+                    ep = {"host": str(doc["host"]), "port": int(doc["port"]),
+                          "rank": int(doc.get("rank", -1))}
                     with self._lock:
-                        self._endpoints[task_id] = {
-                            "host": str(doc["host"]),
-                            "port": int(doc["port"]),
-                            "rank": int(doc.get("rank", -1))}
+                        self._wal("endpoint", task=task_id, doc=ep)
+                        self._endpoints[task_id] = ep
                         # a (re-)announce is proof of life: no earlier
                         # misses count toward an eviction
                         self._endpoint_misses[task_id] = 0
                 self._reply_u32(conn, 1 if ok else 0)
             elif cmd == "world":
                 self._reply_json(conn, self.membership_doc())
-            elif cmd == "evict":
+            elif cmd in ("evict", "resume"):
                 try:
                     doc = json.loads(_recv_str(conn))
                 except ValueError:
@@ -382,8 +749,15 @@ class Tracker:
                 ok = False
                 if isinstance(doc, dict) and doc.get("rank") is not None:
                     try:
-                        ok = self.evict_rank(int(doc["rank"]),
-                                             str(doc.get("reason", "")))
+                        if cmd == "evict":
+                            ok = self.evict_rank(int(doc["rank"]),
+                                                 str(doc.get("reason", "")))
+                        else:
+                            # a live worker re-presents its identity to a
+                            # (possibly resumed) tracker
+                            ok = self._resume_present(
+                                task_id, int(doc["rank"]),
+                                int(doc.get("epoch", 0)))
                     except (TypeError, ValueError):
                         ok = False
                 self._reply_u32(conn, 1 if ok else 0)
@@ -392,9 +766,9 @@ class Tracker:
                     doc = dict(self._topo if cmd == "topo" else self._skew)
                 self._reply_json(conn, doc)
             else:
-                conn.close()
+                self._close(conn)
         except (ConnectionError, OSError, struct.error, UnicodeDecodeError):
-            conn.close()
+            self._close(conn)
 
     # -- the live plane -------------------------------------------------------
     def _start_live_plane(self) -> None:
@@ -448,6 +822,22 @@ class Tracker:
             ("rabit_tracker_polls_total", "Completed endpoint poll sweeps.",
              "counter", [({}, polls)]),
         ]
+        if self._wal_log is not None:
+            gauges.append((
+                "rabit_tracker_restarts_total",
+                "Tracker crash-resume cycles (WAL replay + live-world "
+                "re-adoption).", "counter", [({}, self.restarts)]))
+            gauges.append((
+                "rabit_wal_records_total",
+                "Control-plane transitions journaled to the tracker "
+                "write-ahead log.", "counter",
+                [({}, self._wal_log.records_total)]))
+            gauges.append((
+                "rabit_wal_snapshot_seq",
+                "Seq of the journal's most recent snapshot record (0 "
+                "until one exists) — replay cost is bounded by the "
+                "records after it.", "gauge",
+                [({}, self._wal_log.snapshot_seq)]))
         if member is not None:
             world, evictions, admissions = member
             gauges.append((
@@ -534,6 +924,13 @@ class Tracker:
                         self._metrics[tid] = doc
                         self._endpoint_misses[tid] = 0
                     continue
+                # right after a resume every worker's poller is still
+                # timing out against the dead incarnation's cadence: the
+                # silence is the tracker's outage, not the worker's
+                if self.in_resume_grace():
+                    with self._lock:
+                        self._endpoint_misses[tid] = 0
+                    continue
                 # an endpoint that HAS answered before and now stays
                 # silent for several sweeps is, to the fleet, a dead rank:
                 # in an elastic world that is grounds for eviction (the
@@ -561,6 +958,11 @@ class Tracker:
             digest = self._skew_election.fold(
                 skew.digest_from_snapshot(strag))
             with self._lock:
+                if digest is not None and \
+                        digest.get("epoch") != self._skew.get("epoch"):
+                    # journal verdicts, not sweeps: the epoch bumps exactly
+                    # when the election changes
+                    self._wal("skew", digest=digest)
                 self._last_straggler = strag
                 if digest is not None:
                     self._skew = digest
@@ -612,16 +1014,14 @@ class Tracker:
         self.messages.append(table)
         print(table, flush=True)
 
-    @staticmethod
-    def _reply_u32(conn: socket.socket, v: int) -> None:
+    def _reply_u32(self, conn: socket.socket, v: int) -> None:
         conn.sendall(struct.pack("<I", v))
-        conn.close()
+        self._close(conn)
 
-    @staticmethod
-    def _reply_json(conn: socket.socket, doc: dict) -> None:
+    def _reply_json(self, conn: socket.socket, doc: dict) -> None:
         b = json.dumps(doc).encode()
         conn.sendall(struct.pack("<I", len(b)) + b)
-        conn.close()
+        self._close(conn)
 
     def _register(self, conn, task_id: str, host: str, port: int,
                   flags: int, token: str, join: bool = False) -> None:
@@ -641,10 +1041,11 @@ class Tracker:
                     # world can grow back to its target (and the newcomer
                     # inherits that rank's checkpoint shard directory)
                     rank = min(self._member.evicted)
+                self._wal("assign", task=task_id, rank=rank)
                 self._ranks[task_id] = rank
             rank = self._ranks[task_id]
             if rank >= self.nworkers:
-                conn.close()
+                self._close(conn)
                 return
             if self.elastic:
                 m = self._member
@@ -652,6 +1053,7 @@ class Tracker:
                         (m.live and rank not in m.live):
                     # (re-)admission: parked until the epoch boundary; a
                     # joiner never perturbs a world in flight
+                    self._wal("park", rank=rank)
                     m.park(rank)
                     grace_s = _membership.join_grace_ms() / 1e3 or None
             self._shutdown_ranks.discard(rank)
@@ -660,7 +1062,7 @@ class Tracker:
             got = self._try_complete_batch_locked()
         if prev is not None and prev[0] is not conn:
             # a re-registration superseded a still-parked connection
-            prev[0].close()
+            self._close(prev[0])
         if got is not None:
             self._assign(*got)
             return
@@ -682,7 +1084,7 @@ class Tracker:
                     break
                 self._cv.wait(left)
             del self._pending[rank]
-        conn.close()
+        self._close(conn)
 
     def _expected_ranks(self) -> set:
         """Ranks the current registration batch must contain before it
@@ -702,6 +1104,7 @@ class Tracker:
         if not expected or not expected <= set(self._pending):
             return None
         batch = {r: self._pending.pop(r) for r in sorted(expected)}
+        self._wal("epoch", epoch=self._epoch + 1, members=sorted(batch))
         self._epoch += 1
         admitted = (sorted(self._member.formed(batch)) if self.elastic
                     else [])
@@ -749,6 +1152,9 @@ class Tracker:
             return False
         rank = int(rank)
         with self._cv:
+            if rank in self._member.evicted:
+                return False
+            self._wal("evict", rank=rank, reason=reason)
             if not self._member.evict(rank):
                 return False
             pend = self._pending.pop(rank, None)
@@ -756,7 +1162,7 @@ class Tracker:
             self._cv.notify_all()
         self._note_transition("evict", rank, reason or "evicted")
         if pend is not None:
-            pend[0].close()
+            self._close(pend[0])
         if got is not None:
             self._assign(*got)
         return True
@@ -817,7 +1223,7 @@ class Tracker:
             print(f"[tracker] rendezvous store start failed, rejecting "
                   f"epoch {epoch}: {e}", file=sys.stderr, flush=True)
             for c in conns.values():
-                c.close()
+                self._close(c)
             return
 
         # single_host and the host grouping are judged by the OBSERVED
@@ -834,10 +1240,12 @@ class Tracker:
             c, h, p, f, tok = batch[rank]
             by_host.setdefault(_src_ip(c) or h, []).append(slot_of[rank])
         groups = list(by_host.values())
+        topo = {"epoch": epoch, "groups": groups,
+                "delegates": [min(g) for g in groups],
+                "single_host": single_host}
         with self._lock:
-            self._topo = {"epoch": epoch, "groups": groups,
-                          "delegates": [min(g) for g in groups],
-                          "single_host": single_host}
+            self._wal("topo", doc=topo)
+            self._topo = topo
 
         for rank in sorted(conns):
             parent, children = tree_neighbors(rank, world)
@@ -898,11 +1306,47 @@ class Tracker:
                         epoch, self._acked.get(stable[rank], 0))
             except (ConnectionError, OSError) as e:
                 all_acked = False
-                print(f"[tracker] rank {rank} did not ack epoch {epoch} "
-                      f"({type(e).__name__}: {e})", file=sys.stderr,
-                      flush=True)
+                if not self.crashed:
+                    print(f"[tracker] rank {rank} did not ack epoch "
+                          f"{epoch} ({type(e).__name__}: {e})",
+                          file=sys.stderr, flush=True)
             finally:
-                conn.close()
-        if all_acked:
+                self._close(conn)
+        if all_acked and not self.crashed:
+            # a crashed tracker reaps nothing: its stores stay as a kill
+            # leaves them
             self._reap_old_stores(epoch)
 
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """Standalone tracker. ``--wal-dir`` journals every control-plane
+    transition; ``--resume <wal_dir>`` replays it and re-adopts a live
+    world after a crash: pin ``--host``/``--port`` to the dead tracker's
+    address, so the environment the workers were launched with stays
+    valid. Elastic membership follows ``RABIT_ELASTIC``, the live plane
+    ``RABIT_METRICS_PORT``."""
+    import argparse
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("-n", "--num-workers", type=int, required=True)
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=0)
+    ap.add_argument("--wal-dir", default=None,
+                    help="journal control-plane transitions here "
+                         "(also RABIT_TRACKER_WAL_DIR)")
+    ap.add_argument("--resume", metavar="WAL_DIR", default=None,
+                    help="replay WAL_DIR and re-adopt the live world")
+    args = ap.parse_args(argv)
+    tr = Tracker(args.num_workers, host=args.host, port=args.port,
+                 wal_dir=args.resume or args.wal_dir,
+                 resume=args.resume is not None).start()
+    print(f"[tracker] listening on {tr.host}:{tr.port}", file=sys.stderr,
+          flush=True)
+    try:
+        tr.join()
+    finally:
+        tr.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -130,8 +130,9 @@ def test_join_grace_ms_parses_env_as_jax(monkeypatch, value):
 
 def test_identity_and_resume_without_a_server(monkeypatch):
     """``note_identity`` keeps the formed identity; ``present_resume``
-    has no tracker to talk to (no address, or a port's tracker, which
-    closes the unported ``resume`` command) and says False."""
+    says False with no tracker to talk to (no address), and when the
+    tracker does not know the identity (a tracker without a journal,
+    whose world has no rank 2)."""
     monkeypatch.delenv("RABIT_TRACKER_URI", raising=False)
     monkeypatch.delenv("RABIT_TRACKER_PORT", raising=False)
     membership.note_identity("7", 2, 3)

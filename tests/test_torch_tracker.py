@@ -212,9 +212,34 @@ def test_print_topo_shutdown_and_unknown_commands():
         conn = _request(addr, "metrics", "t1", "not json")
         assert struct.unpack("<I", _recv_exact(conn, 4))[0] == 0
         assert tr.merged_metrics()["num_ranks"] == 0   # foreign schema
-        for cmd in ("resume", "repl", "submit"):   # not ported yet
+        for cmd in ("repl", "submit"):   # not ported yet
             conn = _request(addr, cmd, "t0")
             assert conn.recv(1) == b""   # closed without an answer
+        # resume, without a WAL: the JAX tracker's answer to each request
+        # on the same world (a match, a contradiction, an epoch from the
+        # future, a new task id on a taken rank, a malformed payload)
+        from rabit_tpu.tracker.tracker import Tracker as JaxTracker
+        jax_tr = JaxTracker(2).start()
+        try:
+            jc, _ = _register_all(jax_tr, 2, 0)
+            for c in jc:
+                c.sendall(struct.pack("<I", 1))
+                c.close()
+            for task, payload in (("t0", '{"rank": 0, "epoch": 1}'),
+                                  ("t0", '{"rank": 1, "epoch": 1}'),
+                                  ("t1", '{"rank": 1, "epoch": 99}'),
+                                  ("t9", '{"rank": 1, "epoch": 1}'),
+                                  ("t1", "not json")):
+                answers = []
+                for t in (tr, jax_tr):
+                    conn = _request((t.host, t.port), "resume", task,
+                                    payload)
+                    answers.append(struct.unpack(
+                        "<I", _recv_exact(conn, 4))[0])
+                assert answers[0] == answers[1], (task, payload, answers)
+            assert tr._resumed_ranks == jax_tr._resumed_ranks == {0}
+        finally:
+            jax_tr.stop()
         bad = socket.create_connection(addr, timeout=10)
         bad.sendall(struct.pack("<I", 0xDEADBEEF))
         assert bad.recv(1) == b""

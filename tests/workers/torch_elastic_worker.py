@@ -26,6 +26,12 @@ Roles (selected by RABIT_TASK_ID / KILL_TASK / RABIT_NUM_TRIAL):
 Every live member of an epoch durably checkpoints the SAME payload
 (a pure function of the assignment epoch and world size), so the test
 can assert bit-exactness across ranks and across the resize.
+
+The writes are ordered: the survivors save v2 only once the joiner has
+seeded its store (it leaves an ``adopted`` marker in ELASTIC_OUT after
+logging its adoption). Otherwise a survivor's v2 can reach the disk
+before the joiner looks, and the joiner adopts v2 instead of the shrunk
+world's v1.
 """
 
 import json
@@ -154,6 +160,18 @@ def wait_for(pred, what):
         time.sleep(0.05)
 
 
+def adopted_marker():
+    return os.path.join(OUT, "adopted")
+
+
+def wait_for_adoption():
+    """Block until the joiner has seeded its store from the shrunk
+    world's checkpoint."""
+    while not os.path.exists(adopted_marker()):
+        assert time.monotonic() < DEADLINE, "timed out waiting for adoption"
+        time.sleep(0.02)
+
+
 def log(msg):
     with open(os.path.join(OUT, f"r{TASK}.log"), "a") as f:
         f.write(msg + "\n")
@@ -187,6 +205,11 @@ def main():
         log(f"rejoined rank={rank} world={world} epoch={epoch}")
         adopted = store.adopt_latest_from_peers()
         log(f"adopted v{adopted}")
+        # release the survivors' v2 saves (an atomic create)
+        tmp = adopted_marker() + f".tmp{os.getpid()}"
+        with open(tmp, "w") as f:
+            f.write(str(adopted))
+        os.replace(tmp, adopted_marker())
         store.save(2, checkpoint_payload(epoch, world))
         log("done")
         return
@@ -201,6 +224,7 @@ def main():
     wait_for(lambda d: d.get("joining"), "parked joiner")
     rank, world, epoch = register("recover")
     log(f"reformed rank={rank} world={world} epoch={epoch}")
+    wait_for_adoption()
     store.save(2, checkpoint_payload(epoch, world))
     log("done")
 
