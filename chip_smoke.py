@@ -7,8 +7,10 @@ parallelism families (sequence parallelism, the pipeline, the MoE, the
 multichip dryrun), the telemetry and profiling plane, the skew plane
 with the live plane that feeds it, the watchdog's ladder with the
 flight recorder and the overlap bench, elastic membership with the
-in-process resize, and the tracker's write-ahead log with a world that
-keeps computing through a tracker crash.
+in-process resize, the tracker's write-ahead log with a world that
+keeps computing through a tracker crash, and the hot standby with the
+chaos front proxy, through which a world computes across the loss of
+its leader with no respawn.
 
     python3 chip_smoke.py
 
@@ -249,8 +251,8 @@ Phases (each prints a line; any failure exits non-zero):
                 whose stacks show the allreduce, then the stopped rank is
                 killed and no worker holds a card (``nvidia-smi
                 --query-compute-apps=pid``); the robust engine with the
-                torch data plane, rank p - 1's data plane asleep 4 s inside
-                a collective (deadline 3000 ms): every rank's retry rung
+                torch data plane, rank p - 1's data plane asleep 7 s inside
+                a collective (deadline 6000 ms): every rank's retry rung
                 marks the NCCL world aborted, the round fails once its
                 collective ends and replays at a new epoch, every result
                 equal to the clean run's bit for bit. With one
@@ -315,19 +317,49 @@ Phases (each prints a line; any failure exits non-zero):
                 records and ms, the journal's ms, and epoch 1's ``init``
                 and formation s with the WAL off and on. With one card it
                 says that (b) did not run.
-19. kernels     one JSON line of every kernel with its main-path launches
+19. failover    the hot standby and the chaos front proxy
+                (``tracker/standby.py``, the leader's lease and ``repl``
+                stream, the supervisor's adoption, the skew poller's
+                failover, ``chaos/``): ``python -m
+                rabit_tpu_torch.tracker.standby --smoke``; 8 MiB each way
+                through a ``ChaosProxy`` with an empty schedule, byte for
+                byte; then phase 18's worker, rounds and histogram under
+                the port's launcher with a WAL, ``RABIT_TRACKER_STANDBY=1``,
+                ``RABIT_LEASE_MS=800``, ``elastic=True`` and the chaos
+                front proxy, each run against phase 18's uninterrupted run
+                at the same world, seed and rounds (run here when the phase
+                runs alone): (a) world 1 on card 0, once with
+                ``tracker_kill`` (``delay_ms`` 4000, the cold respawn the
+                adoption cancels) once every rank has logged round 5, once
+                with ``tracker_partition`` over rounds 5-15: every round
+                bit for bit, 1 failover, 0 restarts, 0 respawns, epoch 1,
+                the kernel launched once a round, ``assign``, ``lease``,
+                ``epoch`` and ``promoted`` in the standby's journal and a
+                ``down`` a rank after the promotion (``finalize`` through
+                the retargeted proxy), the deposed leader fenced in the
+                partition run; (b) with two cards or more, at p = min(4,
+                cards), the kill, then task 1 evicts itself at round 20
+                and the survivors ``resize("recover")`` through the
+                promoted standby, which hosts epoch 2's store (each process
+                on one card, no two members of an epoch on one card, no
+                worker left on a card). Each run prints the failover as the
+                tracker measured it, the outage as the workers saw it, the
+                deposed leader's acked seq and lag, the promotion's replay
+                and, in (b), epoch 2's formation s. With one card it says
+                that (b) did not run.
+20. kernels     one JSON line of every kernel with its main-path launches
                 (and, for the flash kernels, phase 12's and phase 13's; for
                 the histogram, phase 17 (b)'s, null where (b) did not run,
-                and phase 18's killed runs', (b)'s null where it did not
-                run).
+                phase 18's killed runs', (b)'s null where it did not run,
+                and phase 19's runs, (b)'s null where it did not run).
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
 phase 6, each run of phase 12, each ring call of phase 13, in its rank's
 process, each run of phase 14 (b)) and read just after it, so a kernel's
 count is its own path's alone: mask_only's is the sweep's. Phase 11's
 histogram launches are counted in its workers, each a fresh process (so
-from 0), and printed there; phases 17's and 18's in their workers, a
-launch a round a member. The last line is the device JSON.
+from 0), and printed there; phases 17's, 18's and 19's in their
+workers, a launch a round a member. The last line is the device JSON.
 Without CUDA, or without the package beside this file, the script exits
 non-zero and prints no result.
 """
@@ -3134,7 +3166,11 @@ WD_BOOT_MS = 1500               # the hung bootstrap: exit at 1.5 + 2 x 1.5 s
 WD_STALL = (2000, 5.0)          # TorchEngine: rungs at 2 s and 4 s, a 5 s sleep
 WD_STOP_MS = 2000               # SIGSTOP: the abort rung at 2 + 2 x 2 = 6 s
 WD_EXIT_MARGIN_S = 5.0          # the bundle's dump, the exit, the clocks' skew
-WD_ROBUST = (3000, 4.0)         # the data plane: retry at 3 s, a 4 s sleep
+# the data plane: retry at 6 s, a 7 s sleep. The deadline must clear the
+# first collective, which forms the NCCL world under the same guard: on
+# four H100s that took over 3 s in 2 of 4 runs, and a 3 s deadline then
+# fired a retry rung before the scripted sleep began
+WD_ROBUST = (6000, 7.0)
 WD_TIMEOUT_S = 300
 WD_GUARD_LOOP = 10_000
 OVERLAP_DEVICE_DIMS = (384, 512, 768, 1024, 1280, 1536, 2048, 2560, 3072)
@@ -3211,6 +3247,30 @@ def _wd_bootstrap(tmp: Path) -> dict:
             "bound_s": _exit_bound(WD_BOOT_MS)}
 
 
+def _proc_evidence(pid: int) -> dict:
+    """What ``/proc`` says of a process that has not ended: its state,
+    where it waits, its threads' states, and whether it still runs
+    Python (its command line); read only, and best-effort."""
+    base = Path(f"/proc/{pid}")
+    doc = {"pid": pid}
+    try:
+        status = (base / "status").read_text().splitlines()
+        doc["status"] = [ln for ln in status if ln.split(":")[0] in
+                         ("State", "Threads", "VmRSS", "SigPnd", "ShdPnd")]
+        doc["wchan"] = (base / "wchan").read_text()
+        doc["cmdline"] = (base / "cmdline").read_bytes().replace(
+            b"\0", b" ").decode(errors="replace")[:200]
+        threads = {}
+        for t in sorted((base / "task").iterdir()):
+            fields = (t / "stat").read_text().rsplit(")", 1)[1].split()
+            name = (t / "comm").read_text().strip()
+            threads[f"{t.name}:{name}"] = fields[0]
+        doc["threads"] = threads
+    except OSError as e:
+        doc["error"] = f"{type(e).__name__}: {e}"
+    return doc
+
+
 def _stall_world(p: int, mode: str, tmp: Path, args: list, env: dict,
                  wait_for: int) -> tuple:
     """``p`` stall workers of ``mode`` (rank r on card r), their output in
@@ -3239,9 +3299,19 @@ def _stall_world(p: int, mode: str, tmp: Path, args: list, env: dict,
                 if r not in exits and procs[r].poll() is not None:
                     exits[r] = time.time()
             if time.monotonic() > deadline:
-                raise AssertionError(f"{mode} world: ranks "
-                                     f"{sorted(set(range(wait_for)) - set(exits))}"
-                                     f" did not end in {WD_TIMEOUT_S} s")
+                # the evidence, read before the kill: a process stuck in
+                # its exit (a thread in state D or Z, the interpreter
+                # gone) waits on the CUDA context's teardown; a live
+                # interpreter is the watchdog's
+                late = sorted(set(range(wait_for)) - set(exits))
+                bundles = sorted(x.name for x in tmp.rglob("*.json"))
+                logs_tail = {r: (tmp / f"log{r}.txt").read_text()[-1500:]
+                             for r in late}
+                raise AssertionError(
+                    f"{mode} world: ranks {late} did not end in "
+                    f"{WD_TIMEOUT_S} s; /proc: "
+                    f"{[_proc_evidence(procs[r].pid) for r in late]}; "
+                    f"files {bundles}; logs {logs_tail}")
             time.sleep(0.02)
     except BaseException:
         for q in procs:
@@ -3724,6 +3794,19 @@ def _logged_round(out: Path, p: int) -> int:
     return -1 if least is None else least
 
 
+def _resume_env(out: Path, hist) -> dict:
+    """The resume worker's environment: its output, rounds, histogram and
+    seed, and the skew poller's cadence."""
+    return {"RESUME_OUT": str(out), "RESUME_ROUNDS": str(RESUME_ROUNDS),
+            "RESUME_ROUND_SLEEP_MS": str(RESUME_SLEEP_MS),
+            "RESUME_HIST_ROWS": str(hist[0]),
+            "RESUME_HIST_BINS": str(hist[1]),
+            "RESUME_SEED": str(RESIZE_SEED),
+            "RESUME_DEADLINE": str(RESUME_TIMEOUT_S - 60),
+            "RABIT_SKEW_POLL_MS": "200",
+            "PYTHONPATH": _stall_env()["PYTHONPATH"]}
+
+
 def _resume_run(p: int, tmp: Path, tag: str, wal: bool, elastic: bool,
                 device: str = "cuda", hist=RESIZE_HIST) -> tuple:
     """The resume worker as ``p`` ranks under the port's launcher (the
@@ -3739,13 +3822,7 @@ def _resume_run(p: int, tmp: Path, tag: str, wal: bool, elastic: bool,
     from rabit_tpu_torch.tracker.wal import WAL_DIR_ENV
     out = tmp / tag
     out.mkdir()
-    env = {"RESUME_OUT": str(out), "RESUME_ROUNDS": str(RESUME_ROUNDS),
-           "RESUME_ROUND_SLEEP_MS": str(RESUME_SLEEP_MS),
-           "RESUME_HIST_ROWS": str(hist[0]),
-           "RESUME_HIST_BINS": str(hist[1]), "RESUME_SEED": str(RESIZE_SEED),
-           "RESUME_DEADLINE": str(RESUME_TIMEOUT_S - 60),
-           "RABIT_SKEW_POLL_MS": "200",
-           "PYTHONPATH": _stall_env()["PYTHONPATH"]}
+    env = _resume_env(out, hist)
     resumed = out / "resumed"
     if elastic:
         env.update(RESUME_SHRINK_AT=str(RESUME_SHRINK_AT), KILL_TASK="1")
@@ -3780,26 +3857,13 @@ def _resume_run(p: int, tmp: Path, tag: str, wal: bool, elastic: bool,
     return docs, stats, wal_dir
 
 
-def _resume_checks(p: int, base: dict, docs: dict, stats: dict,
-                   wal_dir: Path, elastic: bool, device: str) -> dict:
-    """Phase 18's verdicts on a killed run against its uninterrupted
-    twin: every round present and bit for bit the twin's, one restart,
-    no respawn, the expected epochs and evictions, a launch a round, the
-    journal's records."""
-    from rabit_tpu_torch.tracker.wal import WriteAheadLog
-    w = stats["tracker_wal"]
-    if stats["tracker_restarts"] != 1 or w["restarts"] != 1 or \
-            w["records"] <= 0 or stats["total_attempts"] != 0 or \
-            stats["readmissions"] != 0:
-        raise AssertionError(f"resume: restarts {stats['tracker_restarts']}"
-                             f", journal {w}, attempts "
-                             f"{stats['total_attempts']}, re-admissions "
-                             f"{stats['readmissions']}")
-    member = stats["membership"]
-    want_evicted = [docs[1]["rounds"][0]["rank"]] if elastic else []
-    if member["evicted"] != want_evicted or \
-            member["epoch"] != (2 if elastic else 1):
-        raise AssertionError(f"resume: membership {member}")
+def _stream_checks(p: int, base: dict, docs: dict, elastic: bool,
+                   device: str) -> tuple:
+    """Each task's rounds against the uninterrupted twin's, bit for bit,
+    with a launch a round, the formations at the expected epochs, one
+    device for the kernel and the data plane kept for the run, the shrunk
+    world's rounds at p - 1 (``elastic``), and distinct cards; the
+    launches in all and the cards by task."""
     launches, cards = 0, []
     for t, d in docs.items():
         got = [(r["round"], r["world"], r["crc"], r["hist_crc"])
@@ -3833,6 +3897,30 @@ def _resume_checks(p: int, base: dict, docs: dict, stats: dict,
             raise AssertionError(f"task {t}: the shrunk world's rounds")
     if device == "cuda" and len(set(cards)) != p:
         raise AssertionError(f"two members on one card: {cards}")
+    return launches, cards
+
+
+def _resume_checks(p: int, base: dict, docs: dict, stats: dict,
+                   wal_dir: Path, elastic: bool, device: str) -> dict:
+    """Phase 18's verdicts on a killed run against its uninterrupted
+    twin: every round present and bit for bit the twin's, one restart,
+    no respawn, the expected epochs and evictions, a launch a round, the
+    journal's records."""
+    from rabit_tpu_torch.tracker.wal import WriteAheadLog
+    w = stats["tracker_wal"]
+    if stats["tracker_restarts"] != 1 or w["restarts"] != 1 or \
+            w["records"] <= 0 or stats["total_attempts"] != 0 or \
+            stats["readmissions"] != 0:
+        raise AssertionError(f"resume: restarts {stats['tracker_restarts']}"
+                             f", journal {w}, attempts "
+                             f"{stats['total_attempts']}, re-admissions "
+                             f"{stats['readmissions']}")
+    member = stats["membership"]
+    want_evicted = [docs[1]["rounds"][0]["rank"]] if elastic else []
+    if member["evicted"] != want_evicted or \
+            member["epoch"] != (2 if elastic else 1):
+        raise AssertionError(f"resume: membership {member}")
+    launches, cards = _stream_checks(p, base, docs, elastic, device)
     kinds = [k for k, _ in WriteAheadLog(str(wal_dir)).replay()]
     # the evicted task leaves without a shutdown
     downs = kinds.count("down")
@@ -3870,6 +3958,9 @@ def _resume_numbers(base: dict, docs: dict, stats: dict) -> dict:
 
 def _resume_pair(p: int, tmp: Path, elastic: bool, device: str = "cuda",
                  hist=RESIZE_HIST) -> tuple:
+    """Phase 18's uninterrupted run and its killed twin: the verdicts and
+    numbers, and the uninterrupted run's documents (phase 19's reference
+    at the same world, seed and rounds)."""
     tag = "elastic" if elastic else "fixed"
     base, bstats, _ = _resume_run(p, tmp, f"{tag}_base", False, elastic,
                                   device, hist)
@@ -3881,21 +3972,21 @@ def _resume_pair(p: int, tmp: Path, elastic: bool, device: str = "cuda",
     res.update(_resume_numbers(base, docs, stats))
     res["pids"] = [d["pid"] for d in list(base.values())
                    + list(docs.values())]
-    return res
+    return res, base
 
 
 def phase_resume(power: str) -> dict:
     """The tracker's write-ahead log and resume (see the module's phase
-    18)."""
+    18). Its summary, and the uninterrupted runs' documents by part."""
     import tempfile
     r = subprocess.run([sys.executable, "-m", "rabit_tpu_torch.tracker.wal",
                         "--smoke"], env=_stall_env(), capture_output=True,
                        text=True, timeout=RESUME_TIMEOUT_S)
     if r.returncode != 0 or "wal smoke ok" not in r.stdout:
         raise AssertionError(f"wal --smoke: {r.stdout}{r.stderr}")
-    out = {}
+    out, bases = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        a = _resume_pair(1, Path(tmp), False)
+        a, bases["a"] = _resume_pair(1, Path(tmp), False)
     out["a"] = a
     phase("resume", f"(a) wal --smoke ok; world 1 on card 0 under the "
           f"launcher with RABIT_TRACKER_WAL_DIR (robust engine, "
@@ -3922,10 +4013,10 @@ def phase_resume(power: str) -> dict:
               f"through the resumed tracker needs two or more")
         out["b"] = None
         out["launches"] = {"a": a["launches"], "b": None}
-        return out
+        return out, bases
     p = min(4, count)
     with tempfile.TemporaryDirectory() as tmp:
-        b = _resume_pair(p, Path(tmp), True)
+        b, bases["b"] = _resume_pair(p, Path(tmp), True)
     smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.split()
@@ -3951,7 +4042,307 @@ def phase_resume(power: str) -> dict:
           f" / on {b['init_s']['wal_on']}, formation s off "
           f"{b['formation_s']['wal_off']} / on {b['formation_s']['wal_on']}"
           f" [{power}]")
-    return out
+    return out, bases
+
+
+# phase 19: the hot standby and the chaos front proxy. Phase 18's worker,
+# rounds and histogram, under a WAL, a standby and the front proxy
+FAILOVER_LEASE_MS = 800
+FAILOVER_KILL_DELAY_MS = 4000     # the cold respawn the adoption cancels
+FAILOVER_PARTITION = (RESUME_KILL_AFTER, 15)   # the rounds it covers
+FAILOVER_GRACE_MS = 15000
+FAILOVER_NEVER = [1e9, 1e9 + 1]   # a rule's window before the tick opens it
+FAILOVER_CHAOS = {
+    "kill": {"seed": 11, "rules": [
+        {"kind": "tracker_kill", "target": "tracker",
+         "window_s": FAILOVER_NEVER, "delay_ms": FAILOVER_KILL_DELAY_MS}]},
+    "partition": {"seed": 13, "rules": [
+        {"kind": "tracker_partition", "window_s": FAILOVER_NEVER}]}}
+
+
+def _set_window(proxy, kind: str, start: float, end: float) -> None:
+    """Move ``kind``'s window of the front proxy's schedule."""
+    for rule in proxy.schedule.rules:
+        if rule.kind == kind:
+            rule.window_s = (start, end)
+
+
+def _failover_run(p: int, tmp: Path, tag: str, mode: str, elastic: bool,
+                  device: str = "cuda", hist=RESIZE_HIST) -> tuple:
+    """The resume worker as ``p`` ranks under the port's launcher with a
+    WAL, a hot standby (``RABIT_TRACKER_STANDBY=1``, a lease of
+    ``FAILOVER_LEASE_MS``) and the chaos front proxy: once every rank has
+    logged round ``RESUME_KILL_AFTER`` the tick opens the schedule's
+    window, ``tracker_kill`` from then on, or ``tracker_partition`` until
+    every rank has logged round ``FAILOVER_PARTITION[1]``. ``elastic``:
+    task 1 leaves at round ``RESUME_SHRINK_AT``, once the standby has been
+    adopted. Each task's document, the launcher's stats, the journal's
+    directory and the tick's proxy clocks."""
+    import os
+    from rabit_tpu_torch.tracker.launch import launch
+    from rabit_tpu_torch.tracker.wal import WAL_DIR_ENV
+    out = tmp / tag
+    out.mkdir()
+    env = _resume_env(out, hist)
+    adopted = out / "adopted"
+    if elastic:
+        env.update(RESUME_SHRINK_AT=str(RESUME_SHRINK_AT), KILL_TASK="1",
+                   RESUME_AWAIT=str(adopted))
+    clocks = {}
+
+    def tick(sup):
+        if sup.failovers and not adopted.exists():
+            adopted.write_text("1")
+        rnd = _logged_round(out, p)
+        proxy = sup.proxy
+        if "opened" not in clocks and rnd >= RESUME_KILL_AFTER:
+            clocks["opened"] = proxy.elapsed()
+            kind = "tracker_kill" if mode == "kill" else "tracker_partition"
+            _set_window(proxy, kind, clocks["opened"], 1e9)
+        if mode == "partition" and "opened" in clocks and \
+                "closed" not in clocks and rnd >= FAILOVER_PARTITION[1]:
+            clocks["closed"] = proxy.elapsed()
+            _set_window(proxy, "tracker_partition", clocks["opened"],
+                        clocks["closed"])
+
+    wal_dir = tmp / f"{tag}.wal"
+    knobs = {WAL_DIR_ENV: str(wal_dir), "RABIT_TRACKER_STANDBY": "1",
+             "RABIT_LEASE_MS": str(FAILOVER_LEASE_MS),
+             "RABIT_TRACKER_RESUME_GRACE_MS": str(FAILOVER_GRACE_MS)}
+    old = {k: os.environ.pop(k, None) for k in knobs}
+    os.environ.update(knobs)
+    stats = {}
+    try:
+        launch(p, [sys.executable, str(RESUME_WORKER),
+                   f"rabit_device={device}", "rabit_dataplane=torch",
+                   "rabit_telemetry=1"], max_attempts=0,
+               timeout=RESUME_TIMEOUT_S, quiet=True, stats=stats, env=env,
+               elastic=elastic, tick=tick, chaos=FAILOVER_CHAOS[mode])
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    docs = {t: json.loads((out / f"r{t}.json").read_text())
+            for t in range(p)}
+    return docs, stats, wal_dir, clocks
+
+
+def _failover_checks(p: int, mode: str, base: dict, docs: dict,
+                     stats: dict, wal_dir: Path, clocks: dict,
+                     elastic: bool, device: str = "cuda") -> dict:
+    """Phase 19's verdicts on one run against its uninterrupted twin, and
+    its numbers: the failover as the tracker measured it, the outage as
+    the workers saw it through the front proxy, the deposed leader's
+    acked seq and lag, the promotion's replay, epoch 2's formation."""
+    from rabit_tpu_torch.tracker.wal import WriteAheadLog
+    fo = stats["failover"]
+    if not (fo["standby"] and fo["promoted"]) or fo["failovers"] != 1 or \
+            fo["acked_seq"] <= 0 or stats["tracker_restarts"] != 0 or \
+            stats["total_attempts"] != 0 or stats["readmissions"] != 0 or \
+            stats["chaos"]["events"] < 1 or \
+            fo["fenced"] != (1 if mode == "partition" else 0):
+        raise AssertionError(f"failover ({mode}): {fo}, restarts "
+                             f"{stats['tracker_restarts']}, attempts "
+                             f"{stats['total_attempts']}, re-admissions "
+                             f"{stats['readmissions']}, chaos "
+                             f"{stats['chaos']}")
+    member = stats["membership"]
+    want_evicted = [docs[1]["rounds"][0]["rank"]] if elastic else []
+    if member["evicted"] != want_evicted or \
+            member["epoch"] != (2 if elastic else 1):
+        raise AssertionError(f"failover ({mode}): membership {member}")
+    launches, cards = _stream_checks(p, base, docs, elastic, device)
+    # the promoted tracker's journal: the replicated formation, the
+    # promotion, then every shutdown, which the native core's finalize
+    # sends to the address it was launched with: the retargeted proxy
+    kinds = [k for k, _ in WriteAheadLog(str(wal_dir / "standby")).replay()]
+    after = kinds[kinds.index("promoted"):] if "promoted" in kinds else []
+    downs = p - 1 if elastic else p
+    if not {"assign", "lease", "epoch"} <= set(kinds) or \
+            kinds.count("promoted") != 1 or after.count("down") != downs:
+        raise AssertionError(f"failover ({mode}): standby journal {kinds}")
+    if elastic and "evict" not in after:
+        raise AssertionError(f"failover ({mode}): the eviction was not "
+                             f"journaled by the promoted tracker: {kinds}")
+    leader = [k for k, _ in WriteAheadLog(str(wal_dir)).replay()]
+    if "down" in leader or "promoted" in leader:
+        raise AssertionError(f"failover ({mode}): the deposed leader "
+                             f"journaled {leader}")
+    epoch2 = [round(s["dur"], 4) for d in docs.values()
+              for s in d["world_reform"] if s["epoch"] == 2]
+    return {"launches": launches, "cards": cards,
+            "failover_ms": round(fo["failover_ms"], 3),
+            "outage_s": {t: [round(o["s"], 4) for o in d["outages"]]
+                         for t, d in docs.items()},
+            "acked_seq": fo["acked_seq"], "leader_repl": fo["leader_repl"],
+            "resyncs": fo["resyncs"],
+            "replay_ms": round(stats["tracker_wal"]["replay_ms"], 3),
+            "replayed": stats["tracker_wal"]["replayed"],
+            "window_s": [round(clocks.get(k, -1.0), 3)
+                         for k in ("opened", "closed")],
+            "epoch2_formation_s": epoch2,
+            "chaos": stats["chaos"],
+            "kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
+            "pids": [d["pid"] for d in docs.values()]}
+
+
+def _failover_line(tag: str, r: dict, power: str) -> None:
+    phase("failover", f"{tag} the failover as the tracker measured it "
+          f"{r['failover_ms']} ms; the outage as the workers saw it through "
+          f"the front proxy {r['outage_s']} s (window {r['window_s']} s on "
+          f"the proxy's clock); the deposed leader's replication "
+          f"{r['leader_repl']} (standby acked {r['acked_seq']}, "
+          f"{r['resyncs']} resyncs); the promotion's replay "
+          f"{r['replayed']} records in {r['replay_ms']} ms; epoch 2's "
+          f"formation s {r['epoch2_formation_s'] or 'none'} [{power}]")
+
+
+def _proxy_byte_exact() -> dict:
+    """The chaos proxy with an empty schedule forwards 8 MiB each way
+    byte for byte, through an echo server on this machine."""
+    import socket
+    import threading
+    from rabit_tpu_torch.chaos import ChaosProxy, Schedule
+    payload = np.random.default_rng(19).integers(
+        0, 256, 8 << 20, dtype=np.uint8).tobytes()
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+
+    def echo():
+        conn, _ = srv.accept()
+        with conn:
+            while True:
+                data = conn.recv(1 << 16)
+                if not data:
+                    return
+                conn.sendall(data)
+
+    t = threading.Thread(target=echo, daemon=True)
+    t.start()
+    got = bytearray()
+    try:
+        with ChaosProxy(*srv.getsockname(), Schedule()) as proxy:
+            with socket.create_connection((proxy.host, proxy.port),
+                                          timeout=60) as c:
+                sender = threading.Thread(
+                    target=lambda: (c.sendall(payload),
+                                    c.shutdown(socket.SHUT_WR)))
+                sender.start()
+                while True:
+                    chunk = c.recv(1 << 16)
+                    if not chunk:
+                        break
+                    got += chunk
+                sender.join(timeout=60)
+            deadline = time.monotonic() + 10
+            while proxy.bytes_forwarded < 2 * len(payload) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+            fwd, events = proxy.bytes_forwarded, list(proxy.events)
+    finally:
+        srv.close()
+        t.join(timeout=10)
+    if bytes(got) != payload or fwd != 2 * len(payload) or events:
+        raise AssertionError(f"the chaos proxy: {len(got)} of "
+                             f"{len(payload)} bytes back, equal "
+                             f"{bytes(got) == payload}, {fwd} forwarded, "
+                             f"events {events}")
+    return {"bytes": len(payload), "forwarded": fwd}
+
+
+def phase_failover(power: str, bases: dict | None = None) -> dict:
+    """The hot standby and the chaos front proxy (see the module's phase
+    19). ``bases``: phase 18's uninterrupted runs by part, the reference
+    at the same world, seed and rounds; run here when absent (the phase
+    alone)."""
+    import tempfile
+    bases = dict(bases or {})
+    r = subprocess.run([sys.executable, "-m",
+                        "rabit_tpu_torch.tracker.standby", "--smoke"],
+                       env=_stall_env(), capture_output=True, text=True,
+                       timeout=RESUME_TIMEOUT_S)
+    if r.returncode != 0 or "failover smoke ok" not in r.stdout:
+        raise AssertionError(f"standby --smoke: {r.stdout}{r.stderr}")
+    exact = _proxy_byte_exact()
+    phase("failover", f"standby --smoke ok; the chaos proxy forwarded "
+          f"{exact['bytes']} bytes each way byte for byte "
+          f"({exact['forwarded']} in all)")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        if bases.get("a") is None:
+            bases["a"] = _resume_run(1, tmp, "base", False, False)[0]
+        for mode in ("kill", "partition"):
+            docs, stats, wal_dir, clocks = _failover_run(1, tmp, mode, mode,
+                                                         False)
+            out[mode] = _failover_checks(1, mode, bases["a"], docs, stats,
+                                         wal_dir, clocks, False)
+    for mode in ("kill", "partition"):
+        r = out[mode]
+        what = (f"tracker_kill (delay_ms {FAILOVER_KILL_DELAY_MS}) once "
+                f"every rank had logged round {RESUME_KILL_AFTER}"
+                if mode == "kill" else
+                f"tracker_partition over rounds {FAILOVER_PARTITION[0]}-"
+                f"{FAILOVER_PARTITION[1]}")
+        phase("failover", f"(a) {mode}: world 1 on card 0 under the "
+              f"launcher with a WAL, RABIT_TRACKER_STANDBY=1, "
+              f"RABIT_LEASE_MS={FAILOVER_LEASE_MS} and the chaos front "
+              f"proxy, {what}: {RESUME_ROUNDS} rounds bit for bit the "
+              f"uninterrupted run's, 1 failover, 0 restarts, 0 respawns, "
+              f"epoch 1, "
+              + ("the deposed leader fenced, " if mode == "partition"
+                 else "")
+              + f"the kernel launched once a round ({r['launches']}), "
+              f"finalize through the retargeted proxy (the standby's "
+              f"journal {r['kinds']}, chaos {r['chaos']})")
+        _failover_line(f"(a) {mode}:", r, power)
+    count = torch.cuda.device_count()
+    if count < 2:
+        phase("failover", f"(b) did not run: {count} card(s); the shrink "
+              f"through the promoted standby needs two or more")
+        out["b"] = None
+        out["launches"] = {"a": [out["kill"]["launches"],
+                                 out["partition"]["launches"]], "b": None}
+        return _failover_doc(out)
+    p = min(4, count)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        if bases.get("b") is None:
+            bases["b"] = _resume_run(p, tmp, "base", False, True)[0]
+        docs, stats, wal_dir, clocks = _failover_run(p, tmp, "kill_b",
+                                                     "kill", True)
+        b = _failover_checks(p, "kill", bases["b"], docs, stats, wal_dir,
+                             clocks, True)
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.split()
+    held = [int(x) for x in smi if x.isdigit() and int(x) in b["pids"]]
+    if held:
+        raise AssertionError(f"failover: workers {held} still hold a card")
+    out["b"] = b
+    out["launches"] = {"a": [out["kill"]["launches"],
+                             out["partition"]["launches"]],
+                       "b": b["launches"]}
+    phase("failover", f"(b) world {p} elastic, tracker_kill after round "
+          f"{RESUME_KILL_AFTER}, then task 1 evicted itself at round "
+          f"{RESUME_SHRINK_AT} and the survivors resize('recover') through "
+          f"the promoted standby, which hosted epoch 2's store: every round "
+          f"bit for bit the uninterrupted run's (the shrunk world's exact), "
+          f"1 failover, 0 restarts, 0 respawns, the one scripted eviction, "
+          f"cards {b['cards']} kept, the kernel launched once a round "
+          f"({b['launches']}), the standby's journal {b['kinds']}, no "
+          f"worker left on a card (compute apps {smi})")
+    _failover_line(f"(b) world {p}:", b, power)
+    return _failover_doc(out)
+
+
+def _failover_doc(out: dict) -> dict:
+    """Phase 19's summary for the JSON line: the pids dropped."""
+    return {k: ({kk: vv for kk, vv in v.items() if kk != "pids"}
+                if isinstance(v, dict) and "pids" in v else v)
+            for k, v in out.items()}
 
 
 def card_power() -> str:
@@ -4017,7 +4408,8 @@ def main() -> int:
     skew_doc = phase_skew(dev, power)
     phase_watchdog(dev, power)
     elastic = phase_elastic(power)
-    resume = phase_resume(power)
+    resume, bases = phase_resume(power)
+    failover = phase_failover(power, bases)
     kernels = []
     for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only"):
         head = timing[name][0]
@@ -4037,6 +4429,9 @@ def main() -> int:
     # phase 18's killed runs: a launch a round on every member; (b) null
     # where it did not run (one card)
     kernels[0]["resume_launches"] = resume["launches"]
+    # phase 19's runs: (a)'s kill and partition, (b)'s kill and shrink,
+    # null where (b) did not run (one card)
+    kernels[0]["failover_launches"] = failover["launches"]
     kernels[3]["slope_ms"] = timing["mask_only"][0]["slope_ms"]
     kernels[2]["library_bwd_ms"] = timing["flash_block_bwd"][0][
         "library_bwd_ms"]
@@ -4053,7 +4448,8 @@ def main() -> int:
         "bucket_steps": {s: {k: r[k] for k in ("median_ms", "ms", "losses")}
                          for s, r in bucket.items()},
         "parallel": par, "telemetry": tel, "skew": skew_doc,
-        "elastic": elastic, "resume": resume}), flush=True)
+        "elastic": elastic, "resume": resume, "failover": failover}),
+        flush=True)
     print(power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

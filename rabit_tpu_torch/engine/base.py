@@ -19,29 +19,6 @@ import numpy as np
 from .. import telemetry
 from ..ops.reducers import SUM
 
-# the one knob of the JAX package's engines that the port has no code for
-# yet: set, it raises rather than be ignored (both engines of the port)
-_STANDBY_KNOB = "rabit_tracker_standby"
-_STANDBY_ENV = "RABIT_TRACKER_STANDBY"
-
-
-def refuse_unported(cfg) -> None:
-    """Raise for a configured hot standby (``rabit_tracker_standby``, or
-    ``RABIT_TRACKER_STANDBY`` in the environment), whose machinery the
-    port lacks: the skew poller's failover to it is not ported.
-    Telemetry, profiling, the event bus, the live plane
-    (``rabit_metrics_port``), the skew plane (``rabit_skew_*``), the
-    watchdog (``rabit_deadline_ms``, ``rabit_deadline_ms_per_mb``,
-    ``rabit_watchdog_abort``, ``rabit_hier_phase_deadline_scale``) and
-    the flight recorder (``rabit_flight_dir``, ``rabit_flight_keep``)
-    are ported."""
-    bad = [_STANDBY_KNOB] if cfg.get(_STANDBY_KNOB) else []
-    if os.environ.get(_STANDBY_ENV) and not bad:
-        bad.append(_STANDBY_ENV)
-    if bad:
-        raise NotImplementedError(
-            f"{bad}: the hot standby is not ported to rabit_tpu_torch yet")
-
 
 class AllreduceHandle:
     """Awaitable engine-level collective (:meth:`Engine.allreduce_async`).

@@ -63,9 +63,10 @@ collective forms its world at the new epoch and size. Then
 ``rabit_elastic`` is accepted at init, as the JAX engine accepts it: the
 launcher and the tracker act on it (``tracker/membership.py``).
 
-Not ported yet, and refused at init when configured: the hot standby
-(``rabit_tracker_standby``) -- ``base.refuse_unported``, shared with
-``TorchEngine``.
+The hot standby (``RABIT_TRACKER_STANDBY``, ``tracker/standby.py``) is
+the launcher's and the skew poller's: the launcher names the standby's
+address in the worker's environment, and the poller adopts the promoted
+tracker. As in the JAX engine, nothing here reads or refuses it.
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ import numpy as np
 from . import ckpt_store
 from ._native_build import library
 from .base import (Engine, EnvExports, export_skew, note_identity,
-                   refuse_unported, start_live_plane)
+                   start_live_plane)
 from .. import telemetry
 from ..ops.reducers import DTYPE_ENUM, MAX, MIN, OP_NAMES
 from ..telemetry import events
@@ -202,7 +203,6 @@ class NativeEngine(Engine):
                 not any(a.startswith("rabit_engine=") for a in argv):
             argv.append(f"rabit_engine={self._variant}")
         cfg = Config.from_args(args)
-        refuse_unported(cfg)
         kind = self._dataplane_kind or cfg.get("rabit_dataplane")
         if kind not in (None, "", "torch", "none"):
             raise ValueError(f"unknown rabit_dataplane {kind!r} "

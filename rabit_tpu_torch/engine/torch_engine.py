@@ -90,8 +90,8 @@ the ladder's counters, events and notes to the abort (exit 86), or, with
 ``telemetry/flight.py``) installs the flight recorder with the live
 plane; ``shutdown`` uninstalls it.
 
-Not ported yet, and refused at init when configured
-(``base.refuse_unported``, the native engine's set): the hot standby.
+The hot standby (``RABIT_TRACKER_STANDBY``) is the launcher's and the
+skew poller's, as in ``XlaEngine``: nothing here reads or refuses it.
 """
 
 from __future__ import annotations
@@ -107,7 +107,7 @@ import torch.distributed as dist
 
 from . import ckpt_store
 from .base import (AllreduceHandle, Engine, EnvExports, export_skew,
-                   note_identity, refuse_unported, start_live_plane)
+                   note_identity, start_live_plane)
 from .. import telemetry
 from ..convert import numpy_from_tensor, tensor_from_numpy
 from ..ops.reducers import MAX, MIN, OP_NAMES
@@ -154,7 +154,6 @@ class TorchEngine(Engine):
 
     def init(self, args: List[str]) -> None:
         cfg = Config.from_args(args)
-        refuse_unported(cfg)
         telemetry.configure(cfg)
         _profile.configure(cfg)
         C.configure_async(cfg)

@@ -206,6 +206,18 @@ def emit(kind: str, detail: str = "", job: str = "", rank: int = -1,
     return _RING.emit(kind, detail=detail, job=job, rank=rank, **attrs)
 
 
+def emit_chaos(rule_kind: str, detail: str = "", **attrs):
+    """Chaos-proxy helper: injections arrive with the schedule's rule
+    kind (``reset``, ``bitflip``, ...) and map onto the registered
+    ``chaos.<kind>`` namespace; an unregistered rule kind (a schedule
+    grown past this registry) is dropped, never a crash in the
+    injection path."""
+    kind = f"chaos.{rule_kind}"
+    if kind not in _KIND_SET:
+        return None
+    return _RING.emit(kind, detail=detail, **attrs)
+
+
 def snapshot() -> dict:
     return _RING.snapshot()
 

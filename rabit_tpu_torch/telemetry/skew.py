@@ -42,11 +42,11 @@ Everything is off by default behind ``rabit_skew_adapt``; with the
 knob unset no caller consults this module on the collective path at
 all.
 
-Not ported yet: the poller's failover to a hot standby
-(``rabit_tracker_standby``, which the engines refuse) and the
-``resume`` half of its reconnect (``membership.present_resume``, whose
-``resume`` command comes with the tracker's write-ahead log); its
-reconnect re-announces the metrics endpoint (``live.reannounce``).
+The poller's reconnect re-presents the worker's identity to a resumed
+tracker (``membership.present_resume``) and re-announces its metrics
+endpoint (``live.reannounce``); a miss first probes the pre-advertised
+hot standby (``RABIT_TRACKER_STANDBY``, ``tracker/standby.py``) and
+adopts it once promoted.
 """
 
 from __future__ import annotations
@@ -62,6 +62,7 @@ _POLL_ENV = "RABIT_SKEW_POLL_MS"
 _SYNC_ENV = "RABIT_SKEW_SYNC_ROUNDS"
 _DIGEST_ENV = "RABIT_SKEW_DIGEST"
 _TRACKER_ENV = "RABIT_SKEW_TRACKER"
+_STANDBY_ENV = "RABIT_TRACKER_STANDBY"
 
 _ON = ("1", "true", "yes", "on")
 
@@ -497,6 +498,42 @@ class SkewMonitor:
         except Exception:  # noqa: BLE001 - reconnect is best-effort
             pass
 
+    def _try_failover(self) -> bool:
+        """The tracker we know just missed: before counting the miss
+        toward the breaker, probe the pre-advertised hot-standby address
+        (``rabit_tracker_standby``). Before promotion the standby's port
+        is bound but not listening, so the probe is refused at once and
+        the miss stands; once a promoted standby answers the same
+        ``skew`` round trip, it IS the control plane -- repoint every
+        tracker variable this process owns at it and re-present identity
+        and endpoint as a dead->alive reconnect does. True when the
+        failover happened."""
+        from ..utils import retry as _retry
+        sb = _retry.parse_hostport(os.environ.get(_STANDBY_ENV))
+        if sb is None:
+            return False
+        cur = _retry.parse_hostport(os.environ.get(_TRACKER_ENV))
+        if cur == sb:
+            return False    # already failed over to this standby
+        try:
+            reached, d = _fetch_skew_raw(sb[0], sb[1])
+        except ValueError:
+            return False
+        if not reached:
+            return False
+        os.environ[_TRACKER_ENV] = f"{sb[0]}:{sb[1]}"
+        os.environ["RABIT_TRACKER_URI"] = sb[0]
+        os.environ["RABIT_TRACKER_PORT"] = str(sb[1])
+        with self._lock:
+            self._misses = 0
+        from . import flight
+        flight.note("tracker_failover",
+                    f"skew poller adopted standby {sb[0]}:{sb[1]}")
+        self._on_reconnect()
+        if d is not None:
+            self.observe(d)
+        return True
+
     def _poll_loop(self) -> None:
         while True:
             interval = poll_interval_s()
@@ -527,6 +564,11 @@ class SkewMonitor:
                 if d is not None:
                     self.observe(d)
             else:
+                # a promoted standby answering on the pre-advertised
+                # address absorbs the miss: the breaker never trips, the
+                # outage is the lease, and no worker restarts
+                if self._try_failover():
+                    continue
                 with self._lock:
                     self._misses += 1
 

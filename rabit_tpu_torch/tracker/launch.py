@@ -39,9 +39,23 @@ re-adopts the live world; without a WAL a killed tracker stays dead.
 ``stats["tracker_restarts"]`` counts the respawns and
 ``stats["tracker_wal"]`` describes the journal.
 
-Not ported yet: chaos proxies (and their ``tracker_kill``), the hot
-standby (the supervisor's adoption of a promoted standby) and
-``--submit`` to a multi-job tracker.
+With ``RABIT_TRACKER_STANDBY`` set as well (``1``, or a ``host:port`` to
+pin the failover address) a hot standby (``tracker/standby.py``) follows
+the tracker's journal over the ``repl`` stream under a lease of
+``RABIT_LEASE_MS``, and the workers' environment names its address. A
+crashed or partitioned leader is then replaced by the promoted standby,
+which the supervisor adopts (``stats["failover"]``); the cold respawn is
+held while the standby lives and is the fallback of a double failure.
+
+``chaos`` (``launch(chaos=...)``, else ``RABIT_CHAOS``: a
+``chaos.Schedule`` spec) puts fault-injection proxies on every socket
+path: the workers reach the tracker through one front proxy, whose
+``tracker_kill`` crashes the tracker through the supervisor and which the
+supervisor retargets at a promoted standby, and the tracker rewrites the
+peer addresses it advertises through a proxy a link
+(``stats["chaos"]``).
+
+Not ported yet: ``--submit`` to a multi-job tracker.
 """
 
 from __future__ import annotations
@@ -52,21 +66,75 @@ import subprocess
 import sys
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 from . import membership as _membership
+from . import standby as _standby_mod
 from . import wal as _wal_mod
-from .tracker import Tracker
+from .tracker import Tracker, default_lease_ms
+
+
+class _ChaosFarm:
+    """The proxies of one ``launch(chaos=...)``: one fronts the tracker,
+    and one a distinct worker link listener is made on demand by the
+    tracker's ``link_rewrite`` hook (listen ports are known only at
+    registration). Every proxy runs the schedule filtered to its target
+    class (``tracker`` or ``link``; an unscoped rule runs on both) and
+    reseeded a proxy, so faults stay deterministic a link without
+    sharing ``max_times`` budgets."""
+
+    def __init__(self, schedule):
+        from ..chaos.schedule import Schedule
+        self.schedule = Schedule.from_spec(schedule)
+        self._lock = threading.Lock()
+        self._by_target: Dict[Tuple[str, int], object] = {}
+        self.tracker_proxy = None
+
+    def front_tracker(self, tracker: Tracker, kill_hook=None):
+        from ..chaos.proxy import ChaosProxy
+        self.tracker_proxy = ChaosProxy(
+            tracker.host, tracker.port,
+            self.schedule.for_target("tracker").reseed(0),
+            name="chaos-tracker", kill_hook=kill_hook).start()
+        return self.tracker_proxy
+
+    def link_rewrite(self, peer_rank: int, host: str,
+                     port: int) -> Tuple[str, int]:
+        from ..chaos.proxy import ChaosProxy
+        with self._lock:
+            proxy = self._by_target.get((host, port))
+            if proxy is None:
+                proxy = ChaosProxy(
+                    host, port,
+                    self.schedule.for_target("link").reseed(1 + peer_rank),
+                    name=f"chaos-link-r{peer_rank}").start()
+                self._by_target[(host, port)] = proxy
+        return proxy.host, proxy.port
+
+    def stop(self) -> Dict[str, int]:
+        with self._lock:
+            proxies = list(self._by_target.values())
+            self._by_target.clear()
+        if self.tracker_proxy is not None:
+            proxies.append(self.tracker_proxy)
+            self.tracker_proxy = None
+        events = 0
+        for p in proxies:
+            events += len(p.events)
+            p.stop()
+        return {"proxies": len(proxies), "events": events}
 
 
 class _TrackerSupervisor:
     """Supervise the launcher's tracker the way the launcher supervises
-    its workers (the cold half of the JAX launcher's supervisor): a crash
-    is followed by a ``resume=True`` tracker on the SAME pinned host and
-    port once the scheduled outage has passed, so the environment every
-    worker was launched with stays valid and the replayed journal
-    re-adopts the live world. Without a WAL a killed tracker stays dead:
-    supervision never invents durability."""
+    its workers (the JAX launcher's supervisor): a crash is followed by a
+    ``resume=True`` tracker on the SAME pinned host and port once the
+    scheduled outage has passed, so the environment every worker was
+    launched with stays valid and the replayed journal re-adopts the live
+    world. Without a WAL a killed tracker stays dead: supervision never
+    invents durability. With a hot standby the supervisor's job becomes
+    adopting the promoted standby, and never forking a second tracker
+    into a healthy world."""
 
     def __init__(self, tracker: Tracker, wal_dir: Optional[str],
                  factory: Callable[[str, int], Tracker],
@@ -81,6 +149,13 @@ class _TrackerSupervisor:
         self.crashed: List[Tracker] = []
         self.killed_at: List[float] = []    # wall clock of each kill
         self.resumed_at: List[float] = []   # and of each resume
+        self.standby: Optional[_standby_mod.StandbyTracker] = None
+        self.proxy = None            # the chaos front proxy, retargeted
+        self.failovers = 0
+        self.fenced = 0              # live leaders crashed at an adoption
+        # the deposed leader's replication plane at its kill (or, for a
+        # partition, at its fencing): the lag a failover could lose
+        self.leader_repl: Optional[dict] = None
         self._lock = threading.Lock()
         self._respawn_at: Optional[float] = None
 
@@ -91,6 +166,8 @@ class _TrackerSupervisor:
         with self._lock:
             if self.tracker.crashed:
                 return
+            if self.standby is not None:
+                self.leader_repl = self.tracker.repl_stats()
             self.tracker.crash()
             self.crashed.append(self.tracker)
             self.killed_at.append(time.time())
@@ -103,12 +180,67 @@ class _TrackerSupervisor:
             if self.wal_dir is not None:
                 self._respawn_at = time.monotonic() + delay_ms / 1e3
 
+    def _leader_alive(self) -> bool:
+        """Probe for a live leader OTHER than the one supervised before a
+        cold respawn: a promoted standby owns the tracker's role now. The
+        ``/healthz`` identity probe first (it works for a standby in
+        another process too), else the in-process promotion state."""
+        sb = self.standby
+        if sb is None:
+            return False
+        tr = sb.tracker
+        if tr is not None and tr.live_addr() is not None:
+            from ..telemetry import live as _live
+            doc = _live.scrape_json(*tr.live_addr(), path="/healthz")
+            return bool(doc and doc.get("ok")
+                        and doc.get("tracker_role") == "leader")
+        return tr is not None and not tr.crashed
+
+    def _adopt_locked(self) -> None:
+        """A standby promoted itself: it IS the tracker now. Fence the
+        deposed incarnation (after a partition it may still be
+        listening), repoint the chaos front proxy so that the addresses
+        baked into live workers -- the native core's ``finalize`` too --
+        keep resolving, and cancel any scheduled respawn."""
+        fresh = self.standby.tracker
+        old, self.tracker = self.tracker, fresh
+        self.failovers += 1
+        self._respawn_at = None
+        if not old.crashed:
+            self.leader_repl = old.repl_stats()
+            old.crash()
+            self.crashed.append(old)
+            self.fenced += 1
+        if self.proxy is not None:
+            self.proxy.retarget(fresh.host, fresh.port)
+        if not self.quiet:
+            print(f"[launch] standby promoted: tracker now "
+                  f"{fresh.host}:{fresh.port} (failover "
+                  f"{self.failovers}, seq {self.standby.acked_seq})",
+                  file=sys.stderr, flush=True)
+
     def poll(self) -> None:
-        """The supervision loop's turn: resume the tracker once its
-        outage has passed."""
+        """The supervision loop's turn: adopt a promoted standby; else,
+        once a killed tracker's outage has passed, hold the cold respawn
+        while a standby still works toward its promotion, and resume the
+        tracker in place only when there is none (a double failure)."""
         with self._lock:
+            if (self.standby is not None and self.standby.promoted()
+                    and self.tracker is not self.standby.tracker):
+                self._adopt_locked()
+                return
             if self._respawn_at is None or \
                     time.monotonic() < self._respawn_at:
+                return
+            if self._leader_alive():
+                # a promoted leader serves this world already: never fork
+                # a second tracker into it (adopted at the next poll)
+                self._respawn_at = None
+                return
+            if self.standby is not None and self.standby.alive():
+                # the promotion is bounded by the lease: hold the cold
+                # respawn while the standby works toward it
+                self._respawn_at = time.monotonic() + 0.05
                 return
             self._respawn_at = None
             host, port = self.tracker.host, self.tracker.port
@@ -139,8 +271,8 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
            env: Optional[Dict[str, str]] = None,
            metrics_port: Optional[int] = None,
            elastic: Optional[bool] = None,
-           tick: Optional[Callable[[_TrackerSupervisor], None]] = None
-           ) -> int:
+           tick: Optional[Callable[[_TrackerSupervisor], None]] = None,
+           chaos=None) -> int:
     """Run ``cmd`` as ``nworkers`` local processes under a tracker.
     Returns 0 on success; raises when a worker exhausts its budget or the
     run outlasts ``timeout`` seconds. A worker exiting nonzero is
@@ -165,20 +297,64 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
     ``stats`` gets ``tracker_restarts`` and ``tracker_wal`` (the
     directory, the live incarnation's records and restarts, what its
     resume replayed and in how many ms, the seconds each incarnation
-    spent journaling, and the wall clocks of each kill and resume)."""
+    spent journaling, and the wall clocks of each kill and resume).
+    ``RABIT_TRACKER_STANDBY`` with a WAL adds a hot standby, journaling
+    under ``<wal_dir>/standby``; ``stats["failover"]`` then counts its
+    adoptions, its acked seq and resyncs, the measured failover, the
+    deposed leader's replication plane at its kill or fencing, and the
+    live leaders fenced. ``chaos`` (None: ``RABIT_CHAOS``, else
+    off) is a ``chaos.Schedule`` spec; ``stats["chaos"]`` counts its
+    proxies and injected faults."""
     if elastic is None:
         elastic = (_membership.elastic_enabled()
                    or any(a == "rabit_elastic=1" for a in cmd))
+    if chaos is None:
+        chaos = os.environ.get("RABIT_CHAOS") or None
+    farm = _ChaosFarm(chaos) if chaos is not None else None
+    link_rewrite = farm.link_rewrite if farm is not None else None
     wal_dir = os.environ.get(_wal_mod.WAL_DIR_ENV) or None
+    # the hot standby is engaged only with both: an advertised standby
+    # and a journal to stream. Without either, lease_ms stays None and
+    # the tracker is as it was without a standby, byte for byte
+    standby_spec = os.environ.get(_standby_mod.STANDBY_ENV) or None
+    lease_ms = default_lease_ms() if (standby_spec and wal_dir) else None
     tracker = Tracker(nworkers, metrics_port=metrics_port, elastic=elastic,
-                      wal_dir=wal_dir).start()
+                      wal_dir=wal_dir, link_rewrite=link_rewrite,
+                      lease_ms=lease_ms).start()
 
     def _resumed_tracker(host: str, port: int) -> Tracker:
         return Tracker(nworkers, host=host, port=port,
                        metrics_port=metrics_port, elastic=elastic,
-                       wal_dir=wal_dir, resume=True)
+                       wal_dir=wal_dir, resume=True,
+                       link_rewrite=link_rewrite, lease_ms=lease_ms)
 
     sup = _TrackerSupervisor(tracker, wal_dir, _resumed_tracker, quiet=quiet)
+    front = None
+    if farm is not None:
+        try:
+            front = farm.front_tracker(tracker, kill_hook=sup.kill)
+        except BaseException:
+            tracker.stop()   # a schedule the port cannot run
+            raise
+        sup.proxy = front
+    standby = None
+    if lease_ms:
+        sb_host, sb_port = "127.0.0.1", 0
+        if ":" in standby_spec:     # else "1": an ephemeral port
+            h, _, p = standby_spec.rpartition(":")
+            sb_host, sb_port = (h or "127.0.0.1"), int(p)
+        # the standby follows the leader THROUGH the front proxy: a
+        # tracker_partition severs replication as it severs the workers,
+        # which is what makes a partition's failover honest
+        lead = (front.host, front.port) if front is not None else \
+            (tracker.host, tracker.port)
+        standby = _standby_mod.StandbyTracker(
+            lead[0], lead[1], nworkers,
+            wal_dir=os.path.join(wal_dir, "standby"), host=sb_host,
+            port=sb_port, lease_ms=lease_ms, elastic=elastic,
+            link_rewrite=link_rewrite, metrics_port=metrics_port,
+            quiet=quiet).start()
+        sup.standby = standby
     procs: Dict[int, subprocess.Popen] = {}
     # every relaunch of worker i, exported as RABIT_NUM_TRIAL so mock kill
     # schedules advance; with elastic membership a relaunch is a
@@ -193,6 +369,16 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
         # the live incarnation's: a resumed tracker keeps the address
         worker_env.update(sup.tracker.env(task_id=str(i),
                                           num_attempt=attempts[i]))
+        if front is not None:
+            # the front proxy, retargeted at a failover, keeps the address
+            # valid for the run
+            worker_env["RABIT_TRACKER_URI"] = front.host
+            worker_env["RABIT_TRACKER_PORT"] = str(front.port)
+        if standby is not None:
+            # the pre-advertised failover address: the workers' pollers
+            # probe it when the leader goes quiet
+            worker_env[_standby_mod.STANDBY_ENV] = \
+                f"{standby.host}:{standby.port}"
         # an ephemeral link listener unless the caller names a port: the
         # native core probes its default ports (9010 up) with SO_REUSEADDR,
         # and workers started together can bind one port twice, so that
@@ -244,8 +430,8 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
             f"timeout: finished={sum(finished.values())}/{nworkers} after "
             f"{timeout:.0f} s")
     finally:
-        # a resume replaced the tracker: every read below, and the
-        # teardown, go to the live incarnation (and the dead ones)
+        # a resume or a failover replaced the tracker: every read below,
+        # and the teardown, go to the live incarnation (and the dead ones)
         tracker = sup.tracker
         incarnations = [t for t in sup.crashed if t is not tracker] + \
             [tracker]
@@ -270,12 +456,33 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
                 "journal_s": [t.journal_s for t in incarnations],
                 "killed_at": list(sup.killed_at),
                 "resumed_at": list(sup.resumed_at)}
+            # a promotion is not a restart: nothing was forked
+            stats["failover"] = {
+                "standby": standby is not None,
+                "failovers": sup.failovers,
+                "promoted": standby is not None and standby.promoted(),
+                "acked_seq": 0 if standby is None else standby.acked_seq,
+                "resyncs": 0 if standby is None else standby.resyncs,
+                "failover_ms": tracker.failover_duration_ms,
+                "leader_repl": sup.leader_repl,
+                "fenced": sup.fenced}
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        if farm is not None:
+            chaos_stats = farm.stop()
+            if stats is not None:
+                stats["chaos"] = chaos_stats
+            if not quiet and chaos_stats["events"]:
+                print(f"[launch] chaos injected {chaos_stats['events']} "
+                      f"fault(s) across {chaos_stats['proxies']} proxies",
+                      file=sys.stderr, flush=True)
         for t in incarnations:
-            t.stop()
+            if standby is None or t is not standby.tracker:
+                t.stop()
+        if standby is not None:
+            standby.stop()   # and the promoted tracker it owns
 
 
 def main(argv: Optional[List[str]] = None) -> int:

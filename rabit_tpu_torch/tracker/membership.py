@@ -29,10 +29,10 @@ boundary (``rabit_tpu_torch.resize``).
 
 :func:`present_resume` speaks the ``resume`` command, which a tracker
 resumed from its write-ahead log answers (``tracker/tracker.py``); the
-monitor and the skew poller call it when the tracker comes back. One part
-has no server in the port yet: the monitor's standby probe reads
-``RABIT_TRACKER_STANDBY``, which ``engine/base.py::refuse_unported``
-refuses in both engines today.
+monitor and the skew poller call it when the tracker comes back. The
+monitor's miss first probes the pre-advertised hot standby
+(``RABIT_TRACKER_STANDBY``, ``tracker/standby.py``) and follows it once
+it has promoted.
 """
 
 from __future__ import annotations

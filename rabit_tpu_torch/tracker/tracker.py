@@ -110,8 +110,8 @@ when neither is set, and then nothing is journaled and every byte on the
 wire is as without it): every control-plane transition goes through
 ``_wal`` (``tracker/wal.py``) BEFORE it takes effect, under the tracker's
 lock -- ``assign``, ``epoch``, ``topo``, ``park``, ``evict``,
-``endpoint``, ``skew``, ``down`` and ``resume``, the JAX tracker's
-single-job records byte for byte. ``resume=True`` replays the journal
+``endpoint``, ``skew``, ``down``, ``resume``, ``lease`` and
+``promoted``, the JAX tracker's single-job records byte for byte. ``resume=True`` replays the journal
 (``fold_records``'s fold, shared with ``wal.py --compact``), counts the
 restart, journals ``resume`` and opens the resume grace
 (``rabit_tracker_resume_grace_ms``): while it lasts the poll loop takes
@@ -125,12 +125,29 @@ stay as they are). ``python -m rabit_tpu_torch.tracker.tracker -n N
 pin ``--host``/``--port`` to a dead tracker's address to resume it in
 place, so the environment the workers were launched with stays valid.
 
+The hot standby's half of the leader (``lease_ms``, with a WAL; the
+launcher sets it with ``RABIT_TRACKER_STANDBY``, its width
+``RABIT_LEASE_MS``): the leader journals its lease claim and heartbeats
+a renewal every third of a lease; ``repl`` (+ the follower's last
+durable seq u32; tracker -> follower: u32 1, or 0 without a WAL, then
+every journaled record's frame from that seq on, one u32 ack a record
+back, and seq-0 lease heartbeats between them, unacked) streams the
+journal to ``tracker/standby.py``, which promotes itself into a
+``resume=True`` tracker once a lease passes in silence. An idempotent
+renewal stays out of the journal. ``/healthz`` then says
+``tracker_role``, ``node`` and ``promoted``, and ``/metrics`` adds
+``rabit_tracker_role``, ``rabit_repl_acked_seq``,
+``rabit_repl_lag_records``, ``rabit_failover_duration_ms`` (once
+promoted) and the SLO burn gauges. With ``lease_ms`` unset nothing of it
+exists, and every byte on the wire and in the journal is as without it.
+``link_rewrite(peer_rank, host, port)`` rewrites the peer addresses an
+assignment advertises (the launcher's chaos link proxies).
+
 Any other command closes the connection. Not ported yet (the JAX
-package's tracker has them): the hot standby (``repl``, the lease
-records), multi-job (``submit``, the per-job state and its journal
-records) with the autoscaler, the folding of the summaries' events into
-a fleet event log with ``/events`` and the incident plane with
-``/incidents``, and chaos link rewrites.
+package's tracker has them): multi-job (``submit``, the per-job state
+and its journal records) with the autoscaler, and the folding of the
+summaries' events into a fleet event log with ``/events`` and the
+incident plane with ``/incidents``.
 """
 
 from __future__ import annotations
@@ -228,9 +245,41 @@ def _default_ready_timeout() -> float:
 
 
 RESUME_GRACE_MS_DEFAULT = 15_000
+LEASE_MS_DEFAULT = 2_000
+REPL_ACK_TIMEOUT_MS_DEFAULT = 1_000
 
 # the JAX package's implicit job: a snapshot names the one world by it
 DEFAULT_JOB = "default"
+
+
+def default_lease_ms() -> int:
+    """``rabit_lease_ms``: the leadership lease's length. The leader
+    heartbeats a renewal every third of it; a hot standby promotes only
+    after a full lease of silence from the leader, so this bounds the
+    failover time from above."""
+    v = os.environ.get("RABIT_LEASE_MS")
+    if not v:
+        return LEASE_MS_DEFAULT
+    try:
+        return max(100, int(v))
+    except ValueError:
+        raise ValueError(
+            f"RABIT_LEASE_MS must be an integer (ms), got {v!r}")
+
+
+def repl_ack_timeout_ms() -> int:
+    """``rabit_repl_ack_timeout_ms``: how long the leader waits for a
+    follower's ack of one record before dropping that subscriber (which
+    resubscribes from its last durable seq)."""
+    v = os.environ.get("RABIT_REPL_ACK_TIMEOUT_MS")
+    if not v:
+        return REPL_ACK_TIMEOUT_MS_DEFAULT
+    try:
+        return max(50, int(v))
+    except ValueError:
+        raise ValueError(
+            f"RABIT_REPL_ACK_TIMEOUT_MS must be an integer (ms), "
+            f"got {v!r}")
 
 
 def resume_grace_ms() -> int:
@@ -254,10 +303,11 @@ def resume_grace_ms() -> int:
 # compacted state cannot drift from replayed state. The JAX package's
 # fold (``rabit_tpu/tracker/tracker.py:383-536``) restricted to the one
 # job this tracker serves: a journal of the JAX tracker's multi-job plane
-# or hot standby raises rather than replay part of its history.
+# raises rather than replay part of its history.
 
 _REPLAYED = frozenset({"assign", "epoch", "park", "evict", "topo", "skew",
-                       "endpoint", "down", "resume"})
+                       "endpoint", "down", "resume", "promoted",
+                       _wal_mod.LEASE_KIND})
 
 
 class _ReplayWorld:
@@ -277,15 +327,21 @@ class _ReplayWorld:
         self._skew_election = None
         self._endpoints: Dict[str, dict] = {}
         self._shutdown_ranks: set = set()
+        self.promoted_wall = 0.0
+        self.promoted_mono = 0.0
+        self.failover_duration_ms = 0.0
+        self._lease: Optional[dict] = None
+        self._journaled_lease: Optional[dict] = None
 
 
 def snapshot_state(world) -> dict:
     """``world``'s replay-reachable state as a ``wal_snapshot/v1`` doc,
     the JAX tracker's ``snapshot_state`` of a single-job tracker field
     for field (its scheduler fields at their defaults): ranks, epoch,
-    membership, topology, skew, endpoints, shutdown ranks, restarts --
-    nothing ephemeral (pending registrations, sockets and stores die
-    with the process). The caller holds a live tracker's lock."""
+    membership, topology, skew, endpoints, shutdown ranks, restarts, a
+    promotion and the journaled lease -- nothing ephemeral (pending
+    registrations, sockets and stores die with the process). The caller
+    holds a live tracker's lock."""
     jd: Dict[str, object] = {
         "nworkers": world.nworkers, "elastic": world.elastic,
         "sched_class": 0, "weight": 1.0, "quota": world.nworkers,
@@ -301,8 +357,16 @@ def snapshot_state(world) -> dict:
             "evicted": sorted(mv.evicted), "joining": sorted(mv.joining),
             "generation": mv.generation, "evictions": mv.evictions,
             "admissions": mv.admissions}
-    return {"multi_job": False, "restarts": int(world.restarts),
-            "jobs": {DEFAULT_JOB: jd}}
+    doc: Dict[str, object] = {"multi_job": False,
+                              "restarts": int(world.restarts),
+                              "jobs": {DEFAULT_JOB: jd}}
+    if world.promoted_wall or world.failover_duration_ms:
+        doc["promoted"] = {
+            "wall": world.promoted_wall, "mono": world.promoted_mono,
+            "failover_ms": world.failover_duration_ms}
+    if world._journaled_lease is not None:
+        doc["lease"] = dict(world._journaled_lease)
+    return doc
 
 
 def _replay_adopt_into(world, state: dict) -> None:
@@ -312,12 +376,20 @@ def _replay_adopt_into(world, state: dict) -> None:
     it."""
     from ..telemetry import skew as _skew_mod
     jobs = state.get("jobs") or {}
-    if state.get("multi_job") or set(jobs) - {DEFAULT_JOB} or \
-            "lease" in state or "promoted" in state:
+    if state.get("multi_job") or set(jobs) - {DEFAULT_JOB}:
         raise _wal_mod.WalError(
-            "snapshot holds multi-job or standby state, which this "
-            "tracker does not serve")
+            "snapshot holds multi-job state, which this tracker does not "
+            "serve")
     world.restarts = int(state.get("restarts", world.restarts))
+    prom = state.get("promoted") or {}
+    if prom:
+        world.promoted_wall = float(prom.get("wall", 0.0))
+        world.promoted_mono = float(prom.get("mono", 0.0))
+        world.failover_duration_ms = float(prom.get("failover_ms", 0.0))
+    lease = state.get("lease")
+    if lease is not None:
+        world._lease = dict(lease)
+        world._journaled_lease = dict(lease)
     jd = jobs.get(DEFAULT_JOB) or {}
     if jd.get("closed"):
         raise _wal_mod.WalError("snapshot holds a closed job")
@@ -381,6 +453,15 @@ def _replay_apply(world, kind: str, data: dict) -> None:
         world._shutdown_ranks.add(int(data["rank"]))
     elif kind == "resume":
         world.restarts = int(data.get("restarts", world.restarts))
+    elif kind == "promoted":
+        # a journaled failover outlives the promoted process: a later
+        # resume keeps reporting the measured duration
+        world.promoted_wall = float(data.get("wall", 0.0))
+        world.promoted_mono = float(data.get("mono", 0.0))
+        world.failover_duration_ms = float(data.get("failover_ms", 0.0))
+    elif kind == _wal_mod.LEASE_KIND:
+        world._lease = dict(data)
+        world._journaled_lease = dict(data)
 
 
 def fold_records(records, nworkers: int = 1, elastic: bool = False) -> dict:
@@ -399,7 +480,10 @@ class Tracker:
                  metrics_port: Optional[int] = None,
                  elastic: Optional[bool] = None,
                  wal_dir: Optional[str] = None,
-                 resume: bool = False):
+                 resume: bool = False,
+                 link_rewrite=None,
+                 lease_ms: Optional[int] = None,
+                 node_id: str = "leader"):
         self.nworkers = nworkers
         self.sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -454,6 +538,45 @@ class Tracker:
         self._conns: set = set()
         self._conns_lock = threading.Lock()
         self.crashed = False
+        # chaos hook: ``link_rewrite(peer_rank, host, port) -> (host,
+        # port)`` rewrites the peer addresses an assignment advertises, so
+        # worker-worker links route through fault-injection proxies; a
+        # rewritten peer gets an empty uds_token (the UDS fast path would
+        # bypass a TCP proxy)
+        self._link_rewrite = link_rewrite
+        # the hot standby's half of the leader: with ``lease_ms`` and a WAL
+        # the leader journals its lease claim, heartbeats renewals every
+        # lease_ms/3 and streams every journaled record to ``repl``
+        # subscribers; with lease_ms unset none of this exists (no lease
+        # record, no thread, no gauge)
+        self.lease_ms = int(lease_ms) if lease_ms else None
+        self.node_id = str(node_id)
+        self.promoted = False
+        # stamped by the standby at promotion: both clocks, and the
+        # measured leader-silence -> promoted duration, journaled as a
+        # ``promoted`` record so a later resume keeps reporting it
+        self.promoted_wall = 0.0
+        self.promoted_mono = 0.0
+        self.failover_duration_ms = 0.0
+        self._lease: Optional[dict] = None
+        self._lease_thread: Optional[threading.Thread] = None
+        # the replication side never takes self._lock: frames live under
+        # their own condition (lock order: _lock, then _repl_cv), appended
+        # by ``_wal`` and drained by each subscriber's connection thread.
+        # Frame i carries seq _repl_base + i + 1; the base is constant for
+        # the process (a live compaction appends its snapshot frame).
+        self._repl_cv = threading.Condition()
+        self._repl_log: List[bytes] = []
+        self._repl_base = 0
+        self._repl_subs: List[dict] = []
+        self._repl_conns: set = set()   # stop() tears these streams
+        # the newest lease heartbeat (a seq-0 frame) and a counter, so
+        # each subscriber can tell a fresher one arrived
+        self._repl_hb: Optional[bytes] = None
+        self._repl_hb_n = 0
+        # the lease doc last journaled: a renewal equal to it but for
+        # until_ms stays out of the journal
+        self._journaled_lease: Optional[dict] = None
         # the write-ahead log (off unless a directory is given, or
         # RABIT_TRACKER_WAL_DIR): every transition is journaled before it
         # takes effect; resume=True replays it and re-adopts a live world
@@ -473,6 +596,13 @@ class Tracker:
             t0 = time.perf_counter()
             self._wal_log = _wal_mod.WriteAheadLog(wal_dir)
             records = self._wal_log.open(resume=resume)
+            # the replication log starts as the journal it opened, so a
+            # subscriber can resync from any seq past the journal's base
+            base = self._wal_log.base
+            self._repl_base = base
+            self._repl_log = [
+                _wal_mod.encode_record(base + i + 1, kind, data)
+                for i, (kind, data) in enumerate(records)]
             if resume:
                 for kind, data in records:
                     _replay_apply(self, kind, data)
@@ -491,6 +621,12 @@ class Tracker:
                                         name="rabit-tracker")
         self._thread.start()
         self._start_live_plane()
+        if self.lease_ms and self._wal_log is not None:
+            self._renew_lease()
+            self._lease_thread = threading.Thread(
+                target=self._lease_loop, name="rabit-tracker-lease",
+                daemon=True)
+            self._lease_thread.start()
         return self
 
     def join(self, timeout: Optional[float] = None) -> bool:
@@ -499,6 +635,11 @@ class Tracker:
     def stop(self) -> None:
         self._done.set()
         self._poll_stop.set()
+        with self._repl_cv:
+            self._repl_cv.notify_all()   # wake idle repl streamers
+            streams = list(self._repl_conns)
+        for conn in streams:
+            _drop(conn)   # a streamer blocked on an ack wakes at once
         if self._metrics_server is not None:
             self._metrics_server.stop()
             self._metrics_server = None
@@ -536,8 +677,12 @@ class Tracker:
             self._metrics_server.stop()
             self._metrics_server = None
         _drop(self.sock)
+        # every connection dies hard, a repl stream too: its follower sees
+        # EOF at once, and its streamer thread ends on the dropped socket
         for conn in conns:
             _drop(conn)
+        with self._repl_cv:
+            self._repl_cv.notify_all()
         with self._cv:
             self._cv.notify_all()   # parked joiners stop waiting
 
@@ -566,14 +711,36 @@ class Tracker:
         off). Callers hold the tracker's lock and call this BEFORE acting
         on the transition: a crash between the two replays the intent,
         never loses it. A crashed tracker journals nothing more (its
-        successor may own the file already)."""
+        successor may own the file already). Every journaled record is
+        also published to ``repl`` subscribers as the exact frame bytes
+        that reached the disk; an idempotent lease renewal is not
+        journaled but becomes the stream's seq-0 heartbeat."""
         if self._wal_log is None:
             return
         if self.crashed:
             raise ConnectionError("the tracker crashed")
-        t0 = time.perf_counter()
-        seq = self._wal_log.record(kind, **data)
-        self.journal_s += time.perf_counter() - t0
+        with self._repl_cv:
+            if kind == _wal_mod.LEASE_KIND and \
+                    _wal_mod.lease_renewal_only(self._journaled_lease, data):
+                # same owner and width, only until_ms advanced: at one
+                # beat a third of a lease it would grow the journal, this
+                # log and every replay without bound
+                self._repl_hb = _wal_mod.encode_record(0, kind, data)
+                self._repl_hb_n += 1
+                self._repl_cv.notify_all()
+                return
+            # seq assignment and positional publication are one step:
+            # writers run concurrently (the lease thread against the
+            # connection threads), and seq N+1 reaching the log before
+            # seq N would misindex the stream for good. record() takes
+            # only the journal's own leaf lock.
+            t0 = time.perf_counter()
+            seq = self._wal_log.record(kind, **data)
+            self.journal_s += time.perf_counter() - t0
+            if kind == _wal_mod.LEASE_KIND:
+                self._journaled_lease = dict(data)
+            self._repl_log.append(_wal_mod.encode_record(seq, kind, data))
+            self._repl_cv.notify_all()
         if self._snap_every and not self._snap_pending and \
                 seq - self._wal_log.snapshot_seq >= self._snap_every:
             # compact off the journaling path: a thread of its own folds
@@ -584,15 +751,124 @@ class Tracker:
 
     def _take_snapshot(self) -> None:
         """One live compaction: serialize the replay-reachable state under
-        the tracker's lock and atomically rewrite the journal as
-        snapshot-root + future tail."""
+        the tracker's lock, atomically rewrite the journal as
+        snapshot-root + future tail, and publish the snapshot's frame to
+        the replication stream (a follower adopts it as an append)."""
         try:
             with self._lock:
                 if self._wal_log is None or self.crashed:
                     return
-                self._wal_log.snapshot(snapshot_state(self))
+                state = snapshot_state(self)
+                with self._repl_cv:
+                    _seq, frame = self._wal_log.snapshot(state)
+                    self._repl_log.append(frame)
+                    self._repl_cv.notify_all()
         finally:
             self._snap_pending = False
+
+    # -- the leadership lease and the replication stream -----------------------
+    def _renew_lease(self) -> None:
+        """Renew the leadership lease. The claim (the first lease, or a
+        change of owner or width) is a journaled record of the replicated
+        log; a renewal that only advances ``until_ms`` rides the stream as
+        a heartbeat. The standby promotes only after a full lease of
+        silence from this stream, counted on its own monotonic clock, so
+        the gate needs no clock agreement between hosts."""
+        lease = _wal_mod.lease_doc(self.node_id, self.lease_ms)
+        with self._lock:
+            # journal and publish under one hold, so that a live snapshot
+            # never captures the state from between them
+            self._wal(_wal_mod.LEASE_KIND, **lease)
+            self._lease = lease
+
+    def _lease_loop(self) -> None:
+        """Renewals at a third of the lease: two missed beats still leave
+        it live, and it lapses only when the leader is gone (a crash) or
+        unreachable (a partition)."""
+        period = max(0.05, self.lease_ms / 3000.0)
+        while not self._done.wait(period):
+            if self.crashed:
+                return
+            try:
+                self._renew_lease()
+            except (_wal_mod.WalError, ConnectionError):
+                return   # the journal's disk died, or the tracker crashed
+
+    def lease(self) -> Optional[dict]:
+        """The newest lease this tracker renewed (None with the lease
+        off)."""
+        with self._lock:
+            return None if self._lease is None else dict(self._lease)
+
+    def repl_stats(self) -> dict:
+        """The replication plane: the journal's seq, the live subscribers,
+        the newest acked seq and the records not yet acked."""
+        seq = 0 if self._wal_log is None else self._wal_log.seq
+        with self._repl_cv:
+            acked = max((s["acked"] for s in self._repl_subs), default=0)
+            nsubs = len(self._repl_subs)
+        return {"seq": seq, "subscribers": nsubs, "acked_seq": acked,
+                "lag_records": max(0, seq - acked)}
+
+    def _serve_repl(self, conn: socket.socket, peer: str) -> None:
+        """One ``repl`` subscriber, on its connection's own thread for as
+        long as the follower keeps acking: every record at or past its
+        resync point, one ack a record, and the lease heartbeats between
+        them. A slow, torn or confused follower is dropped (it resubscribes
+        from its last durable seq): replication never stalls the control
+        plane. Without a WAL the answer is 0, as the JAX tracker's."""
+        if self._wal_log is None:
+            self._reply_u32(conn, 0)   # replication needs a journal
+            return
+        sub = {"peer": peer, "acked": 0}
+        try:
+            _send_u32(conn, 1)
+            last = _recv_u32(conn)
+            conn.settimeout(repl_ack_timeout_ms() / 1e3)
+            sub["acked"] = last
+            with self._repl_cv:
+                if self._done.is_set():
+                    return
+                self._repl_subs.append(sub)
+                self._repl_conns.add(conn)
+                hb_seen = self._repl_hb_n
+            # a positional cursor: frame idx carries seq base + idx + 1. A
+            # follower acked below the base resynced into a compacted
+            # history and gets the snapshot root first (idx 0)
+            idx = max(0, last - self._repl_base)
+            while not self._done.is_set():
+                frame = hb = None
+                with self._repl_cv:
+                    while (len(self._repl_log) <= idx
+                           and self._repl_hb_n <= hb_seen
+                           and not self._done.is_set()):
+                        self._repl_cv.wait(0.2)
+                    if self._done.is_set():
+                        break
+                    if len(self._repl_log) > idx:
+                        frame = self._repl_log[idx]
+                    else:
+                        hb = self._repl_hb
+                        hb_seen = self._repl_hb_n
+                if hb is not None:
+                    # seq 0: proof of life, never journaled or acked
+                    conn.sendall(hb)
+                    continue
+                conn.sendall(frame)
+                ack = _recv_u32(conn)
+                if ack != self._repl_base + idx + 1:
+                    break   # a confused follower: drop it, it resyncs
+                with self._repl_cv:
+                    sub["acked"] = ack
+                idx += 1
+        except (OSError, ConnectionError, struct.error):
+            pass
+        finally:
+            with self._repl_cv:
+                self._repl_subs = [x for x in self._repl_subs
+                                   if x is not sub]
+                self._repl_conns.discard(conn)
+            self._close(conn)
 
     def _note_resume(self, nrecords: int) -> None:
         """Make a resume observable: a counter, a zero-length span, a
@@ -765,6 +1041,10 @@ class Tracker:
                 with self._lock:
                     doc = dict(self._topo if cmd == "topo" else self._skew)
                 self._reply_json(conn, doc)
+            elif cmd == "repl":
+                # a subscriber holds this connection's thread for as long
+                # as it follows: one thread a standby
+                self._serve_repl(conn, task_id)
             else:
                 self._close(conn)
         except (ConnectionError, OSError, struct.error, UnicodeDecodeError):
@@ -778,13 +1058,21 @@ class Tracker:
         if self._metrics_port is None:
             return
         from ..telemetry import live
+        identity = {"role": "tracker", "nworkers": self.nworkers}
+        if self.lease_ms:
+            # the supervisor's probe before a cold respawn reads this: a
+            # tracker whose /healthz says tracker_role "leader" IS the
+            # control plane (a promoted standby says so too)
+            identity.update({"tracker_role": "leader",
+                             "node": self.node_id,
+                             "promoted": bool(self.promoted)})
         try:
             self._metrics_server = live.MetricsServer(
                 port=self._metrics_port,
                 sources_fn=self._metric_sources,
                 summary_fn=lambda: self.merged_metrics() or {},
                 gauges_fn=self._live_gauges,
-                identity={"role": "tracker", "nworkers": self.nworkers},
+                identity=identity,
                 routes={"/straggler": self._straggler_doc,
                         "/slo": self._slo_doc},
             ).start()
@@ -838,6 +1126,23 @@ class Tracker:
                 "until one exists) — replay cost is bounded by the "
                 "records after it.", "gauge",
                 [({}, self._wal_log.snapshot_seq)]))
+        if self.lease_ms and self._wal_log is not None:
+            repl = self.repl_stats()
+            gauges.append((
+                "rabit_tracker_role",
+                "Control-plane role: 1 while this tracker holds the "
+                "leadership lease and serves the world (a promoted "
+                "standby reports 1 too — by then it IS the leader).",
+                "gauge", [({"node": self.node_id}, 1)]))
+            gauges.append((
+                "rabit_repl_acked_seq",
+                "Newest WAL seq a standby has durably acked (0 with "
+                "no subscriber).", "gauge", [({}, repl["acked_seq"])]))
+            gauges.append((
+                "rabit_repl_lag_records",
+                "Journaled records not yet acked by the standby — the "
+                "bounded data loss of a failover right now.",
+                "gauge", [({}, repl["lag_records"])]))
         if member is not None:
             world, evictions, admissions = member
             gauges.append((
@@ -889,6 +1194,18 @@ class Tracker:
                 "Fleet skew election epoch (bumps when the served "
                 "laggard verdict changes).", "gauge",
                 [({}, skew.get("epoch", 0))]))
+        if self.promoted:
+            gauges.append((
+                "rabit_failover_duration_ms",
+                "Leader-kill to standby-promoted duration, stamped by "
+                "the control plane at promotion (tracker/standby.py).",
+                "gauge", [({"node": self.node_id},
+                           round(self.failover_duration_ms, 3))]))
+        if self.lease_ms:
+            # the SLO burn gauges only where the tracker has something to
+            # judge (a failover): a plain tracker's exposition is as before
+            from ..telemetry import slo as _slo
+            gauges.extend(_slo.gauges(self._slo_verdicts()))
         return gauges
 
     def _straggler_doc(self) -> dict:
@@ -898,14 +1215,22 @@ class Tracker:
         return (dict(strag) if strag is not None
                 else {"ranks": [], "signal": False})
 
-    def _slo_doc(self) -> dict:
-        """The ``/slo`` route: the objectives a tracker can judge on its
-        own (failover time, admission shed rate) -- without a hot standby
-        or a multi-job admission plane, both ``no_data``."""
+    def _slo_verdicts(self) -> list:
+        """The objectives a tracker can judge on its own: the failover
+        time, once promoted, and the admission shed rate (``no_data``
+        here, without a multi-job admission plane)."""
         from ..telemetry import slo as _slo
+        measured: Dict[str, float] = {}
+        if self.promoted and self.failover_duration_ms > 0:
+            measured["failover_ms"] = self.failover_duration_ms
         slos = [s for s in _slo.default_slos()
                 if s.name in ("failover_ms", "shed_rate")]
-        return _slo.burn_doc(_slo.evaluate_all(slos, {}))
+        return _slo.evaluate_all(slos, measured)
+
+    def _slo_doc(self) -> dict:
+        """The ``/slo`` route: each objective's burn state."""
+        from ..telemetry import slo as _slo
+        return _slo.burn_doc(self._slo_verdicts())
 
     def _poll_loop(self) -> None:
         from ..telemetry import crossrank, live, skew
@@ -977,6 +1302,13 @@ class Tracker:
                       f"is {strag['lag_collectives']} collectives behind "
                       f"(busy skew {strag['busy_skew_s']:.3f}s)",
                       file=sys.stderr, flush=True)
+
+    def live_addr(self) -> Optional[Tuple[str, int]]:
+        """The live plane's ``(host, port)``, or None without a metrics
+        port: what the supervisor probes before it dares a cold
+        respawn."""
+        srv = self._metrics_server
+        return None if srv is None else (srv.host, srv.port)
 
     def live_stats(self) -> dict:
         """The live plane's state, for launchers and tests: the metrics
@@ -1273,6 +1605,10 @@ class Tracker:
             _pack_u32(blob, len(connect_to))
             for r in connect_to:
                 peer_host, peer_port, peer_tok = addr[r]
+                if self._link_rewrite is not None:
+                    peer_host, peer_port = self._link_rewrite(
+                        r, peer_host, peer_port)
+                    peer_tok = ""   # UDS would bypass the proxy
                 _pack_u32(blob, r)
                 _pack_str(blob, peer_host)
                 _pack_u32(blob, int(peer_port))

@@ -265,7 +265,9 @@ def test_import_leaves_out_jax_and_rabit_tpu():
         "'rabit_tpu_torch.tools.overlap_round_worker', "
         "'rabit_tpu_torch.tracker.membership', "
         "'rabit_tpu_torch.tracker.wal', "
-        "'rabit_tpu_torch.tools.store_loss'}\n"
+        "'rabit_tpu_torch.tools.store_loss', "
+        "'rabit_tpu_torch.tracker.standby', 'rabit_tpu_torch.chaos', "
+        "'rabit_tpu_torch.chaos.schedule', 'rabit_tpu_torch.chaos.proxy'}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -309,9 +311,10 @@ def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
     (``telemetry/*``, the histogram rounds' worker), of the watchdog's
     (``utils/watchdog.py``, ``telemetry/flight.py``, ``history.py``,
     ``__main__.py``, the overlap bench and its worker) and of the
-    tracker's journal (``tracker/wal.py``, ``tools/store_loss.py``), by
-    name (the package scan above covers the package too), and the port's
-    own test workers."""
+    tracker's journal (``tracker/wal.py``, ``tools/store_loss.py``) and
+    of the hot standby and the chaos plane (``tracker/standby.py``,
+    ``chaos/*``), by name (the package scan above covers the package
+    too), and the port's own test workers."""
     new = [PKG / "utils" / "log.py", PKG / "utils" / "retry.py",
            PKG / "engine" / "ckpt_store.py", PKG / "engine" / "_native_build.py",
            PKG / "engine" / "native.py", PKG / "engine" / "dataplane.py",
@@ -331,5 +334,8 @@ def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
             ROOT / "tests" / "workers" / "torch_stall_worker.py"]
     new += [PKG / "tracker" / "wal.py", PKG / "tools" / "store_loss.py",
             ROOT / "tests" / "workers" / "torch_resume_worker.py"]
+    new += [PKG / "tracker" / "standby.py"]
+    new += [PKG / "chaos" / f"{m}.py" for m in ("__init__", "schedule",
+                                                "proxy")]
     assert all(p.is_file() for p in new)
     assert _jax_imports(new) == []

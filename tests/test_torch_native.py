@@ -190,8 +190,11 @@ def test_host_api_under_robust_engine_matches_rabit_tpu(tmp_path):
 
 
 def test_unported_knobs_raise_rather_than_be_ignored(tmp_path):
-    """The knob the port lacks raises (``rabit_tracker_standby``); the
-    telemetry plane's are honoured (``rabit_telemetry``, ``rabit_profile``,
+    """No knob of the JAX engine is refused any more. The hot standby's
+    ``rabit_tracker_standby`` is accepted, alone and with
+    ``rabit_elastic``, as the JAX engine accepts it (the launcher and the
+    skew poller act on it), and the engine computes; the telemetry
+    plane's knobs are honoured (``rabit_telemetry``, ``rabit_profile``,
     ``rabit_events``), and so are the live plane's ``rabit_metrics_port``
     (the engine serves its endpoint), the skew plane's
     ``rabit_skew_adapt`` (accepted at init), the watchdog's
@@ -202,14 +205,16 @@ def test_unported_knobs_raise_rather_than_be_ignored(tmp_path):
     from rabit_tpu_torch import telemetry
     from rabit_tpu_torch.telemetry import events, flight, profile
     rabit_tpu_torch.finalize()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        rabit_tpu_torch.init(["rabit_tracker_standby=127.0.0.1:9"],
+    for extra in ([], ["rabit_elastic=1"]):
+        rabit_tpu_torch.init(extra + ["rabit_tracker_standby=127.0.0.1:9"],
                              engine="robust")
-    assert rabit_tpu_torch._engine is None
-    with pytest.raises(NotImplementedError, match="not ported"):
-        rabit_tpu_torch.init(["rabit_elastic=1",
-                              "rabit_tracker_standby=127.0.0.1:9"],
-                             engine="robust")
+        try:
+            assert rabit_tpu_torch._engine is not None
+            x = np.arange(8, dtype=np.int64)
+            np.testing.assert_array_equal(
+                rabit_tpu_torch.allreduce(x.copy(), rabit_tpu_torch.SUM), x)
+        finally:
+            rabit_tpu_torch.finalize()
     assert rabit_tpu_torch._engine is None
     knobs = ["rabit_telemetry=1", "rabit_profile=1", "rabit_events=1",
              "rabit_metrics_port=0", "rabit_skew_adapt=1",

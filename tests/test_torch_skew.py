@@ -888,8 +888,11 @@ def test_torch_engine_exports_the_knobs_and_undoes_them(clean):
 
 @pytest.mark.parametrize("how", ["arg", "env"])
 def test_engines_refuse_the_hot_standby(clean, how):
-    """The poller's failover to a hot standby is not ported: the knob
-    raises at init in both engines rather than be ignored."""
+    """The poller's failover to a hot standby is ported: the knob (as an
+    argument, or ``RABIT_TRACKER_STANDBY`` in the environment) is accepted
+    at init by both engines, as the JAX engines accept it, and each
+    engine computes; the standby address stays where the launcher put
+    it, for the poller to probe."""
     import rabit_tpu_torch
     from rabit_tpu_torch.engine.torch_engine import TorchEngine
     args = ["rabit_device=cpu"]
@@ -897,12 +900,26 @@ def test_engines_refuse_the_hot_standby(clean, how):
         args.append("rabit_tracker_standby=127.0.0.1:9")
     else:
         clean.setenv("RABIT_TRACKER_STANDBY", "127.0.0.1:9")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TorchEngine().init(args)
+    x = np.arange(8, dtype=np.float32)
+    e = TorchEngine()
+    e.init(args)
+    try:
+        buf = x.copy()
+        e.allreduce(buf, SUM)   # in place
+        np.testing.assert_array_equal(buf, x)
+    finally:
+        e.shutdown()
     rabit_tpu_torch.finalize()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        rabit_tpu_torch.init(args[1:], engine="robust")
+    rabit_tpu_torch.init(args[1:], engine="robust")
+    try:
+        assert rabit_tpu_torch._engine is not None
+        np.testing.assert_array_equal(
+            rabit_tpu_torch.allreduce(x.copy(), rabit_tpu_torch.SUM), x)
+    finally:
+        rabit_tpu_torch.finalize()
     assert rabit_tpu_torch._engine is None
+    assert os.environ.get("RABIT_TRACKER_STANDBY") == \
+        (None if how == "arg" else "127.0.0.1:9")
 
 
 def test_robust_data_plane_adapts_and_reagrees_after_a_reformation(clean):

@@ -212,9 +212,8 @@ def test_print_topo_shutdown_and_unknown_commands():
         conn = _request(addr, "metrics", "t1", "not json")
         assert struct.unpack("<I", _recv_exact(conn, 4))[0] == 0
         assert tr.merged_metrics()["num_ranks"] == 0   # foreign schema
-        for cmd in ("repl", "submit"):   # not ported yet
-            conn = _request(addr, cmd, "t0")
-            assert conn.recv(1) == b""   # closed without an answer
+        conn = _request(addr, "submit", "t0")   # multi-job: not ported
+        assert conn.recv(1) == b""   # closed without an answer
         # resume, without a WAL: the JAX tracker's answer to each request
         # on the same world (a match, a contradiction, an epoch from the
         # future, a new task id on a taken rank, a malformed payload)
@@ -238,6 +237,12 @@ def test_print_topo_shutdown_and_unknown_commands():
                         "<I", _recv_exact(conn, 4))[0])
                 assert answers[0] == answers[1], (task, payload, answers)
             assert tr._resumed_ranks == jax_tr._resumed_ranks == {0}
+            # repl without a WAL: refused with 0 and closed, as the JAX
+            # tracker answers (replication streams a journal)
+            for t in (tr, jax_tr):
+                conn = _request((t.host, t.port), "repl", "follower")
+                assert _recv_exact(conn, 4) == struct.pack("<I", 0)
+                assert conn.recv(1) == b""
         finally:
             jax_tr.stop()
         bad = socket.create_connection(addr, timeout=10)

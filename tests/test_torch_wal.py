@@ -460,14 +460,25 @@ def test_cross_replay_journals_are_byte_identical(tmp_path, monkeypatch):
 
 
 def test_fold_refuses_what_this_tracker_does_not_serve():
-    """Records of the JAX tracker's multi-job plane or hot standby raise
-    rather than replay a part of their history."""
+    """Records of the JAX tracker's multi-job plane raise rather than
+    replay a part of their history. The hot standby's ``lease`` and
+    ``promoted`` records are served since the standby was ported: they
+    fold as the JAX package folds them, and so does a snapshot that holds
+    them."""
     for kind, data in (("job_open", {"job": "a", "nworkers": 1}),
                        ("quota", {"quota": 1}),
-                       ("lease", port_wal.lease_doc("leader", 2000)),
                        ("assign", {"task": "t0", "rank": 0, "job": "a"})):
         with pytest.raises(WalError):
             port_tracker.fold_records([(kind, data)])
+    standby = [("lease", port_wal.lease_doc("leader", 2000, now_ms=5)),
+               ("promoted", {"node": "standby", "wall": 1.5, "mono": 2.5,
+                             "failover_ms": 812.25})]
+    fold = port_tracker.fold_records(standby)
+    assert fold == jax_tracker.fold_records(standby)
+    assert fold["lease"]["owner"] == "leader"
+    assert fold["promoted"]["failover_ms"] == 812.25
+    snap = {"v": port_wal.SNAPSHOT_V, "ts": 0.0, "state": fold}
+    assert port_tracker.fold_records([(SNAPSHOT_KIND, snap)]) == fold
     snap = {"v": port_wal.SNAPSHOT_V, "ts": 0.0,
             "state": {"multi_job": True, "restarts": 0, "jobs": {}}}
     with pytest.raises(WalError):
