@@ -8,9 +8,11 @@ multichip dryrun), the telemetry and profiling plane, the skew plane
 with the live plane that feeds it, the watchdog's ladder with the
 flight recorder and the overlap bench, elastic membership with the
 in-process resize, the tracker's write-ahead log with a world that
-keeps computing through a tracker crash, and the hot standby with the
+keeps computing through a tracker crash, the hot standby with the
 chaos front proxy, through which a world computes across the loss of
-its leader with no respawn.
+its leader with no respawn, and the causal incident plane with the
+post-mortem tools, which attribute that loss and a link reset to their
+injected causes.
 
     python3 chip_smoke.py
 
@@ -347,11 +349,53 @@ Phases (each prints a line; any failure exits non-zero):
                 deposed leader's acked seq and lag, the promotion's replay
                 and, in (b), epoch 2's formation s. With one card it says
                 that (b) did not run.
-20. kernels     one JSON line of every kernel with its main-path launches
+20. incidents   the causal incident plane and the post-mortem tools
+                (``telemetry/incident.py``, the tracker's fleet event log,
+                ``/events``, ``/incidents`` and ``hlc`` on its JSON
+                replies, ``tools/trace_report.py``,
+                ``tools/bench_sentinel.py``; no new kernel): (a) ``python
+                -m rabit_tpu_torch.telemetry.incident --smoke``, the same
+                of ``tools.trace_report`` and ``tools.bench_sentinel``,
+                each in a fresh interpreter that must end with neither
+                ``jax`` nor ``rabit_tpu`` in ``sys.modules``; (b) phase 19
+                (a)'s kill run (world 1 on card 0) with ``RABIT_EVENTS=1``
+                and ``RABIT_TELEMETRY=1`` in the launcher's process and the
+                worker's, a tracker metrics port (the poll pass and its
+                incident sweep every 200 ms) and
+                ``RABIT_SLO_FAILOVER_MS=400``, below the lease: every round
+                bit for bit phase 18's uninterrupted run's, 1 failover, 0
+                respawns, the kernel launched once a round;
+                ``chaos.tracker_kill`` and ``tracker.promoted`` in the
+                promoted tracker's fleet log, every record HLC-stamped and
+                the log in HLC order as served, every record of the
+                worker's own ring in it under the worker's task; exactly
+                one open incident, critical, attributed, rooted at
+                ``chaos.tracker_kill``, its summary saying ``failover_ms
+                violating``, dumped as a file, which the port's
+                ``trace_report`` renders with the fleet-events document;
+                (c) ``tests/test_incident_cluster.py`` on the cards:
+                phase 18's worker as p = max(2, min(4, cards)) native-engine
+                processes on the native core's own links (no torch data
+                plane; rank i's histogram of 2^21 x 1024 on card i mod
+                cards by the kernel, two processes may share a card), 10
+                rounds under a ``reset`` rule (``after_bytes`` 4096,
+                ``max_times`` 1, link target, seed 5) against the same
+                run without it: the reset fired, a ``recovery.*`` or
+                ``watchdog.*`` rung and worker-sourced records in the
+                HLC-ordered log, every round bit for bit, no respawn, the
+                kernel launched once a round on every process, and an
+                ``IncidentBook`` over the log with the p99 objective at half
+                the run's p99 opening exactly one incident rooted at
+                ``chaos.reset`` while the tracker's own book has none. Each
+                of (b) and (c) prints the incident's summary, its chain's
+                kinds, the window from the fault to the trigger, the fleet
+                log's size and drops and the ``/incidents`` payload's bytes.
+21. kernels     one JSON line of every kernel with its main-path launches
                 (and, for the flash kernels, phase 12's and phase 13's; for
                 the histogram, phase 17 (b)'s, null where (b) did not run,
                 phase 18's killed runs', (b)'s null where it did not run,
-                and phase 19's runs, (b)'s null where it did not run).
+                phase 19's runs, (b)'s null where it did not run, and
+                phase 20's (b) and (c)).
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
 phase 6, each run of phase 12, each ring call of phase 13, in its rank's
@@ -359,7 +403,8 @@ process, each run of phase 14 (b)) and read just after it, so a kernel's
 count is its own path's alone: mask_only's is the sweep's. Phase 11's
 histogram launches are counted in its workers, each a fresh process (so
 from 0), and printed there; phases 17's, 18's and 19's in their
-workers, a launch a round a member. The last line is the device JSON.
+workers, a launch a round a member, and phase 20's likewise. The last
+line is the device JSON.
 Without CUDA, or without the package beside this file, the script exits
 non-zero and prints no result.
 """
@@ -4068,7 +4113,9 @@ def _set_window(proxy, kind: str, start: float, end: float) -> None:
 
 
 def _failover_run(p: int, tmp: Path, tag: str, mode: str, elastic: bool,
-                  device: str = "cuda", hist=RESIZE_HIST) -> tuple:
+                  device: str = "cuda", hist=RESIZE_HIST,
+                  extra_env: dict | None = None,
+                  metrics_port: int | None = None) -> tuple:
     """The resume worker as ``p`` ranks under the port's launcher with a
     WAL, a hot standby (``RABIT_TRACKER_STANDBY=1``, a lease of
     ``FAILOVER_LEASE_MS``) and the chaos front proxy: once every rank has
@@ -4076,8 +4123,11 @@ def _failover_run(p: int, tmp: Path, tag: str, mode: str, elastic: bool,
     window, ``tracker_kill`` from then on, or ``tracker_partition`` until
     every rank has logged round ``FAILOVER_PARTITION[1]``. ``elastic``:
     task 1 leaves at round ``RESUME_SHRINK_AT``, once the standby has been
-    adopted. Each task's document, the launcher's stats, the journal's
-    directory and the tick's proxy clocks."""
+    adopted. ``extra_env`` adds to the environment (the launcher's
+    process and, unless a worker key is named in it too, the workers'),
+    ``metrics_port`` starts the tracker's live plane. Each task's
+    document, the launcher's stats, the journal's directory and the
+    tick's proxy clocks."""
     import os
     from rabit_tpu_torch.tracker.launch import launch
     from rabit_tpu_torch.tracker.wal import WAL_DIR_ENV
@@ -4108,7 +4158,8 @@ def _failover_run(p: int, tmp: Path, tag: str, mode: str, elastic: bool,
     wal_dir = tmp / f"{tag}.wal"
     knobs = {WAL_DIR_ENV: str(wal_dir), "RABIT_TRACKER_STANDBY": "1",
              "RABIT_LEASE_MS": str(FAILOVER_LEASE_MS),
-             "RABIT_TRACKER_RESUME_GRACE_MS": str(FAILOVER_GRACE_MS)}
+             "RABIT_TRACKER_RESUME_GRACE_MS": str(FAILOVER_GRACE_MS),
+             **(extra_env or {})}
     old = {k: os.environ.pop(k, None) for k in knobs}
     os.environ.update(knobs)
     stats = {}
@@ -4117,7 +4168,8 @@ def _failover_run(p: int, tmp: Path, tag: str, mode: str, elastic: bool,
                    f"rabit_device={device}", "rabit_dataplane=torch",
                    "rabit_telemetry=1"], max_attempts=0,
                timeout=RESUME_TIMEOUT_S, quiet=True, stats=stats, env=env,
-               elastic=elastic, tick=tick, chaos=FAILOVER_CHAOS[mode])
+               elastic=elastic, tick=tick, chaos=FAILOVER_CHAOS[mode],
+               metrics_port=metrics_port)
     finally:
         for k, v in old.items():
             os.environ.pop(k, None)
@@ -4345,6 +4397,298 @@ def _failover_doc(out: dict) -> dict:
             for k, v in out.items()}
 
 
+# phase 20: the causal incident plane and the post-mortem tools. (b) is
+# phase 19 (a)'s kill run with the plane on; (c) the JAX package's link
+# reset cluster test on the cards
+INCIDENT_SLO_FAILOVER_MS = 400    # below the lease: the failover violates it
+INCIDENT_POLL_MS = 200            # the tracker's poll pass, and its sweep
+INCIDENT_RESET = {"seed": 5, "rules": [
+    {"kind": "reset", "after_bytes": 4096, "max_times": 1,
+     "target": "link"}]}
+INCIDENT_ROUNDS = 10              # (c)'s rounds, 200 ms apart
+INCIDENT_SMOKES = (("rabit_tpu_torch.telemetry.incident", "incident smoke ok"),
+                   ("rabit_tpu_torch.tools.trace_report",
+                    "telemetry smoke ok"),
+                   ("rabit_tpu_torch.tools.bench_sentinel",
+                    "bench sentinel smoke ok"))
+
+
+def _smoke_without_jax(module: str, marker: str) -> None:
+    """``python -m <module> --smoke`` in a fresh interpreter, which must
+    end with neither ``jax`` nor ``rabit_tpu`` in ``sys.modules``."""
+    code = ("import runpy, sys\n"
+            "sys.argv = ['smoke', '--smoke']\n"
+            "try:\n"
+            f"    runpy.run_module({module!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert not e.code, e.code\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'rabit_tpu'))\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], env=_stall_env(),
+                       capture_output=True, text=True, timeout=120)
+    if r.returncode != 0 or marker not in r.stdout + r.stderr:
+        raise AssertionError(f"{module} --smoke: {r.stdout}{r.stderr}")
+
+
+@contextlib.contextmanager
+def _events_armed(node: str):
+    """This process's event ring and clock on, as ``RABIT_EVENTS=1`` brings
+    them up in a fresh one (the launcher, its trackers, the chaos
+    proxies and the standby share them); off again after."""
+    from rabit_tpu_torch.telemetry import clock, events
+    events.reset(capacity=2048, enabled=True)
+    clock.reset(node, enabled=True)
+    try:
+        yield
+    finally:
+        events.reset()
+        clock.reset()
+
+
+def _fleet_log_checks(what: str, fleet: dict, docs: dict) -> dict:
+    """The fleet event log as served: every record HLC-stamped and in HLC
+    order, and every record of each worker's own ring in it under that
+    worker's task. Its worker-sourced records by task."""
+    from rabit_tpu_torch.telemetry import clock
+    evs = fleet["events"]
+    keys = [clock.key(e.get("hlc")) for e in evs]
+    if not all(clock.is_stamp(e.get("hlc")) for e in evs) or \
+            keys != sorted(keys):
+        raise AssertionError(f"{what}: the fleet log is not HLC-stamped in "
+                             f"order: {evs}")
+    by_task = {}
+    for t, d in docs.items():
+        if not d["events_on"]:
+            raise AssertionError(f"{what}: task {t}'s event ring was off")
+        got = {(e["seq"], e["kind"]) for e in evs
+               if e.get("source") == str(t)}
+        want = {(e["seq"], e["kind"]) for e in d["events"]}
+        if got != want:
+            raise AssertionError(f"{what}: task {t}'s ring {sorted(want)} "
+                                 f"but the log holds {sorted(got)}")
+        by_task[t] = len(got)
+    return by_task
+
+
+def _incident_numbers(inc: dict, fleet: dict, served: dict) -> dict:
+    """(d)'s numbers of one incident: its summary, the chain's kinds, the
+    window from the root cause to the trigger, the fleet log's size and
+    drops, the ``/incidents`` payload's bytes."""
+    return {"summary": inc["summary"],
+            "chain": [e["kind"] for e in inc["attribution"]],
+            "fault_to_trigger_ms": round(
+                (inc["trigger"]["t_unix"] - inc["root_cause"]["t_unix"])
+                * 1e3, 3),
+            "log": fleet["count"], "dropped": fleet["dropped"],
+            "incidents_bytes": len(json.dumps(served).encode())}
+
+
+def _render(paths: list, what: str) -> str:
+    """The port's ``trace_report`` over ``paths`` in a fresh process."""
+    r = subprocess.run([sys.executable, "-m",
+                        "rabit_tpu_torch.tools.trace_report",
+                        *map(str, paths)], env=_stall_env(),
+                       capture_output=True, text=True, timeout=120)
+    if r.returncode != 0:
+        raise AssertionError(f"{what}: trace_report: {r.stdout}{r.stderr}")
+    return r.stdout
+
+
+def _incident_kill(tmp: Path, base: dict, device: str = "cuda",
+                   hist=RESIZE_HIST) -> dict:
+    """(b): phase 19 (a)'s kill run with the plane on, a tracker metrics
+    port and a failover objective below the lease."""
+    flight_dir = tmp / "flight"
+    with _events_armed("launcher"):
+        docs, stats, wal_dir, clocks = _failover_run(
+            1, tmp, "incident_kill", "kill", False, device, hist,
+            extra_env={"RABIT_EVENTS": "1", "RABIT_TELEMETRY": "1",
+                       "RABIT_SLO_FAILOVER_MS":
+                           str(INCIDENT_SLO_FAILOVER_MS),
+                       "RABIT_METRICS_POLL_MS": str(INCIDENT_POLL_MS),
+                       "RABIT_FLIGHT_DIR": str(flight_dir)},
+            metrics_port=0)
+    # every round bit for bit, 1 failover, no restart or respawn, a
+    # launch a round
+    res = _failover_checks(1, "kill", base, docs, stats, wal_dir, clocks,
+                           False, device)
+    fleet, served = stats["fleet_events"], stats["incidents"]
+    kinds = [e["kind"] for e in fleet["events"]]
+    if not {"chaos.tracker_kill", "tracker.promoted"} <= set(kinds):
+        raise AssertionError(f"incidents (b): the fleet log's kinds {kinds}")
+    by_task = _fleet_log_checks("incidents (b)", fleet, docs)
+    opened = served["open"]
+    if served["open_count"] != 1 or len(opened) != 1:
+        raise AssertionError(f"incidents (b): open {served}")
+    inc = opened[0]
+    if inc["severity"] != "critical" or inc["unattributed"] or \
+            inc["root_cause"]["kind"] != "chaos.tracker_kill" or \
+            "failover_ms violating" not in inc["summary"]:
+        raise AssertionError(f"incidents (b): the incident {inc}")
+    dumped = sorted(flight_dir.glob(f"incident_{inc['id']}_*.json"))
+    if len(dumped) != 1 or json.loads(dumped[0].read_text()) != inc:
+        raise AssertionError(f"incidents (b): dumped {dumped}")
+    events_path = tmp / "fleet_events.json"
+    events_path.write_text(json.dumps(fleet))
+    text = _render([dumped[0], events_path], "incidents (b)")
+    if f"Incident `{inc['id']}`" not in text or "Fleet events" not in text:
+        raise AssertionError(f"incidents (b): rendered {text}")
+    res.update(_incident_numbers(inc, fleet, served))
+    res.update(worker_records=by_task, rendered_lines=len(
+        text.splitlines()))
+    return res
+
+
+def _incident_reset_run(p: int, tmp: Path, tag: str, armed: bool,
+                        device: str = "cuda", hist=RESIZE_HIST) -> tuple:
+    """The resume worker as ``p`` native-engine ranks on the native core's
+    own links (no torch data plane; rank i's histogram on card i mod
+    cards), ``INCIDENT_ROUNDS`` rounds; ``armed``: the plane on, the
+    tracker's live plane and the link reset rule."""
+    from rabit_tpu_torch.tracker.launch import launch
+    out = tmp / tag
+    out.mkdir()
+    env = _resume_env(out, hist)
+    env["RESUME_ROUNDS"] = str(INCIDENT_ROUNDS)
+    if armed:
+        env.update(RABIT_EVENTS="1", RABIT_TELEMETRY="1")
+    stats = {}
+    with _events_armed("launcher") if armed else contextlib.nullcontext():
+        launch(p, [sys.executable, str(RESUME_WORKER),
+                   f"rabit_device={device}", "rabit_telemetry=1"],
+               max_attempts=0,
+               timeout=RESUME_TIMEOUT_S, quiet=True, stats=stats, env=env,
+               chaos=INCIDENT_RESET if armed else None,
+               metrics_port=0 if armed else None)
+    docs = {t: json.loads((out / f"r{t}.json").read_text())
+            for t in range(p)}
+    return docs, stats
+
+
+def _incident_reset(p: int, tmp: Path, device: str = "cuda",
+                    hist=RESIZE_HIST) -> dict:
+    """(c): the JAX package's link-reset cluster test on the cards."""
+    from rabit_tpu_torch.telemetry import incident, slo
+    cards = torch.cuda.device_count()
+
+    def card(t):
+        return f"cuda:{t % cards}" if device == "cuda" else "cpu"
+
+    base, bstats = _incident_reset_run(p, tmp, "reset_base", False, device,
+                                       hist)
+    docs, stats = _incident_reset_run(p, tmp, "reset", True, device, hist)
+    if stats["chaos"]["events"] < 1 or stats["total_attempts"] != 0 or \
+            bstats["total_attempts"] != 0:
+        raise AssertionError(f"incidents (c): chaos {stats['chaos']}, "
+                             f"attempts {stats['total_attempts']} / "
+                             f"{bstats['total_attempts']}")
+    launches = 0
+    for t, d in docs.items():
+        got = [(r["round"], r["crc"], r["hist_crc"]) for r in d["rounds"]]
+        want = [(r["round"], r["crc"], r["hist_crc"])
+                for r in base[t]["rounds"]]
+        if got != want or len(got) != INCIDENT_ROUNDS:
+            raise AssertionError(f"incidents (c): task {t}'s rounds {got} "
+                                 f"differ from the uninterrupted run's "
+                                 f"{want}")
+        if d["launches"] != [int(device == "cuda")] * INCIDENT_ROUNDS or \
+                {x["hist"] for x in d["devices"]} != {card(t)} or \
+                any(x["dataplane"] for x in d["devices"]):
+            raise AssertionError(f"incidents (c): task {t}: launches "
+                                 f"{d['launches']}, devices {d['devices']}")
+        launches += sum(d["launches"])
+    fleet = stats["fleet_events"]
+    evs = fleet["events"]
+    kinds = {e["kind"] for e in evs}
+    rungs = sorted(k for k in kinds
+                   if k.startswith(("recovery.", "watchdog.")))
+    if "chaos.reset" not in kinds or not rungs:
+        raise AssertionError(f"incidents (c): the fleet log's kinds "
+                             f"{sorted(kinds)}")
+    by_task = _fleet_log_checks("incidents (c)", fleet, docs)
+    if not any(by_task.values()):
+        raise AssertionError("incidents (c): no worker-sourced record")
+    p99 = slo.p99_ms_from_counters(
+        stats["fleet"]["counters"],
+        names=frozenset({"engine.allreduce", "engine.broadcast"}))
+    if not p99:
+        raise AssertionError(f"incidents (c): p99 {p99}")
+    (obj,) = [o for o in slo.default_slos(overrides={"p99_ms": p99 / 2})
+              if o.name == "p99_ms"]
+    (verdict,) = slo.evaluate_all([obj], {"p99_ms": p99})
+    book = incident.IncidentBook(window=30 * 60 * 1e3)
+    t_end = max(float(e["t_unix"]) for e in evs)
+    inc = book.observe_slo(verdict, evs, t_unix=t_end)
+    if verdict["state"] != slo.VIOLATING or inc is None or \
+            book.observe_slo(verdict, evs, t_unix=t_end) is not None or \
+            len(book.open_docs()) != 1 or inc["unattributed"] or \
+            inc["severity"] != "critical" or \
+            inc["root_cause"]["kind"] != "chaos.reset" or \
+            not any(e["kind"] in rungs for e in inc["attribution"]) or \
+            "p99_ms violating" not in inc["summary"]:
+        raise AssertionError(f"incidents (c): {verdict}, {inc}")
+    served = stats["incidents"]
+    if served["open_count"] != 0:
+        raise AssertionError(f"incidents (c): the tracker's book {served}")
+    res = _incident_numbers(inc, fleet, served)
+    res.update(launches=launches, rungs=rungs, worker_records=by_task,
+               p99_ms=round(p99, 3), chaos=stats["chaos"],
+               cards=[card(t) for t in range(p)])
+    return res
+
+
+def _incident_line(tag: str, r: dict, power: str) -> None:
+    phase("incidents", f"{tag} {r['summary']!r}; chain {r['chain']}; fault "
+          f"to trigger {r['fault_to_trigger_ms']} ms; the fleet log "
+          f"{r['log']} records, {r['dropped']} dropped (worker-sourced by "
+          f"task {r['worker_records']}); /incidents {r['incidents_bytes']} "
+          f"bytes [{power}]")
+
+
+def phase_incidents(power: str, bases: dict | None = None) -> dict:
+    """The causal incident plane and the post-mortem tools (see the
+    module's phase 20). ``bases``: phase 18's uninterrupted runs by part,
+    the reference of (b); run here when absent (the phase alone)."""
+    import tempfile
+    for module, marker in INCIDENT_SMOKES:
+        _smoke_without_jax(module, marker)
+    phase("incidents", "(a) incident, trace_report and bench_sentinel "
+          "--smoke ok, each in a fresh interpreter without jax or "
+          "rabit_tpu")
+    cards = torch.cuda.device_count()
+    p = max(2, min(4, cards))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        base = (bases or {}).get("a")
+        if base is None:
+            base = _resume_run(1, tmp, "base", False, False)[0]
+        b = _incident_kill(tmp, base)
+        c = _incident_reset(p, tmp)
+    phase("incidents", f"(b) phase 19 (a)'s kill with RABIT_EVENTS=1, a "
+          f"tracker metrics port and RABIT_SLO_FAILOVER_MS="
+          f"{INCIDENT_SLO_FAILOVER_MS}: {RESUME_ROUNDS} rounds bit for bit "
+          f"the uninterrupted run's, 1 failover ({b['failover_ms']} ms), 0 "
+          f"restarts, 0 respawns, the kernel launched once a round "
+          f"({b['launches']}); chaos.tracker_kill and tracker.promoted in "
+          f"the promoted tracker's HLC-ordered log, every worker's ring in "
+          f"it; one open critical incident rooted at chaos.tracker_kill, "
+          f"dumped and rendered by the port's trace_report with the log "
+          f"({b['rendered_lines']} lines)")
+    _incident_line("(b)", b, power)
+    phase("incidents", f"(c) {p} native-engine processes on {cards} "
+          f"card(s) ({c['cards']}), the native core's links under a reset "
+          f"rule (after_bytes 4096, max_times 1, seed 5): {INCIDENT_ROUNDS} "
+          f"rounds bit for bit the uninterrupted run's, the reset fired "
+          f"({c['chaos']}), rungs {c['rungs']}, the kernel launched once a "
+          f"round on every process ({c['launches']}); an IncidentBook at "
+          f"half the run's p99 ({c['p99_ms']} ms) opened one incident "
+          f"rooted at chaos.reset, the tracker's own book none")
+    _incident_line("(c)", c, power)
+    return {"b": b, "c": c,
+            "launches": {"b": b["launches"], "c": c["launches"]}}
+
+
 def card_power() -> str:
     """The first card's name and power limit, as ``nvidia-smi`` gives
     them."""
@@ -4410,6 +4754,7 @@ def main() -> int:
     elastic = phase_elastic(power)
     resume, bases = phase_resume(power)
     failover = phase_failover(power, bases)
+    incidents = phase_incidents(power, bases)
     kernels = []
     for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only"):
         head = timing[name][0]
@@ -4432,6 +4777,9 @@ def main() -> int:
     # phase 19's runs: (a)'s kill and partition, (b)'s kill and shrink,
     # null where (b) did not run (one card)
     kernels[0]["failover_launches"] = failover["launches"]
+    # phase 20's runs: (b)'s kill at world 1, (c)'s link reset over p
+    # processes
+    kernels[0]["incident_launches"] = incidents["launches"]
     kernels[3]["slope_ms"] = timing["mask_only"][0]["slope_ms"]
     kernels[2]["library_bwd_ms"] = timing["flash_block_bwd"][0][
         "library_bwd_ms"]
@@ -4448,8 +4796,8 @@ def main() -> int:
         "bucket_steps": {s: {k: r[k] for k in ("median_ms", "ms", "losses")}
                          for s, r in bucket.items()},
         "parallel": par, "telemetry": tel, "skew": skew_doc,
-        "elastic": elastic, "resume": resume, "failover": failover}),
-        flush=True)
+        "elastic": elastic, "resume": resume, "failover": failover,
+        "incidents": _failover_doc(incidents)}), flush=True)
     print(power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -309,6 +309,11 @@ class ChaosProxy:
                 try:
                     chunk = src.recv(_CHUNK)
                 except OSError:
+                    # the peer reset its end (a crash, or a close with
+                    # unread bytes): pass the reset on, as the wire
+                    # would. Without it the far end, waiting to read,
+                    # never learns and waits forever.
+                    conn.kill()
                     break
                 if not chunk:
                     # graceful EOF: half-close toward dst so protocols
@@ -403,6 +408,7 @@ class ChaosProxy:
         try:
             dst.sendall(chunk)
         except OSError:
+            conn.kill()   # dst is gone: src learns it as a reset too
             return False
         with self._lock:
             self.bytes_forwarded += len(chunk)

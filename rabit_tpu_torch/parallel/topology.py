@@ -31,8 +31,6 @@ from __future__ import annotations
 
 import json
 import os
-import socket
-import struct
 from typing import Optional, Sequence, Tuple
 
 Groups = Tuple[Tuple[int, ...], ...]
@@ -41,9 +39,6 @@ _HIER_ENV = "RABIT_HIER"
 _GROUP_ENV = "RABIT_HIER_GROUP"
 
 _OFF = ("0", "false", "no", "off", "none")
-
-# the tracker's wire magic (rabit_tpu/tracker/tracker.py::MAGIC)
-_TRACKER_MAGIC = 0x52425401
 
 
 def hier_enabled() -> bool:
@@ -195,42 +190,28 @@ def group_by_fingerprint(fingerprints: Sequence[str]) -> Groups:
 def fetch_topo(host: str, port: int, task_id: str = "0",
                timeout: float = 10.0) -> Optional[Groups]:
     """Pull the tracker's discovered host grouping (the ``topo`` wire
-    command: magic, command, task id, attempt; one JSON string back).
-    Best-effort: returns None instead of raising -- a tracker that
-    predates the command, went away, or has not assigned yet must not
-    break bootstrap, it just means a flat world. One connection attempt
-    (the JAX package retries with backoff and merges the reply's hybrid
-    logical clock; the port has neither the retry helper nor the clock
-    yet)."""
-    def send_u32(conn, v: int) -> None:
-        conn.sendall(struct.pack("<I", v))
-
-    def send_str(conn, s: str) -> None:
-        b = s.encode()
-        send_u32(conn, len(b))
-        conn.sendall(b)
-
-    def recv_all(conn, n: int) -> bytes:
-        out = b""
-        while len(out) < n:
-            chunk = conn.recv(n - len(out))
-            if not chunk:
-                raise ConnectionError("tracker closed the connection")
-            out += chunk
-        return out
-
+    command: magic, command, task id, attempt; one JSON string back),
+    connecting with backoff (``utils/retry.py``) within ``timeout``, and
+    merging the reply's hybrid logical clock when the tracker stamps one
+    (the incident plane). Best-effort: returns None instead of raising --
+    a tracker that predates the command, went away, or has not assigned
+    yet must not break bootstrap, it just means a flat world."""
+    from ..telemetry import clock
+    from ..tracker.tracker import MAGIC, _recv_str, _send_str, _send_u32
+    from ..utils import retry
     try:
-        with socket.create_connection((host, int(port)),
-                                      timeout=timeout) as conn:
-            send_u32(conn, _TRACKER_MAGIC)
-            send_str(conn, "topo")
-            send_str(conn, task_id)
-            send_u32(conn, 0)  # num_attempt (informational)
-            n = struct.unpack("<I", recv_all(conn, 4))[0]
-            doc = json.loads(recv_all(conn, n).decode())
+        with retry.connect_with_retry(
+                host, int(port), timeout=timeout,
+                deadline=retry.Deadline(timeout)) as conn:
+            _send_u32(conn, MAGIC)
+            _send_str(conn, "topo")
+            _send_str(conn, task_id)
+            _send_u32(conn, 0)  # num_attempt (informational)
+            doc = json.loads(_recv_str(conn))
+        clock.merge_from_doc(doc)   # the tracker's HLC piggyback
         groups = doc.get("groups")
         if not groups:
             return None
         return normalize_groups(groups, sum(len(g) for g in groups))
-    except (OSError, ValueError, ConnectionError):
+    except (OSError, ValueError, ConnectionError, retry.RetryError):
         return None

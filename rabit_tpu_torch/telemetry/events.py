@@ -7,7 +7,10 @@ Per process: a bounded ring (overwrite-oldest, drop-counted like the
 span recorder) plus a monotonic ``seq`` so a consumer reading repeated
 snapshots can dedup. Workers ship their ring inside the telemetry
 summary (``export.build_summary`` attaches ``doc["events"]`` when the
-plane is on), which rides the ``metrics`` wire command to the tracker.
+plane is on), which rides the ``metrics`` wire command and the live
+``/summary`` scrape to the tracker; the tracker folds each task's
+records into one fleet event log served at ``/events`` and feeds the
+incident engine (``telemetry/incident.py``).
 
 Off by default (``rabit_events``/``RABIT_EVENTS`` master knob, shared
 with the HLC in ``telemetry/clock.py``): when disabled ``emit()``

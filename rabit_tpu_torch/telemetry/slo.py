@@ -18,8 +18,8 @@ hot path:
   covers ``(2^(k-1), 2^k]`` µs, so the quantile is a bucket upper
   bound, never an interpolation that claims false precision)
 - **failover time** — leader-kill → standby-promoted, stamped by the
-  control plane itself at promotion (a hot standby, which the port's
-  tracker has not yet) — the harness only reads it
+  control plane itself at promotion (``tracker.promoted_wall`` /
+  ``promoted_mono``, tracker/standby.py) — the harness only reads it
 - **admission shed rate** — shed verdicts as a fraction of all submit
   verdicts (a multi-job tracker's admission counters)
 

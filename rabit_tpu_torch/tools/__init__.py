@@ -12,6 +12,13 @@
   histogram allreduce's throughput, at world 1 or, with ``--world p``,
   one process a card.
 
+Beside them, two readers of what they and the rest of the port write,
+which need no card and no JAX: ``python -m
+rabit_tpu_torch.tools.trace_report`` renders any schema-versioned
+artifact (summaries, traces, flight bundles, fleet events, incidents...)
+as PERF.md tables, and ``python -m rabit_tpu_torch.tools.bench_sentinel``
+gates ``build/artifacts/history.jsonl`` against its own recent history.
+
 Each runs on the card unless given ``--device cpu``, and raises where
 there is none. ``--smoke`` shrinks every size and writes nothing; a full
 run writes its JSON artifact into ``--out``, by default ``build/artifacts/``

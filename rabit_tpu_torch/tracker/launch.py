@@ -287,7 +287,10 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
     workers' registrations ask for one (they do under
     ``rabit_dataplane=torch``). ``metrics_port`` starts the tracker's
     live plane (None: ``RABIT_METRICS_PORT``, else off); its state at the
-    end lands in ``stats["live"]``. ``elastic`` (None: ``RABIT_ELASTIC``
+    end lands in ``stats["live"]``. With the incident plane on in this
+    process (``RABIT_EVENTS``), ``stats`` also gets the tracker's
+    ``/events`` document (``fleet_events``) and its ``/incidents``
+    (``incidents``), read before it stops. ``elastic`` (None: ``RABIT_ELASTIC``
     or ``rabit_elastic=1`` in ``cmd``) turns on elastic membership: a
     dead worker's relaunch is a re-admission, exempt from
     ``max_attempts``. ``RABIT_TRACKER_WAL_DIR`` journals the tracker's
@@ -445,6 +448,12 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
             stats["messages"] = list(tracker.messages)
             # the merged telemetry summaries the workers shipped, if any
             stats["fleet"] = tracker.merged_metrics()
+            # the causal incident plane, when the tracker's process armed
+            # it (RABIT_EVENTS): the folded fleet event log and the
+            # incident book, read before the tracker stops
+            if tracker._events_on:
+                stats["fleet_events"] = tracker._events_doc()
+                stats["incidents"] = tracker._incidents_doc()
             stats["live"] = tracker.live_stats()
             stats["tracker_restarts"] = sup.restarts
             stats["tracker_wal"] = {

@@ -143,11 +143,30 @@ exists, and every byte on the wire and in the journal is as without it.
 ``link_rewrite(peer_rank, host, port)`` rewrites the peer addresses an
 assignment advertises (the launcher's chaos link proxies).
 
+The causal incident plane (``rabit_events``, i.e. ``RABIT_EVENTS`` in
+the tracker's process; off when unset, and then none of it exists and
+every byte on the wire and in the journal is as without it): the
+tracker's clock takes the node ``tracker:<node>``; each worker summary
+that arrives (``metrics``, or a poll scrape of ``/summary``) has its
+event ring folded into one fleet event log, deduplicated by the task's
+``seq``, with the worker's HLC merged into the tracker's; the tracker's
+own events (``tracker.resume``, ``membership.*``, ``slo.*``) and every
+other record of its process's ring (the launcher's chaos proxies, a hot
+standby's ``tracker.promoted``) are folded in as source ``tracker``.
+Once a poll pass, even when no endpoint answered, the incident sweep
+emits an ``slo.<state>`` event on each edge of the tracker's own
+objectives, correlates each warn or violating verdict and each unseen
+``watchdog.abort`` against the log (``telemetry/incident.py``) and dumps
+each newly opened incident into the flight directory. The live plane
+adds ``/events`` (the log in HLC order) and ``/incidents`` (the open
+incidents and the recent ones) and the gauges ``rabit_open_incidents``
+and ``rabit_events_dropped_total``; the ``topo``, ``skew`` and
+``world`` replies carry the tracker's ``hlc`` (never a u32 reply). The
+JAX tracker's ``tracker.py:1616-1760`` and ``:1982-1992``.
+
 Any other command closes the connection. Not ported yet (the JAX
 package's tracker has them): multi-job (``submit``, the per-job state
-and its journal records) with the autoscaler, and the folding of the
-summaries' events into a fleet event log with ``/events`` and the
-incident plane with ``/incidents``.
+and its journal records) with the autoscaler.
 """
 
 from __future__ import annotations
@@ -160,10 +179,14 @@ import struct
 import sys
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from collections import deque
+from typing import Deque, Dict, List, Optional, Tuple
 
 from . import membership as _membership
 from . import wal as _wal_mod
+from ..telemetry import clock as _clock
+from ..telemetry import events as _events
+from ..telemetry import incident as _incident
 from ..telemetry.aggregate import format_fleet_table, merge_summaries
 
 MAGIC = 0x52425401
@@ -577,6 +600,24 @@ class Tracker:
         # the lease doc last journaled: a renewal equal to it but for
         # until_ms stays out of the journal
         self._journaled_lease: Optional[dict] = None
+        # the causal incident plane (off unless the process's event ring
+        # is, i.e. RABIT_EVENTS): the fleet event log folded from the
+        # workers' rings and this process's own, the incident book the
+        # poll loop's sweep keeps, and the SLO states of the last sweep.
+        # Set up before the journal opens: a resume emits into it.
+        self._events_on = _events.enabled()
+        self._fleet_events: Deque[dict] = deque(
+            maxlen=4 * _events.stats()["capacity"])
+        self._event_seen: Dict[str, int] = {}   # task id -> newest seq
+        self._event_drops: Dict[str, int] = {}  # task id -> ring drops
+        # a leaf lock over the fold cursors: never held while another
+        # lock is taken
+        self._events_fold_lock = threading.Lock()
+        self._incidents = _incident.IncidentBook()
+        self._incident_log: Deque[dict] = deque(maxlen=64)
+        self._slo_prev: Dict[str, str] = {}
+        if self._events_on:
+            _clock.set_node(f"tracker:{node_id}")
         # the write-ahead log (off unless a directory is given, or
         # RABIT_TRACKER_WAL_DIR): every transition is journaled before it
         # takes effect; resume=True replays it and re-adopts a live world
@@ -872,12 +913,10 @@ class Tracker:
 
     def _note_resume(self, nrecords: int) -> None:
         """Make a resume observable: a counter, a zero-length span, a
-        flight note, an event in the process's ring and a line on
-        stderr. The JAX tracker also folds the event into its fleet event
-        log (``_fleet_emit``), which the port's tracker has not yet
-        (ROADMAP Queue 1 item 1, ``/events``)."""
+        flight note, a fleet event (``_fleet_emit``) and a line on
+        stderr."""
         from .. import telemetry
-        from ..telemetry import events, flight
+        from ..telemetry import flight
         detail = (f"replayed {nrecords} WAL records, restart "
                   f"#{self.restarts}, epoch {self._epoch}")
         telemetry.count("tracker.resume", provenance="tracker")
@@ -885,7 +924,7 @@ class Tracker:
                               provenance="tracker", records=nrecords,
                               restarts=self.restarts)
         flight.note("tracker_resume", detail)
-        events.emit("tracker.resume", detail)
+        self._fleet_emit("tracker.resume", detail)
         print(f"[tracker] resumed from WAL ({nrecords} records, restart "
               f"#{self.restarts}, epoch {self._epoch}, {len(self._ranks)} "
               f"known ranks)", file=sys.stderr, flush=True)
@@ -979,6 +1018,7 @@ class Tracker:
                 if ok:
                     with self._lock:
                         self._metrics[task_id] = doc
+                    self._fold_events(task_id, doc)
                 self._reply_u32(conn, 1 if ok else 0)
             elif cmd == "shutdown":
                 with self._lock:
@@ -1073,8 +1113,7 @@ class Tracker:
                 summary_fn=lambda: self.merged_metrics() or {},
                 gauges_fn=self._live_gauges,
                 identity=identity,
-                routes={"/straggler": self._straggler_doc,
-                        "/slo": self._slo_doc},
+                routes=self._live_routes(),
             ).start()
         except OSError as e:
             print(f"[tracker] metrics server failed to bind port "
@@ -1087,6 +1126,15 @@ class Tracker:
         self._poll_thread = threading.Thread(
             target=self._poll_loop, name="rabit-tracker-poll", daemon=True)
         self._poll_thread.start()
+
+    def _live_routes(self) -> dict:
+        """The live endpoint's JSON routes: ``/events`` and
+        ``/incidents`` only while the incident plane is on."""
+        routes = {"/straggler": self._straggler_doc, "/slo": self._slo_doc}
+        if self._events_on:
+            routes["/events"] = self._events_doc
+            routes["/incidents"] = self._incidents_doc
+        return routes
 
     def _metric_sources(self) -> list:
         """One Prometheus source a polled rank: its summary, labelled with
@@ -1206,6 +1254,10 @@ class Tracker:
             # judge (a failover): a plain tracker's exposition is as before
             from ..telemetry import slo as _slo
             gauges.extend(_slo.gauges(self._slo_verdicts()))
+        if self._events_on:
+            # the incident plane's gauges, only with the plane on
+            gauges.extend(_incident.gauges(self._incidents.open_docs(),
+                                           self._events_dropped_total()))
         return gauges
 
     def _straggler_doc(self) -> dict:
@@ -1232,76 +1284,227 @@ class Tracker:
         from ..telemetry import slo as _slo
         return _slo.burn_doc(self._slo_verdicts())
 
+    # -- the causal incident plane ------------------------------------------
+    def _fleet_emit(self, kind: str, detail: str = "", job: str = "",
+                    rank: int = -1, **attrs) -> None:
+        """A tracker-side fleet event: into the process's ring, then the
+        ring folds into the fleet log (the tracker is its own consumer; a
+        control-plane event needs no scrape). Never takes the tracker's
+        lock (callers hold it on several paths); the fold's leaf lock is
+        safe under it."""
+        if not self._events_on:
+            return
+        _events.emit(kind, detail=detail, job=job, rank=rank, **attrs)
+        self._fold_local_ring()
+
+    def _fold_local_ring(self) -> None:
+        """Fold this process's OWN event ring into the fleet log, as
+        source ``tracker``, deduplicated by ``seq`` like a worker's. The
+        ring is process-wide: the launcher's chaos proxies and a hot
+        standby stamping its promotion share it with the tracker, and
+        this fold is what brings their records into ``/events`` and the
+        sweep's causal window (a promoted tracker's log starts empty and
+        sees the kill only through it)."""
+        if not self._events_on:
+            return
+        with self._events_fold_lock:
+            seen = self._event_seen.get("__local__", 0)
+            newest = seen
+            for rec in _events.snapshot()["records"]:
+                seq = rec.get("seq", 0)
+                if not isinstance(seq, int) or seq <= seen:
+                    continue
+                newest = max(newest, seq)
+                rec = dict(rec)
+                rec["source"] = "tracker"
+                self._fleet_events.append(rec)
+            self._event_seen["__local__"] = newest
+
+    def _fold_events(self, task_id: str, doc: dict) -> None:
+        """Fold one worker summary's event ring into the fleet log.
+        Every scrape re-ships the whole ring: the task's ``seq`` is the
+        dedup cursor. The worker's HLC merges into the tracker's, so
+        every later tracker stamp follows what it has observed, and the
+        worker's cumulative ring drops feed the fleet-wide gauge. A
+        record without a job takes the one job's name, as the JAX
+        tracker's default job gives it."""
+        if not self._events_on or not isinstance(doc, dict):
+            return
+        _clock.merge_from_doc(doc)
+        ev = doc.get("events")
+        if not isinstance(ev, dict):
+            return
+        with self._events_fold_lock:
+            seen = self._event_seen.get(task_id, 0)
+            newest = seen
+            for rec in ev.get("records", ()):
+                if not isinstance(rec, dict):
+                    continue
+                seq = rec.get("seq", 0)
+                if not isinstance(seq, int) or seq <= seen:
+                    continue
+                newest = max(newest, seq)
+                rec = dict(rec)
+                rec["source"] = task_id
+                if not rec.get("job"):
+                    rec["job"] = DEFAULT_JOB
+                self._fleet_events.append(rec)
+            self._event_seen[task_id] = newest
+            dropped = ev.get("dropped")
+            if isinstance(dropped, int) and dropped >= 0:
+                self._event_drops[task_id] = dropped
+
+    def _events_dropped_total(self) -> int:
+        """Fleet-wide dropped events: every task's cumulative ring drops
+        and the tracker's own ring's."""
+        return sum(self._event_drops.values()) \
+            + _events.stats()["dropped"]
+
+    def _events_doc(self) -> dict:
+        """The ``/events`` route: the fleet event log in causal order
+        (HLC when stamped, wall time otherwise)."""
+        from ..telemetry.schema import make_header
+        self._fold_local_ring()
+        evs = sorted(self._fleet_events, key=_incident._event_key)
+        doc = make_header(_events.EVENT_KIND)
+        doc["events"] = evs
+        doc["count"] = len(evs)
+        doc["dropped"] = self._events_dropped_total()
+        return doc
+
+    def _incidents_doc(self) -> dict:
+        """The ``/incidents`` route: the open incidents and the recent
+        ones."""
+        open_docs = self._incidents.open_docs()
+        return {"open": open_docs,
+                "open_count": len(open_docs),
+                "worst": self._incidents.worst(),
+                "closed_total": self._incidents.closed_total,
+                "recent": list(self._incident_log)}
+
+    def _incident_sweep(self) -> None:
+        """One poll pass of the incident engine: an ``slo.<state>`` event
+        on each edge of a verdict, each warn or violating verdict and
+        each unseen ``watchdog.abort`` correlated against the fleet log,
+        and each newly opened incident dumped beside the flight records
+        (the installed recorder's directory, else ``RABIT_FLIGHT_DIR``)."""
+        from ..telemetry import flight
+        self._fold_local_ring()
+        verdicts = self._slo_verdicts()
+        events_now = list(self._fleet_events)
+        opened = []
+        for v in verdicts:
+            name = str(v.get("slo", "?"))
+            state = str(v.get("state", ""))
+            if self._slo_prev.get(name) != state:
+                self._slo_prev[name] = state
+                kind = f"slo.{state}"
+                if kind in _events.EVENT_KINDS:
+                    self._fleet_emit(
+                        kind, f"{name} = {v.get('value')} "
+                              f"{v.get('unit', '')} (burn "
+                              f"{v.get('burn')})")
+            inc = self._incidents.observe_slo(v, events_now)
+            if inc is not None:
+                opened.append(inc)
+        opened.extend(self._incidents.observe_events(events_now))
+        if not opened:
+            return
+        fr = flight.installed()
+        out_dir = fr.out_dir if fr is not None \
+            else os.environ.get("RABIT_FLIGHT_DIR")
+        for inc in opened:
+            self._incident_log.append(inc)
+            if out_dir:
+                _incident.dump(inc, out_dir)
+            print(f"[tracker] incident {inc.get('id')} "
+                  f"[{inc.get('severity')}]: {inc.get('summary')}",
+                  file=sys.stderr, flush=True)
+
     def _poll_loop(self) -> None:
-        from ..telemetry import crossrank, live, skew
+        from ..telemetry import live
         interval = live.poll_interval_s()
         since_snapshot = 0
         while not self._poll_stop.wait(interval):
             with self._lock:
                 endpoints = dict(self._endpoints)
             since_snapshot += 1
-            if not endpoints:
-                continue
-            for tid, ep in endpoints.items():
-                doc = live.scrape_json(ep["host"], ep["port"])
-                if doc is not None:
-                    with self._lock:
-                        self._metrics[tid] = doc
-                        self._endpoint_misses[tid] = 0
-                    continue
-                # right after a resume every worker's poller is still
-                # timing out against the dead incarnation's cadence: the
-                # silence is the tracker's outage, not the worker's
-                if self.in_resume_grace():
-                    with self._lock:
-                        self._endpoint_misses[tid] = 0
-                    continue
-                # an endpoint that HAS answered before and now stays
-                # silent for several sweeps is, to the fleet, a dead rank:
-                # in an elastic world that is grounds for eviction (the
-                # watchdog catches the same failure from the inside; this
-                # catches a process that is unreachable rather than dead)
+            if endpoints:
+                since_snapshot = self._poll_sweep(endpoints, since_snapshot)
+            if self._events_on:
+                # the incident sweep rides the poll cadence even when no
+                # endpoint answered: the tracker's own events (membership,
+                # SLO edges, a promotion) still need correlating
+                self._incident_sweep()
+
+    def _poll_sweep(self, endpoints: Dict[str, dict],
+                    since_snapshot: int) -> int:
+        """One pass over the announced endpoints: scrape each, evict the
+        silent ones (elastic), elect the laggard and serve the digest;
+        returns the sweeps since the last straggler line."""
+        from ..telemetry import crossrank, live, skew
+        for tid, ep in endpoints.items():
+            doc = live.scrape_json(ep["host"], ep["port"])
+            if doc is not None:
                 with self._lock:
-                    seen_before = tid in self._metrics
-                    misses = self._endpoint_misses.get(tid, 0) + 1
-                    self._endpoint_misses[tid] = misses
-                    rank = self._ranks.get(tid)
-                    live_rank = (self.elastic and rank is not None
-                                 and rank in self._member.live)
-                if seen_before and live_rank and \
-                        misses >= _membership.EVICT_POLL_MISSES:
-                    self.evict_rank(
-                        rank, f"endpoint silent for {misses} polls")
+                    self._metrics[tid] = doc
+                    self._endpoint_misses[tid] = 0
+                self._fold_events(tid, doc)
+                continue
+            # right after a resume every worker's poller is still
+            # timing out against the dead incarnation's cadence: the
+            # silence is the tracker's outage, not the worker's
+            if self.in_resume_grace():
+                with self._lock:
+                    self._endpoint_misses[tid] = 0
+                continue
+            # an endpoint that HAS answered before and now stays
+            # silent for several sweeps is, to the fleet, a dead rank:
+            # in an elastic world that is grounds for eviction (the
+            # watchdog catches the same failure from the inside; this
+            # catches a process that is unreachable rather than dead)
             with self._lock:
-                summaries = dict(self._metrics)
-            strag = crossrank.straggler_snapshot(summaries)
-            # each sweep's raw offsets fold through the ONE election; the
-            # served digest is its smoothed, hysteretic verdict, whose
-            # epoch bumps exactly when the election changes
-            if self._skew_election is None:
-                self._skew_election = skew.FleetElection()
-            digest = self._skew_election.fold(
-                skew.digest_from_snapshot(strag))
-            with self._lock:
-                if digest is not None and \
-                        digest.get("epoch") != self._skew.get("epoch"):
-                    # journal verdicts, not sweeps: the epoch bumps exactly
-                    # when the election changes
-                    self._wal("skew", digest=digest)
-                self._last_straggler = strag
-                if digest is not None:
-                    self._skew = digest
-                self._poll_count += 1
-            # one line every ~5 sweeps, only while someone is behind: in
-            # the round sequence, or by more than 1 s of in-collective wait
-            behind = bool(strag.get("signal")) \
-                and strag.get("lagging_rank") is not None
-            if since_snapshot >= 5 and behind:
-                since_snapshot = 0
-                print(f"[tracker] straggler: rank {strag['lagging_rank']} "
-                      f"is {strag['lag_collectives']} collectives behind "
-                      f"(busy skew {strag['busy_skew_s']:.3f}s)",
-                      file=sys.stderr, flush=True)
+                seen_before = tid in self._metrics
+                misses = self._endpoint_misses.get(tid, 0) + 1
+                self._endpoint_misses[tid] = misses
+                rank = self._ranks.get(tid)
+                live_rank = (self.elastic and rank is not None
+                             and rank in self._member.live)
+            if seen_before and live_rank and \
+                    misses >= _membership.EVICT_POLL_MISSES:
+                self.evict_rank(
+                    rank, f"endpoint silent for {misses} polls")
+        with self._lock:
+            summaries = dict(self._metrics)
+        strag = crossrank.straggler_snapshot(summaries)
+        # each sweep's raw offsets fold through the ONE election; the
+        # served digest is its smoothed, hysteretic verdict, whose
+        # epoch bumps exactly when the election changes
+        if self._skew_election is None:
+            self._skew_election = skew.FleetElection()
+        digest = self._skew_election.fold(
+            skew.digest_from_snapshot(strag))
+        with self._lock:
+            if digest is not None and \
+                    digest.get("epoch") != self._skew.get("epoch"):
+                # journal verdicts, not sweeps: the epoch bumps exactly
+                # when the election changes
+                self._wal("skew", digest=digest)
+            self._last_straggler = strag
+            if digest is not None:
+                self._skew = digest
+            self._poll_count += 1
+        # one line every ~5 sweeps, only while someone is behind: in
+        # the round sequence, or by more than 1 s of in-collective wait
+        behind = bool(strag.get("signal")) \
+            and strag.get("lagging_rank") is not None
+        if since_snapshot >= 5 and behind:
+            since_snapshot = 0
+            print(f"[tracker] straggler: rank {strag['lagging_rank']} "
+                  f"is {strag['lag_collectives']} collectives behind "
+                  f"(busy skew {strag['busy_skew_s']:.3f}s)",
+                  file=sys.stderr, flush=True)
+        return since_snapshot
 
     def live_addr(self) -> Optional[Tuple[str, int]]:
         """The live plane's ``(host, port)``, or None without a metrics
@@ -1351,6 +1554,14 @@ class Tracker:
         self._close(conn)
 
     def _reply_json(self, conn: socket.socket, doc: dict) -> None:
+        """A JSON-str reply (``topo``, ``skew``, ``world``), with the
+        tracker's HLC piggybacked while the incident plane is on, so a
+        worker's clock causally follows the control plane; never on a
+        u32 reply."""
+        if self._events_on:
+            stamp = _clock.tick()
+            if stamp is not None:
+                doc["hlc"] = stamp
         b = json.dumps(doc).encode()
         conn.sendall(struct.pack("<I", len(b)) + b)
         self._close(conn)
@@ -1461,15 +1672,16 @@ class Tracker:
         """Make a membership transition observable: a counter, a
         zero-length ``membership.transition`` span, a flight note naming
         the rank (a post-mortem bundle shows WHY the world resized) and a
-        fleet event."""
+        fleet event of the one job."""
         from .. import telemetry
-        from ..telemetry import events, flight
+        from ..telemetry import flight
         telemetry.count(f"membership.{kind}", provenance="membership")
         telemetry.record_span("membership.transition", 0.0, op=kind,
                               provenance="membership", rank=rank,
                               detail=detail)
         flight.note(f"member_{kind}", f"rank {rank}: {detail}")
-        events.emit(f"membership.{kind}", detail, rank=rank)
+        self._fleet_emit(f"membership.{kind}", detail, job=DEFAULT_JOB,
+                         rank=rank)
         print(f"[tracker] membership: {kind} rank {rank} ({detail})",
               file=sys.stderr, flush=True)
 

@@ -267,7 +267,10 @@ def test_import_leaves_out_jax_and_rabit_tpu():
         "'rabit_tpu_torch.tracker.wal', "
         "'rabit_tpu_torch.tools.store_loss', "
         "'rabit_tpu_torch.tracker.standby', 'rabit_tpu_torch.chaos', "
-        "'rabit_tpu_torch.chaos.schedule', 'rabit_tpu_torch.chaos.proxy'}\n"
+        "'rabit_tpu_torch.chaos.schedule', 'rabit_tpu_torch.chaos.proxy', "
+        "'rabit_tpu_torch.telemetry.incident', "
+        "'rabit_tpu_torch.tools.trace_report', "
+        "'rabit_tpu_torch.tools.bench_sentinel'}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -313,8 +316,10 @@ def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
     ``__main__.py``, the overlap bench and its worker) and of the
     tracker's journal (``tracker/wal.py``, ``tools/store_loss.py``) and
     of the hot standby and the chaos plane (``tracker/standby.py``,
-    ``chaos/*``), by name (the package scan above covers the package
-    too), and the port's own test workers."""
+    ``chaos/*``) and of the incident plane and the post-mortem tools
+    (``telemetry/incident.py``, ``tools/trace_report.py``,
+    ``tools/bench_sentinel.py``), by name (the package scan above covers
+    the package too), and the port's own test workers."""
     new = [PKG / "utils" / "log.py", PKG / "utils" / "retry.py",
            PKG / "engine" / "ckpt_store.py", PKG / "engine" / "_native_build.py",
            PKG / "engine" / "native.py", PKG / "engine" / "dataplane.py",
@@ -337,5 +342,8 @@ def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
     new += [PKG / "tracker" / "standby.py"]
     new += [PKG / "chaos" / f"{m}.py" for m in ("__init__", "schedule",
                                                 "proxy")]
+    new += [PKG / "telemetry" / "incident.py",
+            PKG / "tools" / "trace_report.py",
+            PKG / "tools" / "bench_sentinel.py"]
     assert all(p.is_file() for p in new)
     assert _jax_imports(new) == []

@@ -9,6 +9,7 @@ order gives the same injected faults."""
 
 import json
 import socket
+import struct
 import threading
 import time
 
@@ -275,6 +276,46 @@ def test_proxy_reset_tears_connection_mid_transfer():
             assert [e[1] for e in proxy.events] == ["reset"]
             # the budget is spent: the retry goes through
             assert _round_trip(proxy.host, proxy.port, payload) == payload
+    finally:
+        srv.close()
+
+
+@pytest.mark.parametrize("side", ["upstream", "client"])
+def test_a_peer_s_reset_crosses_the_proxy(side):
+    """One end resets its connection (a close with unread bytes, as the
+    native core's link teardown in recovery does): the other end, blocked
+    reading, sees the connection die within a moment, as it would without
+    the proxy, and no event is counted. A proxy that swallowed the reset
+    left that end waiting forever: a link reset at world 3 hung its
+    recovery."""
+    held = []
+
+    def hold(conn):
+        held.append(conn)
+        time.sleep(30)
+    srv = _serve(hold)
+    try:
+        with ChaosProxy(*srv.getsockname(), Schedule()) as proxy:
+            with socket.create_connection((proxy.host, proxy.port),
+                                          timeout=10.0) as conn:
+                assert _wait(lambda: held)
+                up = held[0]
+                resetter, reader = (up, conn) if side == "upstream" \
+                    else (conn, up)
+                reader.sendall(b"unread")   # the resetter never reads it
+                time.sleep(0.2)
+                resetter.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                                    struct.pack("ii", 1, 0))
+                reader.settimeout(5.0)
+                t0 = time.monotonic()
+                resetter.close()
+                try:
+                    got = reader.recv(1)
+                except (ConnectionError, OSError):
+                    got = None
+                assert got in (None, b""), got
+                assert time.monotonic() - t0 < 2.0
+            assert proxy.events == []
     finally:
         srv.close()
 

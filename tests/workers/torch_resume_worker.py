@@ -10,8 +10,11 @@ round allreduces a deterministic int64 payload (a pure function of
 round, rank and world) and, with ``RESUME_HIST_ROWS`` > 0, a histogram
 of that many rows into ``RESUME_HIST_BINS`` bins built by
 ``ops.histogram.histogram`` on the data plane's device (the CUDA kernel
-on the card, its plain version on the CPU; at world 1, where no data
-plane forms, on the device ``rabit_device`` names) and allreduced; grad
+on the card, its plain version on the CPU; where no torch data plane
+forms -- at world 1, or with the native core's own links
+(``rabit_dataplane`` unset) -- on the card the task index picks,
+``engine/dataplane.py::card_index``, or the CPU under
+``rabit_device=cpu``) and allreduced; grad
 and hess are integers in [-8, 8] from ``RESUME_SEED`` and the rank, so
 every sum is exact and is held to numpy's. The CRC streams compare bit for bit
 with an uninterrupted run.
@@ -42,8 +45,9 @@ Each process writes ``RESUME_OUT/r<task>.log`` (the JAX worker's lines)
 and ``RESUME_OUT/r<task>.json``: its rounds with their CRCs, the kernel's
 launches a round, the outages, ``init``'s seconds, the data plane's
 formations with their ``recovery.world_reform`` spans (under
-``rabit_telemetry=1``), the card before and after, the epoch. Exit 0
-only if every round was exact.
+``rabit_telemetry=1``), the card before and after, the epoch, and the
+process's fleet event ring (``rabit_events``: whether it was on, and each
+record's seq and kind). Exit 0 only if every round was exact.
 """
 
 import json
@@ -63,7 +67,9 @@ import torch  # noqa: E402
 
 import rabit_tpu_torch as rabit  # noqa: E402
 from rabit_tpu_torch import telemetry  # noqa: E402
+from rabit_tpu_torch.engine.dataplane import card_index  # noqa: E402
 from rabit_tpu_torch.ops import histogram as K  # noqa: E402
+from rabit_tpu_torch.telemetry import events  # noqa: E402
 from rabit_tpu_torch.telemetry import skew  # noqa: E402
 from rabit_tpu_torch.tracker import membership  # noqa: E402
 from rabit_tpu_torch.tracker.tracker import MAGIC  # noqa: E402
@@ -144,13 +150,17 @@ def dataplane_device():
 
 
 def hist_device():
-    """The data plane's device; at world 1, where the native core reduces
-    nothing and no data plane forms, the one ``rabit_device`` names (the
-    card by default, card 0)."""
+    """The data plane's device; where no torch data plane forms (world 1,
+    or the native core's links) the card the task index picks, as the
+    data plane would pick it (card 0 at world 1), or the CPU."""
     dp = dataplane_device()
     if dp is not None:
         return torch.device(dp)
-    return torch.device("cpu" if DEVICE == "cpu" else "cuda:0")
+    if DEVICE == "cpu":
+        return torch.device("cpu")
+    # card 0 where no card is visible (a run that builds no histogram)
+    return torch.device("cuda", card_index(
+        rabit.get_rank(), max(1, torch.cuda.device_count())))
 
 
 def note_device(when):
@@ -248,6 +258,9 @@ def finish():
         {"dur": s["dur"], "epoch": s.get("attrs", {}).get("epoch")}
         for s in telemetry.snapshot()["spans"]
         if s["name"] == "recovery.world_reform"]
+    DOC["events_on"] = events.enabled()
+    DOC["events"] = [{"seq": r["seq"], "kind": r["kind"]}
+                     for r in events.snapshot()["records"]]
     with open(os.path.join(OUT, f"r{TASK}.json"), "w") as f:
         json.dump(DOC, f)
 
