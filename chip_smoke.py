@@ -10,9 +10,10 @@ flight recorder and the overlap bench, elastic membership with the
 in-process resize, the tracker's write-ahead log with a world that
 keeps computing through a tracker crash, the hot standby with the
 chaos front proxy, through which a world computes across the loss of
-its leader with no respawn, and the causal incident plane with the
+its leader with no respawn, the causal incident plane with the
 post-mortem tools, which attribute that loss and a link reset to their
-injected causes.
+injected causes, and the multi-job control plane, on which two jobs
+share one tracker and keep their fault domains apart.
 
     python3 chip_smoke.py
 
@@ -390,12 +391,59 @@ Phases (each prints a line; any failure exits non-zero):
                 of (b) and (c) prints the incident's summary, its chain's
                 kinds, the window from the fault to the trigger, the fleet
                 log's size and drops and the ``/incidents`` payload's bytes.
-21. kernels     one JSON line of every kernel with its main-path launches
+21. jobs        the multi-job control plane (``tracker/jobs.py``,
+                ``tracker/autoscaler.py``, the tracker's per-job state,
+                admission and scheduler, ``launch --submit``,
+                ``job_storm``; no new kernel), on one multi-job port
+                tracker in this process, each job submitted by its own
+                ``python -m rabit_tpu_torch.tracker.launch --submit``
+                subprocess, A's on cards 0-1 and B's on cards 2-3 of four
+                (its ``CUDA_VISIBLE_DEVICES``; a card each of two or three,
+                card 0 for all of one): (a) ``python -m
+                rabit_tpu_torch.tracker.jobs --smoke`` and the same of
+                ``tracker.autoscaler``, each in a fresh interpreter that
+                must end with neither ``jax`` nor ``rabit_tpu`` in
+                ``sys.modules``; (b) the JAX package's two-job fault
+                isolation: jobs A (elastic, one attempt) and B, 2
+                native-engine processes each
+                (``tests/workers/torch_multijob_worker.py``), 10 rounds
+                200 ms apart of an int64 SUM allreduce of 8192 and a
+                histogram of 2^21 x 1024 by the kernel on the process's
+                card (grad and hess integers in [-8, 8], seed 17)
+                allreduced through the native core; A's task 1 exits hard
+                before round 3; B's streams bit for bit B's run alone on
+                a tracker of its own, B closed with both shutdowns and no
+                eviction, A failed alone once its ranks are evicted, the
+                tracker never restarted, the kernel launched once a round
+                on every B process; a ``job_storm`` of 300 rogue
+                connections (seed 19) at the tracker at B's round 2, its
+                verdicts none admitted, and the tracker's connection
+                threads at the peak; (c) jobs A and B on the torch data
+                plane (phase 18's worker, the robust engine), 1 process
+                each on one card (both on card 0; at world 1 no NCCL world
+                forms) or 2 on four (A elastic: its task 1 evicts itself
+                at round 5 and A's survivor ``resize("recover")``s to world
+                1 through A's epoch-2 store): every round exact, B's
+                streams bit for bit its solo run's, B at epoch 1
+                throughout, each job's epoch 1 on a store of its own, A's
+                epoch-1 store kept beside epoch 2's for its evicted
+                member until A closes, no store port shared by two jobs,
+                every store reaped at its job's close, no epoch with two
+                members of one job on one card and A's cards not B's;
+                (d) with ``RABIT_MAX_JOBS=2`` and
+                ``RABIT_ADMISSION_QUEUE=1`` on (c)'s tracker while A and B
+                run: a submit of C answers queued at position 0 (the
+                queue's head) with a retry hint, one of D shed, and C,
+                by ``launch --submit`` (``submit_blocking``), goes in at
+                B's close and runs B's rounds bit for bit; ``/jobs`` and
+                the admission gauges. Each part prints its seconds.
+22. kernels     one JSON line of every kernel with its main-path launches
                 (and, for the flash kernels, phase 12's and phase 13's; for
                 the histogram, phase 17 (b)'s, null where (b) did not run,
                 phase 18's killed runs', (b)'s null where it did not run,
-                phase 19's runs, (b)'s null where it did not run, and
-                phase 20's (b) and (c)).
+                phase 19's runs, (b)'s null where it did not run,
+                phase 20's (b) and (c), and phase 21's (b), (c) and
+                (d)).
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
 phase 6, each run of phase 12, each ring call of phase 13, in its rank's
@@ -403,8 +451,8 @@ process, each run of phase 14 (b)) and read just after it, so a kernel's
 count is its own path's alone: mask_only's is the sweep's. Phase 11's
 histogram launches are counted in its workers, each a fresh process (so
 from 0), and printed there; phases 17's, 18's and 19's in their
-workers, a launch a round a member, and phase 20's likewise. The last
-line is the device JSON.
+workers, a launch a round a member, and phases 20's and 21's likewise.
+The last line is the device JSON.
 Without CUDA, or without the package beside this file, the script exits
 non-zero and prints no result.
 """
@@ -419,6 +467,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -4689,6 +4738,557 @@ def phase_incidents(power: str, bases: dict | None = None) -> dict:
             "launches": {"b": b["launches"], "c": c["launches"]}}
 
 
+# phase 21: the multi-job control plane. Jobs A and B on one multi-job port
+# tracker in this process, each submitted by its own `launch --submit`
+# subprocess; (b) the JAX package's two-job fault isolation, (c) per-job
+# epoch stores under the torch data plane, (d) admission while (c) runs
+JOBS_WORKER = Path(__file__).resolve().parent / "tests" / "workers" / \
+    "torch_multijob_worker.py"
+JOBS_ROUNDS = 10                  # each job's rounds, 200 ms apart
+# (c): A's rounds beyond B's, so that B closes first and (d)'s C goes in
+# at B's close: 6 s at 200 ms a round, over the 1-3 s an NCCL formation
+# at epoch 1 may differ by (5 rounds were too few once on four cards);
+# C's own run after B's close takes longer, so the phase waits no more
+JOBS_A_EXTRA = 30
+JOBS_DIE_AT = 3                   # (b): A's task 1 exits hard here
+JOBS_SHRINK_AT = 5                # (c), four cards: A's task 1 leaves here
+JOBS_STORM = {"burst": 300, "seed": 19}   # (b): the storm at B's round 2
+JOBS_TIMEOUT_S = 240
+JOBS_DEVICE = "cuda"              # the workers' rabit_device
+JOBS_SMOKES = (("rabit_tpu_torch.tracker.jobs", "multi-job smoke ok"),
+               ("rabit_tpu_torch.tracker.autoscaler", "autoscaler smoke ok"))
+
+
+@contextlib.contextmanager
+def _jobs_tracker(**knobs):
+    """A multi-job port tracker in this process, its admission knobs as
+    given (read at construction), with its live plane on a free port."""
+    import os
+    from rabit_tpu_torch.tracker.tracker import Tracker
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update({k: str(v) for k, v in knobs.items()})
+    try:
+        tr = Tracker(2, multi_job=True, metrics_port=0,
+                     ready_timeout=60).start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    try:
+        yield tr
+    finally:
+        tr.stop()
+
+
+def _jobs_cards() -> tuple:
+    """The cards of job A and of job B: disjoint halves of four cards,
+    one card each of two or three, None (every process on card 0) of
+    one."""
+    count = torch.cuda.device_count()
+    if count >= 4:
+        return (0, 1), (2, 3)
+    if count >= 2:
+        return (0,), (1,)
+    return None, None
+
+
+def _jobs_p() -> int:
+    """(c)'s processes a job: 2 on four cards (each on a card of its
+    own), else 1 (two NCCL ranks may not share a card)."""
+    return 2 if torch.cuda.device_count() >= 4 else 1
+
+
+def _phys(cards, dev: str) -> int:
+    """The physical card of a worker's ``cuda:<i>`` under ``cards`` (its
+    launcher's ``CUDA_VISIBLE_DEVICES``; None: all visible)."""
+    i = int(str(dev).split(":")[1]) if ":" in str(dev) else 0
+    return i if cards is None else cards[i]
+
+
+def _jobs_launch(tr, job: str, n: int, cmd: list, out: Path, cards,
+                 env: dict | None = None, elastic: bool = False,
+                 attempts: int = 1) -> subprocess.Popen:
+    """``python -m rabit_tpu_torch.tracker.launch --submit`` of ``job`` as
+    a subprocess, on ``cards`` (its ``CUDA_VISIBLE_DEVICES``; None: all),
+    its output in ``out``."""
+    e = _stall_env()
+    e.update(env or {})
+    if cards is not None:
+        e["CUDA_VISIBLE_DEVICES"] = ",".join(map(str, cards))
+    args = [sys.executable, "-m", "rabit_tpu_torch.tracker.launch",
+            "--submit", f"{tr.host}:{tr.port}", "--job", job, "-n", str(n),
+            "--max-attempts", str(attempts), "--timeout",
+            str(JOBS_TIMEOUT_S), "--submit-wait", str(JOBS_TIMEOUT_S)]
+    if elastic:
+        args.append("--elastic")
+    path = out / f"launch_{job}.txt"
+    with open(path, "w") as log:
+        proc = subprocess.Popen(args + ["--"] + cmd, env=e, stdout=log,
+                                stderr=subprocess.STDOUT)
+    proc.log_path = path
+    return proc
+
+
+def _jobs_wait(procs: dict) -> dict:
+    """Each launcher's exit code (every one killed at the time limit)."""
+    rcs = {}
+    try:
+        for job, p in procs.items():
+            rcs[job] = p.wait(timeout=JOBS_TIMEOUT_S + 30)
+    finally:
+        for job, p in procs.items():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+                raise AssertionError(f"jobs: {job}'s launcher hung: "
+                                     f"{p.log_path.read_text()[-3000:]}")
+    return rcs
+
+
+def _jobs_fail(what: str, out: Path, jobs) -> None:
+    tails = {j: (out / f"launch_{j}.txt").read_text()[-2000:]
+             for j in jobs if (out / f"launch_{j}.txt").exists()}
+    raise AssertionError(f"jobs {what}: {tails}")
+
+
+def _mj_cmd(out: Path, rounds: int = JOBS_ROUNDS, **extra) -> list:
+    return [sys.executable, str(JOBS_WORKER), f"mj_out={out}",
+            f"mj_rounds={rounds}", "mj_sleep_ms=200",
+            f"mj_hist_rows={RESIZE_HIST[0]}", f"mj_hist_bins={RESIZE_HIST[1]}",
+            f"mj_seed={RESIZE_SEED}", f"rabit_device={JOBS_DEVICE}"] + \
+        [f"mj_{k}={v}" for k, v in extra.items()]
+
+
+def _mj_docs(out: Path, job: str, n: int) -> dict:
+    return {t: json.loads((out / f"r{job}_{t}.json").read_text())
+            for t in range(n)}
+
+
+def _stream(doc: dict) -> list:
+    return [(r["round"], r["world"], r["crc"], r["hist_crc"])
+            for r in doc["rounds"]]
+
+
+def _storm_at(tr, out: Path, res: dict) -> threading.Thread:
+    """Once B's task 0 logged round 2, one ``job_storm`` of
+    ``JOBS_STORM`` at the tracker, the tracker process's threads sampled
+    every 2 ms while it lasts."""
+    from rabit_tpu_torch.chaos.proxy import run_job_storm
+    from rabit_tpu_torch.chaos.schedule import Rule
+
+    def run():
+        log = out / "rB_0.log"
+        deadline = time.monotonic() + JOBS_TIMEOUT_S
+        while time.monotonic() < deadline and "round=2 " not in (
+                log.read_text() if log.exists() else ""):
+            time.sleep(0.02)
+        def conns():
+            # the tracker's connection threads (a thread a connection)
+            return sum(1 for t in threading.enumerate()
+                       if t.name.endswith("(_handle)"))
+
+        base = threading.active_count()
+        peak = [base, conns()]
+        done = threading.Event()
+
+        def sample():
+            while not done.is_set():
+                peak[0] = max(peak[0], threading.active_count())
+                peak[1] = max(peak[1], conns())
+                time.sleep(0.002)
+
+        s = threading.Thread(target=sample, daemon=True)
+        s.start()
+        t0 = time.perf_counter()
+        tally = run_job_storm(tr.host, tr.port,
+                              Rule("job_storm", window_s=(0, 1),
+                                   burst=JOBS_STORM["burst"]),
+                              JOBS_STORM["seed"])
+        res["storm_s"] = round(time.perf_counter() - t0, 4)
+        done.set()
+        s.join()
+        res.update(threads_before=base, threads_peak=peak[0],
+                   threads_after=threading.active_count(),
+                   conn_threads_peak=peak[1],
+                   submits=tally["submits"], half_open=tally["half_open"],
+                   errors=tally["errors"],
+                   admitted=sum(1 for v in tally["verdicts"]
+                                if isinstance(v, dict) and v.get("ok")))
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def _jobs_solos(tmp: Path) -> dict:
+    """Job B alone, each on a tracker of its own, as (b) runs it (native
+    engine) and as (c) runs it (the torch data plane), both at once: the
+    reference streams, and (c)'s store count at the end."""
+    cards_a, cards_b = _jobs_cards()
+    p = _jobs_p()
+    iso, dp = tmp / "iso_solo", tmp / "dp_solo"
+    iso.mkdir()
+    dp.mkdir()
+    t0 = time.perf_counter()
+    with _jobs_tracker() as tr_iso, _jobs_tracker() as tr_dp:
+        rcs = _jobs_wait({
+            "iso": _jobs_launch(tr_iso, "B", 2, _mj_cmd(iso), iso, cards_b),
+            "dp": _jobs_launch(tr_dp, "B", p, _rs_cmd(), dp, cards_b,
+                               env=_rs_env(dp, JOBS_ROUNDS))})
+        stores = tr_dp.store_count("B")
+    if rcs != {"iso": 0, "dp": 0}:
+        _jobs_fail(f"B alone: {rcs}", iso, "B")
+    return {"iso": _mj_docs(iso, "B", 2),
+            "dp": {t: json.loads((dp / f"rB_{t}.json").read_text())
+                   for t in range(p)},
+            "dp_stores": stores, "s": round(time.perf_counter() - t0, 2)}
+
+
+def _jobs_isolation(tmp: Path, solo_b: dict) -> dict:
+    """(b): the JAX package's two-job fault isolation at the bench's
+    width, and one storm of rogue submits at the tracker while B runs;
+    ``solo_b``: B's documents alone."""
+    cards_a, cards_b = _jobs_cards()
+    t0 = time.perf_counter()
+    out = tmp / "iso"
+    out.mkdir()
+    storm = {}
+    with _jobs_tracker(RABIT_MAX_JOBS=2, RABIT_ADMISSION_QUEUE=2) as tr:
+        thread = tr._thread
+        procs = {"A": _jobs_launch(tr, "A", 2, _mj_cmd(
+                     out, die_at=JOBS_DIE_AT, die_task=1), out, cards_a,
+                     elastic=True),
+                 "B": _jobs_launch(tr, "B", 2, _mj_cmd(out), out, cards_b)}
+        st = _storm_at(tr, out, storm)
+        rcs = _jobs_wait(procs)
+        st.join(60)
+        if rcs != {"A": 1, "B": 0}:
+            _jobs_fail(f"(b) exit codes {rcs}", out, "AB")
+        b_docs = _mj_docs(out, "B", 2)
+        a_docs = _mj_docs(out, "A", 2)
+        launches = 0
+        for t in range(2):
+            if _stream(b_docs[t]) != _stream(solo_b[t]) or \
+                    len(b_docs[t]["rounds"]) != JOBS_ROUNDS:
+                raise AssertionError(f"jobs (b): B task {t}'s stream "
+                                     f"{_stream(b_docs[t])} is not its solo "
+                                     f"run's {_stream(solo_b[t])}")
+            if b_docs[t]["launches"] != \
+                    [int(JOBS_DEVICE == "cuda")] * JOBS_ROUNDS:
+                raise AssertionError(f"jobs (b): B task {t}'s launches "
+                                     f"{b_docs[t]['launches']}")
+            launches += sum(b_docs[t]["launches"])
+        if [len(a_docs[t]["rounds"]) for t in range(2)] != \
+                [JOBS_DIE_AT, JOBS_DIE_AT]:
+            raise AssertionError(f"jobs (b): A's rounds "
+                                 f"{[_stream(a_docs[t]) for t in range(2)]}")
+        _wait_for(lambda: tr.job("B").status == "closed", "B's close")
+        jb, ja = tr.job("B"), tr.job("A")
+        b_doc = jb.doc()
+        if b_doc["shutdown"] != 2 or jb._shutdown_ranks != {0, 1} or \
+                jb.elastic or b_doc["epoch"] != 1:
+            raise AssertionError(f"jobs (b): B {b_doc}")
+        a_before = ja.doc()
+        for rank in range(2):
+            tr.evict_rank(rank, "phase 21: worker died", job=ja)
+        a_doc = ja.doc()
+        if a_doc["status"] != "failed" or a_doc["live"] or \
+                tr.job("B").status != "closed" or tr.restarts or \
+                tr._thread is not thread or not thread.is_alive():
+            raise AssertionError(f"jobs (b): A {a_doc}, B {tr.job('B').doc()}"
+                                 f", restarts {tr.restarts}")
+        if storm.get("submits", 0) + storm.get("half_open", 0) < \
+                JOBS_STORM["burst"] - storm.get("errors", 0) or \
+                storm.get("admitted"):
+            raise AssertionError(f"jobs (b): the storm {storm}")
+        jobs_doc = tr._jobs_doc()
+    phys = {j: [_phys(cs, d["device"]) for d in docs.values()]
+            for j, cs, docs in (("A", cards_a, a_docs), ("B", cards_b, b_docs))}
+    return {"s": round(time.perf_counter() - t0, 2), "launches": launches,
+            "rcs": rcs, "cards": phys, "a_before": a_before, "a": a_doc,
+            "b": b_doc, "storm": storm,
+            "queued_total": jobs_doc["queued_total"],
+            "shed_total": jobs_doc["shed_total"],
+            "rounds": {j: [len(d["rounds"]) for d in docs.values()]
+                       for j, docs in (("A", a_docs), ("B", b_docs))}}
+
+
+def _wait_for(cond, what: str, timeout: float = 30.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"jobs: timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def _rs_cmd() -> list:
+    """Phase 18's worker as phase 18 runs it: the robust engine with the
+    torch data plane."""
+    return [sys.executable, str(RESUME_WORKER), f"rabit_device={JOBS_DEVICE}",
+            "rabit_dataplane=torch", "rabit_telemetry=1"]
+
+
+def _rs_env(out: Path, rounds: int, **kw) -> dict:
+    env = _resume_env(out, RESIZE_HIST)
+    env["RESUME_ROUNDS"] = str(rounds)
+    env.update({k: str(v) for k, v in kw.items()})
+    return env
+
+
+class _StoreWatch:
+    """Samples each open job's epoch and store count, and each job's
+    store ports, every 20 ms while a part runs."""
+
+    def __init__(self, tr, jobs):
+        self.tr, self.jobs = tr, jobs
+        self.seen = {j: set() for j in jobs}     # (epoch, count)
+        self.ports = {j: set() for j in jobs}    # (store epoch, port)
+        self.opened = {}                         # job -> first seen, s
+        self.closed = {}
+        self._stop = threading.Event()
+        self._t0 = time.monotonic()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            now = time.monotonic() - self._t0
+            with self.tr._lock:
+                for j in self.jobs:
+                    jb = self.tr._jobs.get(j)
+                    if jb is None:
+                        continue
+                    self.opened.setdefault(j, now)
+                    if not jb.open:
+                        self.closed.setdefault(j, now)
+                        continue
+                    self.seen[j].add((jb._epoch, len(jb._stores)))
+                    self.ports[j] |= {(e, st.port) for e, st, _ in jb._stores}
+            time.sleep(0.02)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(5)
+
+
+def _jobs_stores_and_admission(tmp: Path, solo_b: dict,
+                               solo_stores: int) -> tuple:
+    """(c) and (d): jobs A and B on the torch data plane, each on epoch
+    stores of its own (on four cards A shrinks inside its own domain);
+    while both run, C queues, D is shed, and C, submitted through the
+    blocking path, goes in at B's close and runs B's rounds. ``solo_b``:
+    B's documents alone, ``solo_stores`` its tracker's stores at the
+    end."""
+    from rabit_tpu_torch.telemetry import live
+    from rabit_tpu_torch.tracker import jobs as jobs_mod
+    cards_a, cards_b = _jobs_cards()
+    p = _jobs_p()
+    four = p == 2
+    t0 = time.perf_counter()
+    out = tmp / "dp"
+    out.mkdir()
+    a_env = _rs_env(out, JOBS_ROUNDS + JOBS_A_EXTRA)
+    if four:
+        a_env.update(RESUME_SHRINK_AT=str(JOBS_SHRINK_AT), KILL_TASK="A/1")
+    with _jobs_tracker(RABIT_MAX_JOBS=2, RABIT_ADMISSION_QUEUE=1) as tr:
+        watch = _StoreWatch(tr, ("A", "B", "C"))
+        procs = {"A": _jobs_launch(tr, "A", p, _rs_cmd(), out, cards_a,
+                                   env=a_env, elastic=four),
+                 "B": _jobs_launch(tr, "B", p, _rs_cmd(), out, cards_b,
+                                   env=_rs_env(out, JOBS_ROUNDS))}
+        try:
+            _wait_for(lambda: all(tr.job(j) is not None
+                                  and tr.job(j).status == "live"
+                                  for j in "AB"), "A and B live", 120)
+            t_d = time.perf_counter()
+            c_verdict = jobs_mod.submit(tr.host, tr.port, "C", p)
+            d_verdict = jobs_mod.submit(tr.host, tr.port, "D", p)
+            verdict_ms = round((time.perf_counter() - t_d) * 1e3, 3)
+            procs["C"] = _jobs_launch(tr, "C", p, _rs_cmd(), out, cards_b,
+                                      env=_rs_env(out, JOBS_ROUNDS))
+            host, mport = tr.live_addr()
+            jobs_live = live.scrape_json(host, mport, path="/jobs")
+            rcs = _jobs_wait(procs)
+        finally:
+            watch.stop()
+        if rcs != {"A": 0, "B": 0, "C": 0}:
+            _jobs_fail(f"(c) exit codes {rcs}", out, "ABC")
+        text = _scrape_text(host, mport)
+        gauges = [ln for ln in text.splitlines()
+                  if ln.startswith(("rabit_admission", "rabit_tracker_jobs"))]
+        jobs_end = live.scrape_json(host, mport, path="/jobs")
+        end = {j: tr.job(j).doc() for j in "ABC"}
+        counts = {j: tr.store_count(j) for j in "ABC"}
+    if c_verdict.get("queued") != 1 or c_verdict.get("position") != 0 or \
+            not c_verdict.get("retry_after_ms") or \
+            d_verdict.get("shed") != 1:
+        raise AssertionError(f"jobs (d): C {c_verdict}, D {d_verdict}")
+    docs = {(j, t): json.loads((out / f"r{j}_{t}.json").read_text())
+            for j in "ABC" for t in range(p)}
+    launches = {"c": 0, "d": 0}
+    for (j, t), d in docs.items():
+        n = JOBS_ROUNDS + (JOBS_A_EXTRA if j == "A" else 0)
+        if four and j == "A" and t == 1:
+            n = JOBS_SHRINK_AT
+        if [r["round"] for r in d["rounds"]] != list(range(n)) or \
+                d["launches"] != [int(JOBS_DEVICE == "cuda")] * n:
+            raise AssertionError(f"jobs (c): {j}/{t}: rounds "
+                                 f"{_stream(d)}, launches {d['launches']}")
+        launches["d" if j == "C" else "c"] += sum(d["launches"])
+        if j in "BC" and _stream(d) != _stream(solo_b[t]):
+            raise AssertionError(f"jobs (c): {j}/{t}'s stream {_stream(d)} "
+                                 f"is not B's solo run's "
+                                 f"{_stream(solo_b[t])}")
+    # each member on one card for its life, no two members of one job's
+    # epoch on one card, A's and B's cards disjoint on four cards
+    cards = {}
+    for (j, t), d in docs.items():
+        devs = {x["hist"] for x in d["devices"]}
+        if len(devs) != 1:
+            raise AssertionError(f"jobs (c): {j}/{t}'s devices {d['devices']}")
+        cards.setdefault(j, []).append(devs.pop())
+    for j, cs in cards.items():
+        if JOBS_DEVICE == "cuda" and len(set(cs)) != len(cs):
+            raise AssertionError(f"jobs (c): two members of {j} on one "
+                                 f"card: {cards}")
+    phys = {j: [_phys(cs, c) for c in cards[j]]
+            for j, cs in (("A", cards_a), ("B", cards_b), ("C", cards_b))}
+    if four and JOBS_DEVICE == "cuda" and set(phys["A"]) & set(phys["B"]):
+        raise AssertionError(f"jobs (c): A and B share a card: {phys}")
+    epochs_a = sorted({e for e, _ in watch.seen["A"]})
+    epochs_b = sorted({e for e, _ in watch.seen["B"]})
+    if end["B"]["epoch"] != 1 or epochs_b != [0, 1] or \
+            end["A"]["epoch"] != (2 if four else 1):
+        raise AssertionError(f"jobs (c): epochs A {epochs_a} B {epochs_b}, "
+                             f"{end}")
+    # while open, each job hosts the store of its epoch 1 alone (none
+    # between the epoch's count and its store's start); at A's epoch 2 the
+    # epoch-1 store stays beside epoch 2's: its evicted member leaves
+    # without acking a newer epoch, and a store is reaped only once every
+    # member of its epoch has (tracker.py::_reap_old_stores); every
+    # store of a job is gone at its close, and no port is two jobs'
+    by_epoch = {j: {e: {c for e2, c in watch.seen[j] if e2 == e}
+                    for e in {e for e, _ in watch.seen[j]}} for j in "ABC"}
+    ports = {j: {pt for _e, pt in watch.ports[j]} for j in "ABC"}
+    want_a2 = {1, 2} if four else None
+    if any(by_epoch[j].get(1) not in ({1}, {0, 1}) for j in "ABC") or \
+            by_epoch["A"].get(2, set()) - (want_a2 or set()) or \
+            (four and 2 not in by_epoch["A"][2]) or \
+            ports["A"] & ports["B"] or ports["B"] & ports["C"] or \
+            ports["A"] & ports["C"] or any(counts.values()) or \
+            solo_stores or len(watch.ports["B"]) != 1:
+        raise AssertionError(f"jobs (c): stores {watch.seen}, ports "
+                             f"{watch.ports}, at the end {counts}")
+    if not end["C"]["status"] == "closed" or \
+            watch.opened["C"] < watch.closed["B"] or \
+            watch.opened["C"] > watch.closed["B"] + 1.0:
+        raise AssertionError(f"jobs (d): C opened at {watch.opened} against "
+                             f"B's close {watch.closed}")
+    # (epoch, s) of each formation of a torch world (recovery.world_reform)
+    formations = {f"{j}/{t}": [(s["epoch"], round(s["dur"], 3))
+                               for s in d["world_reform"]]
+                  for (j, t), d in docs.items()}
+    return {"s": round(time.perf_counter() - t0, 2), "p": p,
+            "cards": phys, "epochs": {"A": epochs_a, "B": epochs_b},
+            "stores": {j: {e: sorted(cs) for e, cs in sorted(
+                by_epoch[j].items())} for j in "ABC"},
+            "store_ports": {j: sorted(watch.ports[j]) for j in "ABC"},
+            "formations": formations, "member": end["A"]["live"],
+            "launches": launches["c"], "docs": end}, {
+        "c": c_verdict, "d": d_verdict, "verdict_ms": verdict_ms,
+        "c_admitted_after_b_close_s": round(
+            watch.opened["C"] - watch.closed["B"], 3),
+        "jobs_live": [(x["job"], x["status"]) for x in jobs_live["jobs"]],
+        "queue_live": jobs_live["queue"], "jobs_end": [
+            (x["job"], x["status"], x["closed_reason"])
+            for x in jobs_end["jobs"]],
+        "gauges": gauges, "launches": launches["d"]}
+
+
+def _scrape_text(host: str, port: int) -> str:
+    import urllib.request
+    with urllib.request.urlopen(f"http://{host}:{port}/metrics",
+                                timeout=10) as r:
+        return r.read().decode()
+
+
+def phase_jobs(power: str) -> dict:
+    """The multi-job control plane (see the module's phase 21)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(JOBS_SMOKES)) as pool:
+        for f in [pool.submit(_smoke_without_jax, *m) for m in JOBS_SMOKES]:
+            f.result()
+    smoke_s = round(time.perf_counter() - t0, 2)
+    phase("jobs", f"(a) tracker.jobs and tracker.autoscaler --smoke ok, "
+          f"each in a fresh interpreter without jax or rabit_tpu "
+          f"({smoke_s} s, both at once)")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        solos = _jobs_solos(tmp)
+        b = _jobs_isolation(tmp, solos["iso"])
+        st = b["storm"]
+        phase("jobs", f"(b) jobs A and B, 2 native-engine processes each, "
+              f"on one multi-job tracker, each by its own launch --submit "
+              f"(A elastic, one attempt), cards A {b['cards']['A']} B "
+              f"{b['cards']['B']}: {JOBS_ROUNDS} rounds 200 ms apart of an "
+              f"int64 allreduce of 8192 and a histogram of {RESIZE_HIST[0]}"
+              f" x {RESIZE_HIST[1]} by the kernel allreduced through the "
+              f"native core; A's task 1 exited hard before round "
+              f"{JOBS_DIE_AT} (launchers {b['rcs']}, rounds {b['rounds']})"
+              f"; B's stream bit for bit its solo run's, B {b['b']['status']}"
+              f" with shutdowns {b['b']['shutdown']}, 0 evictions, epoch "
+              f"{b['b']['epoch']}; A {b['a_before']['status']} at epoch "
+              f"{b['a_before']['epoch']}, then {b['a']['status']} alone once "
+              f"its ranks were evicted; the tracker never restarted; the "
+              f"kernel launched once a round on every B process "
+              f"({b['launches']}) [{b['s']} s; B's two solo runs, this "
+              f"one's and (c)'s at once, {solos['s']} s]")
+        phase("jobs", f"(b) a job_storm of {JOBS_STORM['burst']} rogue "
+              f"connections (seed {JOBS_STORM['seed']}) at B's round 2: "
+              f"{st['submits']} submits (none admitted), {st['half_open']} "
+              f"half-open registrations, {st['errors']} errors in "
+              f"{st['storm_s']} s; the tracker's connection threads at "
+              f"the peak {st['conn_threads_peak']}; the process's threads "
+              f"{st['threads_before']} before, {st['threads_peak']} at the "
+              f"peak (the storm's own pool of 16 among them), "
+              f"{st['threads_after']} after; admission queued "
+              f"{b['queued_total']}, shed {b['shed_total']} [{power}]")
+        c, d = _jobs_stores_and_admission(tmp, solos["dp"],
+                                          solos["dp_stores"])
+    four = c["p"] == 2
+    phase("jobs", f"(c) jobs A and B at p = {c['p']} each on the torch data "
+          f"plane (robust engine), cards {c['cards']}"
+          + (f", A elastic: A's task 1 evicted itself at round "
+             f"{JOBS_SHRINK_AT} and A's survivor resize('recover')ed to "
+             f"world 1 through A's epoch-2 store (A's live {c['member']})"
+             if four else ", at world 1 no NCCL world forms")
+          + f": every round exact, B and C bit for bit B's solo run, B at "
+          f"epoch 1 throughout, epochs seen A {c['epochs']['A']} B "
+          f"{c['epochs']['B']}; the store counts seen by job and epoch "
+          f"while open {c['stores']}"
+          + (" (A's epoch-1 store kept beside epoch 2's for its evicted "
+             "member until A closed)" if four else "")
+          + f", store ports "
+          f"{c['store_ports']} (none shared across jobs; every one reaped "
+          f"at its job's close), formations (epoch, s) {c['formations']};"
+          f" the kernel launched once a round ({c['launches']}) "
+          f"[{c['s']} s]")
+    phase("jobs", f"(d) RABIT_MAX_JOBS=2, RABIT_ADMISSION_QUEUE=1 while A "
+          f"and B run: C {d['c']}, D {d['d']} ({d['verdict_ms']} ms for "
+          f"both); C by launch --submit (submit_blocking) went in "
+          f"{d['c_admitted_after_b_close_s']} s after B's close and ran B's "
+          f"rounds bit for bit (launches {d['launches']}); /jobs while both "
+          f"ran {d['jobs_live']} queue {d['queue_live']}, at the end "
+          f"{d['jobs_end']}; gauges {d['gauges']} [{power}]")
+    return {"a_s": smoke_s, "b": b, "c": c, "d": d,
+            "launches": {"b": b["launches"], "c": c["launches"],
+                         "d": d["launches"]}}
+
+
 def card_power() -> str:
     """The first card's name and power limit, as ``nvidia-smi`` gives
     them."""
@@ -4755,6 +5355,7 @@ def main() -> int:
     resume, bases = phase_resume(power)
     failover = phase_failover(power, bases)
     incidents = phase_incidents(power, bases)
+    jobs = phase_jobs(power)
     kernels = []
     for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only"):
         head = timing[name][0]
@@ -4780,6 +5381,8 @@ def main() -> int:
     # phase 20's runs: (b)'s kill at world 1, (c)'s link reset over p
     # processes
     kernels[0]["incident_launches"] = incidents["launches"]
+    # phase 21's runs: (b)'s job B, (c)'s jobs A and B, (d)'s job C
+    kernels[0]["jobs_launches"] = jobs["launches"]
     kernels[3]["slope_ms"] = timing["mask_only"][0]["slope_ms"]
     kernels[2]["library_bwd_ms"] = timing["flash_block_bwd"][0][
         "library_bwd_ms"]
@@ -4797,7 +5400,8 @@ def main() -> int:
                          for s, r in bucket.items()},
         "parallel": par, "telemetry": tel, "skew": skew_doc,
         "elastic": elastic, "resume": resume, "failover": failover,
-        "incidents": _failover_doc(incidents)}), flush=True)
+        "incidents": _failover_doc(incidents),
+        "jobs": {k: jobs[k] for k in ("a_s", "launches")}}), flush=True)
     print(power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,8 @@ through them). The front proxy's ``tracker_kill`` crashes the tracker
 through the launcher's supervisor, and ``retarget`` repoints it at a
 promoted hot standby (``tracker/standby.py``).
 
-Not ported: the ``job_storm`` rule's firing (it speaks ``submit``, which
-the port's tracker lacks; a proxy given one raises) and
+A ``job_storm`` rule fires its rogue ``submit`` connections at the
+multi-job tracker's front (``proxy.run_job_storm``). Not ported:
 ``python -m rabit_tpu.chaos``'s command line. Stdlib-only.
 """
 

@@ -1,5 +1,5 @@
 """In-process TCP fault-injection proxy: the port's copy of
-``rabit_tpu/chaos/proxy.py``, without the ``job_storm`` rule's firing.
+``rabit_tpu/chaos/proxy.py``, whole.
 
 One :class:`ChaosProxy` fronts one upstream endpoint (the tracker, or
 one worker's link listener). Each accepted client connection gets a
@@ -30,9 +30,15 @@ is applied to the byte stream itself:
                   supervisor), and is refused
 - ``tracker_partition``  ``partition``, scoped to tracker proxies: the
                   control plane hangs while the links flow
-
-A ``job_storm`` rule (rogue ``submit`` connections at the tracker) makes
-:meth:`ChaosProxy.start` raise: the port's tracker has no ``submit``.
+- ``job_storm``   on entering ``window_s``, hurl a seeded ``burst`` of
+                  rogue control connections at the upstream tracker --
+                  bogus ``submit`` payloads interleaved with half-open
+                  ``start`` preambles -- the thundering-herd shape that
+                  multi-job admission control must shed without
+                  stalling live jobs (generative: the storm IS the
+                  traffic, fired from its own clock thread through a
+                  bounded pool of ``_STORM_POOL_MAX`` threads, never a
+                  thread a rogue)
 
 Faults fire on the proxy's own threads; the proxied processes observe
 only their sockets misbehaving, exactly as with real network faults.
@@ -41,6 +47,7 @@ No-fault configs forward byte-exactly (pinned by tier-1 tests).
 
 from __future__ import annotations
 
+import json
 import random
 import select
 import socket
@@ -89,6 +96,128 @@ def _soft_close(sock: Optional[socket.socket]) -> None:
         sock.close()
     except OSError:
         pass
+
+
+# tracker/tracker.py's MAGIC: the storm speaks just enough of the
+# control protocol (magic u32 + length-prefixed strings) to be rude
+_WIRE_MAGIC = 0x52425401
+
+
+# job_storm's concurrency: the rogues are driven by a BOUNDED pool of
+# threads, never a thread a connection -- a burst of hundreds is really
+# concurrent load, and the storm itself spawns no thread explosion
+_STORM_POOL_MAX = 16
+
+
+def _storm_rogue(host: str, port: int, seed: int, i: int,
+                 tally: dict, lock: threading.Lock) -> None:
+    """One rogue connection, index ``i`` of the burst. Its traffic is
+    drawn from a Random keyed ``(seed, i)`` — per-connection streams
+    stay byte-identical across runs no matter how the pool interleaves
+    them (the determinism contract, restated for concurrency)."""
+    rng = random.Random((seed * 1_000_003 + 17) * 2_654_435_761 + i)
+    job = f"storm-{seed % 997}-{i}"
+
+    def _s(conn: socket.socket, text: str) -> None:
+        b = text.encode()
+        conn.sendall(struct.pack("<I", len(b)) + b)
+
+    def _recv_exact(conn: socket.socket, n: int) -> bytes:
+        out = b""
+        while len(out) < n:
+            chunk = conn.recv(n - len(out))
+            if not chunk:
+                raise OSError("tracker closed mid-verdict")
+            out += chunk
+        return out
+
+    time.sleep(rng.random() * 0.01)  # jittered arrival, still seeded
+    try:
+        conn = socket.create_connection((host, port), timeout=5.0)
+    except OSError:
+        with lock:
+            tally["errors"] += 1
+        return
+    verdict = None
+    err = False
+    try:
+        conn.settimeout(5.0)
+        conn.sendall(struct.pack("<I", _WIRE_MAGIC))
+        if i % 2 == 0:
+            _s(conn, "submit")
+            _s(conn, job)
+            conn.sendall(struct.pack("<I", 0))  # num_attempt
+            if rng.random() < 0.34:
+                _s(conn, "{not json")  # malformed: error verdict
+            else:
+                _s(conn, json.dumps({
+                    "job": job, "elastic": False,
+                    "nworkers": rng.randrange(2, 64)}))
+            n = struct.unpack("<I", _recv_exact(conn, 4))[0]
+            verdict = json.loads(_recv_exact(conn, n).decode())
+        else:
+            _s(conn, "start")
+            partial = f"{job}/0".encode()
+            conn.sendall(struct.pack("<I", len(partial) + 64)
+                         + partial)  # promise bytes that never come
+    except (OSError, ValueError):
+        err = True
+    finally:
+        _hard_close(conn)
+    with lock:
+        tally["opened"] += 1
+        if err:
+            tally["errors"] += 1
+        elif i % 2 == 0:
+            tally["submits"] += 1
+            tally["verdicts"].append((i, verdict))
+        else:
+            tally["half_open"] += 1
+
+
+def run_job_storm(host: str, port: int, rule: Rule, seed: int,
+                  pool: Optional[int] = None) -> dict:
+    """Fire one ``job_storm``: open ``rule.burst`` rogue connections
+    against the tracker at ``host:port``, CONCURRENTLY through a
+    bounded pool of ``min(burst, pool)`` worker threads (default
+    ``_STORM_POOL_MAX``) — a burst of hundreds lands as genuinely
+    simultaneous submits, the thundering-herd shape admission control
+    must shed without stalling live jobs. Even indices send a complete
+    ``submit`` for a job that should never be admitted (fresh bogus
+    name; a third carry garbage payloads) and collect the verdict; odd
+    indices send a half-open ``start`` preamble — a length prefix
+    promising more bytes than ever arrive — then vanish with an RST
+    (the crashed-launcher shape). Seeded per connection: rogue ``i``
+    draws from a Random keyed ``(seed, i)``, so two storms with the
+    same ``(seed, rule)`` emit identical per-connection traffic
+    regardless of pool interleaving. Returns a tally the chaos smoke
+    and cluster tests assert on."""
+    tally = {"opened": 0, "submits": 0, "half_open": 0, "errors": 0,
+             "verdicts": []}
+    lock = threading.Lock()
+    nthreads = min(rule.burst, _STORM_POOL_MAX if pool is None
+                   else max(1, pool))
+    pending = list(range(rule.burst))
+
+    def _drain() -> None:
+        while True:
+            with lock:
+                if not pending:
+                    return
+                i = pending.pop(0)
+            _storm_rogue(host, port, seed, i, tally, lock)
+
+    threads = [threading.Thread(target=_drain,
+                                name=f"chaos-storm-{t}", daemon=True)
+               for t in range(nthreads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    # index order, not completion order: assertions on the verdict
+    # list must not depend on pool scheduling
+    tally["verdicts"] = [v for _i, v in sorted(tally["verdicts"])]
+    return tally
 
 
 class _Conn:
@@ -148,26 +277,45 @@ class ChaosProxy:
         # observability: (t_rel, kind, conn_index) per injected fault,
         # plus totals the byte-accuracy tests assert on
         self.events: List[Tuple[float, str, int]] = []
+        # each job_storm firing's tally (appended under _lock; a test
+        # polls this to know the burst finished)
+        self.storm_results: List[dict] = []
+        self._storm_threads: List[threading.Thread] = []
+        self._storm_quiesce = threading.Event()
         self.accepted = 0
         self.refused = 0
         self.bytes_forwarded = 0
 
     # -- lifecycle --------------------------------------------------------
     def start(self) -> "ChaosProxy":
-        if any(r.kind == "job_storm" for r in self.schedule.rules):
-            # refused, never skipped: a schedule that asked for a storm
-            # and ran without one would pass for a survived storm
-            self._sock.close()
-            raise NotImplementedError(
-                "chaos 'job_storm' is not ported to rabit_tpu_torch: it "
-                "speaks 'submit', which the port's tracker lacks")
         # written once before the accept thread exists (Thread.start()
         # is the happens-before edge), read-only afterwards
         self._t0 = time.monotonic()
         self._thread = threading.Thread(target=self._serve, daemon=True,
                                         name=f"{self.name}-accept")
         self._thread.start()
+        # generative rules: job_storm has no byte stream to mutate (the
+        # storm IS the traffic), so each one gets a clock-driven thread
+        # aimed at whatever upstream retarget() currently points at
+        for idx, rule in enumerate(self.schedule.rules):
+            if rule.kind == "job_storm":
+                t = threading.Thread(target=self._storm_loop,
+                                     args=(rule, idx), daemon=True,
+                                     name=f"{self.name}-storm-{idx}")
+                t.start()
+                self._storm_threads.append(t)
         return self
+
+    def join_storms(self, timeout: float = 30.0) -> None:
+        """Wait (bounded) for the ``job_storm`` firings in flight, so that
+        their tallies land in :attr:`storm_results` before a harvest: a
+        short-lived world must not race the storm it survived. Storms
+        still waiting for their window stand down rather than being
+        waited on."""
+        self._storm_quiesce.set()
+        deadline = time.monotonic() + timeout
+        for t in self._storm_threads:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
 
     def stop(self) -> None:
         self._done.set()
@@ -223,6 +371,27 @@ class ChaosProxy:
         print(f"[{self.name}] t={self.elapsed():.2f}s inject {kind} "
               f"conn#{conn_index} -> {self.upstream[0]}:{self.upstream[1]}",
               file=sys.stderr, flush=True)
+
+    def _storm_loop(self, rule: Rule, rule_idx: int) -> None:
+        """Clock half of ``job_storm``: sleep to the window edge, spend
+        one firing, hurl the burst at the current upstream, and record
+        the tally in :attr:`storm_results`."""
+        start = rule.window_s[0] if rule.window_s else 0.0
+        while self.elapsed() < start and not self._done.is_set() \
+                and not self._storm_quiesce.is_set():
+            time.sleep(min(0.02, max(0.001, start - self.elapsed())))
+        if self._done.is_set() or self._storm_quiesce.is_set() \
+                or not self._in_window(rule):
+            return
+        if not Schedule.consume(rule):
+            return
+        self._event("job_storm", -1)
+        with self._lock:
+            host, port = self.upstream
+        tally = run_job_storm(host, port, rule,
+                              self.schedule.seed * 1_000_003 + rule_idx)
+        with self._lock:
+            self.storm_results.append(tally)
 
     # -- accept loop ------------------------------------------------------
     def _in_window(self, rule: Rule) -> bool:

@@ -65,10 +65,7 @@ Rule fields (all optional except ``kind``):
 ========== ===========================================================
 
 Specs parse from dicts, JSON strings, or ``@/path/to/file.json`` (the
-``rabit_chaos`` knob accepts the same three shapes). The port's
-:class:`~rabit_tpu_torch.chaos.proxy.ChaosProxy` refuses to start with a
-``job_storm`` rule: the storm speaks ``submit``, which the port's tracker
-lacks.
+``rabit_chaos`` knob accepts the same three shapes).
 """
 
 from __future__ import annotations

@@ -33,8 +33,9 @@ alive in its own ``resize("join")``, still holds. The card therefore
 comes from the process's stable identity, picked at its first formation
 and kept (``card_index``): the launcher's task index (``RABIT_TASK_ID``,
 which the port's launcher numbers 0..n-1 and keeps across relaunches and
-re-admissions), or, for a task id that is not an index, its rank at that
-first formation. A process relaunched into a shrunk world thus takes its
+re-admissions; a multi-job task id ``<job>/<i>``, as ``launch --submit``
+spells it, gives the index after the job's separator), or, for a task id
+that is not an index, its rank at that first formation. A process relaunched into a shrunk world thus takes its
 own card back, not the one its slot names. Before each formation on the
 cards every member posts its card to the epoch's store and reads the
 others' (``check_distinct_cards``): two members on one card (NCCL
@@ -150,11 +151,14 @@ def _nccl_env():
 def card_index(rank: int, cards: int,
                task_id: Optional[str] = None) -> int:
     """The card of a process's first formation on the cards: its task
-    index (``RABIT_TASK_ID`` when it is one) modulo the cards, else its
-    rank then (module docstring)."""
+    index (``RABIT_TASK_ID`` when it is one; of a multi-job task id
+    ``<job>/<i>``, the ``<i>`` after the first separator) modulo the
+    cards, else its rank then (module docstring)."""
     if task_id is None:
         task_id = os.environ.get("RABIT_TASK_ID", "")
-    return (int(task_id) if task_id.isdigit() else rank) % cards
+    from ..tracker.jobs import split_task
+    _job, index = split_task(task_id)
+    return (int(index) if index.isdigit() else rank) % cards
 
 
 def check_distinct_cards(store, rank: int, world: int, card: str) -> None:

@@ -10,6 +10,20 @@ Usage:
     python -m rabit_tpu_torch.tracker.launch -n 4 [--max-attempts 20] \\
         [--timeout 300] [--metrics-port 0] [--elastic] \\
         prog arg1 key=value ...
+    python -m rabit_tpu_torch.tracker.launch --submit HOST:PORT \\
+        --job NAME -n 2 [--submit-wait 60] prog arg1 key=value ...
+
+``--submit HOST:PORT`` runs the workers as one job of a RUNNING
+multi-job tracker (``python -m rabit_tpu_torch.tracker.tracker
+--multi-job``) instead of starting one: the launcher submits ``--job``
+through the admission plane, backing off on a queued or shed verdict by
+the tracker's ``retry_after_ms`` hints (overload sheds, it never
+stalls), then spawns its workers with task ids ``<job>/<i>`` and
+``RABIT_MULTI_JOB=1``. Many such launchers share one tracker, each job
+inside its own fault domain. A tracker without multi-job answers every
+submit with an error verdict, and the launch then fails with it once
+``--submit-wait`` has passed: it never falls back to a launch of its
+own.
 
 ``--metrics-port`` (else ``RABIT_METRICS_PORT`` in the environment)
 turns on the tracker's live plane: its metrics endpoint, the poll loop
@@ -53,9 +67,8 @@ path: the workers reach the tracker through one front proxy, whose
 ``tracker_kill`` crashes the tracker through the supervisor and which the
 supervisor retargets at a promoted standby, and the tracker rewrites the
 peer addresses it advertises through a proxy a link
-(``stats["chaos"]``).
-
-Not ported yet: ``--submit`` to a multi-job tracker.
+(``stats["chaos"]``: its proxies, injected faults, and the rogue
+``submit`` connections of a ``job_storm`` with those refused).
 """
 
 from __future__ import annotations
@@ -119,10 +132,20 @@ class _ChaosFarm:
             proxies.append(self.tracker_proxy)
             self.tracker_proxy = None
         events = 0
+        storm_submits = 0
+        storm_shed = 0
         for p in proxies:
+            # a short-lived world must not race a storm it survived: let
+            # the firings in flight land their tallies (bounded)
+            p.join_storms()
             events += len(p.events)
+            for tally in p.storm_results:
+                storm_submits += tally.get("submits", 0)
+                storm_shed += sum(1 for v in tally.get("verdicts", [])
+                                  if isinstance(v, dict) and not v.get("ok"))
             p.stop()
-        return {"proxies": len(proxies), "events": events}
+        return {"proxies": len(proxies), "events": events,
+                "storm_submits": storm_submits, "storm_shed": storm_shed}
 
 
 class _TrackerSupervisor:
@@ -494,6 +517,92 @@ def launch(nworkers: int, cmd: List[str], max_attempts: int = 20,
             standby.stop()   # and the promoted tracker it owns
 
 
+def submit_launch(addr: str, job_id: str, nworkers: int, cmd: List[str],
+                  max_attempts: int = 20, timeout: float = 300.0,
+                  elastic: bool = False, max_wait_s: float = 60.0,
+                  quiet: bool = False) -> int:
+    """``launch --submit``: run ``cmd`` as one JOB of an already running
+    multi-job tracker at ``addr`` (``HOST:PORT``). Admission first --
+    :func:`jobs.submit_blocking` honours queued and shed verdicts' hints
+    until admitted or ``max_wait_s`` passes -- then the spawn and respawn
+    of :func:`launch`, every worker addressing its own fault domain by
+    its ``<job>/<i>`` task id. The tracker is NOT owned here: its life
+    (and any chaos or standby in front of it) is its starter's. Returns
+    0 once every worker exited 0; 1 when admission failed, a worker
+    spent its ``max_attempts`` or the job outlasted ``timeout``; 2 for a
+    malformed address."""
+    from . import jobs as _jobs_mod
+    host, _, port_s = addr.rpartition(":")
+    if not host or not port_s.isdigit():
+        print(f"[submit] bad --submit address {addr!r} (want HOST:PORT)",
+              file=sys.stderr, flush=True)
+        return 2
+    port = int(port_s)
+    try:
+        verdict = _jobs_mod.submit_blocking(
+            host, port, job_id, nworkers, elastic=elastic,
+            max_wait_s=max_wait_s)
+    except (TimeoutError, OSError) as e:
+        print(f"[submit] job {job_id!r} not admitted: {e}",
+              file=sys.stderr, flush=True)
+        return 1
+    if not quiet:
+        print(f"[submit] job {job_id!r} admitted at {host}:{port} "
+              f"({verdict})", file=sys.stderr, flush=True)
+    procs: Dict[int, subprocess.Popen] = {}
+    attempts: Dict[int, int] = {i: 0 for i in range(nworkers)}
+    finished: Dict[int, bool] = {i: False for i in range(nworkers)}
+
+    def spawn(i: int) -> None:
+        env = dict(os.environ)
+        env["RABIT_TRACKER_URI"] = host
+        env["RABIT_TRACKER_PORT"] = str(port)
+        env["RABIT_TASK_ID"] = _jobs_mod.job_task(job_id, str(i))
+        env["RABIT_NUM_TRIAL"] = str(attempts[i])
+        env["RABIT_WORLD_SIZE"] = str(nworkers)
+        env["RABIT_MULTI_JOB"] = "1"
+        # an ephemeral link listener unless the caller names a port, as
+        # launch() exports it
+        env.setdefault("RABIT_SLAVE_PORT", "0")
+        if elastic:
+            env["RABIT_ELASTIC"] = "1"
+        procs[i] = subprocess.Popen(cmd, env=env)
+        attempts[i] += 1
+
+    for i in range(nworkers):
+        spawn(i)
+    deadline = time.monotonic() + timeout
+    rc = 0
+    try:
+        while not all(finished.values()):
+            if time.monotonic() > deadline:
+                print(f"[submit] job {job_id!r} timed out after "
+                      f"{timeout:.0f}s", file=sys.stderr, flush=True)
+                rc = 1
+                break
+            time.sleep(0.1)
+            for i, p in list(procs.items()):
+                code = p.poll()
+                if code is None or finished[i]:
+                    continue
+                if code == 0:
+                    finished[i] = True
+                elif attempts[i] >= max_attempts:
+                    print(f"[submit] worker {job_id}/{i} exhausted "
+                          f"{max_attempts} attempts", file=sys.stderr,
+                          flush=True)
+                    rc = 1
+                    finished[i] = True
+                else:
+                    spawn(i)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return rc
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("-n", "--num-workers", type=int, required=True)
@@ -504,12 +613,31 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--elastic", action="store_true", default=None,
                     help="elastic membership: evict dead ranks, re-admit "
                          "their relaunches (default: RABIT_ELASTIC)")
+    ap.add_argument("--submit", default=None, metavar="HOST:PORT",
+                    help="submit --job to an already running multi-job "
+                         "tracker instead of starting one; backs off and "
+                         "retries on queued or shed verdicts")
+    ap.add_argument("--job", default=None, metavar="NAME",
+                    help="the job id for --submit (default: job-<pid>); "
+                         "workers get task ids NAME/<i>")
+    ap.add_argument("--submit-wait", type=float, default=60.0,
+                    metavar="S", help="admission budget of --submit "
+                                      "before it gives up (default 60)")
     ap.add_argument("cmd", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
     if args.cmd and args.cmd[0] == "--":
         args.cmd = args.cmd[1:]
     if not args.cmd:
         ap.error("missing worker command")
+    if args.submit:
+        if args.metrics_port is not None:
+            ap.error("--metrics-port starts a tracker: not with --submit")
+        return submit_launch(args.submit, args.job or f"job-{os.getpid()}",
+                             args.num_workers, args.cmd, args.max_attempts,
+                             args.timeout, elastic=bool(args.elastic),
+                             max_wait_s=args.submit_wait)
+    if args.job:
+        ap.error("--job requires --submit")
     return launch(args.num_workers, args.cmd, args.max_attempts,
                   args.timeout, metrics_port=args.metrics_port,
                   elastic=args.elastic)

@@ -293,8 +293,10 @@ class StandbyTracker:
         advertised failover address. The promoted tracker claims the
         lease under its OWN node id from here on — it is the leader
         now. The replay re-adopts the live world (ranks, epoch,
-        membership) exactly as a cold ``resume=True`` restart does, and
-        the promoted tracker hosts every later epoch's store."""
+        membership) exactly as a cold ``resume=True`` restart does -- of
+        a multi-job leader every live job, each with its own ranks and
+        epoch, since the job records ride the same stream -- and the
+        promoted tracker hosts every later epoch's store."""
         self._wal.close()
         try:
             self._placeholder.close()

@@ -164,9 +164,38 @@ and ``rabit_events_dropped_total``; the ``topo``, ``skew`` and
 ``world`` replies carry the tracker's ``hlc`` (never a u32 reply). The
 JAX tracker's ``tracker.py:1616-1760`` and ``:1982-1992``.
 
-Any other command closes the connection. Not ported yet (the JAX
-package's tracker has them): multi-job (``submit``, the per-job state
-and its journal records) with the autoscaler.
+The multi-job control plane (``multi_job``, else ``RABIT_MULTI_JOB``; off
+by default, and then task ids are never split and every byte on the wire
+and in the journal is as without it): one tracker serves many
+fault-isolated jobs. A task id ``<job>/<task>`` addresses job ``<job>``
+(``tracker/jobs.py``), one without a separator the implicit ``default``
+job. Everything derived from one world -- ranks, pending registrations,
+the epoch, membership, topology, endpoints, metrics, the skew election
+and the epochs' rendezvous stores -- lives on that job's ``JobState``:
+two jobs' epoch 1 never share a store, and a job's reap touches only its
+own. ``submit`` (+ JSON str {"job","nworkers","elastic"[,"sched_class",
+"weight"]}; tracker -> worker: a JSON str verdict, answered at once:
+``{"ok": 1}`` admitted or already open, ``{"ok": 0, "queued": 1,
+"position": p, "retry_after_ms": n}``, ``{"ok": 0, "shed": 1,
+"retry_after_ms": n}`` or ``{"ok": 0, "error": ...}``) admits a job under
+``RABIT_MAX_JOBS`` and ``RABIT_MAX_FLEET_RANKS`` or parks it in the
+bounded FIFO ``RABIT_ADMISSION_QUEUE``; a higher ``sched_class`` may
+preempt ranks of lower-class elastic jobs (a ``quota`` record). The
+journal gains ``job_open``, ``job_close`` and ``quota`` records and a
+``job`` tag on every record of a non-default job, mirrored into
+``<wal_dir>/<job>/``; a resume re-adopts every live job, and closes (as
+``orphaned``) one whose tasks make no contact within the resume grace;
+``RABIT_JOB_FORMING_TIMEOUT_MS`` closes a job nobody registers into. An
+exception one job's command raises is quarantined at the job boundary
+(counted on the job, a ``tracker.quarantine`` event): it closes that
+connection only. The live plane adds ``/jobs``, a ``jobs`` map on
+``/straggler``, job labels on ``/metrics``, the admission gauges and the
+shed-rate objective on ``/slo``. The JAX tracker's
+``tracker.py:2166-2523``, on this tracker's threads: each connection's
+own thread runs its job's command, and none holds the tracker's lock
+while it waits for bytes.
+
+Any other command closes the connection.
 """
 
 from __future__ import annotations
@@ -182,6 +211,7 @@ import time
 from collections import deque
 from typing import Deque, Dict, List, Optional, Tuple
 
+from . import jobs as _jobs_mod
 from . import membership as _membership
 from . import wal as _wal_mod
 from ..telemetry import clock as _clock
@@ -268,11 +298,12 @@ def _default_ready_timeout() -> float:
 
 
 RESUME_GRACE_MS_DEFAULT = 15_000
+FORMING_TIMEOUT_MS_DEFAULT = 0
 LEASE_MS_DEFAULT = 2_000
 REPL_ACK_TIMEOUT_MS_DEFAULT = 1_000
 
-# the JAX package's implicit job: a snapshot names the one world by it
-DEFAULT_JOB = "default"
+# the implicit job: the one world of a tracker without multi-job
+DEFAULT_JOB = _jobs_mod.DEFAULT_JOB
 
 
 def default_lease_ms() -> int:
@@ -323,14 +354,8 @@ def resume_grace_ms() -> int:
 # -- the journal's read side ------------------------------------------------
 # One fold for both consumers: ``Tracker(resume=True)`` and snapshot
 # compaction (live, and ``wal.py --compact`` through ``fold_records``), so
-# compacted state cannot drift from replayed state. The JAX package's
-# fold (``rabit_tpu/tracker/tracker.py:383-536``) restricted to the one
-# job this tracker serves: a journal of the JAX tracker's multi-job plane
-# raises rather than replay part of its history.
-
-_REPLAYED = frozenset({"assign", "epoch", "park", "evict", "topo", "skew",
-                       "endpoint", "down", "resume", "promoted",
-                       _wal_mod.LEASE_KIND})
+# compacted state cannot drift from replayed state. The JAX package's fold
+# (``rabit_tpu/tracker/tracker.py:383-536``), record for record.
 
 
 class _ReplayWorld:
@@ -340,16 +365,12 @@ class _ReplayWorld:
     def __init__(self, nworkers: int, elastic: bool):
         self.nworkers = int(nworkers)
         self.elastic = bool(elastic)
+        self.multi_job = False
+        self._jobs: Dict[str, _jobs_mod.JobState] = {
+            DEFAULT_JOB: _jobs_mod.JobState(DEFAULT_JOB, nworkers,
+                                            elastic=elastic)}
+        self._orphan_jobs: set = set()
         self.restarts = 0
-        self._ranks: Dict[str, int] = {}
-        self._epoch = 0
-        self._member = (_membership.MembershipView(self.nworkers)
-                        if self.elastic else None)
-        self._topo: dict = {}
-        self._skew: dict = {}
-        self._skew_election = None
-        self._endpoints: Dict[str, dict] = {}
-        self._shutdown_ranks: set = set()
         self.promoted_wall = 0.0
         self.promoted_mono = 0.0
         self.failover_duration_ms = 0.0
@@ -359,30 +380,33 @@ class _ReplayWorld:
 
 def snapshot_state(world) -> dict:
     """``world``'s replay-reachable state as a ``wal_snapshot/v1`` doc,
-    the JAX tracker's ``snapshot_state`` of a single-job tracker field
-    for field (its scheduler fields at their defaults): ranks, epoch,
-    membership, topology, skew, endpoints, shutdown ranks, restarts, a
-    promotion and the journaled lease -- nothing ephemeral (pending
-    registrations, sockets and stores die with the process). The caller
-    holds a live tracker's lock."""
-    jd: Dict[str, object] = {
-        "nworkers": world.nworkers, "elastic": world.elastic,
-        "sched_class": 0, "weight": 1.0, "quota": world.nworkers,
-        "preempted": 0, "closed": False, "closed_reason": "",
-        "ranks": dict(world._ranks), "epoch": world._epoch,
-        "topo": dict(world._topo), "skew": dict(world._skew),
-        "endpoints": {t: dict(d) for t, d in world._endpoints.items()},
-        "down": sorted(world._shutdown_ranks)}
-    if world.elastic and world._member is not None:
-        mv = world._member
-        jd["member"] = {
-            "target": mv.target, "live": sorted(mv.live),
-            "evicted": sorted(mv.evicted), "joining": sorted(mv.joining),
-            "generation": mv.generation, "evictions": mv.evictions,
-            "admissions": mv.admissions}
-    doc: Dict[str, object] = {"multi_job": False,
+    the JAX tracker's field for field: the job table (each job's ranks,
+    epoch, membership, scheduler fields, topology, skew, endpoints and
+    shutdown ranks), restarts, a promotion and the journaled lease --
+    nothing ephemeral (pending registrations, sockets and stores die with
+    the process). The caller holds a live tracker's lock."""
+    jobs: Dict[str, dict] = {}
+    for jid, jb in world._jobs.items():
+        jd: Dict[str, object] = {
+            "nworkers": jb.nworkers, "elastic": jb.elastic,
+            "sched_class": jb.sched_class, "weight": jb.sched_weight,
+            "quota": jb.quota, "preempted": jb.preempted,
+            "closed": not jb.open, "closed_reason": jb.closed_reason,
+            "ranks": dict(jb._ranks), "epoch": jb._epoch,
+            "topo": dict(jb._topo), "skew": dict(jb._skew),
+            "endpoints": {t: dict(d) for t, d in jb._endpoints.items()},
+            "down": sorted(jb._shutdown_ranks)}
+        if jb.elastic and jb._member is not None:
+            mv = jb._member
+            jd["member"] = {
+                "target": mv.target, "live": sorted(mv.live),
+                "evicted": sorted(mv.evicted), "joining": sorted(mv.joining),
+                "generation": mv.generation, "evictions": mv.evictions,
+                "admissions": mv.admissions}
+        jobs[jid] = jd
+    doc: Dict[str, object] = {"multi_job": bool(world.multi_job),
                               "restarts": int(world.restarts),
-                              "jobs": {DEFAULT_JOB: jd}}
+                              "jobs": jobs}
     if world.promoted_wall or world.failover_duration_ms:
         doc["promoted"] = {
             "wall": world.promoted_wall, "mono": world.promoted_mono,
@@ -393,16 +417,14 @@ def snapshot_state(world) -> dict:
 
 
 def _replay_adopt_into(world, state: dict) -> None:
-    """Adopt one ``wal_snapshot/v1`` doc: it replaces the journaled state,
-    and the journal's tail then replays on top. The world's shape
-    (nworkers, elastic) is the launch's, as a full replay never changes
-    it."""
+    """Adopt one ``wal_snapshot/v1`` doc: it replaces the job table and
+    the journaled state, and the journal's tail then replays on top. The
+    default job is adopted in place (its shape, nworkers and elastic, is
+    the launch's, as a full replay never changes it); every other job is
+    rebuilt from its snapshotted shape."""
     from ..telemetry import skew as _skew_mod
-    jobs = state.get("jobs") or {}
-    if state.get("multi_job") or set(jobs) - {DEFAULT_JOB}:
-        raise _wal_mod.WalError(
-            "snapshot holds multi-job state, which this tracker does not "
-            "serve")
+    if state.get("multi_job"):
+        world.multi_job = True
     world.restarts = int(state.get("restarts", world.restarts))
     prom = state.get("promoted") or {}
     if prom:
@@ -413,67 +435,115 @@ def _replay_adopt_into(world, state: dict) -> None:
     if lease is not None:
         world._lease = dict(lease)
         world._journaled_lease = dict(lease)
-    jd = jobs.get(DEFAULT_JOB) or {}
-    if jd.get("closed"):
-        raise _wal_mod.WalError("snapshot holds a closed job")
-    world._ranks = {str(t): int(r)
-                    for t, r in (jd.get("ranks") or {}).items()}
-    world._epoch = int(jd.get("epoch", 0))
-    world._topo = dict(jd.get("topo") or {})
-    digest = dict(jd.get("skew") or {})
-    if digest:
-        world._skew = digest
-        world._skew_election = _skew_mod.FleetElection.seeded(digest)
-    world._endpoints = {str(t): dict(d) for t, d in
-                        (jd.get("endpoints") or {}).items()}
-    world._shutdown_ranks = {int(r) for r in jd.get("down") or []}
-    m = jd.get("member")
-    if world.elastic and world._member is not None and m:
-        mv = world._member
-        mv.target = int(m.get("target", world.nworkers))
-        mv.live = {int(r) for r in m.get("live") or []}
-        mv.evicted = {int(r) for r in m.get("evicted") or []}
-        mv.joining = {int(r) for r in m.get("joining") or []}
-        mv.generation = int(m.get("generation", 0))
-        mv.evictions = int(m.get("evictions", 0))
-        mv.admissions = int(m.get("admissions", 0))
+    keep = {DEFAULT_JOB: world._jobs[DEFAULT_JOB]}
+    world._orphan_jobs.clear()
+    for jid, jd in (state.get("jobs") or {}).items():
+        jid = str(jid)
+        job = keep.get(jid)
+        if job is None:
+            job = _jobs_mod.JobState(
+                jid, int(jd.get("nworkers", world.nworkers)),
+                elastic=bool(jd.get("elastic", False)),
+                sched_class=int(jd.get("sched_class", 0)),
+                sched_weight=float(jd.get("weight", 1.0)))
+            keep[jid] = job
+        job.quota = int(jd.get("quota", job.nworkers))
+        job.preempted = int(jd.get("preempted", 0))
+        job._ranks = {str(t): int(r)
+                      for t, r in (jd.get("ranks") or {}).items()}
+        job._epoch = int(jd.get("epoch", 0))
+        job._topo = dict(jd.get("topo") or {})
+        digest = dict(jd.get("skew") or {})
+        if digest:
+            job._skew = digest
+            job._skew_election = _skew_mod.FleetElection.seeded(digest)
+        job._endpoints = {str(t): dict(d) for t, d in
+                          (jd.get("endpoints") or {}).items()}
+        job._shutdown_ranks = {int(r) for r in jd.get("down") or []}
+        m = jd.get("member")
+        if job.elastic and job._member is not None and m:
+            mv = job._member
+            mv.target = int(m.get("target", job.nworkers))
+            mv.live = {int(r) for r in m.get("live") or []}
+            mv.evicted = {int(r) for r in m.get("evicted") or []}
+            mv.joining = {int(r) for r in m.get("joining") or []}
+            mv.generation = int(m.get("generation", 0))
+            mv.evictions = int(m.get("evictions", 0))
+            mv.admissions = int(m.get("admissions", 0))
+        if jd.get("closed"):
+            job.close(str(jd.get("closed_reason", "")))
+        if jid != DEFAULT_JOB and job.open:
+            world._orphan_jobs.add(jid)
+    world._jobs = keep
 
 
 def _replay_apply(world, kind: str, data: dict) -> None:
     """Apply one journaled ``(kind, data)`` record to ``world`` (a tracker
-    under construction or a :class:`_ReplayWorld`). Raw mutations are
-    deliberate: this IS the journal's read side."""
+    under construction or a :class:`_ReplayWorld`). A record tagged
+    ``job`` replays into that job; ``job_open``/``job_close`` rebuild the
+    job table. Raw mutations are deliberate: this IS the journal's read
+    side."""
     from ..telemetry import skew as _skew_mod
     if kind == _wal_mod.SNAPSHOT_KIND:
         _replay_adopt_into(world, data.get("state") or {})
         return
-    if kind not in _REPLAYED or \
-            str(data.get("job", DEFAULT_JOB)) != DEFAULT_JOB:
-        raise _wal_mod.WalError(
-            f"journal record {kind!r} (job {data.get('job', DEFAULT_JOB)!r})"
-            f" is not one this tracker serves")
+    jid = str(data.get("job", DEFAULT_JOB))
+    if kind == "job_open":
+        # a journaled open proves multi-job was on when it was written
+        world.multi_job = True
+        prev = world._jobs.get(jid)
+        if prev is None or not prev.open:
+            world._jobs[jid] = _jobs_mod.JobState(
+                jid, int(data.get("nworkers", world.nworkers)),
+                elastic=bool(data.get("elastic", False)),
+                sched_class=int(data.get("sched_class", 0)),
+                sched_weight=float(data.get("weight", 1.0)))
+            if jid != DEFAULT_JOB:
+                world._orphan_jobs.add(jid)
+        return
+    if kind == "job_close":
+        closing = world._jobs.get(jid)
+        if closing is not None:
+            closing.close(str(data.get("reason", "")))
+        world._orphan_jobs.discard(jid)
+        return
+    job = world._jobs.get(jid)
+    if job is None:
+        # tagged records outlived a torn job_open: the tags prove the
+        # job existed, so it is adopted
+        world.multi_job = True
+        job = _jobs_mod.JobState(jid, world.nworkers, elastic=world.elastic)
+        world._jobs[jid] = job
+        if jid != DEFAULT_JOB:
+            world._orphan_jobs.add(jid)
     if kind == "assign":
-        world._ranks[str(data["task"])] = int(data["rank"])
+        job._ranks[str(data["task"])] = int(data["rank"])
     elif kind == "epoch":
-        world._epoch = int(data["epoch"])
-        if world.elastic and world._member is not None:
-            world._member.formed(data.get("members", []))
+        job._epoch = int(data["epoch"])
+        if job.elastic and job._member is not None:
+            job._member.formed(data.get("members", []))
     elif kind == "park":
-        if world.elastic and world._member is not None:
-            world._member.park(int(data["rank"]))
+        if job.elastic and job._member is not None:
+            job._member.park(int(data["rank"]))
     elif kind == "evict":
-        if world.elastic and world._member is not None:
-            world._member.evict(int(data["rank"]))
+        if job.elastic and job._member is not None:
+            job._member.evict(int(data["rank"]))
+    elif kind == "quota":
+        # a preemption's transfer of capacity outlives a resume: without
+        # it the victim would claim its full nworkers again and
+        # over-commit the fleet's cap
+        job.quota = int(data.get("quota", job.quota))
+        job.preempted = int(data.get("preempted", job.preempted))
     elif kind == "topo":
-        world._topo = dict(data.get("doc") or {})
+        job._topo = dict(data.get("doc") or {})
     elif kind == "skew":
         digest = dict(data.get("digest") or {})
-        world._skew = digest
-        world._skew_election = _skew_mod.FleetElection.seeded(digest)
+        job._skew = digest
+        job._skew_election = _skew_mod.FleetElection.seeded(digest)
     elif kind == "endpoint":
-        world._endpoints[str(data["task"])] = dict(data["doc"])
+        job._endpoints[str(data["task"])] = dict(data["doc"])
     elif kind == "down":
-        world._shutdown_ranks.add(int(data["rank"]))
+        job._shutdown_ranks.add(int(data["rank"]))
     elif kind == "resume":
         world.restarts = int(data.get("restarts", world.restarts))
     elif kind == "promoted":
@@ -497,6 +567,32 @@ def fold_records(records, nworkers: int = 1, elastic: bool = False) -> dict:
     return snapshot_state(world)
 
 
+def forming_timeout_ms() -> int:
+    """``rabit_job_forming_timeout_ms``: close an open multi-job job that
+    has held an admission slot this long with no registered rank, no
+    pending registration and no wire contact (0, the default: never). It
+    guards a serving fleet against ghost jobs -- admitted from the queue
+    after their submitter gave up, or flooded in by a storm of submits --
+    that would hold admission capacity for good."""
+    v = os.environ.get("RABIT_JOB_FORMING_TIMEOUT_MS")
+    if not v:
+        return FORMING_TIMEOUT_MS_DEFAULT
+    try:
+        return max(0, int(v))
+    except ValueError:
+        raise ValueError(
+            f"RABIT_JOB_FORMING_TIMEOUT_MS must be an integer (ms), "
+            f"got {v!r}")
+
+
+def _default_attr(name: str) -> property:
+    """The default job's ``name``, read and written through the tracker:
+    the single-job surface (the launcher, the smokes, the tests) keeps
+    reading one world off the tracker."""
+    return property(lambda self: getattr(self._default, name),
+                    lambda self, v: setattr(self._default, name, v))
+
+
 class Tracker:
     def __init__(self, nworkers: int, host: str = "127.0.0.1", port: int = 0,
                  ready_timeout: Optional[float] = None,
@@ -506,8 +602,9 @@ class Tracker:
                  resume: bool = False,
                  link_rewrite=None,
                  lease_ms: Optional[int] = None,
-                 node_id: str = "leader"):
-        self.nworkers = nworkers
+                 node_id: str = "leader",
+                 multi_job: Optional[bool] = None):
+        self.nworkers = nworkers   # the default job's target
         self.sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self.sock.bind((host, port))
@@ -522,22 +619,40 @@ class Tracker:
         self._done = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.messages: List[str] = []
-        self._ranks: Dict[str, int] = {}
-        self._pending: Dict[int, tuple] = {}
-        self._epoch = 0
-        self._shutdown_ranks: set = set()
-        self._topo: dict = {}
-        self._stores: List[tuple] = []   # (epoch, TCPStore, members)
-        # stable rank -> the newest epoch it acked (the store reaping)
-        self._acked: Dict[int, int] = {}
         # elastic membership (off unless asked for, or RABIT_ELASTIC):
-        # with it off every batch is the full fixed world
+        # with it off every batch is the full fixed world. It is the
+        # default job's, and the shape of a job a registration opens
         if elastic is None:
             elastic = _membership.elastic_enabled()
         self.elastic = bool(elastic)
-        self._member = (_membership.MembershipView(nworkers)
-                        if self.elastic else None)
-        self._metrics: Dict[str, dict] = {}   # task id -> its summary
+        # the multi-job plane (off unless asked for, or RABIT_MULTI_JOB):
+        # the world's state lives on a JobState a job; the implicit
+        # default job always exists and, with multi-job off, IS the
+        # tracker's one world, its task ids never split
+        if multi_job is None:
+            multi_job = _jobs_mod.multi_job_enabled()
+        self.multi_job = bool(multi_job)
+        self._default = _jobs_mod.JobState(DEFAULT_JOB, nworkers,
+                                           elastic=self.elastic)
+        self._jobs: Dict[str, _jobs_mod.JobState] = {
+            DEFAULT_JOB: self._default}
+        # admission: the caps as at construction, and a bounded FIFO of
+        # the submissions that do not fit now
+        self._admission = _jobs_mod.AdmissionQueue()
+        self._max_jobs = _jobs_mod.max_jobs()
+        self._max_fleet_ranks = _jobs_mod.max_fleet_ranks()
+        # admitted verdicts: with the queue's queued_total and shed_total
+        # the shed-rate objective's denominator
+        self.submit_admitted_total = 0
+        # jobs a resume re-adopted whose tasks made no contact yet: closed
+        # ("orphaned") once the resume grace has passed
+        self._orphan_jobs: set = set()
+        # the last wire contact a job (monotonic; the forming timeout)
+        self._job_contact: Dict[str, float] = {}
+        # the fleet scheduler: the recent closes give the retry hint its
+        # measured drain rate; preemptions by the victim's class
+        self._drain_t: Deque[float] = deque(maxlen=16)
+        self.sched_preemptions: Dict[int, int] = {}
         self._fleet_printed = False
         # the live plane (off unless a metrics port is configured):
         # workers announce their endpoints (``endpoint``), the poll thread
@@ -550,12 +665,6 @@ class Tracker:
         self._poll_thread: Optional[threading.Thread] = None
         self._poll_stop = threading.Event()
         self._poll_count = 0                   # completed poll sweeps
-        self._endpoints: Dict[str, dict] = {}  # task id -> host, port, rank
-        # task id -> consecutive failed scrapes (the poll loop's eviction)
-        self._endpoint_misses: Dict[str, int] = {}
-        self._skew: dict = {}                  # the served skew digest
-        self._skew_election = None             # skew.FleetElection
-        self._last_straggler: Optional[dict] = None
         # every connection the serve loop accepted and nobody closed yet:
         # crash() drops them all (a dead incarnation answers nothing)
         self._conns: set = set()
@@ -625,9 +734,10 @@ class Tracker:
             wal_dir = os.environ.get(_wal_mod.WAL_DIR_ENV) or None
         self.wal_dir = wal_dir
         self._wal_log: Optional[_wal_mod.WriteAheadLog] = None
+        # a non-default job's mirror of its own records, for inspection
+        self._job_wals: Dict[str, _wal_mod.WriteAheadLog] = {}
         self.restarts = 0                      # resumes of this journal
         self._grace_until = 0.0                # the resume grace's end
-        self._resumed_ranks: set = set()       # ranks that re-presented
         self.replayed = 0                      # records the resume read
         self.replay_ms = 0.0                   # its open and fold
         self.journal_s = 0.0                   # time inside record()
@@ -647,6 +757,9 @@ class Tracker:
             if resume:
                 for kind, data in records:
                     _replay_apply(self, kind, data)
+                for job in self._jobs.values():
+                    if job.open and job._epoch > 0:
+                        job.mark_live()
                 self.replayed = len(records)
                 self.replay_ms = (time.perf_counter() - t0) * 1e3
                 self.restarts += 1
@@ -655,6 +768,29 @@ class Tracker:
                 self._grace_until = (time.monotonic()
                                      + resume_grace_ms() / 1e3)
                 self._note_resume(len(records))
+
+    # the default job's world, read (and, by tests, written) through the
+    # tracker; the tracker's own code goes through a job
+    _ranks = _default_attr("_ranks")
+    _pending = _default_attr("_pending")
+    _epoch = _default_attr("_epoch")
+    _shutdown_ranks = _default_attr("_shutdown_ranks")
+    _metrics = _default_attr("_metrics")
+    _endpoints = _default_attr("_endpoints")
+    _endpoint_misses = _default_attr("_endpoint_misses")
+    _topo = _default_attr("_topo")
+    _skew = _default_attr("_skew")
+    _skew_election = _default_attr("_skew_election")
+    _member = _default_attr("_member")
+    _resumed_ranks = _default_attr("_resumed_ranks")
+    _last_straggler = _default_attr("_last_straggler")
+    _stores = _default_attr("_stores")
+    _acked = _default_attr("_acked")
+
+    def job(self, job_id: str) -> Optional[_jobs_mod.JobState]:
+        """The JobState of ``job_id`` (None: never opened)."""
+        with self._lock:
+            return self._jobs.get(str(job_id))
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "Tracker":
@@ -686,16 +822,26 @@ class Tracker:
             self._metrics_server = None
         _drop(self.sock)
         with self._cv:
-            pending = [p[0] for p in self._pending.values()]
-            self._pending.clear()
-            # workers have exited (or been killed) by now: no live client
-            # is left on these stores
-            self._stores = []
+            pending = []
+            for jb in self._jobs.values():
+                pending += [p[0] for p in jb._pending.values()]
+                jb._pending.clear()
+                # workers have exited (or been killed) by now: no live
+                # client is left on these stores
+                jb._stores = []
             self._cv.notify_all()   # parked joiners stop waiting
         for conn in pending:
             self._close(conn)
         if self._wal_log is not None and not self.crashed:
             self._wal_log.close()
+            with self._repl_cv:
+                mirrors = list(self._job_wals.values())
+                self._job_wals.clear()
+            for w in mirrors:
+                try:
+                    w.close()
+                except (OSError, _wal_mod.WalError):
+                    pass   # a mirror is best-effort
 
     def crash(self) -> None:
         """A tracker crash without the process exit (tests, the
@@ -747,7 +893,7 @@ class Tracker:
         return time.monotonic() < self._grace_until
 
     # -- the write-ahead log ----------------------------------------------------
-    def _wal(self, kind: str, **data) -> None:
+    def _wal(self, kind: str, _job=None, **data) -> None:
         """Journal one control-plane transition (a no-op with the WAL
         off). Callers hold the tracker's lock and call this BEFORE acting
         on the transition: a crash between the two replays the intent,
@@ -755,11 +901,23 @@ class Tracker:
         successor may own the file already). Every journaled record is
         also published to ``repl`` subscribers as the exact frame bytes
         that reached the disk; an idempotent lease renewal is not
-        journaled but becomes the stream's seq-0 heartbeat."""
+        journaled but becomes the stream's seq-0 heartbeat. ``_job`` is
+        the owning JobState: with multi-job on, a non-default job's
+        records carry its ``job`` tag and are mirrored into its own
+        ``<wal_dir>/<job>/``; the default job's stay untagged, so a
+        journal with multi-job off is the single-job tracker's."""
         if self._wal_log is None:
             return
         if self.crashed:
             raise ConnectionError("the tracker crashed")
+        jid = None
+        if self.multi_job:
+            if _job is not None and _job.job_id != DEFAULT_JOB:
+                jid = _job.job_id
+                data = dict(data)
+                data["job"] = jid
+            elif str(data.get("job", DEFAULT_JOB)) != DEFAULT_JOB:
+                jid = str(data["job"])      # job_open, job_close
         with self._repl_cv:
             if kind == _wal_mod.LEASE_KIND and \
                     _wal_mod.lease_renewal_only(self._journaled_lease, data):
@@ -782,6 +940,8 @@ class Tracker:
                 self._journaled_lease = dict(data)
             self._repl_log.append(_wal_mod.encode_record(seq, kind, data))
             self._repl_cv.notify_all()
+            if jid is not None:
+                self._mirror_job_record_locked(jid, kind, data)
         if self._snap_every and not self._snap_pending and \
                 seq - self._wal_log.snapshot_seq >= self._snap_every:
             # compact off the journaling path: a thread of its own folds
@@ -804,8 +964,38 @@ class Tracker:
                     _seq, frame = self._wal_log.snapshot(state)
                     self._repl_log.append(frame)
                     self._repl_cv.notify_all()
+                    for jid, w in list(self._job_wals.items()):
+                        jd = state["jobs"].get(jid)
+                        if jd is None:
+                            continue
+                        try:
+                            w.snapshot({"multi_job": True,
+                                        "jobs": {jid: jd}})
+                        except (OSError, _wal_mod.WalError):
+                            pass   # a mirror is best-effort
         finally:
             self._snap_pending = False
+
+    def _mirror_job_record_locked(self, jid: str, kind: str,
+                                  data: dict) -> None:
+        """Mirror one record into its job's own journal (the caller,
+        ``_wal``, holds ``_repl_cv``). The root journal is the authority:
+        a mirror that cannot open or append is dropped, never a failed
+        transition."""
+        try:
+            w = self._job_wals.get(jid)
+            if w is None and kind != "job_close":
+                w = _wal_mod.WriteAheadLog(os.path.join(self.wal_dir, jid))
+                w.open(resume=os.path.exists(w.path))
+                self._job_wals[jid] = w
+            if w is not None:
+                w.record(kind,
+                         **{k: v for k, v in data.items() if k != "job"})
+                if kind == "job_close":
+                    w.close()
+                    self._job_wals.pop(jid, None)
+        except (OSError, ValueError, _wal_mod.WalError):
+            pass   # a mirror is best-effort
 
     # -- the leadership lease and the replication stream -----------------------
     def _renew_lease(self) -> None:
@@ -919,40 +1109,46 @@ class Tracker:
         from ..telemetry import flight
         detail = (f"replayed {nrecords} WAL records, restart "
                   f"#{self.restarts}, epoch {self._epoch}")
+        live_jobs = sorted(j.job_id for j in self._jobs.values() if j.open)
+        jobs_note = f", jobs {live_jobs}" if self.multi_job else ""
         telemetry.count("tracker.resume", provenance="tracker")
         telemetry.record_span("tracker.resume", 0.0, op="resume",
                               provenance="tracker", records=nrecords,
                               restarts=self.restarts)
-        flight.note("tracker_resume", detail)
+        flight.note("tracker_resume", detail + jobs_note)
         self._fleet_emit("tracker.resume", detail)
         print(f"[tracker] resumed from WAL ({nrecords} records, restart "
               f"#{self.restarts}, epoch {self._epoch}, {len(self._ranks)} "
-              f"known ranks)", file=sys.stderr, flush=True)
+              f"known ranks{jobs_note})", file=sys.stderr, flush=True)
 
-    def _resume_present(self, task_id: str, rank: int, epoch: int) -> bool:
+    def _resume_present(self, job, task_id: str, rank: int,
+                        epoch: int) -> bool:
         """Reconcile one worker's ``resume`` handshake against the
-        replayed journal: a matching identity confirms it, an unknown task
-        id with a free rank is adopted (a torn tail can lose the last
-        ``assign``: the live worker is the authority on its own rank), and
-        a contradiction is refused, so the worker falls back to a full
-        re-registration."""
+        replayed journal of its job: a matching identity confirms it, an
+        unknown task id with a free rank is adopted (a torn tail can lose
+        the last ``assign``: the live worker is the authority on its own
+        rank), and a contradiction is refused, so the worker falls back
+        to a full re-registration."""
         with self._lock:
-            known = self._ranks.get(task_id)
-            if known is None and 0 <= rank < self.nworkers \
-                    and rank not in self._ranks.values():
-                self._wal("assign", task=task_id, rank=rank)
-                self._ranks[task_id] = rank
+            known = job._ranks.get(task_id)
+            if known is None and 0 <= rank < job.nworkers \
+                    and rank not in job._ranks.values():
+                self._wal("assign", task=task_id, rank=rank, _job=job)
+                job._ranks[task_id] = rank
                 known = rank
-            ok = known == rank and epoch <= self._epoch + 1
+            ok = known == rank and epoch <= job._epoch + 1
             if ok:
-                self._endpoint_misses[task_id] = 0
-                self._resumed_ranks.add(rank)
+                job._endpoint_misses[task_id] = 0
+                job._resumed_ranks.add(rank)
         return ok
 
-    def store_count(self) -> int:
-        """Rendezvous stores still hosted (old epochs are reaped)."""
+    def store_count(self, job_id: Optional[str] = None) -> int:
+        """Rendezvous stores still hosted (old epochs are reaped) by the
+        default job, or by ``job_id`` (0 for a job never opened)."""
         with self._lock:
-            return len(self._stores)
+            job = self._jobs.get(DEFAULT_JOB if job_id is None
+                                 else str(job_id))
+            return 0 if job is None else len(job._stores)
 
     def env(self, task_id: str, num_attempt: int = 0) -> Dict[str, str]:
         """Environment for a worker process."""
@@ -985,9 +1181,14 @@ class Tracker:
         conn.close()
 
     def _handle(self, conn: socket.socket) -> None:
-        """One request. A registration's connection stays open, parked in
-        ``_pending`` until its batch is complete; every other command is
-        answered and closed."""
+        """One request on its connection's own thread. A registration's
+        connection stays open, parked in its job's ``_pending`` until its
+        batch is complete; every other command is answered and closed.
+        With multi-job on, the task id's ``<job>/`` prefix names the job.
+        An exception a job's command raises stops at the job boundary: it
+        is quarantined and closes this connection only; a wire error is
+        the peer's and closes it too."""
+        cmd, job_id = "", DEFAULT_JOB
         try:
             conn.settimeout(_REQUEST_TIMEOUT_S)
             if _recv_u32(conn) != MAGIC:
@@ -996,98 +1197,127 @@ class Tracker:
             cmd = _recv_str(conn)
             task_id = _recv_str(conn)
             _recv_u32(conn)   # num_attempt (informational)
-            if cmd in ("start", "recover", "join"):
-                host = _recv_str(conn)
-                port = _recv_u32(conn)
-                flags = _recv_u32(conn)
-                token = _recv_str(conn)
-                conn.settimeout(None)
-                self._register(conn, task_id, host, port, flags, token,
-                               join=cmd == "join")
-            elif cmd == "print":
-                msg = _recv_str(conn)
-                self.messages.append(msg)
-                print(msg, flush=True)
-                self._reply_u32(conn, 1)
-            elif cmd == "metrics":
-                try:
-                    doc = json.loads(_recv_str(conn))
-                except ValueError:
-                    doc = None
-                ok = isinstance(doc, dict)
-                if ok:
-                    with self._lock:
-                        self._metrics[task_id] = doc
-                    self._fold_events(task_id, doc)
-                self._reply_u32(conn, 1 if ok else 0)
-            elif cmd == "shutdown":
+            if self.multi_job:
+                job_id, task_id = _jobs_mod.split_task(task_id)
+            try:
+                self._dispatch(conn, cmd, job_id, task_id)
+            except (ConnectionError, OSError, struct.error,
+                    UnicodeDecodeError):
+                raise
+            except Exception as e:   # the job's fault boundary
+                self._quarantine(job_id, cmd, e)
+                self._close(conn)
+        except (ConnectionError, OSError, struct.error, UnicodeDecodeError):
+            self._close(conn)
+
+    def _dispatch(self, conn: socket.socket, cmd: str, job_id: str,
+                  task_id: str) -> None:
+        """Read the rest of one command and serve it within its job."""
+        if cmd in ("start", "recover", "join"):
+            host = _recv_str(conn)
+            port = _recv_u32(conn)
+            flags = _recv_u32(conn)
+            token = _recv_str(conn)
+            conn.settimeout(None)
+            job = self._job_for_register(job_id)
+            if job is None:
+                # admission refused: shed, never parked
+                self._close(conn)
+                return
+            self._register(conn, job, task_id, host, port, flags, token,
+                           join=cmd == "join")
+        elif cmd == "print":
+            msg = _recv_str(conn)
+            self.messages.append(msg)
+            print(msg, flush=True)
+            self._reply_u32(conn, 1)
+        elif cmd == "metrics":
+            try:
+                doc = json.loads(_recv_str(conn))
+            except ValueError:
+                doc = None
+            job = self._job_for(job_id)
+            ok = isinstance(doc, dict) and job is not None
+            if ok:
                 with self._lock:
-                    rank = self._ranks.get(task_id)
+                    job._metrics[task_id] = doc
+                self._fold_events(task_id, doc, job)
+            self._reply_u32(conn, 1 if ok else 0)
+        elif cmd == "shutdown":
+            job = self._job_for(job_id)
+            all_down = False
+            if job is not None:
+                with self._lock:
+                    rank = job._ranks.get(task_id)
                     if rank is not None:
                         # journaled, so a tracker resumed mid-teardown
                         # still sees the job complete (a worker sends
                         # shutdown once)
-                        self._wal("down", rank=rank)
-                        self._shutdown_ranks.add(rank)
-                    if self.elastic and self._member.live:
-                        # evicted ranks never send shutdown
-                        all_down = self._member.live <= self._shutdown_ranks
-                    else:
-                        all_down = len(self._shutdown_ranks) >= self.nworkers
-                self._reply_u32(conn, 1)
-                if all_down:
-                    self.print_fleet_metrics()
-                    self._done.set()
-            elif cmd == "endpoint":
-                try:
-                    doc = json.loads(_recv_str(conn))
-                except ValueError:
-                    doc = None
-                ok = (isinstance(doc, dict) and "host" in doc
-                      and "port" in doc)
-                if ok:
-                    ep = {"host": str(doc["host"]), "port": int(doc["port"]),
-                          "rank": int(doc.get("rank", -1))}
-                    with self._lock:
-                        self._wal("endpoint", task=task_id, doc=ep)
-                        self._endpoints[task_id] = ep
-                        # a (re-)announce is proof of life: no earlier
-                        # misses count toward an eviction
-                        self._endpoint_misses[task_id] = 0
-                self._reply_u32(conn, 1 if ok else 0)
-            elif cmd == "world":
-                self._reply_json(conn, self.membership_doc())
-            elif cmd in ("evict", "resume"):
-                try:
-                    doc = json.loads(_recv_str(conn))
-                except ValueError:
-                    doc = None
-                ok = False
-                if isinstance(doc, dict) and doc.get("rank") is not None:
-                    try:
-                        if cmd == "evict":
-                            ok = self.evict_rank(int(doc["rank"]),
-                                                 str(doc.get("reason", "")))
-                        else:
-                            # a live worker re-presents its identity to a
-                            # (possibly resumed) tracker
-                            ok = self._resume_present(
-                                task_id, int(doc["rank"]),
-                                int(doc.get("epoch", 0)))
-                    except (TypeError, ValueError):
-                        ok = False
-                self._reply_u32(conn, 1 if ok else 0)
-            elif cmd in ("topo", "skew"):
+                        self._wal("down", rank=rank, _job=job)
+                        job._shutdown_ranks.add(rank)
+                    all_down = job.all_down_locked()
+            self._reply_u32(conn, 1)
+            if all_down:
+                self._job_complete(job)
+        elif cmd == "endpoint":
+            try:
+                doc = json.loads(_recv_str(conn))
+            except ValueError:
+                doc = None
+            job = self._job_for(job_id)
+            ok = (isinstance(doc, dict) and "host" in doc
+                  and "port" in doc and job is not None)
+            if ok:
+                ep = {"host": str(doc["host"]), "port": int(doc["port"]),
+                      "rank": int(doc.get("rank", -1))}
                 with self._lock:
-                    doc = dict(self._topo if cmd == "topo" else self._skew)
-                self._reply_json(conn, doc)
-            elif cmd == "repl":
-                # a subscriber holds this connection's thread for as long
-                # as it follows: one thread a standby
-                self._serve_repl(conn, task_id)
-            else:
-                self._close(conn)
-        except (ConnectionError, OSError, struct.error, UnicodeDecodeError):
+                    self._wal("endpoint", task=task_id, doc=ep, _job=job)
+                    job._endpoints[task_id] = ep
+                    # a (re-)announce is proof of life: no earlier
+                    # misses count toward an eviction
+                    job._endpoint_misses[task_id] = 0
+            self._reply_u32(conn, 1 if ok else 0)
+        elif cmd == "world":
+            self._reply_json(conn, self.membership_doc(self._job_for(job_id)))
+        elif cmd in ("evict", "resume"):
+            try:
+                doc = json.loads(_recv_str(conn))
+            except ValueError:
+                doc = None
+            job = self._job_for(job_id)
+            ok = False
+            if isinstance(doc, dict) and doc.get("rank") is not None \
+                    and job is not None:
+                try:
+                    if cmd == "evict":
+                        ok = self.evict_rank(int(doc["rank"]),
+                                             str(doc.get("reason", "")),
+                                             job=job)
+                    else:
+                        # a live worker re-presents its identity to a
+                        # (possibly resumed) tracker
+                        ok = self._resume_present(
+                            job, task_id, int(doc["rank"]),
+                            int(doc.get("epoch", 0)))
+                except (TypeError, ValueError):
+                    ok = False
+            self._reply_u32(conn, 1 if ok else 0)
+        elif cmd in ("topo", "skew"):
+            job = self._job_for(job_id)
+            with self._lock:
+                doc = ({} if job is None
+                       else dict(job._topo if cmd == "topo" else job._skew))
+            self._reply_json(conn, doc)
+        elif cmd == "submit":
+            # admission answers at once: overload sheds, it never stalls
+            # a submitter's socket
+            payload = _recv_str(conn)
+            self._reply_json(conn, self._submit(payload))
+        elif cmd == "repl":
+            # a subscriber holds this connection's thread for as long as
+            # it follows: one thread a standby
+            self._serve_repl(conn, task_id)
+        else:
             self._close(conn)
 
     # -- the live plane -------------------------------------------------------
@@ -1099,6 +1329,8 @@ class Tracker:
             return
         from ..telemetry import live
         identity = {"role": "tracker", "nworkers": self.nworkers}
+        if self.multi_job:
+            identity["multi_job"] = True
         if self.lease_ms:
             # the supervisor's probe before a cold respawn reads this: a
             # tracker whose /healthz says tracker_role "leader" IS the
@@ -1130,31 +1362,63 @@ class Tracker:
     def _live_routes(self) -> dict:
         """The live endpoint's JSON routes: ``/events`` and
         ``/incidents`` only while the incident plane is on."""
-        routes = {"/straggler": self._straggler_doc, "/slo": self._slo_doc}
+        routes = {"/straggler": self._straggler_doc,
+                  "/jobs": self._jobs_doc,
+                  "/slo": self._slo_doc}
         if self._events_on:
             routes["/events"] = self._events_doc
             routes["/incidents"] = self._incidents_doc
         return routes
 
+    def _jl(self, jid: str, **labels) -> Dict[str, str]:
+        """A gauge row's labels: a ``job`` label only with multi-job on,
+        so a single-job exposition stays as it was."""
+        if self.multi_job:
+            labels["job"] = jid
+        return labels
+
+    def _jobs_shown_locked(self) -> list:
+        """The jobs the live plane reports (caller holds the lock): every
+        job with multi-job on, else the one world."""
+        return (list(self._jobs.values()) if self.multi_job
+                else [self._default])
+
     def _metric_sources(self) -> list:
         """One Prometheus source a polled rank: its summary, labelled with
-        its rank."""
+        its rank (and, multi-job, its job)."""
         with self._lock:
-            return [({"rank": str(doc.get("rank", -1))}, doc)
-                    for doc in self._metrics.values()]
+            return [(self._jl(jb.job_id, rank=str(doc.get("rank", -1))), doc)
+                    for jb in self._jobs_shown_locked()
+                    for doc in jb._metrics.values()]
+
+    def _job_snapshots_locked(self) -> List[dict]:
+        """Each shown job's gauge state, taken under the lock."""
+        snap = []
+        for jb in self._jobs_shown_locked():
+            m = jb._member if jb.elastic else None
+            snap.append({
+                "id": jb.job_id, "status": jb.status,
+                "elastic": jb.elastic, "nend": len(jb._endpoints),
+                "topo": dict(jb._topo), "skew": dict(jb._skew),
+                "strag": jb._last_straggler,
+                "world": jb.nworkers if m is None else m.world(),
+                "evictions": 0 if m is None else m.evictions,
+                "admissions": 0 if m is None else m.admissions,
+                "quarantined": jb.quarantined})
+        return snap
 
     def _live_gauges(self) -> list:
         with self._lock:
-            nend, polls = len(self._endpoints), self._poll_count
-            topo, skew = dict(self._topo), dict(self._skew)
-            strag = self._last_straggler
-            m = self._member
-            member = (None if m is None
-                      else (m.world(), m.evictions, m.admissions))
+            snap = self._job_snapshots_locked()
+            polls = self._poll_count
+            queued_total = self._admission.queued_total
+            shed_total = self._admission.shed_total
+            preempt = dict(self.sched_preemptions)
+        qdepth = len(self._admission)
         gauges = [
             ("rabit_tracker_endpoints",
              "Worker metrics endpoints known to the tracker.", "gauge",
-             [({}, nend)]),
+             [(self._jl(s["id"]), s["nend"]) for s in snap]),
             ("rabit_tracker_polls_total", "Completed endpoint poll sweeps.",
              "counter", [({}, polls)]),
         ]
@@ -1191,57 +1455,105 @@ class Tracker:
                 "Journaled records not yet acked by the standby — the "
                 "bounded data loss of a failover right now.",
                 "gauge", [({}, repl["lag_records"])]))
-        if member is not None:
-            world, evictions, admissions = member
+        elastic_rows = [s for s in snap if s["elastic"]]
+        if elastic_rows:
             gauges.append((
                 "rabit_world_size",
                 "Live world size of the current membership epoch "
                 "(elastic jobs shrink below the launch target and "
-                "grow back on re-admission).", "gauge", [({}, world)]))
+                "grow back on re-admission).", "gauge",
+                [(self._jl(s["id"]), s["world"]) for s in elastic_rows]))
             gauges.append((
                 "rabit_member_evictions_total",
                 "Ranks evicted from the live job (watchdog/poll "
                 "evidence or the evict command).", "counter",
-                [({}, evictions)]))
+                [(self._jl(s["id"]), s["evictions"])
+                 for s in elastic_rows]))
             gauges.append((
                 "rabit_member_admissions_total",
                 "Parked joiners admitted at an epoch boundary.",
-                "counter", [({}, admissions)]))
-        if topo.get("groups"):
-            sizes = [len(g) for g in topo["groups"]]
+                "counter", [(self._jl(s["id"]), s["admissions"])
+                            for s in elastic_rows]))
+        topo_rows = [s for s in snap if s["topo"].get("groups")]
+        if topo_rows:
             gauges.append((
                 "rabit_tracker_topology_hosts",
                 "Distinct hosts in the current link-registration epoch.",
-                "gauge", [({}, len(topo["groups"]))]))
+                "gauge", [(self._jl(s["id"]), len(s["topo"]["groups"]))
+                          for s in topo_rows]))
+            rows = []
+            for s in topo_rows:
+                sizes = [len(g) for g in s["topo"]["groups"]]
+                rows.append((self._jl(s["id"], stat="min"), min(sizes)))
+                rows.append((self._jl(s["id"], stat="max"), max(sizes)))
             gauges.append((
                 "rabit_tracker_topology_ranks_per_host",
                 "Ranks per host (max label distinguishes ragged "
                 "groupings, which disable the hierarchical schedule).",
-                "gauge", [({"stat": "min"}, min(sizes)),
-                          ({"stat": "max"}, max(sizes))]))
-        if strag is not None and strag.get("lagging_rank") is not None:
+                "gauge", rows))
+        strag_rows = [s for s in snap if s["strag"] is not None
+                      and s["strag"].get("lagging_rank") is not None]
+        if strag_rows:
             gauges.append((
                 "rabit_straggler_lag_collectives",
                 "Collectives the laggard is behind the leader.", "gauge",
-                [({"rank": str(strag["lagging_rank"])},
-                  strag["lag_collectives"])]))
+                [(self._jl(s["id"], rank=str(s["strag"]["lagging_rank"])),
+                  s["strag"]["lag_collectives"]) for s in strag_rows]))
             gauges.append((
                 "rabit_straggler_busy_skew_seconds",
                 "Spread of per-rank collective busy time.", "gauge",
-                [({}, strag["busy_skew_s"])]))
-        if skew.get("offsets_ms"):
+                [(self._jl(s["id"]), s["strag"]["busy_skew_s"])
+                 for s in strag_rows]))
+        skew_rows = [s for s in snap if s["skew"].get("offsets_ms")]
+        if skew_rows:
             gauges.append((
                 "rabit_skew_offset_ms",
                 "Per-rank mean arrival offset behind the earliest rank "
                 "(the skew digest served to workers).", "gauge",
-                [({"rank": str(r)}, v) for r, v in
-                 sorted(skew["offsets_ms"].items(),
-                        key=lambda kv: int(kv[0]))]))
+                [(self._jl(s["id"], rank=str(r)), v) for s in skew_rows
+                 for r, v in sorted(s["skew"]["offsets_ms"].items(),
+                                    key=lambda kv: int(kv[0]))]))
             gauges.append((
                 "rabit_skew_epoch",
                 "Fleet skew election epoch (bumps when the served "
                 "laggard verdict changes).", "gauge",
-                [({}, skew.get("epoch", 0))]))
+                [(self._jl(s["id"]), s["skew"].get("epoch", 0))
+                 for s in skew_rows]))
+        if self.multi_job:
+            by_status: Dict[str, int] = {}
+            for s in snap:
+                by_status[s["status"]] = by_status.get(s["status"], 0) + 1
+            gauges.append((
+                "rabit_tracker_jobs",
+                "Jobs known to this tracker by lifecycle status "
+                "(forming/live/failed/closed).", "gauge",
+                [({"status": st}, n) for st, n in sorted(by_status.items())]))
+            gauges.append((
+                "rabit_admission_queue_depth",
+                "Submitted jobs parked in the bounded FIFO admission "
+                "queue right now.", "gauge", [({}, qdepth)]))
+            gauges.append((
+                "rabit_admission_queued_total",
+                "Job submissions parked (they retry after the hinted "
+                "backoff).", "counter", [({}, queued_total)]))
+            gauges.append((
+                "rabit_admission_shed_total",
+                "Job submissions shed past the queue depth — overload "
+                "answered with backoff, never a stall.", "counter",
+                [({}, shed_total)]))
+            gauges.append((
+                "rabit_job_quarantined_total",
+                "Commands quarantined at this job's fault boundary "
+                "(exceptions that never reached the accept loop).",
+                "counter", [(self._jl(s["id"]), s["quarantined"])
+                            for s in snap]))
+            gauges.append((
+                "rabit_sched_preemptions_total",
+                "Ranks preempted from running jobs by priority-class "
+                "admission, labeled by the VICTIM's class.", "counter",
+                [({"sched_class": str(c)}, n)
+                 for c, n in sorted(preempt.items())]
+                or [({"sched_class": "0"}, 0)]))
         if self.promoted:
             gauges.append((
                 "rabit_failover_duration_ms",
@@ -1249,9 +1561,10 @@ class Tracker:
                 "the control plane at promotion (tracker/standby.py).",
                 "gauge", [({"node": self.node_id},
                            round(self.failover_duration_ms, 3))]))
-        if self.lease_ms:
+        if self.multi_job or self.lease_ms:
             # the SLO burn gauges only where the tracker has something to
-            # judge (a failover): a plain tracker's exposition is as before
+            # judge (admission, a failover): a plain tracker's exposition
+            # is as before
             from ..telemetry import slo as _slo
             gauges.extend(_slo.gauges(self._slo_verdicts()))
         if self._events_on:
@@ -1261,20 +1574,48 @@ class Tracker:
         return gauges
 
     def _straggler_doc(self) -> dict:
-        """The ``/straggler`` route: the last poll sweep's snapshot."""
+        """The ``/straggler`` route: the default job's last snapshot and,
+        multi-job, a ``jobs`` map of every job's own."""
         with self._lock:
-            strag = self._last_straggler
-        return (dict(strag) if strag is not None
-                else {"ranks": [], "signal": False})
+            strag = self._default._last_straggler
+            per_job = ({jb.job_id: jb._last_straggler
+                        for jb in self._jobs.values()
+                        if jb._last_straggler is not None}
+                       if self.multi_job else None)
+        doc = (dict(strag) if strag is not None
+               else {"ranks": [], "signal": False})
+        if per_job is not None:
+            doc["jobs"] = per_job
+        return doc
+
+    def _jobs_doc(self) -> dict:
+        """The ``/jobs`` route: each job's health and the admission
+        plane."""
+        with self._lock:
+            docs = [jb.doc() for jb in self._jobs.values()]
+            queued_total = self._admission.queued_total
+            shed_total = self._admission.shed_total
+        return {"multi_job": bool(self.multi_job), "jobs": docs,
+                "queue": self._admission.snapshot(),
+                "queued_total": queued_total, "shed_total": shed_total,
+                "max_jobs": self._max_jobs,
+                "max_fleet_ranks": self._max_fleet_ranks}
 
     def _slo_verdicts(self) -> list:
         """The objectives a tracker can judge on its own: the failover
-        time, once promoted, and the admission shed rate (``no_data``
-        here, without a multi-job admission plane)."""
+        time, once promoted, and the admission shed rate (shed over every
+        verdict of a submit that was admitted, queued or shed)."""
         from ..telemetry import slo as _slo
+        with self._lock:
+            shed = self._admission.shed_total
+            queued = self._admission.queued_total
+            admitted = self.submit_admitted_total
         measured: Dict[str, float] = {}
         if self.promoted and self.failover_duration_ms > 0:
             measured["failover_ms"] = self.failover_duration_ms
+        total = admitted + queued + shed
+        if total:
+            measured["shed_rate"] = shed / total
         slos = [s for s in _slo.default_slos()
                 if s.name in ("failover_ms", "shed_rate")]
         return _slo.evaluate_all(slos, measured)
@@ -1320,14 +1661,14 @@ class Tracker:
                 self._fleet_events.append(rec)
             self._event_seen["__local__"] = newest
 
-    def _fold_events(self, task_id: str, doc: dict) -> None:
+    def _fold_events(self, task_id: str, doc: dict, job=None) -> None:
         """Fold one worker summary's event ring into the fleet log.
         Every scrape re-ships the whole ring: the task's ``seq`` is the
         dedup cursor. The worker's HLC merges into the tracker's, so
         every later tracker stamp follows what it has observed, and the
         worker's cumulative ring drops feed the fleet-wide gauge. A
-        record without a job takes the one job's name, as the JAX
-        tracker's default job gives it."""
+        record without a job takes its task's job (``job``, else the
+        default job)."""
         if not self._events_on or not isinstance(doc, dict):
             return
         _clock.merge_from_doc(doc)
@@ -1347,7 +1688,7 @@ class Tracker:
                 rec = dict(rec)
                 rec["source"] = task_id
                 if not rec.get("job"):
-                    rec["job"] = DEFAULT_JOB
+                    rec["job"] = DEFAULT_JOB if job is None else job.job_id
                 self._fleet_events.append(rec)
             self._event_seen[task_id] = newest
             dropped = ev.get("dropped")
@@ -1427,36 +1768,46 @@ class Tracker:
         since_snapshot = 0
         while not self._poll_stop.wait(interval):
             with self._lock:
-                endpoints = dict(self._endpoints)
+                jobs_now = [jb for jb in self._jobs.values() if jb.open]
+            polled = False
             since_snapshot += 1
-            if endpoints:
-                since_snapshot = self._poll_sweep(endpoints, since_snapshot)
+            for job in jobs_now:
+                with self._lock:
+                    endpoints = dict(job._endpoints)
+                if endpoints:
+                    polled = True
+                    since_snapshot = self._poll_sweep(job, endpoints,
+                                                      since_snapshot)
+            if polled:
+                with self._lock:
+                    self._poll_count += 1
             if self._events_on:
                 # the incident sweep rides the poll cadence even when no
                 # endpoint answered: the tracker's own events (membership,
-                # SLO edges, a promotion) still need correlating
+                # admission, SLO edges, a promotion) still need correlating
                 self._incident_sweep()
 
-    def _poll_sweep(self, endpoints: Dict[str, dict],
+    def _poll_sweep(self, job, endpoints: Dict[str, dict],
                     since_snapshot: int) -> int:
-        """One pass over the announced endpoints: scrape each, evict the
-        silent ones (elastic), elect the laggard and serve the digest;
-        returns the sweeps since the last straggler line."""
+        """One pass over a job's announced endpoints: scrape each, evict
+        the silent ones (elastic; only within the silent endpoint's own
+        job), elect the job's laggard through its own election and serve
+        the digest; returns the sweeps since the last straggler line."""
         from ..telemetry import crossrank, live, skew
         for tid, ep in endpoints.items():
             doc = live.scrape_json(ep["host"], ep["port"])
             if doc is not None:
                 with self._lock:
-                    self._metrics[tid] = doc
-                    self._endpoint_misses[tid] = 0
-                self._fold_events(tid, doc)
+                    job._metrics[tid] = doc
+                    job._endpoint_misses[tid] = 0
+                self._fold_events(tid, doc, job)
                 continue
             # right after a resume every worker's poller is still
             # timing out against the dead incarnation's cadence: the
             # silence is the tracker's outage, not the worker's
             if self.in_resume_grace():
                 with self._lock:
-                    self._endpoint_misses[tid] = 0
+                    job._endpoint_misses[tid] = 0
                 continue
             # an endpoint that HAS answered before and now stays
             # silent for several sweeps is, to the fleet, a dead rank:
@@ -1464,45 +1815,46 @@ class Tracker:
             # watchdog catches the same failure from the inside; this
             # catches a process that is unreachable rather than dead)
             with self._lock:
-                seen_before = tid in self._metrics
-                misses = self._endpoint_misses.get(tid, 0) + 1
-                self._endpoint_misses[tid] = misses
-                rank = self._ranks.get(tid)
-                live_rank = (self.elastic and rank is not None
-                             and rank in self._member.live)
+                seen_before = tid in job._metrics
+                misses = job._endpoint_misses.get(tid, 0) + 1
+                job._endpoint_misses[tid] = misses
+                rank = job._ranks.get(tid)
+                live_rank = (job.elastic and rank is not None
+                             and rank in job._member.live)
             if seen_before and live_rank and \
                     misses >= _membership.EVICT_POLL_MISSES:
                 self.evict_rank(
-                    rank, f"endpoint silent for {misses} polls")
+                    rank, f"endpoint silent for {misses} polls", job=job)
         with self._lock:
-            summaries = dict(self._metrics)
+            summaries = dict(job._metrics)
+            served_epoch = job._skew.get("epoch")
         strag = crossrank.straggler_snapshot(summaries)
-        # each sweep's raw offsets fold through the ONE election; the
-        # served digest is its smoothed, hysteretic verdict, whose
-        # epoch bumps exactly when the election changes
-        if self._skew_election is None:
-            self._skew_election = skew.FleetElection()
-        digest = self._skew_election.fold(
-            skew.digest_from_snapshot(strag))
+        # each sweep's raw offsets fold through the job's ONE election
+        # (job B's laggard never skews job A's schedules); the served
+        # digest is its smoothed, hysteretic verdict, whose epoch bumps
+        # exactly when the election changes
+        if job._skew_election is None:
+            job._skew_election = skew.FleetElection()
+        digest = job._skew_election.fold(skew.digest_from_snapshot(strag))
         with self._lock:
-            if digest is not None and \
-                    digest.get("epoch") != self._skew.get("epoch"):
+            if digest is not None and digest.get("epoch") != served_epoch:
                 # journal verdicts, not sweeps: the epoch bumps exactly
                 # when the election changes
-                self._wal("skew", digest=digest)
-            self._last_straggler = strag
+                self._wal("skew", digest=digest, _job=job)
+            job._last_straggler = strag
             if digest is not None:
-                self._skew = digest
-            self._poll_count += 1
+                job._skew = digest
         # one line every ~5 sweeps, only while someone is behind: in
         # the round sequence, or by more than 1 s of in-collective wait
         behind = bool(strag.get("signal")) \
             and strag.get("lagging_rank") is not None
         if since_snapshot >= 5 and behind:
             since_snapshot = 0
-            print(f"[tracker] straggler: rank {strag['lagging_rank']} "
-                  f"is {strag['lag_collectives']} collectives behind "
-                  f"(busy skew {strag['busy_skew_s']:.3f}s)",
+            jtag = f" job {job.job_id}" if self.multi_job else ""
+            print(f"[tracker] straggler:{jtag} rank "
+                  f"{strag['lagging_rank']} is {strag['lag_collectives']} "
+                  f"collectives behind (busy skew "
+                  f"{strag['busy_skew_s']:.3f}s)",
                   file=sys.stderr, flush=True)
         return since_snapshot
 
@@ -1516,35 +1868,53 @@ class Tracker:
     def live_stats(self) -> dict:
         """The live plane's state, for launchers and tests: the metrics
         address, the endpoints, the sweeps, the last straggler snapshot
-        and the served skew digest."""
+        and the served skew digest of the default job, and, multi-job,
+        each job's ``/jobs`` doc."""
         with self._lock:
             srv = self._metrics_server
-            return {"metrics_addr": (None if srv is None
-                                     else list(srv.address)),
-                    "endpoints": {t: dict(e)
-                                  for t, e in self._endpoints.items()},
-                    "polls": self._poll_count,
-                    "straggler": self._last_straggler,
-                    "skew": dict(self._skew)}
+            stats = {"metrics_addr": (None if srv is None
+                                      else list(srv.address)),
+                     "endpoints": {t: dict(e)
+                                   for t, e in self._endpoints.items()},
+                     "polls": self._poll_count,
+                     "straggler": self._last_straggler,
+                     "skew": dict(self._skew)}
+            if self.multi_job:
+                stats["jobs"] = {jb.job_id: jb.doc()
+                                 for jb in self._jobs.values()}
+            return stats
 
-    def merged_metrics(self) -> Optional[dict]:
+    def merged_metrics(self, job=None) -> Optional[dict]:
         """The ``telemetry_fleet`` document merged from the summaries
-        received so far, or None when no worker sent one."""
+        received so far (``job``'s alone when given), or None when no
+        worker sent one. Multi-job, the union over the jobs, each task
+        as ``<job>/<task>`` so that tasks of two jobs never collide."""
         with self._lock:
-            snap = dict(self._metrics)
+            if job is not None:
+                snap = dict(job._metrics)
+            elif self.multi_job:
+                snap = {_jobs_mod.job_task(jid, t): d
+                        for jid, jb in self._jobs.items()
+                        for t, d in jb._metrics.items()}
+            else:
+                snap = dict(self._default._metrics)
         return merge_summaries(snap) if snap else None
 
-    def print_fleet_metrics(self) -> None:
-        """Print the end-of-run fleet table (once), and keep it in
-        ``messages`` like a print command, so launchers and tests see
-        it. Nothing when no summary with a counter arrived."""
-        fleet = self.merged_metrics()
+    def print_fleet_metrics(self, job=None) -> None:
+        """Print the end-of-run fleet table, and keep it in ``messages``
+        like a print command, so launchers and tests see it: a completed
+        ``job``'s own on a multi-job tracker, else the fleet's, once (the
+        default job's counts as that once). Nothing when no summary with
+        a counter arrived."""
+        scoped = job is not None and self.multi_job
+        fleet = self.merged_metrics(job if scoped else None)
         if fleet is None or not fleet.get("counters"):
             return
-        with self._lock:
-            if self._fleet_printed:
-                return
-            self._fleet_printed = True
+        if not scoped or job is self._default:
+            with self._lock:
+                if self._fleet_printed:
+                    return
+                self._fleet_printed = True
         table = format_fleet_table(fleet)
         self.messages.append(table)
         print(table, flush=True)
@@ -1554,7 +1924,8 @@ class Tracker:
         self._close(conn)
 
     def _reply_json(self, conn: socket.socket, doc: dict) -> None:
-        """A JSON-str reply (``topo``, ``skew``, ``world``), with the
+        """A JSON-str reply (``topo``, ``skew``, ``world``, ``submit``),
+        with the
         tracker's HLC piggybacked while the incident plane is on, so a
         worker's clock causally follows the control plane; never on a
         u32 reply."""
@@ -1566,185 +1937,543 @@ class Tracker:
         conn.sendall(struct.pack("<I", len(b)) + b)
         self._close(conn)
 
-    def _register(self, conn, task_id: str, host: str, port: int,
+    # -- jobs: the fault boundary, admission and the fleet scheduler ---------
+    def _quarantine(self, job_id: str, cmd: str, exc: Exception) -> None:
+        """One job's command raised: count it against THAT job's fault
+        domain (a counter, a flight note, a ``tracker.quarantine`` event)
+        and keep serving; no other job and no other connection sees it."""
+        from .. import telemetry
+        from ..telemetry import flight
+        with self._lock:
+            job = self._jobs.get(job_id)
+            if job is not None:
+                job.quarantined += 1
+        telemetry.count("tracker.quarantine", provenance="tracker")
+        flight.note("job_quarantine", f"job {job_id}: {cmd} raised "
+                    f"{type(exc).__name__}: {exc}")
+        self._fleet_emit("tracker.quarantine",
+                         f"{cmd} raised {type(exc).__name__}: {exc}",
+                         job=job_id)
+        print(f"[tracker] quarantined {cmd} for job {job_id}: "
+              f"{type(exc).__name__}: {exc}", file=sys.stderr, flush=True)
+
+    def _job_for(self, job_id: str):
+        """The named job, or None when unknown (a command for a job never
+        admitted answers not-ok rather than raising). Contact with an open
+        job clears it of orphanhood and restarts its forming clock."""
+        with self._lock:
+            job = self._jobs.get(job_id)
+            if job is not None and job.open:
+                self._orphan_jobs.discard(job_id)
+                self._job_contact[job_id] = time.monotonic()
+            return job
+
+    def _job_for_register(self, job_id: str):
+        """A registration's job: an open job, the default job (a closed
+        default job forms again in place), or, multi-job, a job opened
+        at the launch's shape when it fits the caps. None: admission
+        refused (the connection is shed; its launcher should ``submit``
+        and retry after the hint)."""
+        with self._lock:
+            job = self._jobs.get(job_id)
+            if job is not None and job.open:
+                self._orphan_jobs.discard(job_id)
+                self._job_contact[job_id] = time.monotonic()
+                return job
+            if job_id == DEFAULT_JOB:
+                return self._default
+            if job is not None:
+                return None   # a closed job: its task ids are retired
+            if self._fits_locked(self.nworkers):
+                return self._open_job_locked(job_id, self.nworkers,
+                                             self.elastic)
+        return None
+
+    def _submit(self, payload: str) -> dict:
+        """The ``submit`` command's verdict: ``{"ok": 1}`` admitted (once
+        more for an open job: ``"already"``), ``{"ok": 0, "queued": 1,
+        "position": p, "retry_after_ms": n}`` parked in the queue,
+        ``{"ok": 0, "shed": 1, "retry_after_ms": n}`` the queue full,
+        ``{"ok": 0, "error": ...}`` never admissible."""
+        try:
+            doc = json.loads(payload)
+        except ValueError:
+            doc = None
+        if not isinstance(doc, dict) or not doc.get("job"):
+            return {"ok": 0, "error": "malformed submit payload"}
+        if not self.multi_job:
+            return {"ok": 0,
+                    "error": "multi-job disabled (rabit_multi_job unset)"}
+        job_id = str(doc["job"])
+        try:
+            n = int(doc.get("nworkers", self.nworkers))
+        except (TypeError, ValueError):
+            return {"ok": 0, "error": "nworkers must be an integer"}
+        if n < 1:
+            return {"ok": 0, "error": "nworkers must be >= 1"}
+        elastic = bool(doc.get("elastic", self.elastic))
+        try:
+            cls = max(0, int(doc.get("sched_class", 0)))
+        except (TypeError, ValueError):
+            cls = 0
+        try:
+            weight = float(doc.get("weight", 1.0))
+        except (TypeError, ValueError):
+            weight = 1.0
+        if weight <= 0:
+            weight = 1.0
+        self._reap_orphans()   # free the capacity of dead jobs first
+        with self._lock:
+            job = self._jobs.get(job_id)
+            if job is not None and job.open:
+                self.submit_admitted_total += 1
+                self._fleet_emit("admission.admitted",
+                                 f"{job_id} already open", job=job_id)
+                return {"ok": 1, "job": job_id, "already": 1}
+            if self._max_fleet_ranks and n > self._max_fleet_ranks:
+                return {"ok": 0,
+                        "error": f"nworkers {n} exceeds "
+                                 f"rabit_max_fleet_ranks "
+                                 f"{self._max_fleet_ranks}"}
+            if self._fits_locked(n):
+                self._open_job_locked(job_id, n, elastic, cls, weight)
+                self.submit_admitted_total += 1
+                self._fleet_emit("admission.admitted",
+                                 f"{job_id} opened at {n} ranks", job=job_id)
+                return {"ok": 1, "job": job_id}
+            plan = self._plan_preemption_locked(n, cls) if cls else None
+        if plan:
+            verdict = self._preempt(job_id, n, elastic, cls, weight, plan)
+            if verdict is not None:
+                return verdict
+        retry = self._retry_hint_ms()
+        with self._lock:
+            if self._fits_locked(n):   # capacity freed while unlocked
+                self._open_job_locked(job_id, n, elastic, cls, weight)
+                self.submit_admitted_total += 1
+                self._fleet_emit("admission.admitted",
+                                 f"{job_id} opened at {n} ranks", job=job_id)
+                return {"ok": 1, "job": job_id}
+            pos = self._admission.offer(
+                {"job": job_id, "nworkers": n, "elastic": elastic,
+                 "sched_class": cls, "weight": weight})
+            if pos < 0:
+                depth = len(self._admission)
+                self._fleet_emit("admission.shed",
+                                 f"{job_id} shed past queue depth {depth}",
+                                 job=job_id)
+                return {"ok": 0, "shed": 1,
+                        "retry_after_ms": retry * (depth + 1)}
+            self._fleet_emit("admission.queued",
+                             f"{job_id} parked at position {pos}",
+                             job=job_id)
+            return {"ok": 0, "queued": 1, "position": pos,
+                    "retry_after_ms": retry * (pos + 1)}
+
+    def _retry_hint_ms(self) -> int:
+        """The backoff hint from the measured drain rate: the mean gap
+        between recent job closes says how long a queue slot takes to
+        free; the default until two closes were seen."""
+        with self._lock:
+            ts = list(self._drain_t)
+        if len(ts) >= 2:
+            per_close_s = (ts[-1] - ts[0]) / (len(ts) - 1)
+            if per_close_s > 0:
+                return max(50, min(60_000, int(per_close_s * 1e3)))
+        return _jobs_mod.RETRY_AFTER_MS_DEFAULT
+
+    def _open_jobs_locked(self) -> list:
+        """The jobs the caps count (caller holds the lock): every open
+        job; the default job only once someone registered into it."""
+        return [jb for jb in self._jobs.values()
+                if jb.open and (jb.job_id != DEFAULT_JOB
+                                or jb._ranks or jb._pending)]
+
+    def _fits_locked(self, nworkers: int) -> bool:
+        """Would a job of ``nworkers`` fit the admission caps now? Caller
+        holds the lock. Capacity sums ``quota`` (nworkers until a
+        preemption shrinks it), so preempted ranks are transferable."""
+        open_jobs = self._open_jobs_locked()
+        if len(open_jobs) >= self._max_jobs:
+            return False
+        if self._max_fleet_ranks:
+            in_use = sum(jb.quota for jb in open_jobs)
+            if in_use + nworkers > self._max_fleet_ranks:
+                return False
+        return True
+
+    def _plan_preemption_locked(self, n: int, cls: int):
+        """Victim ranks whose eviction would fit an ``n``-rank class-
+        ``cls`` job under ``rabit_max_fleet_ranks``. Caller holds the
+        lock; the plan runs outside it (``evict_rank`` takes it again).
+        Victims are elastic open jobs of a strictly lower class, lowest
+        class first, highest live rank first; each keeps at least one
+        rank so its survivors re-form. None: the shortfall cannot be
+        covered, or the job-count cap blocks (no preemption fixes it)."""
+        if not self._max_fleet_ranks:
+            return None
+        open_jobs = self._open_jobs_locked()
+        if len(open_jobs) >= self._max_jobs:
+            return None
+        need = n - (self._max_fleet_ranks
+                    - sum(jb.quota for jb in open_jobs))
+        if need <= 0:
+            return None
+        victims = sorted(
+            (jb for jb in open_jobs
+             if jb.elastic and jb.sched_class < cls
+             and jb._member is not None),
+            key=lambda jb: (jb.sched_class, jb.job_id))
+        plan = []
+        for jb in victims:
+            if need <= 0:
+                break
+            live = sorted(jb._member.live, reverse=True)
+            take = min(need, jb.quota - 1, max(0, len(live) - 1))
+            for r in live[:take]:
+                plan.append((jb, r))
+            need -= max(0, take)
+        return plan if plan and need <= 0 else None
+
+    def _preempt(self, job_id: str, n: int, elastic: bool, cls: int,
+                 weight: float, plan) -> Optional[dict]:
+        """Run a preemption plan: evict the victims' ranks (the elastic
+        evict path: their survivors re-form smaller), transfer the freed
+        quota (a journaled ``quota`` record) and admit the submitter.
+        None when the plan went stale (capacity moved meanwhile; the
+        caller falls back to the queue)."""
+        evicted: Dict[object, int] = {}
+        for jb, r in plan:
+            if self.evict_rank(r, f"preempted by class {cls} job {job_id}",
+                               job=jb):
+                evicted[jb] = evicted.get(jb, 0) + 1
+        if not evicted:
+            return None
+        with self._lock:
+            for jb, cnt in evicted.items():
+                jb.quota = max(1, jb.quota - cnt)
+                jb.preempted += cnt
+                self._wal("quota", quota=jb.quota, preempted=jb.preempted,
+                          _job=jb)
+                self.sched_preemptions[jb.sched_class] = \
+                    self.sched_preemptions.get(jb.sched_class, 0) + cnt
+            if not self._fits_locked(n):
+                return None
+            self._open_job_locked(job_id, n, elastic, cls, weight)
+            self.submit_admitted_total += 1
+        total = sum(evicted.values())
+        print(f"[tracker] admitted class {cls} job {job_id} by preempting "
+              f"{total} rank(s) from "
+              f"{', '.join(sorted(jb.job_id for jb in evicted))}",
+              file=sys.stderr, flush=True)
+        return {"ok": 1, "job": job_id, "preempted": total}
+
+    def _open_job_locked(self, job_id: str, nworkers: int, elastic: bool,
+                         sched_class: int = 0, weight: float = 1.0):
+        """Create and journal a job (caller holds the lock and checked it
+        fits). The scheduler's fields ride ``job_open`` only when not at
+        their defaults, as the JAX tracker writes it."""
+        job = _jobs_mod.JobState(job_id, nworkers, elastic=elastic,
+                                 sched_class=sched_class,
+                                 sched_weight=weight)
+        extra = {}
+        if sched_class:
+            extra["sched_class"] = int(sched_class)
+        if weight != 1.0:
+            extra["weight"] = float(weight)
+        self._wal("job_open", job=job_id, nworkers=int(nworkers),
+                  elastic=bool(elastic), **extra)
+        self._jobs[job_id] = job
+        self._job_contact[job_id] = time.monotonic()
+        return job
+
+    def _close_job_locked(self, job, reason: str) -> None:
+        """Close ``job`` (journaled; caller holds the lock) and reap its
+        epoch stores: a closed job's stores have no client left, and no
+        other job's store is touched."""
+        if not job.open:
+            return
+        self._wal("job_close", job=job.job_id, reason=reason)
+        job.close(reason)
+        job._stores = []
+        # one sample of the drain rate a close: the retry hint is measured
+        self._drain_t.append(time.monotonic())
+
+    def _admit_queued_locked(self) -> List[str]:
+        """Admit queued submissions in strict FIFO order while the head
+        fits; a head too big blocks the queue (a small job never starves
+        a big one). Caller holds the lock. The admitted job ids."""
+        admitted = []
+        while True:
+            head = self._admission.peek()
+            if head is None or not self._fits_locked(head["nworkers"]):
+                break
+            self._admission.pop_front()
+            self._open_job_locked(head["job"], head["nworkers"],
+                                  head["elastic"],
+                                  int(head.get("sched_class", 0)),
+                                  float(head.get("weight", 1.0)))
+            admitted.append(head["job"])
+        return admitted
+
+    def _reap_orphans(self) -> List[str]:
+        """Close the open jobs no live worker is behind, freeing their
+        admission slots: a job a resume re-adopted whose tasks made no
+        contact within the resume grace (``"orphaned"``), and, with
+        ``RABIT_JOB_FORMING_TIMEOUT_MS``, a job with no rank, no pending
+        registration and no contact for that long (``"forming
+        timeout"``). Queued submissions take the freed capacity. The
+        reaped job ids."""
+        reaped: List[tuple] = []
+        admitted: List[str] = []
+        with self._lock:
+            if self._orphan_jobs and not self.in_resume_grace():
+                for jid in sorted(self._orphan_jobs):
+                    jb = self._jobs.get(jid)
+                    if jb is not None and jb.open:
+                        self._close_job_locked(jb, "orphaned")
+                        reaped.append((jid, "no contact since resume"))
+                self._orphan_jobs.clear()
+            t_ms = forming_timeout_ms()
+            if t_ms:
+                now = time.monotonic()
+                for jid, jb in list(self._jobs.items()):
+                    if (jid != DEFAULT_JOB and jb.open and not jb._ranks
+                            and not jb._pending
+                            and now - self._job_contact.get(jid, now)
+                            > t_ms / 1e3):
+                        self._close_job_locked(jb, "forming timeout")
+                        reaped.append((jid, f"forming > {t_ms} ms"))
+            if reaped:
+                admitted = self._admit_queued_locked()
+        for jid, why in reaped:
+            print(f"[tracker] reaped orphaned job {jid} ({why})",
+                  file=sys.stderr, flush=True)
+        for jid in admitted:
+            print(f"[tracker] admitted queued job {jid}", file=sys.stderr,
+                  flush=True)
+        return [jid for jid, _ in reaped]
+
+    def _job_complete(self, job) -> None:
+        """Every live rank of ``job`` sent shutdown: print its fleet
+        table, close it, admit queued jobs into the freed capacity, and
+        end the tracker only when nothing else runs or waits (with
+        multi-job off: at once, as a single-job tracker ends)."""
+        self.print_fleet_metrics(job)
+        if not self.multi_job:
+            self._done.set()
+            return
+        with self._lock:
+            self._close_job_locked(job, "complete")
+            admitted = self._admit_queued_locked()
+            still_open = self._open_jobs_locked()
+            queue_empty = self._admission.peek() is None
+        for jid in admitted:
+            print(f"[tracker] admitted queued job {jid}", file=sys.stderr,
+                  flush=True)
+        if job is self._default and not still_open and queue_empty:
+            self._done.set()
+
+    # -- registration -----------------------------------------------------------
+    def _register(self, conn, job, task_id: str, host: str, port: int,
                   flags: int, token: str, join: bool = False) -> None:
-        """Park the registration in ``_pending``; whichever registration
-        (or eviction) completes the batch serves everyone via
-        ``_assign``. A parked joiner's thread waits on the condition
+        """Park the registration in its job's ``_pending``; whichever
+        registration (or eviction) completes the batch serves everyone
+        via ``_assign``. A parked joiner's thread waits on the condition
         until a formation adopts it, or bounces it after
         ``rabit_join_grace_ms`` (the joiner retries)."""
         grace_s: Optional[float] = None
         with self._cv:
-            if task_id not in self._ranks:
-                rank = len(self._ranks)
-                if self.elastic and rank >= self.nworkers \
-                        and self._member.evicted:
+            if task_id not in job._ranks:
+                rank = len(job._ranks)
+                if job.elastic and rank >= job.nworkers \
+                        and job._member.evicted:
                     # replacement hardware arrives under a NEW task id:
                     # it adopts the lowest vacated stable rank, so the
                     # world can grow back to its target (and the newcomer
                     # inherits that rank's checkpoint shard directory)
-                    rank = min(self._member.evicted)
-                self._wal("assign", task=task_id, rank=rank)
-                self._ranks[task_id] = rank
-            rank = self._ranks[task_id]
-            if rank >= self.nworkers:
+                    rank = min(job._member.evicted)
+                self._wal("assign", task=task_id, rank=rank, _job=job)
+                job._ranks[task_id] = rank
+            rank = job._ranks[task_id]
+            if rank >= job.nworkers:
                 self._close(conn)
                 return
-            if self.elastic:
-                m = self._member
+            if job.elastic:
+                m = job._member
                 if join or rank in m.evicted or \
                         (m.live and rank not in m.live):
                     # (re-)admission: parked until the epoch boundary; a
                     # joiner never perturbs a world in flight
-                    self._wal("park", rank=rank)
+                    self._wal("park", rank=rank, _job=job)
                     m.park(rank)
                     grace_s = _membership.join_grace_ms() / 1e3 or None
-            self._shutdown_ranks.discard(rank)
-            prev = self._pending.get(rank)
-            self._pending[rank] = (conn, host, port, flags, token)
-            got = self._try_complete_batch_locked()
+            job._shutdown_ranks.discard(rank)
+            prev = job._pending.get(rank)
+            job._pending[rank] = (conn, host, port, flags, token)
+            got = self._try_complete_batch_locked(job)
         if prev is not None and prev[0] is not conn:
             # a re-registration superseded a still-parked connection
             self._close(prev[0])
         if got is not None:
-            self._assign(*got)
+            self._assign(job, *got)
             return
         if grace_s is not None:
-            self._park_joiner(conn, rank, grace_s)
+            self._park_joiner(job, conn, rank, grace_s)
 
-    def _park_joiner(self, conn, rank: int, grace_s: float) -> None:
+    def _park_joiner(self, job, conn, rank: int, grace_s: float) -> None:
         """Hold a parked joiner's connection until a formation adopts it
         (or a re-registration supersedes it); after ``grace_s`` close it
         rather than hold the socket open forever."""
         deadline = time.monotonic() + grace_s
         with self._cv:
             while True:
-                pend = self._pending.get(rank)
+                pend = job._pending.get(rank)
                 if pend is None or pend[0] is not conn:
                     return   # adopted (or superseded) in time
                 left = deadline - time.monotonic()
                 if left <= 0 or self._done.is_set():
                     break
                 self._cv.wait(left)
-            del self._pending[rank]
+            del job._pending[rank]
         self._close(conn)
 
-    def _expected_ranks(self) -> set:
-        """Ranks the current registration batch must contain before it
-        forms (caller holds the lock): the fixed world, or, elastic, the
-        survivors of the last formed world plus the parked joiners."""
-        if self.elastic:
-            return self._member.expected()
-        return set(range(self.nworkers))
+    @staticmethod
+    def _expected_ranks(job) -> set:
+        """Ranks the job's current registration batch must contain
+        before it forms (caller holds the lock): the fixed world, or,
+        elastic, the survivors of the last formed world plus the parked
+        joiners."""
+        if job.elastic:
+            return job._member.expected()
+        return set(range(job.nworkers))
 
-    def _try_complete_batch_locked(self) -> Optional[tuple]:
-        """``(batch, epoch, admitted)`` when every expected rank is
-        pending, else None. Caller holds the lock and, on success, runs
-        ``_assign`` outside it. An eviction can complete a batch too:
-        survivors re-register and wait for a dead rank until it leaves
-        the expected set."""
-        expected = self._expected_ranks()
-        if not expected or not expected <= set(self._pending):
+    def _try_complete_batch_locked(self, job) -> Optional[tuple]:
+        """``(batch, epoch, admitted)`` when every expected rank of the
+        job is pending, else None. Caller holds the lock and, on success,
+        runs ``_assign`` outside it. An eviction can complete a batch
+        too: survivors re-register and wait for a dead rank until it
+        leaves the expected set."""
+        expected = self._expected_ranks(job)
+        if not expected or not expected <= set(job._pending):
             return None
-        batch = {r: self._pending.pop(r) for r in sorted(expected)}
-        self._wal("epoch", epoch=self._epoch + 1, members=sorted(batch))
-        self._epoch += 1
-        admitted = (sorted(self._member.formed(batch)) if self.elastic
+        batch = {r: job._pending.pop(r) for r in sorted(expected)}
+        self._wal("epoch", epoch=job._epoch + 1, members=sorted(batch),
+                  _job=job)
+        job._epoch += 1
+        job.mark_live()
+        admitted = (sorted(job._member.formed(batch)) if job.elastic
                     else [])
         self._cv.notify_all()
-        return batch, self._epoch, admitted
+        return batch, job._epoch, admitted
 
     # -- elastic membership ---------------------------------------------------
-    def membership_doc(self) -> dict:
-        """The ``world`` command's payload: the live membership view, or
-        a static fixed-world doc when elastic is off (so the command
-        always answers: a worker probing an inelastic tracker learns the
-        world is fixed rather than timing out)."""
+    def membership_doc(self, job=None) -> dict:
+        """The ``world`` command's payload of ``job`` (None: the default
+        job): the live membership view, or a static fixed-world doc when
+        elastic is off (so the command always answers: a worker probing
+        an inelastic tracker learns the world is fixed rather than timing
+        out)."""
+        if job is None:
+            job = self._default
         with self._lock:
-            if self.elastic:
-                return self._member.doc(self._epoch)
-            return {"epoch": self._epoch, "world": self.nworkers,
-                    "target": self.nworkers,
-                    "live": list(range(self.nworkers)), "evicted": [],
+            if job.elastic:
+                return job._member.doc(job._epoch)
+            return {"epoch": job._epoch, "world": job.nworkers,
+                    "target": job.nworkers,
+                    "live": list(range(job.nworkers)), "evicted": [],
                     "joining": [], "generation": 0, "elastic": False}
 
-    def _note_transition(self, kind: str, rank: int, detail: str) -> None:
+    def _note_transition(self, kind: str, rank: int, detail: str,
+                         job=None) -> None:
         """Make a membership transition observable: a counter, a
         zero-length ``membership.transition`` span, a flight note naming
         the rank (a post-mortem bundle shows WHY the world resized) and a
-        fleet event of the one job."""
+        fleet event of its job."""
         from .. import telemetry
         from ..telemetry import flight
+        if job is None:
+            job = self._default
+        jtag = (f" job {job.job_id}"
+                if self.multi_job and job.job_id != DEFAULT_JOB else "")
         telemetry.count(f"membership.{kind}", provenance="membership")
         telemetry.record_span("membership.transition", 0.0, op=kind,
                               provenance="membership", rank=rank,
                               detail=detail)
-        flight.note(f"member_{kind}", f"rank {rank}: {detail}")
-        self._fleet_emit(f"membership.{kind}", detail, job=DEFAULT_JOB,
+        flight.note(f"member_{kind}", f"rank {rank}:{jtag} {detail}")
+        self._fleet_emit(f"membership.{kind}", detail, job=job.job_id,
                          rank=rank)
-        print(f"[tracker] membership: {kind} rank {rank} ({detail})",
+        print(f"[tracker] membership:{jtag} {kind} rank {rank} ({detail})",
               file=sys.stderr, flush=True)
 
-    def evict_rank(self, rank: int, reason: str = "") -> bool:
-        """Evict ``rank`` from the live job (the ``evict`` command, or
-        the poll loop's silent-endpoint evidence). The rank leaves the
-        expected set at once, so survivors already waiting in
-        re-registration form their N-1 batch now instead of waiting out
-        the ready timeout on a dead peer. False unless elastic, in range
-        and not already out."""
-        if not self.elastic or not 0 <= int(rank) < self.nworkers:
+    def evict_rank(self, rank: int, reason: str = "", job=None) -> bool:
+        """Evict ``rank`` from ``job`` (None: the default job; the
+        ``evict`` command, the poll loop's silent-endpoint evidence, a
+        preemption). The rank leaves the expected set at once, so
+        survivors already waiting in re-registration form their N-1
+        batch now instead of waiting out the ready timeout on a dead
+        peer. A job whose every member is gone has failed, inside its own
+        fault domain. False unless elastic, in range and not already
+        out."""
+        if job is None:
+            job = self._default
+        if not job.elastic or not 0 <= int(rank) < job.nworkers:
             return False
         rank = int(rank)
         with self._cv:
-            if rank in self._member.evicted:
+            if rank in job._member.evicted:
                 return False
-            self._wal("evict", rank=rank, reason=reason)
-            if not self._member.evict(rank):
+            self._wal("evict", rank=rank, reason=reason, _job=job)
+            if not job._member.evict(rank):
                 return False
-            pend = self._pending.pop(rank, None)
-            got = self._try_complete_batch_locked()
+            pend = job._pending.pop(rank, None)
+            got = self._try_complete_batch_locked(job)
+            if job.open and not job._member.live:
+                job.mark_failed()
             self._cv.notify_all()
-        self._note_transition("evict", rank, reason or "evicted")
+        self._note_transition("evict", rank, reason or "evicted", job)
         if pend is not None:
             self._close(pend[0])
         if got is not None:
-            self._assign(*got)
+            self._assign(job, *got)
         return True
 
     # -- the epoch's rendezvous store -----------------------------------------
-    def _new_store(self, epoch: int, members) -> Tuple[str, int]:
-        """Start this epoch's rendezvous store on a fresh port;
-        ``members`` are the stable ranks of the epoch's batch."""
+    def _new_store(self, job, epoch: int, members) -> Tuple[str, int]:
+        """Start the job's store of this epoch on a fresh port; ``members``
+        are the stable ranks of the epoch's batch."""
         import torch.distributed as dist
         store = dist.TCPStore(self.host, 0, is_master=True,
                               wait_for_workers=False,
                               timeout=datetime.timedelta(seconds=300))
         with self._lock:
-            self._stores.append((epoch, store, frozenset(members)))
+            job._stores.append((epoch, store, frozenset(members)))
         return self.host, store.port
 
-    def _reap_old_stores(self, acked_epoch: int) -> None:
-        """Once every member of ``acked_epoch`` acked it, drop each older
-        store whose members have all acked a newer epoch: a worker drops
-        its torch world before it acks (the data plane's teardown
-        sentinel), so no client of such a store is left. A member evicted
-        while its process lives on (the in-process ``resize("join")``)
-        keeps the world of its last epoch, and with it a client of that
-        epoch's store, until its own re-registration tears the world
-        down; so that store stays until the member has acked a newer
-        epoch. In a fixed world every batch holds every rank, and this
-        drops every store older than ``acked_epoch``. Keeps the store
-        count bounded whatever the number of recoveries."""
+    def _reap_old_stores(self, job, acked_epoch: int) -> None:
+        """Once every member of the job's ``acked_epoch`` acked it, drop
+        each older store of the job whose members have all acked a newer
+        epoch: a worker drops its torch world before it acks (the data
+        plane's teardown sentinel), so no client of such a store is left.
+        A member evicted while its process lives on (the in-process
+        ``resize("join")``) keeps the world of its last epoch, and with it
+        a client of that epoch's store, until its own re-registration
+        tears the world down; so that store stays until the member has
+        acked a newer epoch. In a fixed world every batch holds every
+        rank, and this drops every store older than ``acked_epoch``. Keeps
+        the store count bounded whatever the number of recoveries; no
+        other job's store is touched."""
         with self._lock:
-            self._stores = [
-                (e, st, members) for e, st, members in self._stores
+            job._stores = [
+                (e, st, members) for e, st, members in job._stores
                 if e >= acked_epoch or
-                any(self._acked.get(r, 0) <= e for r in members)]
+                any(job._acked.get(r, 0) <= e for r in members)]
 
-    def _assign(self, batch: Dict[int, tuple], epoch: int,
+    def _assign(self, job, batch: Dict[int, tuple], epoch: int,
                 admitted=()) -> None:
         for r in admitted:
-            self._note_transition("admit", r, f"joined at epoch {epoch}")
+            self._note_transition("admit", r, f"joined at epoch {epoch}",
+                                  job)
         # an elastic world may be holey in STABLE rank space (rank 1 of
         # {0, 2, 3} is gone): the schedules are built over dense SLOTS,
         # and the wire's rank carries the slot. A fixed world's batch is
@@ -1759,7 +2488,7 @@ class Tracker:
         want_store = any(f & FLAG_DATAPLANE
                          for (c, h, p, f, tok) in batch.values())
         try:
-            coord_host, coord_port = (self._new_store(epoch, batch)
+            coord_host, coord_port = (self._new_store(job, epoch, batch)
                                       if want_store else ("", 0))
         except (RuntimeError, OSError) as e:
             # a silent failure here would hang every worker in this batch;
@@ -1788,8 +2517,8 @@ class Tracker:
                 "delegates": [min(g) for g in groups],
                 "single_host": single_host}
         with self._lock:
-            self._wal("topo", doc=topo)
-            self._topo = topo
+            self._wal("topo", doc=topo, _job=job)
+            job._topo = topo
 
         for rank in sorted(conns):
             parent, children = tree_neighbors(rank, world)
@@ -1834,9 +2563,10 @@ class Tracker:
                       flush=True)
         stable = {s: r for r, s in slot_of.items()}
         threading.Thread(target=self._await_acks,
-                         args=(conns, epoch, stable), daemon=True).start()
+                         args=(job, conns, epoch, stable),
+                         daemon=True).start()
 
-    def _await_acks(self, conns: Dict[int, socket.socket], epoch: int,
+    def _await_acks(self, job, conns: Dict[int, socket.socket], epoch: int,
                     stable: Dict[int, int]) -> None:
         """The ready-ack barrier (``conns`` by slot, ``stable`` maps a
         slot to its stable rank). A worker dying before its ack is
@@ -1850,8 +2580,8 @@ class Tracker:
                 conn.settimeout(max(0.0, deadline - time.monotonic()))
                 _recv_all(conn, 4)
                 with self._lock:
-                    self._acked[stable[rank]] = max(
-                        epoch, self._acked.get(stable[rank], 0))
+                    job._acked[stable[rank]] = max(
+                        epoch, job._acked.get(stable[rank], 0))
             except (ConnectionError, OSError) as e:
                 all_acked = False
                 if not self.crashed:
@@ -1863,7 +2593,7 @@ class Tracker:
         if all_acked and not self.crashed:
             # a crashed tracker reaps nothing: its stores stay as a kill
             # leaves them
-            self._reap_old_stores(epoch)
+            self._reap_old_stores(job, epoch)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -1871,8 +2601,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     transition; ``--resume <wal_dir>`` replays it and re-adopts a live
     world after a crash: pin ``--host``/``--port`` to the dead tracker's
     address, so the environment the workers were launched with stays
-    valid. Elastic membership follows ``RABIT_ELASTIC``, the live plane
-    ``RABIT_METRICS_PORT``."""
+    valid. ``--multi-job`` serves many fault-isolated jobs: workers name
+    their job in their task id (``<job>/<task>``) and launchers
+    ``submit`` (``launch --submit``). Elastic membership follows
+    ``RABIT_ELASTIC``, the live plane ``RABIT_METRICS_PORT``."""
     import argparse
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("-n", "--num-workers", type=int, required=True)
@@ -1883,10 +2615,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "(also RABIT_TRACKER_WAL_DIR)")
     ap.add_argument("--resume", metavar="WAL_DIR", default=None,
                     help="replay WAL_DIR and re-adopt the live world")
+    ap.add_argument("--multi-job", action="store_true",
+                    help="serve many fault-isolated jobs on this one "
+                         "tracker (also RABIT_MULTI_JOB=1)")
     args = ap.parse_args(argv)
     tr = Tracker(args.num_workers, host=args.host, port=args.port,
                  wal_dir=args.resume or args.wal_dir,
-                 resume=args.resume is not None).start()
+                 resume=args.resume is not None,
+                 multi_job=True if args.multi_job else None).start()
     print(f"[tracker] listening on {tr.host}:{tr.port}", file=sys.stderr,
           flush=True)
     try:

@@ -754,8 +754,8 @@ def inspect_journal(root: str) -> Dict[str, Any]:
 def inspect_dir(wal_dir: str) -> Dict[str, Any]:
     """Inspect a tracker WAL directory tree: the root journal plus
     every per-job namespace underneath it (``<wal_dir>/<job_id>/``, which
-    the JAX package's multi-job tracker writes) and the standby's replica
-    when present."""
+    a multi-job tracker writes) and the standby's replica when
+    present."""
     out: Dict[str, Any] = {"root": None, "jobs": {}}
     if os.path.exists(os.path.join(wal_dir, LOG_NAME)):
         out["root"] = inspect_journal(wal_dir)

@@ -270,7 +270,9 @@ def test_import_leaves_out_jax_and_rabit_tpu():
         "'rabit_tpu_torch.chaos.schedule', 'rabit_tpu_torch.chaos.proxy', "
         "'rabit_tpu_torch.telemetry.incident', "
         "'rabit_tpu_torch.tools.trace_report', "
-        "'rabit_tpu_torch.tools.bench_sentinel'}\n"
+        "'rabit_tpu_torch.tools.bench_sentinel', "
+        "'rabit_tpu_torch.tracker.jobs', "
+        "'rabit_tpu_torch.tracker.autoscaler'}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -318,7 +320,8 @@ def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
     of the hot standby and the chaos plane (``tracker/standby.py``,
     ``chaos/*``) and of the incident plane and the post-mortem tools
     (``telemetry/incident.py``, ``tools/trace_report.py``,
-    ``tools/bench_sentinel.py``), by name (the package scan above covers
+    ``tools/bench_sentinel.py``) and of the multi-job control plane
+    (``tracker/jobs.py``, ``tracker/autoscaler.py``), by name (the package scan above covers
     the package too), and the port's own test workers."""
     new = [PKG / "utils" / "log.py", PKG / "utils" / "retry.py",
            PKG / "engine" / "ckpt_store.py", PKG / "engine" / "_native_build.py",
@@ -345,5 +348,7 @@ def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
     new += [PKG / "telemetry" / "incident.py",
             PKG / "tools" / "trace_report.py",
             PKG / "tools" / "bench_sentinel.py"]
+    new += [PKG / "tracker" / "jobs.py", PKG / "tracker" / "autoscaler.py",
+            ROOT / "tests" / "workers" / "torch_multijob_worker.py"]
     assert all(p.is_file() for p in new)
     assert _jax_imports(new) == []

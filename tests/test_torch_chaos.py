@@ -442,19 +442,48 @@ def test_proxy_retarget_swaps_upstream():
         b.close()
 
 
-def test_a_job_storm_rule_raises_at_start():
-    srv = _echo_server()
+def test_a_job_storm_rule_raises_at_start(monkeypatch):
+    """A ``job_storm`` rule no longer raises at start: the proxy fires it
+    at its window against the multi-job tracker it fronts, through a
+    bounded pool, and the rogues' traffic and verdicts are the JAX
+    package's (one at a time, so the verdicts do not hang on arrival
+    order): the same submits, half-open registrations and verdicts."""
+    from rabit_tpu.chaos import proxy as jax_proxy
+    from rabit_tpu.tracker.tracker import Tracker as JaxTracker
+    from rabit_tpu_torch.tracker.tracker import Tracker as PortTracker
+    monkeypatch.setenv("RABIT_MULTI_JOB", "1")
+    monkeypatch.setenv("RABIT_MAX_JOBS", "2")
+    monkeypatch.setenv("RABIT_ADMISSION_QUEUE", "2")
+    assert port_proxy._STORM_POOL_MAX == jax_proxy._STORM_POOL_MAX
+    tallies = []
+    for mod, cls in ((port_proxy, PortTracker), (jax_proxy, JaxTracker)):
+        tr = cls(2).start()
+        try:
+            rule = mod.Rule("job_storm", window_s=(0, 1), burst=24)
+            tally = mod.run_job_storm(tr.host, tr.port, rule, 7, pool=1)
+            tally["verdicts"] = [{k: x for k, x in v.items() if k != "hlc"}
+                                 for v in tally["verdicts"]]
+            tallies.append(tally)
+        finally:
+            tr.stop()
+    assert tallies[0] == tallies[1]
+    assert tallies[0]["submits"] == tallies[0]["half_open"] == 12
+    assert tallies[0]["errors"] == 0
+    # through the proxy: the storm fires at its window
+    tr = PortTracker(2).start()
     try:
-        sched = Schedule([Rule("job_storm", window_s=(0, 1))])
-        proxy = ChaosProxy(*srv.getsockname(), sched)
-        with pytest.raises(NotImplementedError, match="job_storm"):
-            proxy.start()
-        # nothing listens: the proxy did not half start
-        with pytest.raises(OSError):
-            socket.create_connection((proxy.host, proxy.port), timeout=1)
-        assert not hasattr(port_proxy, "run_job_storm")
+        sched = Schedule([Rule("job_storm", window_s=(0, 5), burst=16)])
+        proxy = ChaosProxy(tr.host, tr.port, sched).start()
+        try:
+            assert _wait(lambda: proxy.storm_results)
+            proxy.join_storms()
+            (tally,) = proxy.storm_results
+            assert tally["opened"] == 16 and tally["submits"] == 8
+            assert [e[1] for e in proxy.events] == ["job_storm"]
+        finally:
+            proxy.stop()
     finally:
-        srv.close()
+        tr.stop()
 
 
 def _drive(mod, sched_spec, conns):

@@ -304,7 +304,8 @@ def test_json_replies_are_unchanged_with_the_plane_off(cmd):
                 want = {"topo": _TOPO, "skew": _SKEW,
                         "world": tr.membership_doc()}[cmd]
                 assert replies[-1] == json.dumps(want).encode()
-                assert set(tr._live_routes()) == {"/straggler", "/slo"}
+                assert set(tr._live_routes()) == {"/straggler", "/jobs",
+                                                  "/slo"}
                 names = {g[0] for g in tr._live_gauges()}
                 assert not names & {"rabit_open_incidents",
                                     "rabit_events_dropped_total"}

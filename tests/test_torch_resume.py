@@ -361,7 +361,8 @@ def test_journaling_rule_holds_on_the_port_tracker():
                      if isinstance(n, ast.Call)
                      and isinstance(n.func, ast.Attribute)}
             assert not adds or "_wal" in calls, node.name
-    broken = src.replace('            self._wal("topo", doc=topo)\n', "")
+    broken = src.replace('            self._wal("topo", doc=topo, _job=job)\n',
+                         "")
     assert broken != src
     issues = lint._r003_issues(lint.R003_FILE, ast.parse(broken))
     assert [i[2] for i in issues] == ["R003"] and "'_assign'" in issues[0][3]

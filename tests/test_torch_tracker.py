@@ -212,8 +212,6 @@ def test_print_topo_shutdown_and_unknown_commands():
         conn = _request(addr, "metrics", "t1", "not json")
         assert struct.unpack("<I", _recv_exact(conn, 4))[0] == 0
         assert tr.merged_metrics()["num_ranks"] == 0   # foreign schema
-        conn = _request(addr, "submit", "t0")   # multi-job: not ported
-        assert conn.recv(1) == b""   # closed without an answer
         # resume, without a WAL: the JAX tracker's answer to each request
         # on the same world (a match, a contradiction, an epoch from the
         # future, a new task id on a taken rank, a malformed payload)
@@ -243,6 +241,15 @@ def test_print_topo_shutdown_and_unknown_commands():
                 conn = _request((t.host, t.port), "repl", "follower")
                 assert _recv_exact(conn, 4) == struct.pack("<I", 0)
                 assert conn.recv(1) == b""
+            # submit with multi-job off: the JAX tracker's error verdict
+            verdicts = []
+            for t in (tr, jax_tr):
+                conn = _request((t.host, t.port), "submit", "t0",
+                                json.dumps({"job": "a", "nworkers": 1}))
+                n = struct.unpack("<I", _recv_exact(conn, 4))[0]
+                verdicts.append(json.loads(_recv_exact(conn, n)))
+            assert verdicts[0] == verdicts[1]
+            assert "multi-job disabled" in verdicts[0]["error"]
         finally:
             jax_tr.stop()
         bad = socket.create_connection(addr, timeout=10)

@@ -460,16 +460,23 @@ def test_cross_replay_journals_are_byte_identical(tmp_path, monkeypatch):
 
 
 def test_fold_refuses_what_this_tracker_does_not_serve():
-    """Records of the JAX tracker's multi-job plane raise rather than
-    replay a part of their history. The hot standby's ``lease`` and
-    ``promoted`` records are served since the standby was ported: they
-    fold as the JAX package folds them, and so does a snapshot that holds
-    them."""
-    for kind, data in (("job_open", {"job": "a", "nworkers": 1}),
-                       ("quota", {"quota": 1}),
-                       ("assign", {"task": "t0", "rank": 0, "job": "a"})):
-        with pytest.raises(WalError):
-            port_tracker.fold_records([(kind, data)])
+    """Nothing of the JAX tracker's journal is refused now: the records
+    of its multi-job plane (``job_open``, ``quota``, a job-tagged
+    ``assign``, ``job_close``) fold into the port's job table as the JAX
+    package folds them, and so do the hot standby's ``lease`` and
+    ``promoted`` records and a snapshot that holds any of them."""
+    jobs = [("job_open", {"job": "a", "nworkers": 2, "elastic": True}),
+            ("assign", {"task": "t0", "rank": 0, "job": "a"}),
+            ("quota", {"quota": 1, "preempted": 1, "job": "a"}),
+            ("assign", {"task": "t9", "rank": 0, "job": "torn"}),
+            ("job_open", {"job": "b", "nworkers": 1, "sched_class": 2}),
+            ("job_close", {"job": "b", "reason": "complete"})]
+    fold = port_tracker.fold_records(jobs)
+    assert fold == jax_tracker.fold_records(jobs)
+    assert fold["multi_job"] is True
+    assert fold["jobs"]["a"]["quota"] == 1
+    assert fold["jobs"]["a"]["ranks"] == {"t0": 0}
+    assert fold["jobs"]["b"]["closed"] and fold["jobs"]["torn"]["ranks"]
     standby = [("lease", port_wal.lease_doc("leader", 2000, now_ms=5)),
                ("promoted", {"node": "standby", "wall": 1.5, "mono": 2.5,
                              "failover_ms": 812.25})]
@@ -480,9 +487,9 @@ def test_fold_refuses_what_this_tracker_does_not_serve():
     snap = {"v": port_wal.SNAPSHOT_V, "ts": 0.0, "state": fold}
     assert port_tracker.fold_records([(SNAPSHOT_KIND, snap)]) == fold
     snap = {"v": port_wal.SNAPSHOT_V, "ts": 0.0,
-            "state": {"multi_job": True, "restarts": 0, "jobs": {}}}
-    with pytest.raises(WalError):
-        port_tracker.fold_records([(SNAPSHOT_KIND, snap)])
+            "state": port_tracker.fold_records(jobs)}
+    assert port_tracker.fold_records([(SNAPSHOT_KIND, snap)]) == \
+        jax_tracker.fold_records([(SNAPSHOT_KIND, snap)]) == snap["state"]
 
 
 # ------------------------------------------------ snapshots of a tracker

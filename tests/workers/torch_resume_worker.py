@@ -42,7 +42,8 @@ to exist before round k (the caller writes it once the tracker has been
 resumed).
 
 Each process writes ``RESUME_OUT/r<task>.log`` (the JAX worker's lines)
-and ``RESUME_OUT/r<task>.json``: its rounds with their CRCs, the kernel's
+and ``RESUME_OUT/r<task>.json`` (a multi-job task id ``<job>/<i>`` as
+``<job>_<i>``): its rounds with their CRCs, the kernel's
 launches a round, the outages, ``init``'s seconds, the data plane's
 formations with their ``recovery.world_reform`` spans (under
 ``rabit_telemetry=1``), the card before and after, the epoch, and the
@@ -77,6 +78,8 @@ from rabit_tpu_torch.tracker.tracker import MAGIC  # noqa: E402
 HOST = os.environ["RABIT_TRACKER_URI"]
 PORT = int(os.environ["RABIT_TRACKER_PORT"])
 TASK = os.environ.get("RABIT_TASK_ID", "?")
+# a multi-job task id <job>/<i> names its files <job>_<i>
+TAG = TASK.replace("/", "_")
 OUT = os.environ["RESUME_OUT"]
 ROUNDS = int(os.environ.get("RESUME_ROUNDS", "30"))
 ROUND_SLEEP_S = float(os.environ.get("RESUME_ROUND_SLEEP_MS", "200")) / 1e3
@@ -98,7 +101,7 @@ _exact = {}      # rank -> f64 [bins, 2]
 
 
 def log(msg):
-    with open(os.path.join(OUT, f"r{TASK}.log"), "a") as f:
+    with open(os.path.join(OUT, f"r{TAG}.log"), "a") as f:
         f.write(msg + "\n")
 
 
@@ -261,7 +264,7 @@ def finish():
     DOC["events_on"] = events.enabled()
     DOC["events"] = [{"seq": r["seq"], "kind": r["kind"]}
                      for r in events.snapshot()["records"]]
-    with open(os.path.join(OUT, f"r{TASK}.json"), "w") as f:
+    with open(os.path.join(OUT, f"r{TAG}.json"), "w") as f:
         json.dump(DOC, f)
 
 
