@@ -12,8 +12,10 @@ keeps computing through a tracker crash, the hot standby with the
 chaos front proxy, through which a world computes across the loss of
 its leader with no respawn, the causal incident plane with the
 post-mortem tools, which attribute that loss and a link reset to their
-injected causes, and the multi-job control plane, on which two jobs
-share one tracker and keep their fault domains apart.
+injected causes, the multi-job control plane, on which two jobs
+share one tracker and keep their fault domains apart, and the tracker's
+connection plane, one event loop on which a world computes beside
+thousands of held connections.
 
     python3 chip_smoke.py
 
@@ -417,8 +419,9 @@ Phases (each prints a line; any failure exits non-zero):
                 tracker never restarted, the kernel launched once a round
                 on every B process; a ``job_storm`` of 300 rogue
                 connections (seed 19) at the tracker at B's round 2, its
-                verdicts none admitted, and the tracker's connection
-                threads at the peak; (c) jobs A and B on the torch data
+                verdicts none admitted, the tracker loop's open
+                connections and the process's threads at the peak; (c)
+                jobs A and B on the torch data
                 plane (phase 18's worker, the robust engine), 1 process
                 each on one card (both on card 0; at world 1 no NCCL world
                 forms) or 2 on four (A elastic: its task 1 evicts itself
@@ -426,8 +429,9 @@ Phases (each prints a line; any failure exits non-zero):
                 1 through A's epoch-2 store): every round exact, B's
                 streams bit for bit its solo run's, B at epoch 1
                 throughout, each job's epoch 1 on a store of its own, A's
-                epoch-1 store kept beside epoch 2's for its evicted
-                member until A closes, no store port shared by two jobs,
+                epoch-1 store gone once its survivor acked epoch 2 and its
+                member that left sent its ``shutdown`` (A holds 1 store,
+                as the JAX tracker), no store port shared by two jobs,
                 every store reaped at its job's close, no epoch with two
                 members of one job on one card and A's cards not B's;
                 (d) with ``RABIT_MAX_JOBS=2`` and
@@ -437,13 +441,43 @@ Phases (each prints a line; any failure exits non-zero):
                 by ``launch --submit`` (``submit_blocking``), goes in at
                 B's close and runs B's rounds bit for bit; ``/jobs`` and
                 the admission gauges. Each part prints its seconds.
-22. kernels     one JSON line of every kernel with its main-path launches
+22. conn plane  the tracker's connection plane (``tracker/evloop.py``: one
+                readiness loop and a fixed command pool under the port's
+                tracker, the ``rabit_tracker_open_conns`` and
+                ``rabit_tracker_loop_lag_ms`` gauges;
+                ``tools/tracker_bench.py``; no new kernel): (a) ``python
+                -m rabit_tpu_torch.tracker.evloop --smoke`` and the same of
+                ``tools.tracker_bench``, each in a fresh interpreter that
+                must end with neither ``jax`` nor ``rabit_tpu`` in
+                ``sys.modules``; (b) ``tracker_bench``'s full ladder (0,
+                1000, 5000, 10000 idle connections held by child
+                processes) as far as ``RLIMIT_NOFILE`` allows once raised
+                to its hard limit (the limit and every rung cut, with why,
+                printed), each rung's threads, descriptors, registrations
+                a second, ``world`` p50 and p99, ``open_conns`` and loop
+                lag; the phase fails unless ``bounded_threads``; (c) phase
+                18's worker on the torch data plane (robust engine), 10
+                rounds 200 ms apart of an int64 allreduce of 256 and a
+                histogram of 2^21 x 1024 by the kernel (seed 17), at p =
+                min(4, cards), under the port's launcher with a tracker
+                metrics port, once unloaded and once beside 2000 half-open
+                clients (each sent the magic and part of a command, then
+                nothing) held by a child process against the world's own
+                tracker: every round bit for bit the unloaded run's, the
+                process's threads at the peak at most 4 above the
+                unloaded run's (the bench's ``THREAD_SLACK``),
+                ``rabit_tracker_open_conns`` from ``/metrics`` at least
+                2000 at the peak and falling back once the clients are
+                released, the kernel launched once a round on every
+                process; prints the ``world`` command's p50 and p99 with
+                and without the load.
+23. kernels     one JSON line of every kernel with its main-path launches
                 (and, for the flash kernels, phase 12's and phase 13's; for
                 the histogram, phase 17 (b)'s, null where (b) did not run,
                 phase 18's killed runs', (b)'s null where it did not run,
                 phase 19's runs, (b)'s null where it did not run,
-                phase 20's (b) and (c), and phase 21's (b), (c) and
-                (d)).
+                phase 20's (b) and (c), phase 21's (b), (c) and (d), and
+                phase 22 (c)'s two runs).
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
 phase 6, each run of phase 12, each ring call of phase 13, in its rank's
@@ -451,7 +485,8 @@ process, each run of phase 14 (b)) and read just after it, so a kernel's
 count is its own path's alone: mask_only's is the sweep's. Phase 11's
 histogram launches are counted in its workers, each a fresh process (so
 from 0), and printed there; phases 17's, 18's and 19's in their
-workers, a launch a round a member, and phases 20's and 21's likewise.
+workers, a launch a round a member, and phases 20's, 21's and 22's
+likewise.
 The last line is the device JSON.
 Without CUDA, or without the package beside this file, the script exits
 non-zero and prints no result.
@@ -4016,10 +4051,10 @@ def _resume_checks(p: int, base: dict, docs: dict, stats: dict,
         raise AssertionError(f"resume: membership {member}")
     launches, cards = _stream_checks(p, base, docs, elastic, device)
     kinds = [k for k, _ in WriteAheadLog(str(wal_dir)).replay()]
-    # the evicted task leaves without a shutdown
+    # every task shuts down, the evicted one as it leaves
     downs = kinds.count("down")
     if kinds.count("resume") != 1 or "epoch" not in kinds or \
-            "topo" not in kinds or downs != (p - 1 if elastic else p):
+            "topo" not in kinds or downs != p:
         raise AssertionError(f"resume: journal kinds {kinds}")
     return {"launches": launches, "cards": cards,
             "kinds": {k: kinds.count(k) for k in sorted(set(kinds))}}
@@ -4255,13 +4290,12 @@ def _failover_checks(p: int, mode: str, base: dict, docs: dict,
         raise AssertionError(f"failover ({mode}): membership {member}")
     launches, cards = _stream_checks(p, base, docs, elastic, device)
     # the promoted tracker's journal: the replicated formation, the
-    # promotion, then every shutdown, which the native core's finalize
-    # sends to the address it was launched with: the retargeted proxy
+    # promotion, then every shutdown (the evicted task's as it leaves),
+    # sent to the address the task was launched with: the retargeted proxy
     kinds = [k for k, _ in WriteAheadLog(str(wal_dir / "standby")).replay()]
     after = kinds[kinds.index("promoted"):] if "promoted" in kinds else []
-    downs = p - 1 if elastic else p
     if not {"assign", "lease", "epoch"} <= set(kinds) or \
-            kinds.count("promoted") != 1 or after.count("down") != downs:
+            kinds.count("promoted") != 1 or after.count("down") != p:
         raise AssertionError(f"failover ({mode}): standby journal {kinds}")
     if elastic and "evict" not in after:
         raise AssertionError(f"failover ({mode}): the eviction was not "
@@ -4873,8 +4907,8 @@ def _stream(doc: dict) -> list:
 
 def _storm_at(tr, out: Path, res: dict) -> threading.Thread:
     """Once B's task 0 logged round 2, one ``job_storm`` of
-    ``JOBS_STORM`` at the tracker, the tracker process's threads sampled
-    every 2 ms while it lasts."""
+    ``JOBS_STORM`` at the tracker, the process's threads and the tracker
+    loop's open connections sampled every 2 ms while it lasts."""
     from rabit_tpu_torch.chaos.proxy import run_job_storm
     from rabit_tpu_torch.chaos.schedule import Rule
 
@@ -4885,9 +4919,8 @@ def _storm_at(tr, out: Path, res: dict) -> threading.Thread:
                 log.read_text() if log.exists() else ""):
             time.sleep(0.02)
         def conns():
-            # the tracker's connection threads (a thread a connection)
-            return sum(1 for t in threading.enumerate()
-                       if t.name.endswith("(_handle)"))
+            # the connections the tracker's event loop holds
+            return tr._loop.open_conns
 
         base = threading.active_count()
         peak = [base, conns()]
@@ -4911,7 +4944,7 @@ def _storm_at(tr, out: Path, res: dict) -> threading.Thread:
         s.join()
         res.update(threads_before=base, threads_peak=peak[0],
                    threads_after=threading.active_count(),
-                   conn_threads_peak=peak[1],
+                   open_conns_peak=peak[1],
                    submits=tally["submits"], half_open=tally["half_open"],
                    errors=tally["errors"],
                    admitted=sum(1 for v in tally["verdicts"]
@@ -5044,6 +5077,8 @@ class _StoreWatch:
     def __init__(self, tr, jobs):
         self.tr, self.jobs = tr, jobs
         self.seen = {j: set() for j in jobs}     # (epoch, count)
+        self.span = {j: {} for j in jobs}        # (epoch, count) -> s, s
+        self.last = {j: None for j in jobs}      # the last (epoch, count)
         self.ports = {j: set() for j in jobs}    # (store epoch, port)
         self.opened = {}                         # job -> first seen, s
         self.closed = {}
@@ -5064,7 +5099,10 @@ class _StoreWatch:
                     if not jb.open:
                         self.closed.setdefault(j, now)
                         continue
-                    self.seen[j].add((jb._epoch, len(jb._stores)))
+                    key = (jb._epoch, len(jb._stores))
+                    self.seen[j].add(key)
+                    self.span[j].setdefault(key, [now, now])[1] = now
+                    self.last[j] = key
                     self.ports[j] |= {(e, st.port) for e, st, _ in jb._stores}
             time.sleep(0.02)
 
@@ -5165,17 +5203,18 @@ def _jobs_stores_and_admission(tmp: Path, solo_b: dict,
                              f"{end}")
     # while open, each job hosts the store of its epoch 1 alone (none
     # between the epoch's count and its store's start); at A's epoch 2 the
-    # epoch-1 store stays beside epoch 2's: its evicted member leaves
-    # without acking a newer epoch, and a store is reaped only once every
-    # member of its epoch has (tracker.py::_reap_old_stores); every
-    # store of a job is gone at its close, and no port is two jobs'
+    # epoch-1 store stays beside epoch 2's only until the survivor acked
+    # epoch 2 and the member that left sent its shutdown
+    # (tracker.py::_reap_old_stores): then A holds the one store the JAX
+    # tracker holds; every store of a job is gone at its close, and no
+    # port is two jobs'
     by_epoch = {j: {e: {c for e2, c in watch.seen[j] if e2 == e}
                     for e in {e for e, _ in watch.seen[j]}} for j in "ABC"}
     ports = {j: {pt for _e, pt in watch.ports[j]} for j in "ABC"}
     want_a2 = {1, 2} if four else None
     if any(by_epoch[j].get(1) not in ({1}, {0, 1}) for j in "ABC") or \
             by_epoch["A"].get(2, set()) - (want_a2 or set()) or \
-            (four and 2 not in by_epoch["A"][2]) or \
+            (four and watch.last["A"] != (2, 1)) or \
             ports["A"] & ports["B"] or ports["B"] & ports["C"] or \
             ports["A"] & ports["C"] or any(counts.values()) or \
             solo_stores or len(watch.ports["B"]) != 1:
@@ -5195,6 +5234,9 @@ def _jobs_stores_and_admission(tmp: Path, solo_b: dict,
             "stores": {j: {e: sorted(cs) for e, cs in sorted(
                 by_epoch[j].items())} for j in "ABC"},
             "store_ports": {j: sorted(watch.ports[j]) for j in "ABC"},
+            # how long A held two stores at epoch 2, by the 20 ms sampler
+            "a_two_stores_s": (lambda sp: None if sp is None else round(
+                sp[1] - sp[0], 3))(watch.span["A"].get((2, 2))),
             "formations": formations, "member": end["A"]["live"],
             "launches": launches["c"], "docs": end}, {
         "c": c_verdict, "d": d_verdict, "verdict_ms": verdict_ms,
@@ -5251,8 +5293,8 @@ def phase_jobs(power: str) -> dict:
               f"connections (seed {JOBS_STORM['seed']}) at B's round 2: "
               f"{st['submits']} submits (none admitted), {st['half_open']} "
               f"half-open registrations, {st['errors']} errors in "
-              f"{st['storm_s']} s; the tracker's connection threads at "
-              f"the peak {st['conn_threads_peak']}; the process's threads "
+              f"{st['storm_s']} s; the tracker loop's open connections at "
+              f"the peak {st['open_conns_peak']}; the process's threads "
               f"{st['threads_before']} before, {st['threads_peak']} at the "
               f"peak (the storm's own pool of 16 among them), "
               f"{st['threads_after']} after; admission queued "
@@ -5270,8 +5312,10 @@ def phase_jobs(power: str) -> dict:
           f"epoch 1 throughout, epochs seen A {c['epochs']['A']} B "
           f"{c['epochs']['B']}; the store counts seen by job and epoch "
           f"while open {c['stores']}"
-          + (" (A's epoch-1 store kept beside epoch 2's for its evicted "
-             "member until A closed)" if four else "")
+          + (f" (A's epoch-1 store beside epoch 2's for "
+             f"{c['a_two_stores_s']} s, until its survivor acked epoch 2 "
+             f"and its member that left sent its shutdown; then 1, as the "
+             f"JAX tracker)" if four else "")
           + f", store ports "
           f"{c['store_ports']} (none shared across jobs; every one reaped "
           f"at its job's close), formations (epoch, s) {c['formations']};"
@@ -5287,6 +5331,223 @@ def phase_jobs(power: str) -> dict:
     return {"a_s": smoke_s, "b": b, "c": c, "d": d,
             "launches": {"b": b["launches"], "c": c["launches"],
                          "d": d["launches"]}}
+
+
+# phase 22: the tracker's connection plane. The bench's ladder of held
+# connections, and phase 18's worker on the torch data plane beside
+# thousands of half-open clients held against its own tracker
+
+CONN_SMOKES = (("rabit_tpu_torch.tracker.evloop", "evloop smoke ok"),
+               ("rabit_tpu_torch.tools.tracker_bench",
+                "tracker_bench smoke ok"))
+CONN_LEVELS = (1000, 5000, 10000)  # tools/tracker_bench.py's LEVELS_DEFAULT
+CONN_HELD = 2000                   # (c): the half-open clients
+CONN_ROUNDS = 10                   # (c): the rounds, 200 ms apart
+CONN_PEAK_AT = 2                   # (c): read the peak once every rank
+CONN_RELEASE_AT = 7                # logged this round; release at this one
+CONN_SAMPLES = 200                 # (c): world commands timed at the peak
+CONN_FALLEN = 100                  # (c): open_conns once the clients left
+CONN_TIMEOUT_S = 300
+CONN_DEVICE = "cuda"               # the workers' rabit_device
+
+
+def _gauge(text: str, name: str) -> float:
+    """One unlabelled sample of ``name`` in a Prometheus exposition."""
+    for ln in text.splitlines():
+        if ln.startswith(name + " "):
+            return float(ln.split()[1])
+    raise AssertionError(f"{name} not in /metrics")
+
+
+def _conn_ladder(tmp: Path) -> dict:
+    """(b): ``tools.tracker_bench``'s full ladder in a fresh process; its
+    document."""
+    out = tmp / "TRACKER_BENCH.json"
+    r = subprocess.run(
+        [sys.executable, "-m", "rabit_tpu_torch.tools.tracker_bench",
+         "--levels", ",".join(map(str, CONN_LEVELS)), "--out", str(out),
+         "--history", str(tmp / "history.jsonl")],
+        env=_stall_env(), capture_output=True, text=True,
+        timeout=CONN_TIMEOUT_S)
+    if not out.exists():
+        raise AssertionError(f"tracker_bench: {r.stdout[-2000:]}"
+                             f"{r.stderr[-3000:]}")
+    doc = json.loads(out.read_text())
+    if r.returncode != 0 or not doc["bounded_threads"]:
+        raise AssertionError(f"tracker_bench: threads not bounded: "
+                             f"{doc['levels']} {r.stderr[-2000:]}")
+    return doc
+
+
+def _conn_world(p: int, tmp: Path, tag: str, held: bool) -> tuple:
+    """(c): phase 18's worker as ``p`` ranks under the port's launcher
+    with a tracker metrics port; with ``held``, a child process holds
+    ``CONN_HELD`` half-open clients against the world's own tracker from
+    its first tick until every rank logged round ``CONN_RELEASE_AT``. The
+    process's threads are sampled every 5 ms; once every rank logged
+    round ``CONN_PEAK_AT`` the tick reads ``/metrics`` and times
+    ``CONN_SAMPLES`` ``world`` commands (both runs alike). Each task's
+    document, the launcher's stats and the readings."""
+    from rabit_tpu_torch.tools import tracker_bench as tb
+    from rabit_tpu_torch.tracker.launch import launch
+    out = tmp / tag
+    out.mkdir()
+    st = {"threads_peak": threading.active_count()}
+    done = threading.Event()
+    holder = []
+
+    def sample():
+        while not done.is_set():
+            st["threads_peak"] = max(st["threads_peak"],
+                                     threading.active_count())
+            time.sleep(0.005)
+
+    def open_conns(tr) -> float:
+        return _gauge(_scrape_text(*tr.live_addr()),
+                      "rabit_tracker_open_conns")
+
+    def tick(sup):
+        tr = sup.tracker
+        if "held" not in st:
+            st["held"] = 0
+            if held:
+                holder.append(tb.Holder(tr.host, tr.port, CONN_HELD,
+                                        tb.half_open_prefix()))
+                st["held"] = holder[0].held
+            return
+        rnd = _logged_round(out, p)
+        if "peak_open_conns" not in st:
+            if rnd >= CONN_PEAK_AT:
+                st["peak_open_conns"] = open_conns(tr)
+                st["peak_round"] = rnd
+                rtts = [tb.world_rtt_ms(tr.host, tr.port)
+                        for _ in range(CONN_SAMPLES)]
+                st["world_p50_ms"] = round(tb.percentile(rtts, 0.5), 3)
+                st["world_p99_ms"] = round(tb.percentile(rtts, 0.99), 3)
+        elif "released_at" not in st:
+            if rnd >= CONN_RELEASE_AT:
+                for h in holder:
+                    h.release()
+                st["released_at"] = time.perf_counter()
+        elif "after_open_conns" not in st:
+            v = open_conns(tr)
+            waited = time.perf_counter() - st["released_at"]
+            if v <= CONN_FALLEN or waited > 5.0:
+                st["after_open_conns"] = v
+                st["fell_s"] = round(waited, 3)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    stats = {}
+    t0 = time.perf_counter()
+    try:
+        launch(p, [sys.executable, str(RESUME_WORKER),
+                   f"rabit_device={CONN_DEVICE}", "rabit_dataplane=torch",
+                   "rabit_telemetry=1"], max_attempts=0,
+               timeout=CONN_TIMEOUT_S, quiet=True, stats=stats,
+               env=_rs_env(out, CONN_ROUNDS), metrics_port=0, tick=tick)
+    finally:
+        for h in holder:
+            h.release()
+        done.set()
+        sampler.join(5)
+    st["s"] = round(time.perf_counter() - t0, 2)
+    docs = {t: json.loads((out / f"r{t}.json").read_text())
+            for t in range(p)}
+    return docs, stats, st
+
+
+def _conn_checks(p: int, base: dict, docs: dict, stats: dict, st: dict,
+                 unloaded: dict) -> int:
+    """(c)'s verdicts on the run beside the held clients against the
+    unloaded twin's (``base``, ``unloaded`` its readings); the kernel's
+    launches."""
+    launches = 0
+    for t, d in docs.items():
+        if _stream(d) != _stream(base[t]) or \
+                [r["round"] for r in d["rounds"]] != list(range(CONN_ROUNDS)):
+            raise AssertionError(f"conn plane: task {t}'s rounds "
+                                 f"{_stream(d)} are not the unloaded run's "
+                                 f"{_stream(base[t])}")
+        if d["launches"] != [int(CONN_DEVICE == "cuda")] * CONN_ROUNDS:
+            raise AssertionError(f"conn plane: task {t}'s launches "
+                                 f"{d['launches']}")
+        launches += sum(d["launches"])
+    if stats["total_attempts"] != 0 or st["held"] != CONN_HELD or \
+            st.get("peak_open_conns", 0) < CONN_HELD or \
+            st.get("after_open_conns", CONN_HELD) > CONN_FALLEN:
+        raise AssertionError(f"conn plane: attempts "
+                             f"{stats['total_attempts']}, readings {st}")
+    from rabit_tpu_torch.tools.tracker_bench import THREAD_SLACK
+    if st["threads_peak"] > unloaded["threads_peak"] + THREAD_SLACK:
+        raise AssertionError(f"conn plane: {st['threads_peak']} threads "
+                             f"beside the held clients, "
+                             f"{unloaded['threads_peak']} without them")
+    return launches
+
+
+def phase_conn_plane(power: str) -> dict:
+    """The tracker's connection plane (see the module's phase 22)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from rabit_tpu_torch.tools.tracker_bench import raise_nofile
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(CONN_SMOKES)) as pool:
+        for f in [pool.submit(_smoke_without_jax, *m) for m in CONN_SMOKES]:
+            f.result()
+    smoke_s = round(time.perf_counter() - t0, 2)
+    phase("conn plane", f"(a) tracker.evloop and tools.tracker_bench "
+          f"--smoke ok, each in a fresh interpreter without jax or "
+          f"rabit_tpu ({smoke_s} s, both at once)")
+    nofile = raise_nofile()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        ladder = _conn_ladder(tmp)
+        ladder_s = round(time.perf_counter() - t0, 2)
+        cut = "; ".join(f"{c['idle_conns']} cut: {c['why']}"
+                        for c in ladder["cut"]) or "no rung cut"
+        phase("conn plane", f"(b) tracker_bench's ladder, RLIMIT_NOFILE "
+              f"{ladder['nofile']} in its process ({cut}); threads bounded "
+              f"({ladder['bounded_threads']}) up to "
+              f"{ladder['max_idle_conns']} idle connections [{ladder_s} s; "
+              f"{power}]")
+        for m in ladder["levels"]:
+            phase("conn plane", f"(b) {m['idle_conns']} idle: "
+                  f"{m['threads']} threads, {m['fds']} fds, "
+                  f"{m['regs_per_s']} registrations/s, world p50 "
+                  f"{m['cmd_p50_ms']} ms p99 {m['cmd_p99_ms']} ms, "
+                  f"open_conns {m['open_conns']}, loop lag "
+                  f"{m['loop_lag_ms']} ms")
+        p = min(4, torch.cuda.device_count()) if CONN_DEVICE == "cuda" \
+            else 2
+        base, bstats, unloaded = _conn_world(p, tmp, "unloaded", False)
+        if bstats["total_attempts"] != 0:
+            raise AssertionError(f"conn plane: the unloaded run {bstats}")
+        docs, stats, st = _conn_world(p, tmp, "held", True)
+        launches = _conn_checks(p, base, docs, stats, st, unloaded)
+    ub = sum(sum(d["launches"]) for d in base.values())
+    phase("conn plane", f"(c) world {p} (phase 18's worker, robust engine, "
+          f"rabit_dataplane=torch), {CONN_ROUNDS} rounds 200 ms apart of an "
+          f"int64 allreduce of 256 and a histogram of {RESIZE_HIST[0]} x "
+          f"{RESIZE_HIST[1]} by the kernel, beside {st['held']} half-open "
+          f"clients held by a child process against its own tracker: every "
+          f"round bit for bit the unloaded run's; rabit_tracker_open_conns "
+          f"{st['peak_open_conns']:g} at the peak (round "
+          f"{st['peak_round']}), {st['after_open_conns']:g} "
+          f"{st['fell_s']} s after the release; the process's threads at "
+          f"the peak {st['threads_peak']} against {unloaded['threads_peak']}"
+          f" unloaded; world p50 / p99 {st['world_p50_ms']} / "
+          f"{st['world_p99_ms']} ms under the load, {unloaded['world_p50_ms']}"
+          f" / {unloaded['world_p99_ms']} ms without; the kernel launched "
+          f"once a round on every process ({launches}; {ub} unloaded) "
+          f"[{unloaded['s']} + {st['s']} s; {power}]")
+    return {"a_s": smoke_s, "nofile": nofile,
+            "ladder": {"nofile": ladder["nofile"], "cut": ladder["cut"],
+                       "bounded_threads": ladder["bounded_threads"],
+                       "levels": ladder["levels"], "s": ladder_s},
+            "world": {"p": p, "held": st, "unloaded": unloaded},
+            "launches": {"unloaded": ub, "held": launches}}
 
 
 def card_power() -> str:
@@ -5356,6 +5617,7 @@ def main() -> int:
     failover = phase_failover(power, bases)
     incidents = phase_incidents(power, bases)
     jobs = phase_jobs(power)
+    conn = phase_conn_plane(power)
     kernels = []
     for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only"):
         head = timing[name][0]
@@ -5383,6 +5645,9 @@ def main() -> int:
     kernels[0]["incident_launches"] = incidents["launches"]
     # phase 21's runs: (b)'s job B, (c)'s jobs A and B, (d)'s job C
     kernels[0]["jobs_launches"] = jobs["launches"]
+    # phase 22 (c)'s runs: the unloaded one and the one beside the held
+    # clients, a launch a round a process
+    kernels[0]["conn_plane_launches"] = conn["launches"]
     kernels[3]["slope_ms"] = timing["mask_only"][0]["slope_ms"]
     kernels[2]["library_bwd_ms"] = timing["flash_block_bwd"][0][
         "library_bwd_ms"]
@@ -5401,7 +5666,8 @@ def main() -> int:
         "parallel": par, "telemetry": tel, "skew": skew_doc,
         "elastic": elastic, "resume": resume, "failover": failover,
         "incidents": _failover_doc(incidents),
-        "jobs": {k: jobs[k] for k in ("a_s", "launches")}}), flush=True)
+        "jobs": {k: jobs[k] for k in ("a_s", "launches")},
+        "conn_plane": conn}), flush=True)
     print(power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

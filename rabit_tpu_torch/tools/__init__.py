@@ -17,7 +17,10 @@ which need no card and no JAX: ``python -m
 rabit_tpu_torch.tools.trace_report`` renders any schema-versioned
 artifact (summaries, traces, flight bundles, fleet events, incidents...)
 as PERF.md tables, and ``python -m rabit_tpu_torch.tools.bench_sentinel``
-gates ``build/artifacts/history.jsonl`` against its own recent history.
+gates ``build/artifacts/history.jsonl`` against its own recent history;
+and ``python -m rabit_tpu_torch.tools.tracker_bench``, which needs no card
+either, measures the tracker's connection plane on a ladder of held
+idle connections.
 
 Each runs on the card unless given ``--device cpu``, and raises where
 there is none. ``--smoke`` shrinks every size and writes nothing; a full

@@ -195,8 +195,10 @@ class JobState:
         self._last_straggler: Optional[dict] = None
         # (epoch, TCPStore, members): this job's epoch rendezvous stores
         self._stores: List[tuple] = []
-        # stable rank -> the newest epoch it acked (the store reaping)
+        # stable rank -> the newest epoch it acked, and the newest epoch
+        # every member of which acked it (the store reaping)
         self._acked: Dict[int, int] = {}
+        self._all_acked = 0
 
     # -- lifecycle ---------------------------------------------------------
     def mark_live(self) -> None:

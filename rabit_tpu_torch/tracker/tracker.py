@@ -10,12 +10,13 @@ epoch whose workers register a data plane, this one hosts a
 ``torch.distributed.TCPStore``: the rendezvous of that epoch's torch world
 (``engine/dataplane.py``). It lives in the tracker process, so it
 outlives any worker. A store is reaped once a newer epoch has been acked
-by every member and every member of the store's own epoch has acked a
-newer one: the data plane drops its world before it acks, so no client
-of the store is left then. A member evicted while its process lives on
-(the in-process ``resize("join")``) still holds its old world until its
-own re-registration tears it down, so its epoch's store stays until it
-has acked a newer epoch.
+by every member and every member of the store's own epoch has let go of
+its world: acked a newer epoch (the data plane drops its world before it
+acks), or sent ``shutdown`` (a member that evicted itself and exits says
+so on its way out). A member evicted while its process lives on (the
+in-process ``resize("join")``) still holds its old world until its own
+re-registration tears it down, so its epoch's store stays until it has
+acked a newer epoch.
 
 Wire protocol (binary, little-endian, length-prefixed strings):
   worker -> tracker: magic u32 0x52425401, cmd str, task_id str,
@@ -77,9 +78,10 @@ at once; the assignment's ``rank`` is the member's dense slot
 id arriving when the target world is full adopts the lowest evicted
 stable rank; a joiner (``join``, an evicted rank, or a rank outside the
 live set) is parked until the next epoch boundary and bounced after
-``rabit_join_grace_ms`` (its connection thread waits on the tracker's
-condition). Every transition counts ``membership.<kind>``, records a
-zero-length ``membership.transition`` span, leaves a flight note and
+``rabit_join_grace_ms`` (a timer of the event loop hands the bounce to
+the command pool; nothing waits for it). Every transition counts
+``membership.<kind>``, records a zero-length ``membership.transition``
+span, leaves a flight note and
 emits a ``membership.evict``/``membership.admit`` event (the JAX
 tracker's ``_note_transition``); ``/metrics`` adds ``rabit_world_size``,
 ``rabit_member_evictions_total`` and ``rabit_member_admissions_total``.
@@ -191,9 +193,26 @@ exception one job's command raises is quarantined at the job boundary
 connection only. The live plane adds ``/jobs``, a ``jobs`` map on
 ``/straggler``, job labels on ``/metrics``, the admission gauges and the
 shed-rate objective on ``/slo``. The JAX tracker's
-``tracker.py:2166-2523``, on this tracker's threads: each connection's
-own thread runs its job's command, and none holds the tracker's lock
-while it waits for bytes.
+``tracker.py:2166-2523``.
+
+The connection plane (``tracker/evloop.py``, the JAX tracker's
+``tracker.py:1941-2011``): one ``EventLoop`` thread owns accept, read and
+write readiness for every connection, and no thread is spent on one. A
+request is read by the incremental parser (``_parse_command``, the whole
+grammar above, a wire string over ``_MAX_WIRE_STR`` hangs up) and handed
+to a fixed ``ServicePool`` (``RABIT_LOOP_SERVICE_THREADS``, 4), queued
+by its job, so that one job's storm cannot starve another's and a job's
+commands start in the order they arrived. Replies and assignments leave
+through the loop's buffers; the ready-ack barrier is an ``expect`` a
+member with the ready timeout, its counters kept on the loop thread and
+the store reaping run on the pool; a parked joiner's bounce is a loop
+timer that hands it to the pool; a ``repl`` subscriber's socket leaves
+the loop (``detach``) for a streamer thread of its own. A request has no
+timeout: an idle connection costs a descriptor and a buffer, and
+``RABIT_LOOP_MAX_CONNS`` sheds connections past a cap at the door.
+``/metrics`` adds ``rabit_tracker_open_conns`` and
+``rabit_tracker_loop_lag_ms``. Nothing that runs on the pool waits for
+another command, and the loop thread takes no tracker lock.
 
 Any other command closes the connection.
 """
@@ -211,6 +230,7 @@ import time
 from collections import deque
 from typing import Deque, Dict, List, Optional, Tuple
 
+from . import evloop as _evloop
 from . import jobs as _jobs_mod
 from . import membership as _membership
 from . import wal as _wal_mod
@@ -222,10 +242,12 @@ from ..telemetry.aggregate import format_fleet_table, merge_summaries
 MAGIC = 0x52425401
 NO_RANK = 0xFFFFFFFF
 FLAG_DATAPLANE = 1  # registration flags bit 0
-# a wire string longer than this is a protocol violation, not a payload
+# a wire string longer than this is a protocol violation, not a payload:
+# the cap keeps a flipped length bit from growing a connection's buffer
 _MAX_WIRE_STR = 16 << 20
-# how long a connection may take to send its request
-_REQUEST_TIMEOUT_S = 60.0
+
+
+# -- the blocking helpers of the clients (membership, the repl stream) ------
 
 
 def _recv_all(conn: socket.socket, n: int) -> bytes:
@@ -257,6 +279,51 @@ def _send_str(conn, s: str) -> None:
     b = s.encode()
     _send_u32(conn, len(b))
     conn.sendall(b)
+
+
+# -- the incremental parser the event loop feeds ---------------------------
+# A generator yields how many bytes it needs next and returns the parsed
+# value: the grammar of the blocking helpers above, with no thread
+# blocked on a request in flight (the JAX tracker's ``tracker.py:175-220``).
+
+
+def _p_u32():
+    return struct.unpack("<I", (yield 4))[0]
+
+
+def _p_str():
+    n = struct.unpack("<I", (yield 4))[0]
+    if n == 0:
+        return ""
+    if n > _MAX_WIRE_STR:
+        raise ConnectionError(f"wire string claims {n} bytes")
+    return (yield n).decode()
+
+
+def _parse_command():
+    """One whole worker -> tracker request: the preamble (magic, cmd,
+    task_id, num_attempt) and the command's own fields. ``(cmd, task_id,
+    args)``, ``args`` the command's fields, or None for a bad magic (the
+    connection is hung up on)."""
+    magic = yield from _p_u32()
+    if magic != MAGIC:
+        return None
+    cmd = yield from _p_str()
+    task_id = yield from _p_str()
+    yield from _p_u32()   # num_attempt (informational)
+    if cmd in ("start", "recover", "join"):
+        host = yield from _p_str()
+        port = yield from _p_u32()
+        flags = yield from _p_u32()
+        token = yield from _p_str()
+        return cmd, task_id, (host, port, flags, token)
+    if cmd in ("print", "metrics", "endpoint", "resume", "evict",
+               "submit"):
+        payload = yield from _p_str()
+        return cmd, task_id, (payload,)
+    # topo, skew, world, shutdown, repl (and unknown commands) carry no
+    # fields of their own
+    return cmd, task_id, ()
 
 
 def _pack_u32(buf: bytearray, v: int) -> None:
@@ -610,12 +677,14 @@ class Tracker:
         self.sock.bind((host, port))
         self.sock.listen(256)
         self.host, self.port = self.sock.getsockname()
+        # the connection plane: one readiness loop owns every connection,
+        # a fixed pool serves the parsed commands queued by job (made once
+        # the port is bound: a bind that fails leaves nothing to close)
+        self._loop = _evloop.EventLoop()
+        self._svc = _evloop.ServicePool(name="rabit-tracker-svc")
         self._ready_timeout = (ready_timeout if ready_timeout is not None
                                else _default_ready_timeout())
         self._lock = threading.Lock()
-        # the condition a parked joiner's connection thread waits on: a
-        # formation, an eviction and stop() notify it
-        self._cv = threading.Condition(self._lock)
         self._done = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.messages: List[str] = []
@@ -665,10 +734,6 @@ class Tracker:
         self._poll_thread: Optional[threading.Thread] = None
         self._poll_stop = threading.Event()
         self._poll_count = 0                   # completed poll sweeps
-        # every connection the serve loop accepted and nobody closed yet:
-        # crash() drops them all (a dead incarnation answers nothing)
-        self._conns: set = set()
-        self._conns_lock = threading.Lock()
         self.crashed = False
         # chaos hook: ``link_rewrite(peer_rank, host, port) -> (host,
         # port)`` rewrites the peer addresses an assignment advertises, so
@@ -812,26 +877,17 @@ class Tracker:
     def stop(self) -> None:
         self._done.set()
         self._poll_stop.set()
-        with self._repl_cv:
-            self._repl_cv.notify_all()   # wake idle repl streamers
-            streams = list(self._repl_conns)
-        for conn in streams:
-            _drop(conn)   # a streamer blocked on an ack wakes at once
+        self._drop_streams()
         if self._metrics_server is not None:
             self._metrics_server.stop()
             self._metrics_server = None
-        _drop(self.sock)
-        with self._cv:
-            pending = []
+        self._stop_plane()
+        with self._lock:
             for jb in self._jobs.values():
-                pending += [p[0] for p in jb._pending.values()]
-                jb._pending.clear()
+                jb._pending.clear()   # the loop closed their connections
                 # workers have exited (or been killed) by now: no live
                 # client is left on these stores
                 jb._stores = []
-            self._cv.notify_all()   # parked joiners stop waiting
-        for conn in pending:
-            self._close(conn)
         if self._wal_log is not None and not self.crashed:
             self._wal_log.close()
             with self._repl_cv:
@@ -850,28 +906,46 @@ class Tracker:
         is flushed, closed gracefully or reaped -- the journal's handle
         and the epochs' stores stay as a kill leaves them (every record
         was fsynced on append), ready for a ``resume=True`` successor on
-        the same pinned port. Parked joiners are woken and dropped."""
+        the same pinned port. Parked joiners are dropped with every other
+        connection of the loop."""
         with self._lock:
             # under the lock, where every record is written: no record
             # lands after this (``_wal`` refuses once crashed)
             self.crashed = True
-        with self._conns_lock:
-            conns = list(self._conns)
-            self._conns.clear()
         self._done.set()
         self._poll_stop.set()
         if self._metrics_server is not None:
             self._metrics_server.stop()
             self._metrics_server = None
-        _drop(self.sock)
         # every connection dies hard, a repl stream too: its follower sees
         # EOF at once, and its streamer thread ends on the dropped socket
-        for conn in conns:
-            _drop(conn)
+        self._stop_plane()
+        self._drop_streams()
+
+    def _drop_streams(self) -> None:
+        """Wake the ``repl`` streamers and drop their sockets: a streamer
+        blocked on an ack wakes at once, its follower reads EOF."""
         with self._repl_cv:
             self._repl_cv.notify_all()
-        with self._cv:
-            self._cv.notify_all()   # parked joiners stop waiting
+            streams = list(self._repl_conns)
+        for conn in streams:
+            _drop(conn)
+
+    def _stop_plane(self) -> None:
+        """Stop the connection plane: the pool first (a queued handler
+        may still queue a reply, and the loop's teardown runs its op queue
+        once more), then the loop, which closes every connection; the
+        listener is shut so that the port stops listening at once and a
+        successor can bind it. Waits for the loop's teardown, unless
+        called on the loop's own thread."""
+        self._svc.stop()
+        self._loop.stop()
+        _drop(self.sock)
+        serve = self._thread
+        if serve is None:
+            self._loop.run()   # never started: run() only tears down
+        elif serve is not threading.current_thread():
+            serve.join(10)
 
     @property
     def epoch(self) -> int:
@@ -944,11 +1018,10 @@ class Tracker:
                 self._mirror_job_record_locked(jid, kind, data)
         if self._snap_every and not self._snap_pending and \
                 seq - self._wal_log.snapshot_seq >= self._snap_every:
-            # compact off the journaling path: a thread of its own folds
+            # compact off the journaling path: a task of the pool folds
             # the state under the lock once this caller has released it
             self._snap_pending = True
-            threading.Thread(target=self._take_snapshot, daemon=True,
-                             name="rabit-wal-snapshot").start()
+            self._svc.submit("__wal_snapshot__", self._take_snapshot)
 
     def _take_snapshot(self) -> None:
         """One live compaction: serialize the replay-reachable state under
@@ -1042,26 +1115,26 @@ class Tracker:
                 "lag_records": max(0, seq - acked)}
 
     def _serve_repl(self, conn: socket.socket, peer: str) -> None:
-        """One ``repl`` subscriber, on its connection's own thread for as
-        long as the follower keeps acking: every record at or past its
-        resync point, one ack a record, and the lease heartbeats between
-        them. A slow, torn or confused follower is dropped (it resubscribes
-        from its last durable seq): replication never stalls the control
-        plane. Without a WAL the answer is 0, as the JAX tracker's."""
-        if self._wal_log is None:
-            self._reply_u32(conn, 0)   # replication needs a journal
-            return
+        """One ``repl`` subscriber, its socket taken off the loop, on a
+        streamer thread of its own for as long as the follower keeps
+        acking: every record at or past its resync point, one ack a
+        record, and the lease heartbeats between them. A slow, torn or
+        confused follower is dropped (it resubscribes from its last
+        durable seq): replication never stalls the control plane."""
         sub = {"peer": peer, "acked": 0}
+        with self._repl_cv:
+            self._repl_conns.add(conn)   # from here on stop() drops it
         try:
+            if self._done.is_set():
+                return
+            conn.settimeout(repl_ack_timeout_ms() / 1e3)
             _send_u32(conn, 1)
             last = _recv_u32(conn)
-            conn.settimeout(repl_ack_timeout_ms() / 1e3)
             sub["acked"] = last
             with self._repl_cv:
                 if self._done.is_set():
                     return
                 self._repl_subs.append(sub)
-                self._repl_conns.add(conn)
                 hb_seen = self._repl_hb_n
             # a positional cursor: frame idx carries seq base + idx + 1. A
             # follower acked below the base resynced into a compacted
@@ -1099,7 +1172,7 @@ class Tracker:
                 self._repl_subs = [x for x in self._repl_subs
                                    if x is not sub]
                 self._repl_conns.discard(conn)
-            self._close(conn)
+            conn.close()
 
     def _note_resume(self, nrecords: int) -> None:
         """Make a resume observable: a counter, a zero-length span, a
@@ -1162,78 +1235,72 @@ class Tracker:
 
     # -- serving ------------------------------------------------------------
     def _serve(self) -> None:
-        while not self._done.is_set():
-            try:
-                conn, _ = self.sock.accept()
-            except OSError:
-                return   # stop() or crash() shut the listener
-            with self._conns_lock:
-                if self.crashed:
-                    _drop(conn)
-                    return
-                self._conns.add(conn)
-            threading.Thread(target=self._handle, args=(conn,),
-                             daemon=True).start()
-
-    def _close(self, conn: socket.socket) -> None:
-        with self._conns_lock:
-            self._conns.discard(conn)
-        conn.close()
-
-    def _handle(self, conn: socket.socket) -> None:
-        """One request on its connection's own thread. A registration's
-        connection stays open, parked in its job's ``_pending`` until its
-        batch is complete; every other command is answered and closed.
-        With multi-job on, the task id's ``<job>/`` prefix names the job.
-        An exception a job's command raises stops at the job boundary: it
-        is quarantined and closes this connection only; a wire error is
-        the peer's and closes it too."""
-        cmd, job_id = "", DEFAULT_JOB
+        """The serve thread: the readiness loop. Accept, read and write
+        readiness of every connection live on this one thread; the parsed
+        commands drain through the fixed pool."""
         try:
-            conn.settimeout(_REQUEST_TIMEOUT_S)
-            if _recv_u32(conn) != MAGIC:
-                self._close(conn)
-                return
-            cmd = _recv_str(conn)
-            task_id = _recv_str(conn)
-            _recv_u32(conn)   # num_attempt (informational)
-            if self.multi_job:
-                job_id, task_id = _jobs_mod.split_task(task_id)
+            self._loop.add_listener(self.sock, self._on_accept)
+        except (OSError, ValueError):
+            pass   # stop() or crash() shut the listener first
+        else:
+            self._svc.start()
+        self._loop.run()
+
+    def _on_accept(self, conn) -> None:
+        """Loop thread: arm the incremental parser on a new connection."""
+        self._loop.start_parse(conn, _parse_command(), self._on_command)
+
+    def _on_command(self, conn, parsed) -> None:
+        """Loop thread: one whole request parsed. Resolve its job and
+        queue it there; the pool serves the jobs' queues round-robin."""
+        if parsed is None:   # a bad magic: hang up
+            self._loop.close_conn(conn)
+            return
+        cmd, task_id, args = parsed
+        job_id = DEFAULT_JOB
+        if self.multi_job:
+            job_id, task_id = _jobs_mod.split_task(task_id)
+        self._svc.submit(job_id, lambda: self._handle(
+            conn, cmd, job_id, task_id, args))
+
+    def _handle(self, conn, cmd: str, job_id: str, task_id: str,
+                args: tuple) -> None:
+        """One command on a pool thread. A registration's connection stays
+        open, parked in its job's ``_pending`` until its batch is
+        complete; every other command is answered and closed. An exception
+        a job's command raises stops at the job boundary: it is
+        quarantined and closes this connection only; a wire error is the
+        peer's and closes it too."""
+        try:
             try:
-                self._dispatch(conn, cmd, job_id, task_id)
-            except (ConnectionError, OSError, struct.error,
-                    UnicodeDecodeError):
+                self._dispatch(conn, cmd, job_id, task_id, args)
+            except (ConnectionError, OSError, struct.error):
                 raise
             except Exception as e:   # the job's fault boundary
                 self._quarantine(job_id, cmd, e)
-                self._close(conn)
-        except (ConnectionError, OSError, struct.error, UnicodeDecodeError):
-            self._close(conn)
+                self._loop.close_conn(conn)
+        except (ConnectionError, OSError, struct.error):
+            self._loop.close_conn(conn)
 
-    def _dispatch(self, conn: socket.socket, cmd: str, job_id: str,
-                  task_id: str) -> None:
-        """Read the rest of one command and serve it within its job."""
+    def _dispatch(self, conn, cmd: str, job_id: str, task_id: str,
+                  args: tuple) -> None:
+        """Serve one parsed command within its job."""
         if cmd in ("start", "recover", "join"):
-            host = _recv_str(conn)
-            port = _recv_u32(conn)
-            flags = _recv_u32(conn)
-            token = _recv_str(conn)
-            conn.settimeout(None)
+            host, port, flags, token = args
             job = self._job_for_register(job_id)
             if job is None:
                 # admission refused: shed, never parked
-                self._close(conn)
+                self._loop.close_conn(conn)
                 return
             self._register(conn, job, task_id, host, port, flags, token,
                            join=cmd == "join")
         elif cmd == "print":
-            msg = _recv_str(conn)
-            self.messages.append(msg)
-            print(msg, flush=True)
+            self.messages.append(args[0])
+            print(args[0], flush=True)
             self._reply_u32(conn, 1)
         elif cmd == "metrics":
             try:
-                doc = json.loads(_recv_str(conn))
+                doc = json.loads(args[0])
             except ValueError:
                 doc = None
             job = self._job_for(job_id)
@@ -1245,7 +1312,7 @@ class Tracker:
             self._reply_u32(conn, 1 if ok else 0)
         elif cmd == "shutdown":
             job = self._job_for(job_id)
-            all_down = False
+            all_down = down = False
             if job is not None:
                 with self._lock:
                     rank = job._ranks.get(task_id)
@@ -1255,13 +1322,18 @@ class Tracker:
                         # shutdown once)
                         self._wal("down", rank=rank, _job=job)
                         job._shutdown_ranks.add(rank)
+                        down = True
                     all_down = job.all_down_locked()
             self._reply_u32(conn, 1)
+            if down:
+                # the rank let go of its world: a store kept for it alone
+                # may go now
+                self._reap_old_stores(job)
             if all_down:
                 self._job_complete(job)
         elif cmd == "endpoint":
             try:
-                doc = json.loads(_recv_str(conn))
+                doc = json.loads(args[0])
             except ValueError:
                 doc = None
             job = self._job_for(job_id)
@@ -1281,7 +1353,7 @@ class Tracker:
             self._reply_json(conn, self.membership_doc(self._job_for(job_id)))
         elif cmd in ("evict", "resume"):
             try:
-                doc = json.loads(_recv_str(conn))
+                doc = json.loads(args[0])
             except ValueError:
                 doc = None
             job = self._job_for(job_id)
@@ -1311,14 +1383,31 @@ class Tracker:
         elif cmd == "submit":
             # admission answers at once: overload sheds, it never stalls
             # a submitter's socket
-            payload = _recv_str(conn)
-            self._reply_json(conn, self._submit(payload))
+            self._reply_json(conn, self._submit(args[0]))
         elif cmd == "repl":
-            # a subscriber holds this connection's thread for as long as
-            # it follows: one thread a standby
-            self._serve_repl(conn, task_id)
+            if self._wal_log is None:
+                self._reply_u32(conn, 0)   # replication needs a journal
+            else:
+                # a subscriber follows for the tracker's life, not for a
+                # request's: its socket leaves the loop for a streamer
+                # thread of its own, one a standby
+                self._loop.call(lambda: self._detach_repl(conn, task_id))
         else:
-            self._close(conn)
+            self._loop.close_conn(conn)
+
+    def _detach_repl(self, conn, peer: str) -> None:
+        """Loop thread: take a ``repl`` subscriber's socket off the loop
+        (blocking again) and start its streamer."""
+        if conn.closed or conn.detached:
+            return
+        raw, leftover = self._loop.detach(conn)
+        if leftover:
+            # a protocol violation: a follower sends its resync seq only
+            # after the tracker's ok
+            raw.close()
+            return
+        threading.Thread(target=self._serve_repl, args=(raw, peer),
+                         name="rabit-tracker-repl", daemon=True).start()
 
     # -- the live plane -------------------------------------------------------
     def _start_live_plane(self) -> None:
@@ -1421,6 +1510,14 @@ class Tracker:
              [(self._jl(s["id"]), s["nend"]) for s in snap]),
             ("rabit_tracker_polls_total", "Completed endpoint poll sweeps.",
              "counter", [({}, polls)]),
+            ("rabit_tracker_open_conns",
+             "Worker connections currently held by the selectors event "
+             "loop (each costs a descriptor and a buffer, never a "
+             "thread).", "gauge", [({}, self._loop.open_conns)]),
+            ("rabit_tracker_loop_lag_ms",
+             "EWMA of loop wakeup service time — the delay a newly "
+             "ready connection waits behind the current batch.",
+             "gauge", [({}, round(self._loop.lag_ms(), 4))]),
         ]
         if self._wal_log is not None:
             gauges.append((
@@ -1919,23 +2016,23 @@ class Tracker:
         self.messages.append(table)
         print(table, flush=True)
 
-    def _reply_u32(self, conn: socket.socket, v: int) -> None:
-        conn.sendall(struct.pack("<I", v))
-        self._close(conn)
+    def _reply_u32(self, conn, v: int) -> None:
+        """A u32 reply, queued on the loop, which hangs up once it is
+        sent."""
+        self._loop.send(conn, struct.pack("<I", v), close_after=True)
 
-    def _reply_json(self, conn: socket.socket, doc: dict) -> None:
+    def _reply_json(self, conn, doc: dict) -> None:
         """A JSON-str reply (``topo``, ``skew``, ``world``, ``submit``),
-        with the
-        tracker's HLC piggybacked while the incident plane is on, so a
-        worker's clock causally follows the control plane; never on a
-        u32 reply."""
+        queued on the loop like ``_reply_u32``, with the tracker's HLC
+        piggybacked while the incident plane is on, so a worker's clock
+        causally follows the control plane; never on a u32 reply."""
         if self._events_on:
             stamp = _clock.tick()
             if stamp is not None:
                 doc["hlc"] = stamp
         b = json.dumps(doc).encode()
-        conn.sendall(struct.pack("<I", len(b)) + b)
-        self._close(conn)
+        self._loop.send(conn, struct.pack("<I", len(b)) + b,
+                        close_after=True)
 
     # -- jobs: the fault boundary, admission and the fleet scheduler ---------
     def _quarantine(self, job_id: str, cmd: str, exc: Exception) -> None:
@@ -2279,11 +2376,11 @@ class Tracker:
                   flags: int, token: str, join: bool = False) -> None:
         """Park the registration in its job's ``_pending``; whichever
         registration (or eviction) completes the batch serves everyone
-        via ``_assign``. A parked joiner's thread waits on the condition
-        until a formation adopts it, or bounces it after
-        ``rabit_join_grace_ms`` (the joiner retries)."""
+        via ``_assign``. Nothing waits here: a parked joiner is bounced
+        after ``rabit_join_grace_ms`` unless a formation adopted it (the
+        joiner retries)."""
         grace_s: Optional[float] = None
-        with self._cv:
+        with self._lock:
             if task_id not in job._ranks:
                 rank = len(job._ranks)
                 if job.elastic and rank >= job.nworkers \
@@ -2297,7 +2394,7 @@ class Tracker:
                 job._ranks[task_id] = rank
             rank = job._ranks[task_id]
             if rank >= job.nworkers:
-                self._close(conn)
+                self._loop.close_conn(conn)
                 return
             if job.elastic:
                 m = job._member
@@ -2314,29 +2411,26 @@ class Tracker:
             got = self._try_complete_batch_locked(job)
         if prev is not None and prev[0] is not conn:
             # a re-registration superseded a still-parked connection
-            self._close(prev[0])
+            self._loop.close_conn(prev[0])
         if got is not None:
             self._assign(job, *got)
-            return
-        if grace_s is not None:
-            self._park_joiner(job, conn, rank, grace_s)
+        elif grace_s is not None:
+            self._arm_join_bounce(job, conn, rank, grace_s)
 
-    def _park_joiner(self, job, conn, rank: int, grace_s: float) -> None:
-        """Hold a parked joiner's connection until a formation adopts it
-        (or a re-registration supersedes it); after ``grace_s`` close it
-        rather than hold the socket open forever."""
-        deadline = time.monotonic() + grace_s
-        with self._cv:
-            while True:
+    def _arm_join_bounce(self, job, conn, rank: int, grace_s: float) -> None:
+        """Close a parked joiner's connection after ``grace_s`` unless a
+        formation adopted it (or a re-registration superseded it), rather
+        than hold its socket open for good. The loop's timer hands the
+        bounce to the pool: the loop thread takes no tracker lock."""
+        def bounce() -> None:   # a pool thread
+            with self._lock:
                 pend = job._pending.get(rank)
                 if pend is None or pend[0] is not conn:
                     return   # adopted (or superseded) in time
-                left = deadline - time.monotonic()
-                if left <= 0 or self._done.is_set():
-                    break
-                self._cv.wait(left)
-            del job._pending[rank]
-        self._close(conn)
+                del job._pending[rank]
+            self._loop.close_conn(conn)
+        self._loop.call_later(
+            grace_s, lambda: self._svc.submit(job.job_id, bounce))
 
     @staticmethod
     def _expected_ranks(job) -> set:
@@ -2364,7 +2458,6 @@ class Tracker:
         job.mark_live()
         admitted = (sorted(job._member.formed(batch)) if job.elastic
                     else [])
-        self._cv.notify_all()
         return batch, job._epoch, admitted
 
     # -- elastic membership ---------------------------------------------------
@@ -2420,7 +2513,7 @@ class Tracker:
         if not job.elastic or not 0 <= int(rank) < job.nworkers:
             return False
         rank = int(rank)
-        with self._cv:
+        with self._lock:
             if rank in job._member.evicted:
                 return False
             self._wal("evict", rank=rank, reason=reason, _job=job)
@@ -2430,10 +2523,9 @@ class Tracker:
             got = self._try_complete_batch_locked(job)
             if job.open and not job._member.live:
                 job.mark_failed()
-            self._cv.notify_all()
         self._note_transition("evict", rank, reason or "evicted", job)
         if pend is not None:
-            self._close(pend[0])
+            self._loop.close_conn(pend[0])
         if got is not None:
             self._assign(job, *got)
         return True
@@ -2450,24 +2542,44 @@ class Tracker:
             job._stores.append((epoch, store, frozenset(members)))
         return self.host, store.port
 
-    def _reap_old_stores(self, job, acked_epoch: int) -> None:
-        """Once every member of the job's ``acked_epoch`` acked it, drop
-        each older store of the job whose members have all acked a newer
-        epoch: a worker drops its torch world before it acks (the data
-        plane's teardown sentinel), so no client of such a store is left.
-        A member evicted while its process lives on (the in-process
+    def _reap_old_stores(self, job) -> None:
+        """Drop each store of the job older than the newest epoch every
+        member of which acked it (``job._all_acked``) once every member of
+        the store's own epoch has let go of its world: acked a newer epoch
+        (a worker drops its torch world before it acks, the data plane's
+        teardown sentinel), or sent ``shutdown`` (a member that evicted
+        itself says so as it exits). No client of such a store is left. A
+        member evicted while its process lives on (the in-process
         ``resize("join")``) keeps the world of its last epoch, and with it
         a client of that epoch's store, until its own re-registration
         tears the world down; so that store stays until the member has
         acked a newer epoch. In a fixed world every batch holds every
-        rank, and this drops every store older than ``acked_epoch``. Keeps
-        the store count bounded whatever the number of recoveries; no
-        other job's store is touched."""
+        rank, and this drops every store older than the acked epoch.
+        Keeps the store count bounded whatever the number of recoveries
+        and departures; no other job's store is touched."""
         with self._lock:
+            acked_epoch = job._all_acked
             job._stores = [
                 (e, st, members) for e, st, members in job._stores
                 if e >= acked_epoch or
-                any(job._acked.get(r, 0) <= e for r in members)]
+                any(job._acked.get(r, 0) <= e
+                    and r not in job._shutdown_ranks for r in members)]
+
+    def _acks_settled(self, job, epoch: int, acked: List[int],
+                      every: bool) -> None:
+        """A pool thread, once each member of ``epoch`` acked, failed or
+        timed out: record the stable ranks that ``acked`` and, when
+        ``every`` member did, the job's newest fully acked epoch; then
+        reap. A crashed tracker records and reaps nothing: its stores stay
+        as a kill leaves them."""
+        if self.crashed:
+            return
+        with self._lock:
+            for r in acked:
+                job._acked[r] = max(epoch, job._acked.get(r, 0))
+            if every:
+                job._all_acked = max(job._all_acked, epoch)
+        self._reap_old_stores(job)
 
     def _assign(self, job, batch: Dict[int, tuple], epoch: int,
                 admitted=()) -> None:
@@ -2496,7 +2608,7 @@ class Tracker:
             print(f"[tracker] rendezvous store start failed, rejecting "
                   f"epoch {epoch}: {e}", file=sys.stderr, flush=True)
             for c in conns.values():
-                self._close(c)
+                self._loop.close_conn(c)
             return
 
         # single_host and the host grouping are judged by the OBSERVED
@@ -2555,45 +2667,50 @@ class Tracker:
                 _pack_u32(blob, int(peer_port))
                 _pack_str(blob, peer_tok)
             _pack_u32(blob, naccept)
-            try:
-                conns[rank].sendall(bytes(blob))
-            except OSError as e:
-                print(f"[tracker] rank {rank} lost before its epoch "
-                      f"{epoch} assignment ({e})", file=sys.stderr,
-                      flush=True)
-        stable = {s: r for r, s in slot_of.items()}
-        threading.Thread(target=self._await_acks,
-                         args=(job, conns, epoch, stable),
-                         daemon=True).start()
+            self._loop.send(conns[rank], bytes(blob))
+        self._await_acks(job, conns, epoch,
+                         {s: r for r, s in slot_of.items()})
 
-    def _await_acks(self, job, conns: Dict[int, socket.socket], epoch: int,
+    def _await_acks(self, job, conns: dict, epoch: int,
                     stable: Dict[int, int]) -> None:
-        """The ready-ack barrier (``conns`` by slot, ``stable`` maps a
-        slot to its stable rank). A worker dying before its ack is
-        logged: the epoch still completes (the dead worker re-registers
-        into the next one after its respawn), but no store is reaped on
-        it."""
-        deadline = time.monotonic() + self._ready_timeout
-        all_acked = True
-        for rank, conn in sorted(conns.items()):
-            try:
-                conn.settimeout(max(0.0, deadline - time.monotonic()))
-                _recv_all(conn, 4)
-                with self._lock:
-                    job._acked[stable[rank]] = max(
-                        epoch, job._acked.get(stable[rank], 0))
-            except (ConnectionError, OSError) as e:
-                all_acked = False
+        """The ready-ack barrier on the loop (``conns`` by slot, ``stable``
+        maps a slot to its stable rank): each member's 4-byte ack is an
+        ``expect`` with the ready timeout. ``state`` is touched only by
+        these loop-thread callbacks; once every member answered, failed
+        or timed out, the pool records the acks and reaps. A worker dying
+        before its ack is logged: the epoch still completes (the dead
+        worker re-registers into the next one after its respawn), but no
+        store is reaped on it."""
+        state = {"left": len(conns), "acked": []}
+
+        def settle() -> None:   # loop thread
+            state["left"] -= 1
+            if state["left"] == 0:
+                acked = state["acked"]
+                self._svc.submit(job.job_id, lambda: self._acks_settled(
+                    job, epoch, acked, len(acked) == len(conns)))
+
+        def on_ack(slot):
+            def _on_ack(c, _data) -> None:   # loop thread
+                self._loop.close_conn(c)
+                state["acked"].append(stable[slot])
+                settle()
+            return _on_ack
+
+        def on_fail(slot):
+            def _on_fail(c, exc) -> None:   # loop thread
                 if not self.crashed:
-                    print(f"[tracker] rank {rank} did not ack epoch "
-                          f"{epoch} ({type(e).__name__}: {e})",
+                    print(f"[tracker] rank {slot} did not ack epoch "
+                          f"{epoch} ({type(exc).__name__}: {exc})",
                           file=sys.stderr, flush=True)
-            finally:
-                self._close(conn)
-        if all_acked and not self.crashed:
-            # a crashed tracker reaps nothing: its stores stay as a kill
-            # leaves them
-            self._reap_old_stores(job, epoch)
+                self._loop.close_conn(c)
+                settle()
+            return _on_fail
+
+        for slot, conn in sorted(conns.items()):
+            self._loop.expect(conn, 4, on_ack(slot),
+                              timeout=self._ready_timeout,
+                              on_fail=on_fail(slot))
 
 
 def main(argv: Optional[List[str]] = None) -> int:

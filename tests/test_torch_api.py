@@ -321,8 +321,10 @@ def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
     ``chaos/*``) and of the incident plane and the post-mortem tools
     (``telemetry/incident.py``, ``tools/trace_report.py``,
     ``tools/bench_sentinel.py``) and of the multi-job control plane
-    (``tracker/jobs.py``, ``tracker/autoscaler.py``), by name (the package scan above covers
-    the package too), and the port's own test workers."""
+    (``tracker/jobs.py``, ``tracker/autoscaler.py``) and of the
+    connection plane (``tracker/evloop.py``, ``tools/tracker_bench.py``),
+    by name (the package scan above covers the package too), and the
+    port's own test workers."""
     new = [PKG / "utils" / "log.py", PKG / "utils" / "retry.py",
            PKG / "engine" / "ckpt_store.py", PKG / "engine" / "_native_build.py",
            PKG / "engine" / "native.py", PKG / "engine" / "dataplane.py",
@@ -350,5 +352,6 @@ def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
             PKG / "tools" / "bench_sentinel.py"]
     new += [PKG / "tracker" / "jobs.py", PKG / "tracker" / "autoscaler.py",
             ROOT / "tests" / "workers" / "torch_multijob_worker.py"]
+    new += [PKG / "tracker" / "evloop.py", PKG / "tools" / "tracker_bench.py"]
     assert all(p.is_file() for p in new)
     assert _jax_imports(new) == []

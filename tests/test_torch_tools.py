@@ -174,3 +174,41 @@ def test_kernel_variants_refuses_to_run_without_a_card(tmp_path):
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
     assert list(tmp_path.iterdir()) == []
+
+
+def test_tracker_bench_smoke_is_bounded_renders_and_writes_nothing_else(
+        tmp_path):
+    """``python -m rabit_tpu_torch.tools.tracker_bench --smoke`` climbs its
+    tiny ladder against the port's tracker: a ``tracker_bench/v1``
+    document with ``bounded_threads``, which the port's ``trace_report``
+    renders; it writes its ``--out`` and nothing else (no history)."""
+    from rabit_tpu_torch.tools import trace_report
+    hist = ARTIFACTS / "history.jsonl"
+
+    def elsewhere():
+        names = ("TRACKER_BENCH*", "tracker_bench*")
+        return ({p for n in names for p in [
+            *ROOT.glob(n), *ARTIFACTS.rglob(n),
+            *(ROOT / "benchmarks").rglob(n)]},
+            hist.stat().st_mtime_ns if hist.exists() else None)
+
+    before = elsewhere()
+    out = tmp_path / "bench.json"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-m",
+                          "rabit_tpu_torch.tools.tracker_bench", "--smoke",
+                          "--out", str(out)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    assert "tracker_bench smoke ok" in res.stderr
+    doc = json.loads(out.read_text())
+    assert doc == json.loads(res.stdout)
+    assert doc["schema"] == "rabit_tpu.tracker_bench/v1"
+    assert doc["bounded_threads"] is True and doc["smoke"] is True
+    assert [lv["idle_conns"] for lv in doc["levels"]] == [0, 50, 150]
+    assert doc["levels"][-1]["open_conns"] >= 150 and doc["cut"] == []
+    text = trace_report.render(doc)
+    assert "threads bounded" in text and "| 150 |" in text
+    assert [p.name for p in tmp_path.iterdir()] == ["bench.json"]
+    assert elsewhere() == before

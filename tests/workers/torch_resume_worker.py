@@ -34,8 +34,9 @@ Between rounds the worker leans on the control plane as a real job does:
 With ``RESUME_SHRINK_AT`` = k >= 0 (an elastic world), at round k task
 ``KILL_TASK`` reports itself evicted (``evict``) and, once the shrunk
 world has formed, leaves with exit code 0 and without ``finalize``
-(whose consensus exit would wait on the world it has left; so it sends
-no ``shutdown``), and the survivors absorb
+(whose consensus exit would wait on the world it has left): it sends its
+``shutdown`` itself on the way out, the tracker's sign that it let go of
+its world (so the store of its last epoch can go), and the survivors absorb
 the shrink with ``resize("recover")`` and stream the remaining rounds at
 world N-1. With ``RESUME_AWAIT`` naming a file, every rank waits for it
 to exist before round k (the caller writes it once the tracker has been
@@ -72,7 +73,7 @@ from rabit_tpu_torch.engine.dataplane import card_index  # noqa: E402
 from rabit_tpu_torch.ops import histogram as K  # noqa: E402
 from rabit_tpu_torch.telemetry import events  # noqa: E402
 from rabit_tpu_torch.telemetry import skew  # noqa: E402
-from rabit_tpu_torch.tracker import membership  # noqa: E402
+from rabit_tpu_torch.tracker import jobs, membership  # noqa: E402
 from rabit_tpu_torch.tracker.tracker import MAGIC  # noqa: E402
 
 HOST = os.environ["RABIT_TRACKER_URI"]
@@ -287,6 +288,8 @@ def main():
             prober.join()
             note_device("done")
             finish()
+            # it has let go of its world: say so, as finalize would
+            jobs.wire_shutdown(HOST, PORT, TASK)
             log("left")
             os._exit(0)
         do_round(rnd)
