@@ -471,18 +471,45 @@ Phases (each prints a line; any failure exits non-zero):
                 released, the kernel launched once a round on every
                 process; prints the ``world`` command's p50 and p99 with
                 and without the load.
-23. kernels     one JSON line of every kernel with its main-path launches
+23. flagship bf16  the flash forward kernel's bf16 path
+                (``rabit_flash_block_bf16``) and the flagship at bf16:
+                (a) the kernel alone at bf16 q/k/v against the plain step
+                on the same inputs, at the training shape, the chain
+                block, a causal mask with a fully masked first row (the
+                first step) and D 1, 13, 100 and 128 (odd D loads through
+                plain loads, D 100 through 4-byte copies); m' and l'
+                within the f32 forward's tolerance, o' within 2^-9 of
+                max|o'| (p's rounding to bf16 flips where the f32 scores
+                differ in their last bit); mixed dtypes raise; (b) the
+                flagship's forward at full width (FLAGSHIP_SIZES, batch 8
+                x seq 512) with ``init_params(dtype=bfloat16)`` weights:
+                the bf16 kernel launched once a layer, nothing else of
+                the flash kernels, logits within 2e-2 of max|logit| of the
+                same forward under ``plain_block_step()``, ``make_forward``
+                on a world-1 mesh equal to it bit for bit; a forward's
+                median of 10 on CUDA events beside the f32 forward's; (c)
+                a bf16 train step raises ``TypeError`` from
+                ``flash_block_bwd`` (its bf16 path is not ported); (d) the
+                bf16 kernel timed at both shapes beside the plain step,
+                ``scaled_dot_product_attention`` at bf16 with the same
+                mask (as [1, B*H, T, D] and ``is_causal``) and the bound
+                (bytes: q/k/v at 2 B, m/l/o in and out at 4 B;
+                operations at 989 TFLOP/s of dense bf16).
+24. kernels     one JSON line of every kernel with its main-path launches
                 (and, for the flash kernels, phase 12's and phase 13's; for
                 the histogram, phase 17 (b)'s, null where (b) did not run,
                 phase 18's killed runs', (b)'s null where it did not run,
                 phase 19's runs, (b)'s null where it did not run,
                 phase 20's (b) and (c), phase 21's (b), (c) and (d), and
-                phase 22 (c)'s two runs).
+                phase 22 (c)'s two runs); the flash forward's bf16 path is
+                an entry of its own, ``flash_block_bf16``, with phase 23
+                (b)'s launches.
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
 phase 6, each run of phase 12, each ring call of phase 13, in its rank's
-process, each run of phase 14 (b)) and read just after it, so a kernel's
-count is its own path's alone: mask_only's is the sweep's. Phase 11's
+process, each run of phase 14 (b), phase 23 (b)'s forward) and read
+just after it, so a kernel's count is its own path's alone: mask_only's
+is the sweep's. Phase 11's
 histogram launches are counted in its workers, each a fresh process (so
 from 0), and printed there; phases 17's, 18's and 19's in their
 workers, a launch a round a member, and phases 20's, 21's and 22's
@@ -514,12 +541,15 @@ F32_OPS_PER_S = 67e12        # f32 outside the tensor cores, same source
 # f32 accuracy on the tensor cores: 495 TFLOP/s of TF32 (same source) over
 # the three products of the 3xTF32 split
 TF32X3_OPS_PER_S = 495e12 / 3
+BF16_OPS_PER_S = 989e12      # dense bf16 on the tensor cores, same source
 REPLACES = {"histogram": "rabit_tpu/ops/pallas_kernels.py:133",
             "flash_block": "rabit_tpu/ops/pallas_kernels.py:398",
             "flash_block_bwd": "rabit_tpu/ops/pallas_kernels.py:345",
-            "mask_only": "tools/histogram_sweep.py:79"}
+            "mask_only": "tools/histogram_sweep.py:79",
+            "flash_block_bf16": "rabit_tpu/ops/pallas_kernels.py:398"}
 SOURCES = {"histogram": "rabit_tpu_torch/csrc/histogram.cu",
            "flash_block": "rabit_tpu_torch/csrc/flash_block.cu",
+           "flash_block_bf16": "rabit_tpu_torch/csrc/flash_block.cu",
            "flash_block_bwd": "rabit_tpu_torch/csrc/flash_block_bwd.cu",
            "mask_only": "rabit_tpu_torch/csrc/mask_only.cu"}
 
@@ -616,9 +646,9 @@ def phase_build() -> None:
                    and not s.endswith(" 0 B spilled")]
         if spilled:
             raise AssertionError(f"kernels spill registers: {spilled}")
-    # every instantiation: 4 DP x mask / no mask; the backward has two
-    # kernels of each
-    for name, prefix, expect in (("flash_block", "flash_fwd_", 8),
+    # every instantiation: 4 DP x mask / no mask; the forward has an f32
+    # and a bf16 kernel of each, the backward two f32 kernels
+    for name, prefix, expect in (("flash_block", "flash_fwd_", 16),
                                  ("flash_block_bwd", "flash_bwd_", 16)):
         hmma = {k: n for k, n in sass_counts(
             _build.library_path(name), "HMMA").items()
@@ -994,6 +1024,7 @@ def reset_launches() -> None:
     K.histogram.launches = 0
     K.mask_only.launches = 0
     F.flash_block.launches = 0
+    F.flash_block.bf16_launches = 0
     F.flash_block_bwd.launches = 0
 
 
@@ -1003,6 +1034,7 @@ def read_launches() -> dict:
     return {"histogram": K.histogram.launches,
             "mask_only": K.mask_only.launches,
             "flash_block": F.flash_block.launches,
+            "flash_block_bf16": F.flash_block.bf16_launches,
             "flash_block_bwd": F.flash_block_bwd.launches}
 
 
@@ -1429,6 +1461,219 @@ def phase_flash_timing(dev, power: str) -> dict:
                   f" bound {bound:.4f} ms ({bound_by}; {bound / ms:.1%} of "
                   f"it), plain {plain:.4f} ms, {lib_note} [{power}]")
     return out
+
+
+# phase 23: the bf16 forward kernel against the plain step, o' within
+# half an ulp of bf16 of max|o'|: what is left is p's own rounding to
+# bf16, which flips where the f32 scores differ in their last bit from one
+# order of summation to another (4.6e-4 and 6.3e-4 of max|o'| on the CPU
+# at the two shapes); the flagship's bf16 logits through the kernel
+# against the same forward through the plain step
+BF16_O_REL = 2.0 ** -9
+BF16_LOGIT_REL = 2e-2
+BF16_FWD_REPS = 10
+# (label, (B*H, T, S, D), mask, first step)
+BF16_CASES = [
+    ("training shape", FLASH_MAIN[:4], "causal", True),
+    ("chain block", FLASH_CHAIN[:4], None, False),
+    ("fully masked first row", (4, 192, 192, 32), "causal, row 0 masked",
+     True),
+    ("D 1", (2, 128, 96, 1), "tie", False),
+    ("D 13", (3, 100, 72, 13), "tie", False),
+    ("D 100", (2, 256, 320, 100), "causal", True),
+    ("D 128", (2, 256, 256, 128), None, False),
+]
+
+
+def bf16_case(bh: int, t: int, s: int, d: int, mask_kind, seed: int, dev,
+              first_step: bool = False):
+    """``flash_case``'s block step inputs with q, k and v rounded to
+    bf16; m, l, o stay f32."""
+    ins, _ = flash_case(bh, t, s, d, mask_kind, seed, dev, first_step)
+    return (*(x.to(torch.bfloat16) for x in ins[:3]), *ins[3:])
+
+
+def _bf16_kernel_checks(dev) -> float:
+    """Phase 23 (a); returns the largest absolute difference."""
+    from rabit_tpu_torch.ops import flash as F
+    worst = 0.0
+    for i, (label, (bh, t, s, d), mask_kind, first) in enumerate(BF16_CASES):
+        ins = bf16_case(bh, t, s, d, mask_kind, 60 + i, dev, first)
+        sm = d ** -0.5
+        got = F.flash_block(*ins, sm)
+        want = F.block_update_reference(*ins, sm)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, w in zip(("m'", "l'"), got, want):
+            errs[name] = assert_close(g.cpu(), w.cpu(),
+                                      f"flash_block bf16 {label} {name}",
+                                      **FLASH_FWD_TOL)
+        if not torch.isfinite(got[2]).all():
+            raise AssertionError(f"flash_block bf16 {label} o': non-finite")
+        errs["o'"] = float((got[2] - want[2]).abs().max())
+        rel = errs["o'"] / max(float(want[2].abs().max()), 1e-30)
+        worst = max(worst, *errs.values())
+        diffs = ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+        phase("flagship bf16", f"(a) flash_block bf16 {label} (B*H {bh}, T "
+              f"{t}, S {s}, D {d}, mask {mask_kind}): max|diff| {diffs} "
+              f"(m', l' within rtol/atol {FLASH_FWD_TOL['rtol']}); o' "
+              f"{rel:.3g} of max|o'| (limit {BF16_O_REL:.3g})")
+        if rel > BF16_O_REL:
+            raise AssertionError(f"flash_block bf16 {label} o': "
+                                 f"max|diff|/max|o'| {rel:.3g} > "
+                                 f"{BF16_O_REL:.3g}")
+    q, k, v, m, l, o, mask = bf16_case(2, 64, 64, 32, None, 69, dev)
+    try:
+        F.flash_block(q, k.float(), v, m, l, o, mask, 0.25)
+    except TypeError as e:
+        phase("flagship bf16", f"(a) mixed q/k/v dtypes raise: {e}")
+    else:
+        raise AssertionError("flash_block took bf16 q with f32 k")
+    return worst
+
+
+def _bf16_model(dev, power: str) -> dict:
+    """Phase 23 (b) and (c)."""
+    import torch.distributed as dist
+    import traceback
+    from rabit_tpu_torch import entry as E
+    from rabit_tpu_torch.models import transformer as tf
+    from rabit_tpu_torch.ops import flash as F
+    from rabit_tpu_torch.parallel.mesh import make_mesh
+    sizes = E.FLAGSHIP_SIZES
+    n_layers = sizes["n_layers"]
+    x, y = (torch.from_numpy(a).to(dev) for a in E.flagship_data(0))
+    model = tf.model_on(tf.init_params(0, dtype=torch.bfloat16, **sizes),
+                        dev)
+    dtypes = {p.dtype for p in model.parameters()}
+    if dtypes != {torch.bfloat16}:
+        raise AssertionError(f"bf16 flagship parameters are {dtypes}")
+    reset_launches()
+    with torch.no_grad():
+        logits = tf.forward(model, x)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {"histogram": 0, "mask_only": 0, "flash_block": 0,
+            "flash_block_bf16": n_layers, "flash_block_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"bf16 forward of {n_layers} layers launched "
+                             f"{launches}")
+    with torch.no_grad(), F.plain_block_step():
+        plain = tf.forward(model, x)
+    torch.cuda.synchronize()
+    if logits.dtype != torch.bfloat16 or logits.shape != (
+            E.FLAGSHIP_BATCH, E.FLAGSHIP_SEQ, sizes["vocab"]) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"bf16 logits {logits.dtype} "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    diff = float((logits.float() - plain.float()).abs().max())
+    top = float(plain.float().abs().max())
+    if diff > BF16_LOGIT_REL * top:
+        raise AssertionError(f"bf16 logits kernel vs plain step: max|diff| "
+                             f"{diff} of max|logit| {top} > "
+                             f"{BF16_LOGIT_REL}")
+    model32 = tf.model_on(tf.init_params(0, **sizes), dev)
+    with torch.no_grad():
+        ms = float(np.median(_events_ms(lambda: tf.forward(model, x),
+                                        BF16_FWD_REPS)))
+        ms32 = float(np.median(_events_ms(lambda: tf.forward(model32, x),
+                                          BF16_FWD_REPS)))
+    phase("flagship bf16", f"(b) forward at bf16, {n_layers} layers, batch "
+          f"{E.FLAGSHIP_BATCH} x seq {E.FLAGSHIP_SEQ}: launches {launches}; "
+          f"logits max|diff| {diff:.4g} of max|logit| {top:.4g} against the "
+          f"plain block step ({diff / top:.3g}, limit {BF16_LOGIT_REL}); "
+          f"forward {ms:.4f} ms median of {BF16_FWD_REPS} on CUDA events, "
+          f"f32 forward {ms32:.4f} ms [{power}]")
+    mesh = make_mesh((1, 1, 1), dev)
+    try:
+        with torch.no_grad():
+            sharded = tf.make_forward(mesh)(model, x)
+        if not torch.equal(sharded, logits):
+            raise AssertionError("bf16 make_forward at (1, 1, 1) differs "
+                                 "from forward")
+        step = tf.make_train_step(mesh, lr=E.FLAGSHIP_LR)
+        try:
+            step(model, x, y)
+        except TypeError as e:
+            frames = [f.name for f in traceback.extract_tb(e.__traceback__)]
+            if "flash_block_bwd" not in frames or "bfloat16" not in str(e):
+                raise AssertionError(f"the bf16 step raised from {frames}: "
+                                     f"{e}") from e
+            boundary = str(e)
+        else:
+            raise AssertionError("a bf16 train step ran on the card: its "
+                                 "backward has no kernel")
+    finally:
+        dist.destroy_process_group()
+    phase("flagship bf16", f"(b) make_forward at (1, 1, 1) equals forward "
+          f"bit for bit; (c) a bf16 train step raises TypeError from "
+          f"flash_block_bwd: {boundary}")
+    return {"launches": launches["flash_block_bf16"], "forward_ms": ms,
+            "forward_f32_ms": ms32, "logit_rel": diff / top}
+
+
+def flash_bf16_bound(bh: int, t: int, s: int, d: int, mask):
+    """(bound ms, what bounds it, flops, bytes) of one bf16 forward call:
+    4 D flops for each (query, key) pair the mask leaves, at the dense
+    bf16 tensor-core rate, against q, k, v read once at 2 B, m, l, o read
+    and m', l', o' written at 4 B, and the mask, at the memory rate."""
+    pairs = bh * (t * s if mask is None else int((~mask).sum()))
+    nbytes = 2 * (bh * t * d + 2 * bh * s * d) + 2 * 4 * bh * t * (2 + d) \
+        + (0 if mask is None else t * s)
+    flops = 4 * pairs * d
+    by_ops, by_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(by_ops, by_bytes) * 1e3,
+            "operations" if by_ops >= by_bytes else "bytes", flops, nbytes)
+
+
+def _bf16_timing(dev, power: str) -> list:
+    """Phase 23 (d): the bf16 kernel, its plain version and
+    ``scaled_dot_product_attention`` at bf16 (the yardstick; the port
+    never calls it) with the same mask, at both shapes. SDPA gets the
+    heads as [1, B*H, T, D] and the causal mask as ``is_causal`` (the same
+    mask at T = S), which let it pick its fused kernels."""
+    import torch.nn.functional as TF
+    from rabit_tpu_torch.ops import flash as F
+    rows = []
+    for bh, t, s, d, causal in (FLASH_MAIN, FLASH_CHAIN):
+        ins = bf16_case(bh, t, s, d, "causal" if causal else None, 3, dev,
+                        first_step=True)
+        per_set = sum(x.numel() * x.element_size() for x in ins[:6])
+        copies = max(2, math.ceil(150e6 / per_set))
+        sets = [tuple(None if x is None else x.clone() for x in ins)
+                for _ in range(copies)]
+        sm = d ** -0.5
+        ms = time_ms(lambda *a: F.flash_block(*a, sm), sets)
+        plain = time_ms(lambda *a: F.block_update_reference(*a, sm), sets)
+        lib_sets = [(q[None], k[None], v[None])
+                    for q, k, v, m, l, o, mask in sets]
+        with torch.no_grad():
+            library = time_ms(
+                lambda q, k, v: TF.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, scale=sm), lib_sets)
+        bound, bound_by, flops, nbytes = flash_bf16_bound(bh, t, s, d,
+                                                          ins[6])
+        rows.append(dict(shape=[bh, t, s, d], causal=causal, ms=ms,
+                         plain_ms=plain, library_ms=library, bound_ms=bound,
+                         bound_by=bound_by, flops=flops, bytes=nbytes))
+        phase("flagship bf16", f"(d) flash_block bf16 B*H {bh} T {t} S {s} "
+              f"D {d} {'causal' if causal else 'no mask'}: kernel "
+              f"{ms:.4f} ms, bound {bound:.4f} ms ({bound_by}, {nbytes} B, "
+              f"{flops} flop; {bound / ms:.1%} of it), plain {plain:.4f} ms,"
+              f" sdpa bf16 {library:.4f} ms [{power}]")
+    return rows
+
+
+def phase_flagship_bf16(dev, power: str) -> dict:
+    """Phase 23: the bf16 forward kernel alone, the flagship's forward at
+    bf16 through it, the bf16 step's boundary, and the kernel's times."""
+    t0 = time.perf_counter()
+    worst = _bf16_kernel_checks(dev)
+    model = _bf16_model(dev, power)
+    timing = _bf16_timing(dev, power)
+    phase("flagship bf16", f"done in {time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": worst, "timing": timing, **model}
 
 
 CODEC_CASES = [("bf16", 1024), ("bf16", 512), ("int8", 1024), ("int8", 512)]
@@ -5605,6 +5850,10 @@ def main() -> int:
     phase("timing", f"training step (flagship, batch 8 x seq 512): "
           f"{tf_run['step_ms']:.3f} ms median of steps 2-"
           f"{FLAGSHIP_STEPS} on CUDA events [{power}]")
+    bf16 = phase_flagship_bf16(dev, power)
+    timing["flash_block_bf16"] = bf16["timing"]
+    launches["flash_block_bf16"] = bf16["launches"]
+    max_err["flash_block_bf16"] = bf16["max_abs_err"]
     phase_collectives(dev)
     phase_robust(dev, power)
     bucket = phase_bucket(dev, power)
@@ -5619,7 +5868,8 @@ def main() -> int:
     jobs = phase_jobs(power)
     conn = phase_conn_plane(power)
     kernels = []
-    for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only"):
+    for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only",
+                 "flash_block_bf16"):
         head = timing[name][0]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -5667,7 +5917,9 @@ def main() -> int:
         "elastic": elastic, "resume": resume, "failover": failover,
         "incidents": _failover_doc(incidents),
         "jobs": {k: jobs[k] for k in ("a_s", "launches")},
-        "conn_plane": conn}), flush=True)
+        "conn_plane": conn,
+        "flagship_bf16": {k: bf16[k] for k in (
+            "forward_ms", "forward_f32_ms", "logit_rel")}}), flush=True)
     print(power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

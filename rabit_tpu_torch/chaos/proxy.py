@@ -290,7 +290,7 @@ class ChaosProxy:
     def start(self) -> "ChaosProxy":
         # written once before the accept thread exists (Thread.start()
         # is the happens-before edge), read-only afterwards
-        self._t0 = time.monotonic()
+        self._t0 = time.monotonic()  # noqa: C003 - before the thread
         self._thread = threading.Thread(target=self._serve, daemon=True,
                                         name=f"{self.name}-accept")
         self._thread.start()
@@ -412,12 +412,12 @@ class ChaosProxy:
             index = self.accepted
             # accept/refuse tallies have a single writer (this serve
             # thread); tests read them only after stop()
-            self.accepted += 1
+            self.accepted += 1  # noqa: C003 - single-writer tally
             rules = self.schedule.decide(index)
             blackout = next((r for r in rules if r.kind == "blackout"
                              and self._in_window(r)), None)
             if blackout is not None and Schedule.consume(blackout):
-                self.refused += 1
+                self.refused += 1  # noqa: C003 - single-writer tally
                 self._event("blackout", index)
                 _hard_close(client)
                 continue
@@ -438,7 +438,7 @@ class ChaosProxy:
                 except Exception as e:  # chaos never aborts
                     print(f"[{self.name}] kill hook failed: {e}",
                           file=sys.stderr, flush=True)
-                self.refused += 1
+                self.refused += 1  # noqa: C003 - single-writer tally
                 _hard_close(client)
                 continue
             with self._lock:
@@ -449,7 +449,7 @@ class ChaosProxy:
             except OSError:
                 # upstream genuinely down: behave like it (RST, since a
                 # refused connect surfaces as an error, not a hang)
-                self.refused += 1
+                self.refused += 1  # noqa: C003 - single-writer tally
                 _hard_close(client)
                 continue
             conn = _Conn(index, client, upstream, rules, self)

@@ -85,15 +85,17 @@ def _shard_params(params: Mapping[str, np.ndarray], specs, tp_rank: int,
     dev = resolve_device(device)
     out = {}
     for name, axis in specs.items():
-        a = np.asarray(params[name])
+        a = params[name]
+        if not isinstance(a, torch.Tensor):
+            a = tensor_from_numpy(np.asarray(a))
         if axis is not None:
             n = a.shape[axis]
             if n % tp:
                 raise ValueError(f"{name}: axis {axis} of size {n} does not "
                                  f"divide over {tp} ranks")
-            a = np.take(a, np.arange(tp_rank * n // tp,
-                                     (tp_rank + 1) * n // tp), axis=axis)
-        out[name] = tensor_from_numpy(a).to(dev)
+            a = a.narrow(axis, tp_rank * n // tp, n // tp)
+        # a copy: the module's in-place updates never reach the caller's
+        out[name] = a.clone(memory_format=torch.contiguous_format).to(dev)
     return out
 
 
@@ -114,7 +116,8 @@ def transformer_params_from_jax(params: Mapping[str, np.ndarray],
                                 device: DeviceLike = None
                                 ) -> Dict[str, torch.Tensor]:
     """The JAX package's transformer parameter dict (numpy arrays, JAX
-    layouts) as the port's module state for tensor-parallel rank
+    layouts; or CPU tensors, as a bf16 ``init_params`` gives them) as the
+    port's module state for tensor-parallel rank
     ``tp_rank`` of ``tp``: each sharded parameter cut along its axis as
     ``param_specs`` cuts it, on ``device`` (the card by default)."""
     from .models.transformer import param_specs  # that module imports this

@@ -3,8 +3,9 @@
 //   s  = q k^T * scale, masked lanes set to -1e30
 //   m' = max(m, rowmax s);  alpha = exp(m - m');  p = exp(s - m')
 //   l' = l alpha + sum_j p;  o' = o alpha + p v
-// q [BH, T, D], k/v [BH, S, D], m/l [BH, T], o [BH, T, D], all f32; mask
-// u8 [T, S] (non-zero = masked) shared by every head, or null.
+// q [BH, T, D], k/v [BH, S, D] all f32 or all bf16; m/l [BH, T], o [BH,
+// T, D] f32; mask u8 [T, S] (non-zero = masked) shared by every head, or
+// null.
 //
 // Replaces the TPU kernel rabit_tpu/ops/pallas_kernels.py::flash_block
 // (body _flash_block_body). That program holds one head's whole [T, S]
@@ -76,9 +77,29 @@
 // pairs a head) 1.08 GFLOP, 6.5 us; at the chain block (BH 8, T = S =
 // 1024, D 128) 4.3 GFLOP, 26 us.
 //
-// The C entry point launches on the caller's stream, allocates nothing,
-// does not synchronise, and returns the launch's cudaError_t.
+// The bf16 path (rabit_flash_block_bf16; the TPU kernel's bf16 q/k/v
+// contract, pallas_kernels.py:241-253): the same schedule, skip and warp
+// split, one body templated on the element type, with a pre-pass over the
+// key tiles for each row's final max (see the pass loop). q, K, V and p
+// live in
+// shared memory as bf16 (MmaTileBf16<DP>::kLd = DP + 8, p at 64 + 8:
+// rows 16-byte aligned and fragments free of bank conflicts), about half
+// the f32 path's bytes (35.6 KB at D 32, 97 KB at D 128). s = q k^T runs
+// on mma.sync.m16n8k16 .bf16 with f32 sums (a bf16 x bf16 product is
+// exact in f32, so no split), scaled and masked as above; m', alpha and
+// p are f32 and l' sums the f32 p; then p is rounded to bf16 to nearest
+// even (__floats2bfloat162_rn), as the TPU kernel's p.astype(v.dtype),
+// and p v runs on the same bf16 product into the f32 o. A row of an odd
+// D is only 2-byte aligned, so such tiles load through plain loads
+// (load_tile_async's third branch). Bound: bytes. q, k, v at 2 B and o
+// read and written at 4 B: at the training shape about 15 MB, 4.5 us at
+// 3.35 TB/s, against 1.08 GFLOP, 1.1 us at 989 TFLOP/s of dense bf16; at
+// the chain block about 14.7 MB, 4.4 us, against 4.3 GFLOP, 4.3 us.
+//
+// The C entry points launch on the caller's stream, allocate nothing,
+// do not synchronise, and return the launch's cudaError_t.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -91,27 +112,33 @@ using namespace rabit_flash;
 using namespace rabit_mma;
 
 constexpr int kNt = 4;            // 8-key C tiles of a warp's 32 keys
-constexpr int kLdP = kCols + 4;   // p: read as A rows
 constexpr int kChunk = 64;        // key tiles whose mask bits a pass reads
 constexpr unsigned kSomeUnmasked = 1, kSomeMasked = 2;
 
-// Shared memory of a block: q, two stages of (K, V), p, the pair
-// exchange, the mask bits.
-template <int DP>
+// Shared memory of a block: q, two stages of (K, V) and p in elements of
+// E (f32 or bf16), then the pair exchange and the mask bits.
+template <typename E, int DP>
 struct Smem {
-  static constexpr int kLd = MmaTile<DP>::kLd;  // q, K
-  static constexpr int kLdV = DP + 8;           // V: read as B columns
+  static constexpr bool kBf16 = sizeof(E) == 2;
+  static constexpr int kLd =
+      kBf16 ? MmaTileBf16<DP>::kLd : MmaTile<DP>::kLd;  // q, K
+  static constexpr int kLdV = DP + 8;                   // V: read as B columns
+  static constexpr int kLdP = kCols + (kBf16 ? 8 : 4);  // p: read as A rows
   static constexpr int kTile = kRows * kLd;
   static constexpr int kStage = kTile + kCols * kLdV;  // K, then V
-  static constexpr int kFloats =
-      kTile + 2 * kStage + kRows * kLdP + 2 * kRows + kChunk;
+  static constexpr size_t kBytes =
+      sizeof(E) * (kTile + 2 * kStage + kRows * kLdP) +
+      sizeof(float) * 2 * kRows + sizeof(unsigned) * kChunk;
 };
 
 // Two blocks share an SM to D 64 (at most 128 registers a thread and
-// 104.8 KB of shared memory a block); at D 128 the shared memory holds one
-// block, which may then take up to 255 registers a thread.
+// 104.8 KB of shared memory a block); at D 128 the f32 path's shared
+// memory holds one block, which may then take up to 255 registers a
+// thread. The bf16 path asks for one block (at 128 registers its masked
+// kernels at D 32 and 64 spilled); its shared memory would hold two.
 template <int DP>
 constexpr int kMinBlocks = DP <= 64 ? 2 : 1;
+constexpr int kMinBlocksBf16 = 1;
 
 __device__ __forceinline__ bool has_zero_byte(unsigned x) {
   return ((x - 0x01010101u) & ~x & 0x80808080u) != 0;
@@ -172,38 +199,43 @@ __device__ __forceinline__ void pair_sync(int pair) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
 }
 
-// kMasked: whether mask is given; the kernel without one reads no mask.
-template <int DP, bool kMasked>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ m,
-                     const float* __restrict__ l, const float* __restrict__ o,
-                     const unsigned char* __restrict__ mask, int T, int S,
-                     int D, float scale, float* __restrict__ mo,
-                     float* __restrict__ lo, float* __restrict__ oo) {
-  using L = Smem<DP>;
-  constexpr int kLd = L::kLd;
+// The block's work, for q/k/v of element type E (f32: 3xTF32 products;
+// bf16: bf16 products, p rounded to bf16). kMasked: whether mask is
+// given; the kernel without one reads no mask.
+template <typename E, int DP, bool kMasked>
+__device__ __forceinline__ void flash_fwd(
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const float* __restrict__ m,
+    const float* __restrict__ l, const float* __restrict__ o,
+    const unsigned char* __restrict__ mask, int T, int S, int D,
+    float scale, float* __restrict__ mo, float* __restrict__ lo,
+    float* __restrict__ oo) {
+  using L = Smem<E, DP>;
+  constexpr int kLd = L::kLd, kLdP = L::kLdP;
   constexpr int kNo = DP / 16;  // 8-column C tiles of the warp's o half
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                    // [kRows, kLd]
-  float* kv_s = q_s + L::kTile;         // [2][k: kCols, kLd; v: kCols, kLdV]
-  float* p_s = kv_s + 2 * L::kStage;    // [kRows, kLdP]
-  float* part_s = p_s + kRows * kLdP;   // [2 halves][kRows]: max, then sum
+  extern __shared__ __align__(16) unsigned char smem[];
+  E* q_s = reinterpret_cast<E*>(smem);  // [kRows, kLd]
+  E* kv_s = q_s + L::kTile;         // [2][k: kCols, kLd; v: kCols, kLdV]
+  E* p_s = kv_s + 2 * L::kStage;    // [kRows, kLdP]
+  // [2 halves][kRows]: max, then sum
+  float* part_s = reinterpret_cast<float*>(p_s + kRows * kLdP);
   unsigned* bits_s = reinterpret_cast<unsigned*>(part_s + 2 * kRows);
 
   const int tiles = (T + kRows - 1) / kRows;
   const long long hq = static_cast<long long>(blockIdx.y) * T;
   const long long hk = static_cast<long long>(blockIdx.y) * S;
-  const float* kh = k + hk * D;
-  const float* vh = v + hk * D;
+  const E* kh = k + hk * D;
+  const E* vh = v + hk * D;
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int pair = w / 2, slice = 16 * pair, half = w % 2;
   const int keys = 32 * half;        // s: keys keys.. + 32 of a tile
   const int cols = half * (DP / 2);  // o: columns cols.. + DP/2
-  auto load_kv = [&](int stage, int col0) {
-    load_tile_async<DP>(kv_s + stage * L::kStage, kh, col0, S, D);
-    load_tile_async<DP, L::kLdV>(kv_s + stage * L::kStage + L::kTile, vh,
-                                 col0, S, D);
+  // a stage's K and V tiles, or (`with_v` false) its K tile alone
+  auto load_kv = [&](int stage, int col0, bool with_v) {
+    load_tile_async<DP, kLd>(kv_s + stage * L::kStage, kh, col0, S, D);
+    if (with_v)
+      load_tile_async<DP, L::kLdV>(kv_s + stage * L::kStage + L::kTile, vh,
+                                   col0, S, D);
   };
 
   const int first = blockIdx.x, last = kMasked ? tiles - 1 - first : first;
@@ -211,12 +243,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
     const int row0 = qt * kRows;
     // this thread's rows slice + c_row(e): h = 0 for e < 2, 1 for e >= 2
     int row[2];
-    float m_run[2], l_run[2], acc[kNo][4];
+    float m_in[2], m_run[2], l_run[2], acc[kNo][4];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       row[h] = row0 + slice + c_row(2 * h);
       const bool ok = row[h] < T;
-      m_run[h] = ok ? m[hq + row[h]] : kNegInf;
+      m_in[h] = m_run[h] = ok ? m[hq + row[h]] : kNegInf;
       // l enters once, through the first lane of the row's half 0
       l_run[h] = ok && half == 0 && lane % 4 == 0 ? l[hq + row[h]] : 0.f;
     }
@@ -256,72 +288,123 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
       return {j * kCols, true};
     };
 
-    // the previous query tile's readers of q_s and bits_s are done
-    const bool rows_ok = finite();
-    load_tile_async<DP>(q_s, q + hq * D, row0, T, D);
-    Visit tile = next_visit(0, rows_ok);
-    if (tile.from < S) load_kv(0, tile.from);
-    cp_async_commit();
-    for (int stage = 0; tile.from < S; stage ^= 1) {
-      cp_async_wait<0>();
-      // tile (and q) landed; the other stage is free
-      const Visit next = next_visit(tile.from / kCols + 1, finite());
-      if (next.from < S) load_kv(stage ^ 1, next.from);
+    // The bf16 path walks the key tiles twice: pass 0 forms s alone and
+    // takes each row's max, so that pass 1 computes p = exp(s - m') with
+    // m' final, as the contract does before it rounds p to bf16 (an
+    // online rescale would round exp(s - m_j) of a running max m_j and
+    // scale the rounded p later, which is off by up to half an ulp of
+    // bf16 on every p of a row whose max rose). In pass 1 every tile's
+    // alpha is then exp(0) = 1. The f32 path makes pass 1 alone.
+    constexpr int kFirstPass = L::kBf16 ? 0 : 1;
+    for (int pass = kFirstPass; pass < 2; ++pass) {
+      // the previous query tile's (or pass's) readers of q_s and bits_s
+      // are done
+      const bool rows_ok = finite();
+      if (pass == kFirstPass)
+        load_tile_async<DP, kLd>(q_s, q + hq * D, row0, T, D);
+      Visit tile = next_visit(0, rows_ok);
+      if (tile.from < S) load_kv(0, tile.from, pass == 1);
       cp_async_commit();
-      const float* k_s = kv_s + stage * L::kStage;
-      const float* v_s = k_s + L::kTile;
+      for (int stage = 0; tile.from < S; stage ^= 1) {
+        cp_async_wait<0>();
+        // tile (and q) landed; the other stage is free
+        const Visit next = next_visit(tile.from / kCols + 1, finite());
+        if (next.from < S) load_kv(stage ^ 1, next.from, pass == 1);
+        cp_async_commit();
+        const E* k_s = kv_s + stage * L::kStage;
+        const E* v_s = k_s + L::kTile;
 
-      float s[kNt][4];
-      score_tile<DP, kNt, kMasked>(s, q_s + slice * kLd, k_s + keys * kLd,
-                                   kLd, scale, mask, !tile.unmasked,
-                                   row0 + slice, tile.from + keys, T, S);
-      const int lanes = S - tile.from - keys;  // keys below S: c_col < lanes
-      float tmax[2] = {-INFINITY, -INFINITY};
+        float s[kNt][4];
+        score_tile<DP, kNt, kMasked>(s, q_s + slice * kLd, k_s + keys * kLd,
+                                     kLd, scale, mask, !tile.unmasked,
+                                     row0 + slice, tile.from + keys, T, S);
+        const int lanes = S - tile.from - keys;  // keys below S: c_col < lanes
+        float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int nt = 0; nt < kNt; ++nt)
+        for (int nt = 0; nt < kNt; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[nt][e] = c_col(nt, e) < lanes ? s[nt][e] : -INFINITY;
-          tmax[e / 2] = fmaxf(tmax[e / 2], s[nt][e]);
+          for (int e = 0; e < 4; ++e) {
+            s[nt][e] = c_col(nt, e) < lanes ? s[nt][e] : -INFINITY;
+            tmax[e / 2] = fmaxf(tmax[e / 2], s[nt][e]);
+          }
+        // the row's max over the warp's 32 keys (a quad), then the pair's
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1)
+            tmax[h] =
+                fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], off));
+          if (lane % 4 == 0)
+            part_s[half * kRows + slice + c_row(2 * h)] = tmax[h];
         }
-      // the row's max over the warp's 32 keys (a quad), then the pair's
+        pair_sync(pair);
+        if (pass == 0) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1)
-          tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], off));
-        if (lane % 4 == 0)
-          part_s[half * kRows + slice + c_row(2 * h)] = tmax[h];
-      }
-      pair_sync(pair);
-      float alpha[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float other = part_s[(half ^ 1) * kRows + slice + c_row(2 * h)];
-        const float m_new = fmaxf(m_run[h], fmaxf(tmax[h], other));
-        alpha[h] = expf(m_run[h] - m_new);
-        m_run[h] = m_new;
-        l_run[h] *= alpha[h];
-      }
-#pragma unroll
-      for (int nt = 0; nt < kNt; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = expf(s[nt][e] - m_run[e / 2]);
-          l_run[e / 2] += p;
-          p_s[(slice + c_row(e)) * kLdP + keys + c_col(nt, e)] = p;
+          for (int h = 0; h < 2; ++h)
+            m_run[h] = fmaxf(m_run[h],
+                             fmaxf(tmax[h], part_s[(half ^ 1) * kRows + slice +
+                                                   c_row(2 * h)]));
+          tile = next;
+          continue;
         }
+        float alpha[2];
 #pragma unroll
-      for (int nt = 0; nt < kNo; ++nt)
+        for (int h = 0; h < 2; ++h) {
+          const float other = part_s[(half ^ 1) * kRows + slice + c_row(2 * h)];
+          const float m_new = fmaxf(m_run[h], fmaxf(tmax[h], other));
+          alpha[h] = expf(m_run[h] - m_new);
+          m_run[h] = m_new;
+          l_run[h] *= alpha[h];
+        }
+        // p in f32, summed into l in f32; then staged as E (for bf16,
+        // rounded to nearest even), a row's two neighbouring keys together
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e / 2];
-      pair_sync(pair);
-      // o += p v over the tile's 64 keys (p is 0 and v is 0 past S)
-      mma3_tf32<kCols / 8, kNo>(acc, p_s + slice * kLdP, kLdP, 1, v_s + cols,
-                                L::kLdV, 1);
-      tile = next;
+        for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float p0 = expf(s[nt][2 * h] - m_run[h]);
+            l_run[h] += p0;
+            const float p1 = expf(s[nt][2 * h + 1] - m_run[h]);
+            l_run[h] += p1;
+            E* dst = p_s + (slice + c_row(2 * h)) * kLdP + keys +
+                     c_col(nt, 2 * h);
+            if constexpr (L::kBf16) {
+              *reinterpret_cast<__nv_bfloat162*>(dst) =
+                  __floats2bfloat162_rn(p0, p1);
+            } else {
+              dst[0] = p0;
+              dst[1] = p1;
+            }
+          }
+#pragma unroll
+        for (int nt = 0; nt < kNo; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e / 2];
+        pair_sync(pair);
+        // o += p v over the tile's 64 keys (p is 0 and v is 0 past S)
+        if constexpr (L::kBf16)
+          mma_bf16_cols<kCols, kNo>(acc, p_s + slice * kLdP, kLdP, v_s + cols,
+                                    L::kLdV);
+        else
+          mma3_tf32<kCols / 8, kNo>(acc, p_s + slice * kLdP, kLdP, 1,
+                                    v_s + cols, L::kLdV, 1);
+        tile = next;
+      }
+      cp_async_wait<0>();  // nothing in flight into q_s if no tile was visited
+      if (pass == 0) {
+        // (m, l, o) enter scaled to the final max
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float alpha = expf(m_in[h] - m_run[h]);
+          l_run[h] *= alpha;
+#pragma unroll
+          for (int nt = 0; nt < kNo; ++nt) {
+            acc[nt][2 * h] *= alpha;
+            acc[nt][2 * h + 1] *= alpha;
+          }
+        }
+      }
     }
-    cp_async_wait<0>();  // nothing in flight into q_s if no tile was visited
 
     // l' = the row's parts: a quad's lanes, then the pair's two halves
 #pragma unroll
@@ -349,15 +432,51 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
   }
 }
 
-template <int DP>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* m, const float* l, const float* o,
-                   const unsigned char* mask, int bh, int T, int S, int D,
-                   float scale, float* mo, float* lo, float* oo,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * Smem<DP>::kFloats;
-  auto kernel = mask != nullptr ? flash_fwd_kernel<DP, true>
-                                 : flash_fwd_kernel<DP, false>;
+// The f32 path: q, k, v f32 (3xTF32 products).
+template <int DP, bool kMasked>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ m,
+                     const float* __restrict__ l, const float* __restrict__ o,
+                     const unsigned char* __restrict__ mask, int T, int S,
+                     int D, float scale, float* __restrict__ mo,
+                     float* __restrict__ lo, float* __restrict__ oo) {
+  flash_fwd<float, DP, kMasked>(q, k, v, m, l, o, mask, T, S, D, scale, mo,
+                                lo, oo);
+}
+
+// The bf16 path: q, k, v bf16 (bf16 products, p rounded to bf16).
+template <int DP, bool kMasked>
+__global__ void __launch_bounds__(kThreads, kMinBlocksBf16)
+    flash_fwd_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const float* __restrict__ m,
+                          const float* __restrict__ l,
+                          const float* __restrict__ o,
+                          const unsigned char* __restrict__ mask, int T,
+                          int S, int D, float scale, float* __restrict__ mo,
+                          float* __restrict__ lo, float* __restrict__ oo) {
+  flash_fwd<bf16, DP, kMasked>(q, k, v, m, l, o, mask, T, S, D, scale, mo,
+                               lo, oo);
+}
+
+template <typename E, int DP, bool kMasked>
+constexpr auto kernel_of() {
+  if constexpr (sizeof(E) == 2)
+    return flash_fwd_bf16_kernel<DP, kMasked>;
+  else
+    return flash_fwd_kernel<DP, kMasked>;
+}
+
+template <typename E, int DP>
+cudaError_t launch(const E* q, const E* k, const E* v, const float* m,
+                   const float* l, const float* o, const unsigned char* mask,
+                   int bh, int T, int S, int D, float scale, float* mo,
+                   float* lo, float* oo, cudaStream_t stream) {
+  const size_t smem = Smem<E, DP>::kBytes;
+  auto kernel = mask != nullptr ? kernel_of<E, DP, true>()
+                                : kernel_of<E, DP, false>();
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   // with a mask, a block takes query tiles i and n - 1 - i
@@ -366,6 +485,39 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   kernel<<<grid, kThreads, smem, stream>>>(q, k, v, m, l, o, mask, T, S, D,
                                            scale, mo, lo, oo);
   return cudaGetLastError();
+}
+
+// q/k/v of element type E: checks the sizes, then the launch of the D
+// bucket's instantiation.
+template <typename E>
+int dispatch(const void* q, const void* k, const void* v, const void* m,
+             const void* l, const void* o, const void* mask, int bh, int t,
+             int s, int d, float scale, void* mo, void* lo, void* oo,
+             void* stream) {
+  if (bh < 1 || bh > 65535 || t < 1 || s < 1 || d < 1 || d > 128)
+    return cudaErrorInvalidValue;
+  const auto* qe = static_cast<const E*>(q);
+  const auto* ke = static_cast<const E*>(k);
+  const auto* ve = static_cast<const E*>(v);
+  const auto* mf = static_cast<const float*>(m);
+  const auto* lf = static_cast<const float*>(l);
+  const auto* of = static_cast<const float*>(o);
+  const auto* mk = static_cast<const unsigned char*>(mask);
+  auto* mof = static_cast<float*>(mo);
+  auto* lof = static_cast<float*>(lo);
+  auto* oof = static_cast<float*>(oo);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (d <= 16)
+    return launch<E, 16>(qe, ke, ve, mf, lf, of, mk, bh, t, s, d, scale, mof,
+                         lof, oof, st);
+  if (d <= 32)
+    return launch<E, 32>(qe, ke, ve, mf, lf, of, mk, bh, t, s, d, scale, mof,
+                         lof, oof, st);
+  if (d <= 64)
+    return launch<E, 64>(qe, ke, ve, mf, lf, of, mk, bh, t, s, d, scale, mof,
+                         lof, oof, st);
+  return launch<E, 128>(qe, ke, ve, mf, lf, of, mk, bh, t, s, d, scale, mof,
+                        lof, oof, st);
 }
 
 }  // namespace
@@ -381,30 +533,19 @@ int rabit_flash_block_f32(const void* q, const void* k, const void* v,
                           const void* mask, int bh, int t, int s, int d,
                           float scale, void* mo, void* lo, void* oo,
                           void* stream) {
-  if (bh < 1 || bh > 65535 || t < 1 || s < 1 || d < 1 || d > 128)
-    return cudaErrorInvalidValue;
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  const auto* mf = static_cast<const float*>(m);
-  const auto* lf = static_cast<const float*>(l);
-  const auto* of = static_cast<const float*>(o);
-  const auto* mk = static_cast<const unsigned char*>(mask);
-  auto* mof = static_cast<float*>(mo);
-  auto* lof = static_cast<float*>(lo);
-  auto* oof = static_cast<float*>(oo);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (d <= 16)
-    return launch<16>(qf, kf, vf, mf, lf, of, mk, bh, t, s, d, scale, mof,
-                      lof, oof, st);
-  if (d <= 32)
-    return launch<32>(qf, kf, vf, mf, lf, of, mk, bh, t, s, d, scale, mof,
-                      lof, oof, st);
-  if (d <= 64)
-    return launch<64>(qf, kf, vf, mf, lf, of, mk, bh, t, s, d, scale, mof,
-                      lof, oof, st);
-  return launch<128>(qf, kf, vf, mf, lf, of, mk, bh, t, s, d, scale, mof,
-                     lof, oof, st);
+  return dispatch<float>(q, k, v, m, l, o, mask, bh, t, s, d, scale, mo, lo,
+                         oo, stream);
+}
+
+// As rabit_flash_block_f32, with q [bh, t, d] and k/v [bh, s, d] bf16;
+// m, l, o and the outputs stay f32.
+int rabit_flash_block_bf16(const void* q, const void* k, const void* v,
+                           const void* m, const void* l, const void* o,
+                           const void* mask, int bh, int t, int s, int d,
+                           float scale, void* mo, void* lo, void* oo,
+                           void* stream) {
+  return dispatch<bf16>(q, k, v, m, l, o, mask, bh, t, s, d, scale, mo, lo,
+                        oo, stream);
 }
 
 const char* rabit_cuda_error_string(int err) {

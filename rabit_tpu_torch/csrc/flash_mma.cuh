@@ -1,7 +1,8 @@
 // Tensor-core pieces of the flash kernels (flash_block.cu and
 // flash_block_bwd.cu): f32 products at f32 accuracy from TF32 operands
 // (the 3xTF32 split), the one score-tile function, and asynchronous tile
-// loads.
+// loads; and their bf16 counterparts for the forward's bf16 path (at the
+// end of the file).
 //
 // 3xTF32 ("fast f32", CUTLASS's OpMultiplyAddFastF32): each f32 operand x
 // splits into big = tf32(x) and small = tf32(x - big), both rounded to
@@ -35,6 +36,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -231,14 +233,14 @@ __device__ __forceinline__ unsigned score_tile(
 
 // Asynchronous copies into shared memory: `bytes` (16 or 4) from src, or
 // zeros where `full` is false (src-size 0: nothing is read).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool full) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(full ? 16 : 0));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool full) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
@@ -279,6 +281,166 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* src,
       cp_async4(dst + r * kLd + c,
                 full ? src + static_cast<long long>(row) * d + c : src,
                 full);
+    }
+  }
+}
+
+// ---- bf16 (the forward's bf16 path) ----
+//
+// A product of two bf16 values is exact in f32, so one
+// mma.sync.m16n8k16 .bf16 with f32 accumulation gives what a dot with
+// preferred_element_type=f32 gives, up to the order of the f32 sums: no
+// split. Fragments (PTX ISA; CuTe's SM80_16x8x16_F32BF16BF16F32_TN),
+// lane = 4 g + t; each 32-bit register holds two bf16, the lower k in
+// its low half:
+//   A (16 x 16, row): (g, 2t..2t+1), (g + 8, 2t..2t+1),
+//                     (g, 2t+8..2t+9), (g + 8, 2t+8..2t+9)
+//   B (16 x 8, col):  (k = 2t..2t+1, n = g), (k = 2t+8..2t+9, n = g)
+//   C (16 x 8):       as the TF32 product's above.
+// So an A fragment, and a B fragment whose k runs along a row (K in
+// q k^T), is four or two 32-bit loads; a B fragment whose k runs down
+// the columns (V in p v) packs two rows' 16-bit values a register.
+
+using bf16 = __nv_bfloat16;
+
+// Row stride, in bf16, of a [64, DP] bf16 tile: a multiple of 8 (rows
+// start 16-byte aligned, for cp.async), and kLd / 2 words = 4 mod 8, so
+// that the 8 rows x 4 words of a fragment whose k runs along the rows
+// fall in 32 different banks. A B operand whose k runs down the columns
+// reads rows 2t (and 2t + 1), kLd words apart (8 or 24 mod 32 at these
+// DP): its 4 rows x 4 words (8 columns, two a word) fall in 16 different
+// banks, so that too is free of conflicts.
+template <int DP>
+struct MmaTileBf16 {
+  static constexpr int kLd = DP + 8;
+};
+
+// acc += a b: one m16n8k16 product of bf16 operands with f32 sums
+__device__ __forceinline__ void mma_bf16(float (&acc)[4],
+                                         const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two bf16 at x (4-byte aligned) as one register, x[0] in the low half
+__device__ __forceinline__ unsigned ld_pair(const bf16* x) {
+  return *reinterpret_cast<const unsigned*>(x);
+}
+
+// The A fragment of k0.. k0 + 15 of the warp's 16 rows of a [., ld] tile
+__device__ __forceinline__ void a_frag_bf16(unsigned (&a)[4], const bf16* x,
+                                            int ld, int k0) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  a[0] = ld_pair(x + g * ld + k0 + 2 * t);
+  a[1] = ld_pair(x + (g + 8) * ld + k0 + 2 * t);
+  a[2] = ld_pair(x + g * ld + k0 + 2 * t + 8);
+  a[3] = ld_pair(x + (g + 8) * ld + k0 + 2 * t + 8);
+}
+
+// acc[n] += A B_n^T over K = DP: A the warp's 16 rows of a [., ld] tile,
+// B_n rows 8 n .. 8 n + 7 of another; k runs along the rows of both.
+template <int DP, int NT>
+__device__ __forceinline__ void mma_bf16_rows(float (&acc)[NT][4],
+                                              const bf16* a, const bf16* b,
+                                              int ld) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int k0 = 0; k0 < DP; k0 += 16) {
+    unsigned af[4];
+    a_frag_bf16(af, a, ld, k0);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const bf16* row = b + (8 * n + g) * ld + k0 + 2 * t;
+      const unsigned bf[2] = {ld_pair(row), ld_pair(row + 8)};
+      mma_bf16(acc[n], af, bf);
+    }
+  }
+}
+
+// acc[n] += A B_n over K = KS: A the warp's 16 rows of a [., lda] tile
+// (k along its rows), B_n columns 8 n .. 8 n + 7 of a [KS, ldb] tile (k
+// down its columns).
+template <int KS, int NT>
+__device__ __forceinline__ void mma_bf16_cols(float (&acc)[NT][4],
+                                              const bf16* a, int lda,
+                                              const bf16* b, int ldb) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const auto* bu = reinterpret_cast<const unsigned short*>(b);
+#pragma unroll
+  for (int k0 = 0; k0 < KS; k0 += 16) {
+    unsigned af[4];
+    a_frag_bf16(af, a, lda, k0);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const unsigned short* col = bu + (k0 + 2 * t) * ldb + 8 * n + g;
+      const unsigned bf[2] = {
+          col[0] | static_cast<unsigned>(col[ldb]) << 16,
+          col[8 * ldb] | static_cast<unsigned>(col[9 * ldb]) << 16};
+      mma_bf16(acc[n], af, bf);
+    }
+  }
+}
+
+// The score tile of bf16 q and k: s = (q . k) * scale with f32 sums, for
+// the warp's 16 query rows (q_s, rows from row0) x 8 NT keys (k_s, keys
+// from col0) of [., ld] tiles of width DP padded with zeros; masked lanes
+// as scale_and_mask.
+template <int DP, int NT, bool kMasked>
+__device__ __forceinline__ unsigned score_tile(
+    float (&s)[NT][4], const bf16* q_s, const bf16* k_s, int ld,
+    float scale, const unsigned char* mask, bool check_mask, int row0,
+    int col0, int T, int S) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+  mma_bf16_rows<DP, NT>(s, q_s, k_s, ld);
+  return scale_and_mask<NT, kMasked>(s, scale, mask, check_mask, row0, col0,
+                                     T, S);
+}
+
+// Starts copying rows [row0, row0 + 64) of a [n, d] bf16 array into dst
+// [64, kLd] (kLd a multiple of 8); rows past n and columns past d become
+// zero. 16-byte copies where every row starts 16-byte aligned (d % 8 == 0
+// and an aligned src), 4-byte copies where every row starts 4-byte
+// aligned (d even and src so), else plain loads and stores: a row of an
+// odd d is only 2-byte aligned, which no cp.async takes. Those land at
+// once, in the stage the caller has freed, and the caller's barrier
+// before the tile is read makes them visible as it does the copies. The
+// caller commits the group.
+template <int DP, int kLd = MmaTileBf16<DP>::kLd>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
+                                                int row0, int n, int d) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(src);
+  if (d % 8 == 0 && at % 16 == 0) {
+    constexpr int kChunks = DP / 8;
+    for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, c = (idx % kChunks) * 8, row = row0 + r;
+      const bool full = row < n && c < d;
+      cp_async16(dst + r * kLd + c,
+                 full ? src + static_cast<long long>(row) * d + c : src,
+                 full);
+    }
+  } else if (d % 2 == 0 && at % 4 == 0) {
+    constexpr int kChunks = DP / 2;
+    for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, c = (idx % kChunks) * 2, row = row0 + r;
+      const bool full = row < n && c < d;
+      cp_async4(dst + r * kLd + c,
+                full ? src + static_cast<long long>(row) * d + c : src,
+                full);
+    }
+  } else {
+    const auto* s16 = reinterpret_cast<const unsigned short*>(src);
+    auto* d16 = reinterpret_cast<unsigned short*>(dst);
+    for (int idx = threadIdx.x; idx < 64 * DP; idx += kThreads) {
+      const int r = idx / DP, c = idx % DP, row = row0 + r;
+      d16[r * kLd + c] = row < n && c < d
+                             ? s16[static_cast<long long>(row) * d + c]
+                             : static_cast<unsigned short>(0);
     }
   }
 }

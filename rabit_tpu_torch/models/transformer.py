@@ -21,10 +21,12 @@ the JAX dict's keys (``emb``, ``pos``, ``l0.wq``, ..., ``lnf``, ``head``)
 with the JAX layouts: wq/wk/wv [E, H, D], wo [H, D, E], w1 [E, F],
 w2 [F, E]. ``init_params`` makes the full parameter dict in numpy from a
 seed (it cannot reproduce ``jax.random``), so a test can hand the same
-weights to both packages.
-
-Not ported yet: the ``dtype`` knob of ``init_params`` (the kernels take
-f32).
+weights to both packages. Its ``dtype`` knob (float32 or bfloat16, as
+the JAX package's) rounds the f32 draw to bf16 to nearest even; a bf16
+dict holds CPU ``torch.bfloat16`` tensors (numpy has no bf16 without
+``ml_dtypes``). A bf16 model runs its forward through the flash forward
+kernel's bf16 path on the card; its backward has no kernel yet, so a
+bf16 train step on the card raises ``TypeError`` at the backward.
 """
 
 from __future__ import annotations
@@ -49,12 +51,33 @@ Params = Mapping[str, Tensor]
 GRAD_SYNCS = ("psum", "ring", "bucket")
 
 
+_DTYPES = ("float32", "bfloat16")
+
+
+def _dtype_name(dtype) -> str:
+    """'float32' or 'bfloat16' for a torch dtype, a numpy (or
+    ``ml_dtypes``) dtype or its name; anything else raises."""
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).rsplit(".", 1)[-1]
+    elif isinstance(dtype, str):
+        name = dtype
+    else:
+        name = np.dtype(dtype).name
+    if name not in _DTYPES:
+        raise ValueError(f"dtype must be one of {_DTYPES}, got {dtype!r}")
+    return name
+
+
 def init_params(seed: int = 0, vocab: int = 64, n_layers: int = 2,
                 d_model: int = 32, n_heads: int = 4, d_head: int = 8,
-                d_ff: int = 64, max_t: int = 128) -> Dict[str, np.ndarray]:
-    """The full (unsharded) f32 parameter dict in the JAX layout, drawn
+                d_ff: int = 64, max_t: int = 128, dtype=np.float32
+                ) -> Dict[str, Union[np.ndarray, Tensor]]:
+    """The full (unsharded) parameter dict in the JAX layout, drawn in f32
     from ``numpy.random.default_rng(seed)``: normal / sqrt(fan in) for the
-    matrices, ones for the layernorm scales."""
+    matrices, ones for the layernorm scales. ``dtype`` float32 gives numpy
+    arrays; bfloat16 gives the same draw rounded to nearest even (what
+    ``.astype(bfloat16)`` does) as CPU ``torch.bfloat16`` tensors."""
+    bf16 = _dtype_name(dtype) == "bfloat16"
     rng = np.random.default_rng(seed)
 
     def norm(shape, fan):
@@ -73,6 +96,9 @@ def init_params(seed: int = 0, vocab: int = 64, n_layers: int = 2,
         p[f"l{i}.ln2"] = np.ones((d_model,), np.float32)
     p["lnf"] = np.ones((d_model,), np.float32)
     p["head"] = norm((d_model, vocab), d_model)
+    if bf16:
+        return {k: torch.from_numpy(a).to(torch.bfloat16)
+                for k, a in p.items()}
     return p
 
 
@@ -329,9 +355,11 @@ def make_sharded_inputs(mesh: Mesh, batch: int, seq: int, vocab: int = 64,
             shard_tokens(toks[:, 1:], mesh, mesh.device))
 
 
-def model_on(params: Mapping[str, np.ndarray], device: DeviceLike = None,
-             tp_rank: int = 0, tp: int = 1) -> TransformerLM:
-    """A ``TransformerLM`` of the JAX-layout numpy ``params`` (its tp
-    shard) on ``device`` (the card by default)."""
+def model_on(params: Mapping[str, Union[np.ndarray, Tensor]],
+             device: DeviceLike = None, tp_rank: int = 0, tp: int = 1
+             ) -> TransformerLM:
+    """A ``TransformerLM`` of the JAX-layout ``params`` (numpy arrays, or
+    CPU tensors as a bf16 ``init_params`` gives them; its tp shard) on
+    ``device`` (the card by default), in the parameters' dtype."""
     return TransformerLM(transformer_params_from_jax(params, tp_rank, tp,
                                                      device))

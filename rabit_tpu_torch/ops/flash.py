@@ -19,14 +19,17 @@ flash part of ``rabit_tpu/ops/pallas_kernels.py`` and of
   splits its cotangent evenly among the tied lanes);
 * ``flash_block`` / ``flash_block_bwd`` — launch ``csrc/flash_block.cu``
   and ``csrc/flash_block_bwd.cu`` for CUDA tensors (counted in
-  ``.launches``) and take the plain versions for CPU tensors;
+  ``.launches``; the forward's bf16 path in ``flash_block.bf16_launches``)
+  and take the plain versions for CPU tensors;
 * ``FlashBlock`` — the ``torch.autograd.Function`` over the pair; its
   forward saves the inputs and its backward recomputes (nothing of size
   [T, S] is kept). ``block_update`` applies it; ``plain_block_step`` makes
   it run the plain versions for a while.
 
-The kernels take f32 q/k/v and D <= 128; anything else on a CUDA tensor
-raises (there is no quiet fallback).
+The forward kernel takes q/k/v all f32 or all bf16 (s and p v on the
+bf16 tensor cores with f32 sums; p rounded to bf16 to nearest even after
+l' has summed it in f32), the backward kernel f32 only, both D <= 128;
+anything else on a CUDA tensor raises (there is no quiet fallback).
 """
 
 from __future__ import annotations
@@ -89,14 +92,17 @@ def block_update_reference(q: Tensor, k: Tensor, v: Tensor, m: Tensor,
                            sm_scale: float
                            ) -> Tuple[Tensor, Tensor, Tensor]:
     """The plain version of the step: returns (m', l', o'), all f32. p is
-    cast to v's dtype before the p v product, as in the JAX twin."""
+    cast to v's dtype before the p v product, which sums in f32, as in
+    the JAX twin."""
     _check(q, k, v, m, l, o, mask)
     s = _scores(q, k, mask, sm_scale)
     m_new = torch.maximum(m, s.amax(dim=-1))
     alpha = torch.exp(m - m_new)
     p = torch.exp(s - m_new[..., None])
     l_new = l * alpha + p.sum(dim=-1)
-    pv = torch.einsum("hts,hsd->htd", p.to(v.dtype), v).float()
+    # p rounds to v's dtype; the product itself runs in f32 (a product of
+    # two bf16 values is exact in f32), as JAX's preferred_element_type
+    pv = torch.einsum("hts,hsd->htd", p.to(v.dtype).float(), v.float())
     return m_new, l_new, o * alpha[..., None] + pv
 
 
@@ -141,14 +147,17 @@ def _entry(name: str, symbol: str, n_ptr_before: int, n_ptr_after: int):
                         + [i, i, i, i, ctypes.c_float] + [p] * n_ptr_after)
 
 
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _kernel_inputs(q, k, v, m, l, o, mask):
     """Checks what the kernels take and returns contiguous inputs."""
     if q.device.type != "cuda":
         raise ValueError(f"no flash kernel for device {q.device}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"the flash kernels take float32 {name}, got "
-                            f"{x.dtype}")
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"the flash kernels take q, k, v all float32 or all "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     d = q.shape[-1]
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"the flash kernels take a head dim of 1 to "
@@ -170,15 +179,18 @@ def flash_block(q: Tensor, k: Tensor, v: Tensor, m: Tensor, l: Tensor,
                 o: Tensor, mask: Optional[Tensor], sm_scale: float
                 ) -> Tuple[Tensor, Tensor, Tensor]:
     """The step (m', l', o'): ``csrc/flash_block.cu`` for CUDA tensors
-    (counted in ``flash_block.launches``), the plain version for CPU
-    tensors. Not differentiable by itself: see ``FlashBlock``."""
+    (f32 q/k/v counted in ``flash_block.launches``, bf16 in
+    ``flash_block.bf16_launches``), the plain version for CPU tensors.
+    Not differentiable by itself: see ``FlashBlock``."""
     _check(q, k, v, m, l, o, mask)
     if q.device.type == "cpu":
         return block_update_reference(q, k, v, m, l, o, mask, sm_scale)
     q, k, v, m, l, o, mask = _kernel_inputs(q, k, v, m, l, o, mask)
     h, t, d = q.shape
     s = k.shape[1]
-    fn = _entry("flash_block", "rabit_flash_block_f32", 7, 4)
+    bf16 = q.dtype == torch.bfloat16
+    fn = _entry("flash_block", "rabit_flash_block_bf16" if bf16
+                else "rabit_flash_block_f32", 7, 4)
     with torch.cuda.device(q.device):
         mo, lo, oo = torch.empty_like(m), torch.empty_like(l), \
             torch.empty_like(o)
@@ -189,11 +201,15 @@ def flash_block(q: Tensor, k: Tensor, v: Tensor, m: Tensor, l: Tensor,
             float(sm_scale), mo.data_ptr(), lo.data_ptr(), oo.data_ptr(),
             stream)
     _build.check(err, "flash_block")
-    flash_block.launches += 1
+    if bf16:
+        flash_block.bf16_launches += 1
+    else:
+        flash_block.launches += 1
     return mo, lo, oo
 
 
 flash_block.launches = 0
+flash_block.bf16_launches = 0
 
 
 def flash_block_bwd(q: Tensor, k: Tensor, v: Tensor, m: Tensor, l: Tensor,
@@ -214,6 +230,9 @@ def flash_block_bwd(q: Tensor, k: Tensor, v: Tensor, m: Tensor, l: Tensor,
         return block_update_bwd_reference(q, k, v, m, l, o, mask, sm_scale,
                                           cm, cl, co)
     q, k, v, m, l, o, mask = _kernel_inputs(q, k, v, m, l, o, mask)
+    if q.dtype != torch.float32:
+        raise TypeError(f"the flash backward kernel takes float32 q, k, v; "
+                        f"its {q.dtype} path is not ported yet")
     cm, cl, co = (x.float().contiguous() for x in (cm, cl, co))
     s = k.shape[1]
     fn = _entry("flash_block_bwd", "rabit_flash_block_bwd_f32", 10, 8)

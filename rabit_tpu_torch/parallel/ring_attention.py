@@ -51,7 +51,9 @@ def reference_attention(q: Tensor, k: Tensor, v: Tensor,
         pos_k = torch.arange(s, device=q.device)
         scores = scores.masked_fill(pos_k[None, :] > pos_q[:, None], NEG_INF)
     w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("...hts,...shd->...thd", w.to(v.dtype), v).float()
+    # w rounds to v's dtype, the product sums in f32, one cast at the end
+    out = torch.einsum("...hts,...shd->...thd", w.to(v.dtype).float(),
+                       v.float())
     return out.to(q.dtype)
 
 

@@ -196,7 +196,7 @@ class Autoscaler:
     def sweep(self) -> List[Tuple[str, int]]:
         """One pass: accrue/clear strikes, evict at the threshold.
         Returns the (job, rank) evictions performed this sweep."""
-        self.sweeps += 1   # the run() loop is the sole writer
+        self.sweeps += 1  # noqa: C003 - sole writer: run()'s loop
         worlds = self._job_worlds()
         actions: List[Tuple[str, int]] = []
         live_keys = set()
@@ -222,7 +222,7 @@ class Autoscaler:
             reason = (f"autoscaler: {strag.get('lag_collectives')} "
                       f"collectives behind for {n} sweeps")
             if self._evict(job_id, int(rank), reason):
-                self.evicted_total += 1
+                self.evicted_total += 1  # noqa: C003 - sole writer
                 actions.append((job_id, int(rank)))
                 self._strikes.pop(key, None)
                 print(f"[autoscaler] evicted job {job_id} rank {rank} "
@@ -270,7 +270,7 @@ class Autoscaler:
             reason = (f"fleet rebalance: world {world} over weighted "
                       f"share {share} with submissions queued")
             if self._evict(job_id, rank, reason):
-                self.rebalanced_total += 1
+                self.rebalanced_total += 1  # noqa: C003 - sole writer
                 actions.append((job_id, rank))
                 self._fleet_strikes.pop(job_id, None)
                 print(f"[autoscaler] rebalanced job {job_id}: evicted "

@@ -129,8 +129,8 @@ class EventLoop:
     def __init__(self, max_conns: Optional[int] = None):
         self._sel = selectors.DefaultSelector()
         self._mu = threading.Lock()       # leaf: the op queue, wake flag
-        self._ops: Deque[Callable] = deque()   # guarded by _mu
-        self._wake_armed = False               # guarded by _mu
+        self._ops: Deque[Callable] = deque()   # guarded-by: _mu
+        self._wake_armed = False               # guarded-by: _mu
         # the wakeup channel: one byte written makes select() return
         self._wr, self._rd = socket.socketpair()
         self._rd.setblocking(False)
@@ -545,10 +545,10 @@ class ServicePool:
         self.nthreads = service_threads() if nthreads is None else nthreads
         self._name = name
         self._cv = threading.Condition()
-        self._queues: Dict[str, Deque[Callable]] = {}  # guarded by _cv
+        self._queues: Dict[str, Deque[Callable]] = {}  # guarded-by: _cv
         # the rotation: each key with queued work, once
-        self._ready: Deque[str] = deque()              # guarded by _cv
-        self._done = False                             # guarded by _cv
+        self._ready: Deque[str] = deque()              # guarded-by: _cv
+        self._done = False                             # guarded-by: _cv
         self._threads: List[threading.Thread] = []
 
     def start(self) -> "ServicePool":

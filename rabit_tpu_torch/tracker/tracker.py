@@ -880,7 +880,7 @@ class Tracker:
         self._drop_streams()
         if self._metrics_server is not None:
             self._metrics_server.stop()
-            self._metrics_server = None
+            self._metrics_server = None  # noqa: C003 - lifecycle teardown
         self._stop_plane()
         with self._lock:
             for jb in self._jobs.values():
@@ -916,7 +916,7 @@ class Tracker:
         self._poll_stop.set()
         if self._metrics_server is not None:
             self._metrics_server.stop()
-            self._metrics_server = None
+            self._metrics_server = None  # noqa: C003 - lifecycle teardown
         # every connection dies hard, a repl stream too: its follower sees
         # EOF at once, and its streamer thread ends on the dropped socket
         self._stop_plane()
@@ -1020,7 +1020,7 @@ class Tracker:
                 seq - self._wal_log.snapshot_seq >= self._snap_every:
             # compact off the journaling path: a task of the pool folds
             # the state under the lock once this caller has released it
-            self._snap_pending = True
+            self._snap_pending = True  # noqa: C003 - advisory flag
             self._svc.submit("__wal_snapshot__", self._take_snapshot)
 
     def _take_snapshot(self) -> None:
@@ -1047,7 +1047,7 @@ class Tracker:
                         except (OSError, _wal_mod.WalError):
                             pass   # a mirror is best-effort
         finally:
-            self._snap_pending = False
+            self._snap_pending = False  # noqa: C003 - advisory flag
 
     def _mirror_job_record_locked(self, jid: str, kind: str,
                                   data: dict) -> None:
@@ -1428,7 +1428,8 @@ class Tracker:
                              "node": self.node_id,
                              "promoted": bool(self.promoted)})
         try:
-            self._metrics_server = live.MetricsServer(
+            # C003: set once at start, torn down at stop or crash
+            self._metrics_server = live.MetricsServer(  # noqa: C003
                 port=self._metrics_port,
                 sources_fn=self._metric_sources,
                 summary_fn=lambda: self.merged_metrics() or {},

@@ -551,3 +551,207 @@ def test_3xtf32_dot_is_within_1e6_of_f64(width):
     one = _tf32(a).astype(np.float64) @ _tf32(b).T.astype(np.float64)
     assert rel <= 1e-6
     assert np.abs(one - ref).max() / np.abs(ref).max() > 1e-5
+
+
+# -- bf16 q/k/v: the plain step against JAX, and the forward kernel's
+# -- bf16 schedule (csrc/flash_block.cu's pre-pass) in plain torch --
+
+BF16 = torch.bfloat16
+# m' and l' within 1e-6 of their largest value (f32 sums in other
+# orders); o' within 1e-4 of max|o'| (the same p, rounded to bf16 alike,
+# times bf16 v summed in f32; the old bf16 product read 2.7e-3)
+BF16_ML_REL, BF16_O_REL, BF16_GRAD_REL = 1e-6, 1e-4, 1e-3
+
+
+def _bf16_inputs(seed, mask_kind=None, t=T, s=S, d=D, h=H):
+    """``_inputs`` for bf16 q/k/v, with q and k on a grid of 1/16 in
+    [-4, 4]: every q . k is then exact in f32 in any order of summation,
+    so both frameworks form the same scores bit for bit. (With general
+    bf16 q and k the scores differ in their last bit from one order of
+    summation to another, and p's rounding to bf16 then flips at a few
+    lanes, by up to 2e-4 of max|o'| at these sizes: a difference of the
+    frameworks, not of the step.) ``"causal"``: a causal mask."""
+    q, k, v, m, l, o, mask, cm, cl, co = _inputs(
+        seed, "tie" if mask_kind == "tie" else None, t=t, s=s, d=d, h=h)
+    q, k = (np.clip(np.round(x * 16) / 16, -4, 4).astype(np.float32)
+            for x in (q, k))
+    if mask_kind == "causal":
+        mask = np.triu(np.ones((t, s), bool), 1)
+    return q, k, v, m, l, o, mask, cm, cl, co
+
+
+def _bf16_torch(q, k, v):
+    return [torch.from_numpy(np.array(x)).to(BF16) for x in (q, k, v)]
+
+
+def _bf16_jax(q, k, v):
+    return [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)]
+
+
+def _assert_rel(got, want, rel, what):
+    """|got - want| <= rel * max|want| over the entries above NEG_INF's
+    magnitude; entries at +-NEG_INF (a fully masked row's m') equal."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, what
+    huge = np.abs(want) >= 1e29
+    np.testing.assert_array_equal(got[huge], want[huge], err_msg=what)
+    scale = np.abs(want[~huge]).max()
+    err = np.abs(got - want)[~huge].max()
+    assert err <= rel * scale, f"{what}: {err / scale:.3g} of max > {rel}"
+
+
+def _bf16_steps(n):
+    """One step of bf16 (2^-7 of the leading power of two) at |n|."""
+    a = np.maximum(np.abs(np.asarray(n, np.float64)), 1e-38)
+    return 2.0 ** (np.floor(np.log2(a)) - 7)
+
+
+@pytest.mark.parametrize("mask_kind", [None, "causal", "tie"])
+def test_plain_forward_bf16_matches_block_update_and_pallas(monkeypatch,
+                                                           mask_kind):
+    """bf16 q/k/v: the plain step against ``_block_update`` and the
+    Pallas ``flash_block`` in interpret mode. p rounds to bf16 and the
+    p v product sums in f32 (``preferred_element_type``), m', l' and o'
+    stay f32."""
+    monkeypatch.setenv("RABIT_PALLAS_INTERPRET", "1")
+    q, k, v, m, l, o, mask, *_ = _bf16_inputs(21, mask_kind)
+    jq = _bf16_jax(q, k, v) + list(map(jnp.asarray, (m, l, o)))
+    jmask = None if mask is None else jnp.asarray(mask)
+    got = F.block_update_reference(*_bf16_torch(q, k, v),
+                                   *_torch(m, l, o, mask), _scale())
+    for ref, want in (("_block_update", _block_update(*jq, jmask, _scale())),
+                      ("pallas", PK.flash_block(*jq, jmask, _scale()))):
+        for name, g, w, rel in zip(("m'", "l'", "o'"), got, want,
+                                   (BF16_ML_REL, BF16_ML_REL, BF16_O_REL)):
+            assert g.dtype == torch.float32
+            _assert_rel(g.numpy(), w, rel, f"{name} vs {ref}")
+    if mask_kind == "tie":   # the fully masked first-step row: p = 1
+        np.testing.assert_allclose(got[1][:, 0].numpy(), l[:, 0] + S,
+                                   rtol=1e-6)
+
+
+def test_plain_forward_bf16_keeps_f32_bits_for_f32_inputs():
+    """The f32 step is the f32 step it was: p.to(f32) and the upcasts
+    are no-ops, the same einsum runs."""
+    q, k, v, m, l, o, mask = _torch(*_inputs(22, "tie"))[:7]
+    s = F._scores(q, k, mask, _scale())
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    want = o * torch.exp(m - m_new)[..., None] + torch.einsum(
+        "hts,hsd->htd", p, v)
+    got = F.block_update_reference(q, k, v, m, l, o, mask, _scale())
+    assert torch.equal(got[2], want)
+
+
+@pytest.mark.parametrize("mask_kind", [None, "causal", "tie"])
+def test_plain_backward_bf16_matches_fused_pallas_backward(monkeypatch,
+                                                           mask_kind):
+    """bf16 q/k/v: the plain backward against ``PK.flash_block_bwd`` in
+    interpret mode. dq, dk and dv keep q/k/v's dtype and lie within 1e-3
+    of the largest gradient, or one bf16 step of the value: each is an f32
+    sum that the frameworks form in other orders, cast to bf16 at the end,
+    and a cast that flips moves it by one step. dm, dl and do are f32
+    within 1e-3 of their largest."""
+    monkeypatch.setenv("RABIT_PALLAS_INTERPRET", "1")
+    q, k, v, m, l, o, mask, cm, cl, co = _bf16_inputs(23, mask_kind, t=64,
+                                                      s=64)
+    want = PK.flash_block_bwd(
+        *_bf16_jax(q, k, v), *map(jnp.asarray, (m, l, o)),
+        None if mask is None else jnp.asarray(mask.astype(np.int8)),
+        _scale(), *map(jnp.asarray, (cm, cl, co)))
+    got = F.block_update_bwd_reference(*_bf16_torch(q, k, v),
+                                       *_torch(m, l, o, mask), _scale(),
+                                       *_torch(cm, cl, co))
+    for name, g, w in zip(NAMES, got, want):
+        w = np.asarray(w.astype(jnp.float32), np.float64)
+        assert g.dtype == (BF16 if name in ("dq", "dk", "dv")
+                           else torch.float32), name
+        err = np.abs(g.float().numpy() - w)
+        bound = BF16_GRAD_REL * np.abs(w).max()
+        if g.dtype == BF16:
+            bound = bound + _bf16_steps(w)
+        assert (err <= bound).all(), f"{name}: {err.max():.3g}"
+
+
+def test_flash_block_autograd_keeps_bf16_gradients_on_cpu():
+    """``block_update`` at bf16 q/k/v on CPU tensors: f32 (m', l', o'),
+    bf16 gradients of q/k/v, the plain backward's bit for bit."""
+    q, k, v, m, l, o, mask, cm, cl, co = _bf16_inputs(24, "tie")
+    tq, tk, tv = _bf16_torch(q, k, v)
+    m, l, o, mask, cm, cl, co = _torch(m, l, o, mask, cm, cl, co)
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv, m, l, o)]
+    outs = F.block_update(*leaves, mask, _scale())
+    assert [x.dtype for x in outs] == [torch.float32] * 3
+    grads = torch.autograd.grad(outs, leaves, (cm, cl, co))
+    want = F.block_update_bwd_reference(tq, tk, tv, m, l, o, mask, _scale(),
+                                        cm, cl, co)
+    for name, g, w in zip(NAMES, grads, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    assert [g.dtype for g in grads[:3]] == [BF16] * 3
+
+
+def _tile_schedule_fwd_bf16(q, k, v, m, l, o, mask, scale):
+    """The forward's bf16 path as ``csrc/flash_block.cu`` schedules it, a
+    query tile of 64 rows at a time: pass 0 walks the 64-key tiles for
+    each row's max m' alone (skipping a fully masked tile once every row
+    of the query tile had a max above NEG_INF), pass 1 walks them again
+    with m' final: p = exp(s - m') in f32, l' sums it in f32, p rounds to
+    bf16 and p v sums in f32 into o scaled once by exp(m - m'). Returns
+    (m', l', o')."""
+    h_n, t_n, _ = q.shape
+    s_n = k.shape[1]
+    key_tiles = [slice(c, min(c + TILE, s_n)) for c in range(0, s_n, TILE)]
+    mo, lo, oo = m.clone(), l.clone(), o.clone()
+    for h in range(h_n):
+        for r in range(0, t_n, TILE):
+            rows = slice(r, min(r + TILE, t_n))
+            m_run = m[h, rows].clone()
+
+            def skip(i, rows=rows):
+                return _tile_masked(mask, rows, key_tiles[i]) and bool(
+                    (m_run > NEG_INF).all())
+
+            def scores(cols, rows=rows):
+                s = (q[h, rows].float() @ k[h, cols].float().T) * scale
+                return s if mask is None else s.masked_fill(
+                    mask[rows][:, cols], NEG_INF)
+
+            for cols in _schedule(key_tiles, skip, [0]):
+                m_run = torch.maximum(m_run, scores(cols).amax(dim=1))
+            alpha = torch.exp(m[h, rows] - m_run)
+            l_run, o_run = l[h, rows] * alpha, o[h, rows] * alpha[:, None]
+            for cols in _schedule(key_tiles, skip, [0]):
+                p = torch.exp(scores(cols) - m_run[:, None])
+                l_run = l_run + p.sum(dim=1)
+                o_run = o_run + p.to(BF16).float() @ v[h, cols].float()
+            mo[h, rows], lo[h, rows], oo[h, rows] = m_run, l_run, o_run
+    return mo, lo, oo
+
+
+@pytest.mark.parametrize("kind,d", [("causal", D),
+                                    ("causal, row 0 masked", 16),
+                                    ("tie", D), ("ragged", 16),
+                                    ("ragged", 13), ("ragged", 1)])
+def test_forward_bf16_tile_schedule_matches_plain_and_jax(kind, d):
+    """The bf16 path's algorithm (the max pre-pass, p rounded to bf16
+    against the final max, f32 sums, the skip rule, odd D) before it
+    reaches the card: the plain bf16 step's and JAX's (m', l', o') within
+    the tolerances above."""
+    q, k, v, m, l, o, mask, *_ = _masked_inputs(25, kind)
+    q, k, v, o = (x[..., :d] for x in (q, k, v, o))
+    q, k = (np.clip(np.round(x * 16) / 16, -4, 4).astype(np.float32)
+            for x in (q, k))
+    tq, tk, tv = _bf16_torch(q, k, v)
+    tm, tl, to, tmask = _torch(m, l, o, mask)
+    scale = _scale(d)
+    got = _tile_schedule_fwd_bf16(tq, tk, tv, tm, tl, to, tmask, scale)
+    jmask = None if mask is None else jnp.asarray(mask)
+    refs = {"plain": F.block_update_reference(tq, tk, tv, tm, tl, to, tmask,
+                                              scale),
+            "jax": _block_update(*_bf16_jax(q, k, v),
+                                 *map(jnp.asarray, (m, l, o)), jmask, scale)}
+    for ref, want in refs.items():
+        for name, g, w, rel in zip(("m'", "l'", "o'"), got, want,
+                                   (BF16_ML_REL, BF16_ML_REL, BF16_O_REL)):
+            _assert_rel(g.numpy(), w, rel, f"{name} vs {ref}")

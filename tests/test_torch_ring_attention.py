@@ -75,6 +75,34 @@ def test_reference_attention_matches_jax(causal):
                                    **VAL_TOL)
 
 
+def _steps_bf16(x):
+    """One step of bf16 (2^-7 of the leading power of two) at |x|."""
+    a = np.maximum(np.abs(np.asarray(x, np.float64)), 1e-38)
+    return 2.0 ** (np.floor(np.log2(a)) - 7)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_reference_attention_bf16_matches_jax(causal):
+    """bf16 q/k/v: softmax in f32, the weights rounded to bf16, their
+    product with v summed in f32, one cast to bf16 at the end, as JAX's
+    ``reference_attention``. q and k lie on a grid of 1/16 (every score
+    exact in f32 in any order of summation); the bf16 outputs then agree
+    within 1e-4 of the largest, or one bf16 step of the value where the
+    final cast of two f32 sums formed in other orders flips."""
+    q, k, v = _qkv(2)
+    q, k = (np.clip(np.round(x * 16) / 16, -4, 4).astype(np.float32)
+            for x in (q, k))
+    got = R.reference_attention(*(torch.from_numpy(x).to(torch.bfloat16)
+                                  for x in (q, k, v)), causal)
+    assert got.dtype == torch.bfloat16
+    for b in range(B):
+        want = np.asarray(jax_reference_attention(
+            *(jnp.asarray(x[b]).astype(jnp.bfloat16) for x in (q, k, v)),
+            causal=causal).astype(jnp.float32), np.float64)
+        err = np.abs(got[b].float().numpy() - want)
+        assert (err <= 1e-4 * np.abs(want).max() + _steps_bf16(want)).all()
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_single_shard_matches_jax_flash_path_and_oracle(monkeypatch,
                                                         causal):

@@ -40,6 +40,12 @@ LAYOUTS = [((2, 1, 2), "psum"), ((2, 1, 2), "ring"), ((1, 2, 2), "psum"),
            ((1, 2, 2), "ring"), ((2, 1, 2), "bucket"), ((1, 2, 2), "bucket")]
 # the async bucket step, run beside the layouts in the same world
 ASYNC = [((2, 1, 2), "async"), ((1, 2, 2), "async")]
+# bf16 logits against JAX's bf16 forward: within 2e-2 of max|logit| (the
+# two frameworks round bf16 activations at other places: XLA keeps a
+# fused chain of elementwise ops in f32, torch rounds after each op)
+BF16_LOGIT_REL = 2e-2
+# the bf16 forward run in the gloo world of 4, one sp shard a rank
+BF16_SHAPE, BF16_SEED = (1, 1, 4), 9
 
 
 def _data(seed: int):
@@ -181,9 +187,12 @@ def test_world_of_one_bucket_steps_equal_the_psum_step(
         assert torch.equal(t, got[grad_sync][1][k]), k
 
 
-def _layout_rank(rank, p, params, x, y, lr, layouts, device):
+def _layout_rank(rank, p, params, x, y, lr, layouts, device,
+                 bf16_seed=None):
     """One rank: for each layout, a mesh over the world, this rank's model
-    shard and token block, one step; saves the loss and its parameters."""
+    shard and token block, one step; saves the loss and its parameters.
+    With ``bf16_seed``, then the bf16 forward (``init_params(bf16_seed,
+    dtype=bfloat16)``) at ``BF16_SHAPE``: this rank's logits, as f32."""
     got = {}
     dev = torch.device(device, rank) if device == "cuda" else \
         torch.device(device)
@@ -202,6 +211,13 @@ def _layout_rank(rank, p, params, x, y, lr, layouts, device):
         got[f"{key}|coords"] = np.array(mesh.coords)
         for name, t in model.state_dict().items():
             got[f"{key}|{name}"] = t.cpu().numpy()
+    if bf16_seed is not None:
+        mesh = make_mesh(BF16_SHAPE, dev)
+        model = tf.model_on(tf.init_params(bf16_seed, vocab=VOCAB, max_t=128,
+                                           dtype="bfloat16", **SIZES), dev)
+        logits = tf.make_forward(mesh)(model, tf.shard_tokens(x, mesh, dev))
+        got["bf16|logits"] = logits.float().cpu().numpy()
+        got["bf16|dtype"] = np.array(str(logits.dtype))
     return got
 
 
@@ -231,7 +247,7 @@ def gloo_world(tmp_path_factory):
     params, x, y = _data(5)
     lr = 0.2
     ranks = spawn_world(_layout_rank, 4, tmp_path_factory.mktemp("tf4"),
-                        params, x, y, lr, LAYOUTS + ASYNC, "cpu")
+                        params, x, y, lr, LAYOUTS + ASYNC, "cpu", BF16_SEED)
     return ranks, _jax_dense_step(params, x, y, lr)
 
 
@@ -270,6 +286,27 @@ def test_mesh_rank_layout_is_the_jax_meshs(gloo_world, shape):
         assert ids[tuple(got[f"{key}|coords"])] == r
 
 
+def test_world_of_four_bf16_forward_matches_jax(gloo_world):
+    """The bf16 forward at (dp, tp, sp) = (1, 1, 4), the ring over four
+    gloo ranks (each a quarter of the sequence), against JAX's bf16
+    ``make_forward`` on a mesh of the same shape and the same weights."""
+    import jax.numpy as jnp
+    from rabit_tpu.models import transformer as jtf
+    from rabit_tpu.parallel import make_mesh as jax_make_mesh
+    ranks, _ = gloo_world
+    assert all(str(r["bf16|dtype"]) == "torch.bfloat16" for r in ranks)
+    got = np.concatenate([r["bf16|logits"] for r in ranks], axis=1)
+    params = tf.init_params(BF16_SEED, vocab=VOCAB, max_t=128, **SIZES)
+    _, x, _ = _data(5)
+    mesh = jax_make_mesh(4, ("dp", "tp", "sp"), BF16_SHAPE)
+    want = np.asarray(jtf.make_forward(mesh)(
+        {k: jnp.asarray(v).astype(jnp.bfloat16) for k, v in params.items()},
+        jnp.asarray(x, jnp.int32)).astype(jnp.float32))
+    assert got.shape == want.shape == (BATCH, SEQ, VOCAB)
+    err = np.abs(got - want).max()
+    assert err <= BF16_LOGIT_REL * np.abs(want).max(), err
+
+
 @pytest.mark.parametrize("tp", [1, 2, 4])
 def test_weight_converter_round_trips(tp):
     params, _, _ = _data(7)
@@ -283,6 +320,89 @@ def test_weight_converter_round_trips(tp):
         np.testing.assert_array_equal(back[k], params[k], err_msg=k)
     with pytest.raises(ValueError, match="divide"):
         convert.transformer_params_from_jax(params, 0, 3, "cpu")
+
+
+@pytest.mark.parametrize("spelling", ["name", "torch", "ml_dtypes"])
+def test_init_params_bf16_is_the_f32_draw_rounded_to_nearest_even(
+        spelling):
+    """``dtype`` bfloat16, however spelt: CPU bf16 tensors holding the f32
+    draw rounded to nearest even, bit for bit what torch's cast and JAX's
+    ``.astype(bfloat16)`` give; float32 stays the numpy draw."""
+    import jax.numpy as jnp
+    dtype = {"name": "bfloat16", "torch": torch.bfloat16,
+             "ml_dtypes": jnp.bfloat16}[spelling]
+    f32 = tf.init_params(3, vocab=VOCAB, max_t=128, **SIZES)
+    got = tf.init_params(3, vocab=VOCAB, max_t=128, dtype=dtype, **SIZES)
+    assert got.keys() == f32.keys()
+    for name, a in f32.items():
+        t = got[name]
+        assert isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16
+        assert t.device.type == "cpu" and tuple(t.shape) == a.shape
+        assert torch.equal(t, torch.from_numpy(a).to(torch.bfloat16)), name
+        jax_bits = np.asarray(jnp.asarray(a).astype(jnp.bfloat16)).view(
+            np.int16)
+        np.testing.assert_array_equal(t.view(torch.int16).numpy(), jax_bits,
+                                      err_msg=name)
+    same = tf.init_params(3, vocab=VOCAB, max_t=128, dtype=np.float32,
+                          **SIZES)
+    for name, a in f32.items():
+        np.testing.assert_array_equal(same[name], a)
+    with pytest.raises(ValueError, match="dtype must be one of"):
+        tf.init_params(3, dtype=torch.float16)
+
+
+def test_bf16_model_needs_no_ml_dtypes():
+    """The card's machine has no ``ml_dtypes``: a bf16 draw, its model and
+    a forward run in a fresh interpreter where importing it fails."""
+    import subprocess
+    import sys
+    code = ("import sys; sys.modules['ml_dtypes'] = None\n"
+            "import torch\n"
+            "from rabit_tpu_torch.models import transformer as tf\n"
+            "p = tf.init_params(0, dtype='bfloat16')\n"
+            "m = tf.model_on(p, 'cpu')\n"
+            "assert {x.dtype for x in m.parameters()} == {torch.bfloat16}\n"
+            "out = tf.forward(m, torch.zeros((1, 8), dtype=torch.long))\n"
+            "assert out.dtype == torch.bfloat16\n"
+            "assert 'ml_dtypes' not in sys.modules or "
+            "sys.modules['ml_dtypes'] is None\n"
+            "print('ok')\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
+
+
+def test_bf16_forward_and_make_forward_match_jax_make_forward(
+        world_of_one):
+    """At the entry's widths (vocab 256, 2 layers, d_model 128, 8 heads x
+    16, 2 x 128 tokens), JAX's bf16 weights carried across
+    (``transformer_params_from_jax`` takes ml_dtypes bf16): the port's
+    ``forward`` and its (1, 1, 1) ``make_forward`` against JAX's bf16
+    ``make_forward``, within 2e-2 of max|logit|; the two port paths alike
+    bit for bit."""
+    import jax
+    import jax.numpy as jnp
+    from rabit_tpu.models import transformer as jtf
+    from rabit_tpu.parallel import make_mesh as jax_make_mesh
+    sizes = dict(E.ENTRY_SIZES)
+    jparams = jtf.init_params(jax.random.PRNGKey(0), dtype=jnp.bfloat16,
+                              **sizes)
+    toks = np.random.default_rng(0).integers(0, sizes["vocab"],
+                                             size=(2, 128))
+    mesh = jax_make_mesh(1, ("dp", "tp", "sp"), (1, 1, 1))
+    want = np.asarray(jtf.make_forward(mesh)(
+        jparams, jnp.asarray(toks, jnp.int32)).astype(jnp.float32))
+    model = tf.model_on({k: np.asarray(v) for k, v in jparams.items()},
+                        "cpu")
+    assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
+    tokens = torch.from_numpy(toks)
+    with torch.no_grad():
+        got = tf.forward(model, tokens)
+    sharded = tf.make_forward(world_of_one)(model, tokens)
+    assert got.dtype == torch.bfloat16 and torch.equal(sharded, got)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= BF16_LOGIT_REL * np.abs(want).max(), err
 
 
 def test_entry_forward_matches_the_dense_oracle():
