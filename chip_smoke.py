@@ -471,43 +471,57 @@ Phases (each prints a line; any failure exits non-zero):
                 released, the kernel launched once a round on every
                 process; prints the ``world`` command's p50 and p99 with
                 and without the load.
-23. flagship bf16  the flash forward kernel's bf16 path
-                (``rabit_flash_block_bf16``) and the flagship at bf16:
-                (a) the kernel alone at bf16 q/k/v against the plain step
-                on the same inputs, at the training shape, the chain
-                block, a causal mask with a fully masked first row (the
-                first step) and D 1, 13, 100 and 128 (odd D loads through
-                plain loads, D 100 through 4-byte copies); m' and l'
-                within the f32 forward's tolerance, o' within 2^-9 of
-                max|o'| (p's rounding to bf16 flips where the f32 scores
-                differ in their last bit); mixed dtypes raise; (b) the
-                flagship's forward at full width (FLAGSHIP_SIZES, batch 8
-                x seq 512) with ``init_params(dtype=bfloat16)`` weights:
-                the bf16 kernel launched once a layer, nothing else of
-                the flash kernels, logits within 2e-2 of max|logit| of the
-                same forward under ``plain_block_step()``, ``make_forward``
-                on a world-1 mesh equal to it bit for bit; a forward's
-                median of 10 on CUDA events beside the f32 forward's; (c)
-                a bf16 train step raises ``TypeError`` from
-                ``flash_block_bwd`` (its bf16 path is not ported); (d) the
-                bf16 kernel timed at both shapes beside the plain step,
-                ``scaled_dot_product_attention`` at bf16 with the same
-                mask (as [1, B*H, T, D] and ``is_causal``) and the bound
-                (bytes: q/k/v at 2 B, m/l/o in and out at 4 B;
-                operations at 989 TFLOP/s of dense bf16).
+23. flagship bf16  the bf16 paths of both flash kernels
+                (``rabit_flash_block_bf16``, ``rabit_flash_block_bwd_bf16``)
+                and the flagship at bf16: (a) each kernel alone at bf16
+                q/k/v against its plain version on the same inputs, at the
+                training shape, the chain block, a causal mask with a fully
+                masked first row (the first step) and D 1, 13, 100 and 128
+                (odd D loads through plain loads, D 100 through 4-byte
+                copies); the forward's m' and l' within the f32 forward's
+                tolerance, o' within 2^-9 of max|o'| (p's rounding to bf16
+                flips where the f32 scores differ in their last bit); the
+                backward's dq, dk and dv (bf16) within 1e-3 of their
+                largest plus one bf16 step of the value, dm, dl and do
+                within 1e-3 of their largest; mixed dtypes raise in both;
+                (b) the flagship's forward at full width (FLAGSHIP_SIZES,
+                batch 8 x seq 512) with ``init_params(dtype=bfloat16)``
+                weights: the bf16 forward kernel launched once a layer,
+                nothing else of the flash kernels, logits within 2e-2 of
+                max|logit| of the same forward under
+                ``plain_block_step()``, ``make_forward`` on a world-1 mesh
+                equal to it bit for bit; a forward's median of 10 on CUDA
+                events beside the f32 forward's; (c) 8 steps of
+                ``make_train_step`` at bf16 on that mesh: 2 + 2 bf16 flash
+                launches a step and nothing else of the flash kernels,
+                finite losses, the last below the first, bf16 parameters;
+                one step's gradients through the kernels against the same
+                step's under ``plain_block_step()``: the loss within 1e-2
+                relative, each gradient within 3e-2 of its tensor's
+                largest |grad|; the step's median of 10 on CUDA events
+                beside the f32 step's; (d) both bf16 kernels timed at both
+                shapes beside their plain versions,
+                ``scaled_dot_product_attention`` at bf16 with the same mask
+                (as [1, B*H, T, D] and ``is_causal``; its backward alone
+                for the backward kernel) and the bound (bytes: q/k/v and
+                their gradients at 2 B, m/l/o, the cotangents and the f32
+                outputs at 4 B; operations: 4 D and 10 D flops a pair at
+                989 TFLOP/s of dense bf16).
 24. kernels     one JSON line of every kernel with its main-path launches
                 (and, for the flash kernels, phase 12's and phase 13's; for
                 the histogram, phase 17 (b)'s, null where (b) did not run,
                 phase 18's killed runs', (b)'s null where it did not run,
                 phase 19's runs, (b)'s null where it did not run,
                 phase 20's (b) and (c), phase 21's (b), (c) and (d), and
-                phase 22 (c)'s two runs); the flash forward's bf16 path is
-                an entry of its own, ``flash_block_bf16``, with phase 23
-                (b)'s launches.
+                phase 22 (c)'s two runs); the bf16 paths of the flash
+                kernels are entries of their own, ``flash_block_bf16`` and
+                ``flash_block_bwd_bf16``, with phase 23 (c)'s launches (and
+                the forward's of (b)).
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
 phase 6, each run of phase 12, each ring call of phase 13, in its rank's
-process, each run of phase 14 (b), phase 23 (b)'s forward) and read
+process, each run of phase 14 (b), phase 23 (b)'s forward and (c)'s
+steps) and read
 just after it, so a kernel's count is its own path's alone: mask_only's
 is the sweep's. Phase 11's
 histogram launches are counted in its workers, each a fresh process (so
@@ -546,11 +560,13 @@ REPLACES = {"histogram": "rabit_tpu/ops/pallas_kernels.py:133",
             "flash_block": "rabit_tpu/ops/pallas_kernels.py:398",
             "flash_block_bwd": "rabit_tpu/ops/pallas_kernels.py:345",
             "mask_only": "tools/histogram_sweep.py:79",
-            "flash_block_bf16": "rabit_tpu/ops/pallas_kernels.py:398"}
+            "flash_block_bf16": "rabit_tpu/ops/pallas_kernels.py:398",
+            "flash_block_bwd_bf16": "rabit_tpu/ops/pallas_kernels.py:345"}
 SOURCES = {"histogram": "rabit_tpu_torch/csrc/histogram.cu",
            "flash_block": "rabit_tpu_torch/csrc/flash_block.cu",
            "flash_block_bf16": "rabit_tpu_torch/csrc/flash_block.cu",
            "flash_block_bwd": "rabit_tpu_torch/csrc/flash_block_bwd.cu",
+           "flash_block_bwd_bf16": "rabit_tpu_torch/csrc/flash_block_bwd.cu",
            "mask_only": "rabit_tpu_torch/csrc/mask_only.cu"}
 
 # (rows, nbins): bench.py's headline, and the HIGGS gpu_hist contribution
@@ -647,9 +663,10 @@ def phase_build() -> None:
         if spilled:
             raise AssertionError(f"kernels spill registers: {spilled}")
     # every instantiation: 4 DP x mask / no mask; the forward has an f32
-    # and a bf16 kernel of each, the backward two f32 kernels
+    # and a bf16 kernel of each, the backward two kernels (rows, cols) of
+    # each at f32 and two at bf16
     for name, prefix, expect in (("flash_block", "flash_fwd_", 16),
-                                 ("flash_block_bwd", "flash_bwd_", 16)):
+                                 ("flash_block_bwd", "flash_bwd_", 32)):
         hmma = {k: n for k, n in sass_counts(
             _build.library_path(name), "HMMA").items()
             if k.startswith(prefix)}
@@ -1026,6 +1043,7 @@ def reset_launches() -> None:
     F.flash_block.launches = 0
     F.flash_block.bf16_launches = 0
     F.flash_block_bwd.launches = 0
+    F.flash_block_bwd.bf16_launches = 0
 
 
 def read_launches() -> dict:
@@ -1035,7 +1053,8 @@ def read_launches() -> dict:
             "mask_only": K.mask_only.launches,
             "flash_block": F.flash_block.launches,
             "flash_block_bf16": F.flash_block.bf16_launches,
-            "flash_block_bwd": F.flash_block_bwd.launches}
+            "flash_block_bwd": F.flash_block_bwd.launches,
+            "flash_block_bwd_bf16": F.flash_block_bwd.bf16_launches}
 
 
 def phase_sweep(dev) -> dict:
@@ -1472,6 +1491,22 @@ def phase_flash_timing(dev, power: str) -> dict:
 BF16_O_REL = 2.0 ** -9
 BF16_LOGIT_REL = 2e-2
 BF16_FWD_REPS = 10
+# the bf16 backward kernel against the plain backward: dq, dk and dv
+# within 1e-3 of their largest plus one bf16 step of the value (each an
+# f32 sum cast to bf16 at the end, a cast that flips where two orders of
+# summation differ in the last bit), dm, dl and do within 1e-3 of their
+# largest (the f32 kernel's FLASH_BWD_REL)
+BF16_GRAD_REL = 1e-3
+BF16_GRAD_NAMES = ("dq", "dk", "dv", "dm", "dl", "do")
+# (c): the bf16 train step's steps, and one step's gradients through the
+# kernels against the same step through the plain block step: the loss
+# within 1e-2 relative and each gradient within 3e-2 of its tensor's
+# largest |grad| (bf16 activations downstream of the block step carry its
+# last-bit differences; the logits of (b) read 6.5e-3 of their largest on
+# an H100)
+BF16_TRAIN_STEPS = 8
+BF16_STEP_LOSS_REL = 1e-2
+BF16_STEP_GRAD_REL = 3e-2
 # (label, (B*H, T, S, D), mask, first step)
 BF16_CASES = [
     ("training shape", FLASH_MAIN[:4], "causal", True),
@@ -1488,17 +1523,58 @@ BF16_CASES = [
 def bf16_case(bh: int, t: int, s: int, d: int, mask_kind, seed: int, dev,
               first_step: bool = False):
     """``flash_case``'s block step inputs with q, k and v rounded to
-    bf16; m, l, o stay f32."""
-    ins, _ = flash_case(bh, t, s, d, mask_kind, seed, dev, first_step)
-    return (*(x.to(torch.bfloat16) for x in ins[:3]), *ins[3:])
+    bf16 (m, l, o stay f32), and its f32 cotangents."""
+    ins, cts = flash_case(bh, t, s, d, mask_kind, seed, dev, first_step)
+    return (*(x.to(torch.bfloat16) for x in ins[:3]), *ins[3:]), cts
 
 
-def _bf16_kernel_checks(dev) -> float:
-    """Phase 23 (a); returns the largest absolute difference."""
+def bf16_steps(x: torch.Tensor) -> torch.Tensor:
+    """One step of bf16 (2^-7 of the leading power of two) at each |x|,
+    exactly: frexp, not a log2 that may land below a power of two."""
+    _, e = torch.frexp(x.double().abs().clamp_min(1e-38))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float64), e - 8)
+
+
+def _bf16_bwd_check(ins, cts, sm: float, label: str) -> tuple:
+    """The bf16 backward kernel against the plain backward on the same
+    inputs; returns (largest |diff|, each gradient's max|diff|/max|ref|)."""
     from rabit_tpu_torch.ops import flash as F
-    worst = 0.0
+    got = F.flash_block_bwd(*ins, sm, *cts)
+    want = F.block_update_bwd_reference(*ins, sm, *cts)
+    torch.cuda.synchronize()
+    worst, rels = 0.0, {}
+    for name, g, w in zip(BF16_GRAD_NAMES, got, want):
+        what = f"flash_block_bwd bf16 {label} {name}"
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{what}: {g.dtype} {tuple(g.shape)}, want "
+                                 f"{w.dtype} {tuple(w.shape)}")
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: non-finite values")
+        err = (g.double() - w.double()).abs()
+        top = float(w.double().abs().max())
+        bound = BF16_GRAD_REL * top + (bf16_steps(w) if w.dtype ==
+                                       torch.bfloat16 else 0.0)
+        bad = err > bound
+        if bad.any():
+            i = int(torch.argmax((err - bound).flatten()))
+            raise AssertionError(
+                f"{what}: {int(bad.sum())} of {g.numel()} values off by more "
+                f"than {BF16_GRAD_REL} of max|ref| {top:.4g}"
+                f"{' plus a bf16 step' if w.dtype == torch.bfloat16 else ''}"
+                f"; worst {float(g.flatten()[i])} vs {float(w.flatten()[i])}")
+        worst = max(worst, float(err.max()))
+        rels[name] = float(err.max()) / max(top, 1e-30)
+    return worst, rels
+
+
+def _bf16_kernel_checks(dev) -> tuple:
+    """Phase 23 (a): both bf16 kernels against their plain versions;
+    returns the largest absolute difference of the forward and of the
+    backward."""
+    from rabit_tpu_torch.ops import flash as F
+    worst = worst_bwd = 0.0
     for i, (label, (bh, t, s, d), mask_kind, first) in enumerate(BF16_CASES):
-        ins = bf16_case(bh, t, s, d, mask_kind, 60 + i, dev, first)
+        ins, cts = bf16_case(bh, t, s, d, mask_kind, 60 + i, dev, first)
         sm = d ** -0.5
         got = F.flash_block(*ins, sm)
         want = F.block_update_reference(*ins, sm)
@@ -1514,47 +1590,51 @@ def _bf16_kernel_checks(dev) -> float:
         rel = errs["o'"] / max(float(want[2].abs().max()), 1e-30)
         worst = max(worst, *errs.values())
         diffs = ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
-        phase("flagship bf16", f"(a) flash_block bf16 {label} (B*H {bh}, T "
-              f"{t}, S {s}, D {d}, mask {mask_kind}): max|diff| {diffs} "
-              f"(m', l' within rtol/atol {FLASH_FWD_TOL['rtol']}); o' "
-              f"{rel:.3g} of max|o'| (limit {BF16_O_REL:.3g})")
         if rel > BF16_O_REL:
             raise AssertionError(f"flash_block bf16 {label} o': "
                                  f"max|diff|/max|o'| {rel:.3g} > "
                                  f"{BF16_O_REL:.3g}")
-    q, k, v, m, l, o, mask = bf16_case(2, 64, 64, 32, None, 69, dev)
-    try:
-        F.flash_block(q, k.float(), v, m, l, o, mask, 0.25)
-    except TypeError as e:
-        phase("flagship bf16", f"(a) mixed q/k/v dtypes raise: {e}")
-    else:
-        raise AssertionError("flash_block took bf16 q with f32 k")
-    return worst
+        err_bwd, rels = _bf16_bwd_check(ins, cts, sm, label)
+        worst_bwd = max(worst_bwd, err_bwd)
+        phase("flagship bf16", f"(a) bf16 {label} (B*H {bh}, T {t}, S {s}, "
+              f"D {d}, mask {mask_kind}): forward max|diff| {diffs} (m', l' "
+              f"within rtol/atol {FLASH_FWD_TOL['rtol']}), o' {rel:.3g} of "
+              f"max|o'| (limit {BF16_O_REL:.3g}); backward max|diff|/max|ref|"
+              f" " + ", ".join(f"{n} {r:.2g}" for n, r in rels.items())
+              + f" (limit {BF16_GRAD_REL}, dq dk dv plus a bf16 step)")
+    (q, k, v, m, l, o, mask), (cm, cl, co) = bf16_case(2, 64, 64, 32, None,
+                                                       69, dev)
+    for name, call in (
+            ("flash_block", lambda: F.flash_block(q, k.float(), v, m, l, o,
+                                                  mask, 0.25)),
+            ("flash_block_bwd", lambda: F.flash_block_bwd(
+                q, k, v.float(), m, l, o, mask, 0.25, cm, cl, co))):
+        try:
+            call()
+        except TypeError as e:
+            phase("flagship bf16", f"(a) {name}: mixed q/k/v dtypes raise: "
+                  f"{e}")
+        else:
+            raise AssertionError(f"{name} took mixed bf16 and f32 q/k/v")
+    return worst, worst_bwd
 
 
-def _bf16_model(dev, power: str) -> dict:
-    """Phase 23 (b) and (c)."""
-    import torch.distributed as dist
-    import traceback
+def _bf16_forward(dev, model, x, power: str) -> dict:
+    """Phase 23 (b): the flagship's forward at bf16 through the kernel,
+    against the plain step and beside the f32 forward."""
     from rabit_tpu_torch import entry as E
     from rabit_tpu_torch.models import transformer as tf
     from rabit_tpu_torch.ops import flash as F
-    from rabit_tpu_torch.parallel.mesh import make_mesh
     sizes = E.FLAGSHIP_SIZES
     n_layers = sizes["n_layers"]
-    x, y = (torch.from_numpy(a).to(dev) for a in E.flagship_data(0))
-    model = tf.model_on(tf.init_params(0, dtype=torch.bfloat16, **sizes),
-                        dev)
-    dtypes = {p.dtype for p in model.parameters()}
-    if dtypes != {torch.bfloat16}:
-        raise AssertionError(f"bf16 flagship parameters are {dtypes}")
     reset_launches()
     with torch.no_grad():
         logits = tf.forward(model, x)
     torch.cuda.synchronize()
     launches = read_launches()
     want = {"histogram": 0, "mask_only": 0, "flash_block": 0,
-            "flash_block_bf16": n_layers, "flash_block_bwd": 0}
+            "flash_block_bf16": n_layers, "flash_block_bwd": 0,
+            "flash_block_bwd_bf16": 0}
     if launches != want:
         raise AssertionError(f"bf16 forward of {n_layers} layers launched "
                              f"{launches}")
@@ -1585,95 +1665,220 @@ def _bf16_model(dev, power: str) -> dict:
           f"plain block step ({diff / top:.3g}, limit {BF16_LOGIT_REL}); "
           f"forward {ms:.4f} ms median of {BF16_FWD_REPS} on CUDA events, "
           f"f32 forward {ms32:.4f} ms [{power}]")
+    return {"forward_launches": launches["flash_block_bf16"],
+            "forward_ms": ms, "forward_f32_ms": ms32, "logits": logits,
+            "logit_rel": diff / top}
+
+
+def _bf16_train(dev, mesh, power: str) -> dict:
+    """Phase 23 (c): the flagship's bf16 train step at full width, its
+    launches and losses; one step's gradients through the kernels against
+    the same step's through the plain block step (``_local_loss`` and its
+    backward, the gradients the step applies: at world 1 its sums are the
+    identity); the step's ms beside the f32 step's."""
+    from rabit_tpu_torch import entry as E
+    from rabit_tpu_torch.models import transformer as tf
+    from rabit_tpu_torch.ops import flash as F
+    sizes = E.FLAGSHIP_SIZES
+    n_layers = sizes["n_layers"]
+    bf16 = torch.bfloat16
+    x, y = (torch.from_numpy(a).to(dev) for a in E.flagship_data(0))
+    model = tf.model_on(tf.init_params(0, dtype=bf16, **sizes), dev)
+    step = tf.make_train_step(mesh, lr=E.FLAGSHIP_LR)
+    reset_launches()
+    losses = [float(step(model, x, y)) for _ in range(BF16_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    per_run = BF16_TRAIN_STEPS * n_layers
+    want = {"histogram": 0, "mask_only": 0, "flash_block": 0,
+            "flash_block_bf16": per_run, "flash_block_bwd": 0,
+            "flash_block_bwd_bf16": per_run}
+    if launches != want:
+        raise AssertionError(f"{BF16_TRAIN_STEPS} bf16 steps of {n_layers} "
+                             f"layers launched {launches}, want {want}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"bf16 train step losses {losses}")
+    dtypes = {p.dtype for p in model.parameters()}
+    if dtypes != {bf16}:
+        raise AssertionError(f"parameters after bf16 steps are {dtypes}")
+
+    params = tf.init_params(1, dtype=bf16, **sizes)
+    step_losses, grads = [], []
+    for plain in (False, True):
+        m = tf.model_on(params, dev)
+        with F.plain_block_step() if plain else contextlib.nullcontext():
+            partial = tf._local_loss(m, x, y, mesh)
+            partial.backward()
+        step_losses.append(float(partial.detach()))
+        grads.append({k: p.grad for k, p in m.params().items()})
+    torch.cuda.synchronize()
+    dloss = abs(step_losses[0] - step_losses[1]) / abs(step_losses[1])
+    if not dloss <= BF16_STEP_LOSS_REL:
+        raise AssertionError(f"bf16 step loss kernel {step_losses[0]} vs "
+                             f"plain {step_losses[1]}: {dloss:.3g} relative")
+    rels = {}
+    for name, w in grads[1].items():
+        g = grads[0][name]
+        if g.dtype != bf16 or not torch.isfinite(g).all():
+            raise AssertionError(f"bf16 step gradient {name}: {g.dtype}, "
+                                 f"finite {bool(torch.isfinite(g).all())}")
+        rels[name] = float((g.float() - w.float()).abs().max()) / max(
+            float(w.float().abs().max()), 1e-30)
+    worst = max(rels, key=rels.get)
+    phase("flagship bf16", f"(c) one bf16 step, kernels vs plain block step: "
+          f"loss {step_losses[0]:.6g} vs {step_losses[1]:.6g} ({dloss:.3g} "
+          f"relative, limit {BF16_STEP_LOSS_REL}); worst gradient {worst} "
+          f"{rels[worst]:.3g} of its max|grad| (limit {BF16_STEP_GRAD_REL})")
+    if rels[worst] > BF16_STEP_GRAD_REL:
+        raise AssertionError(f"bf16 step gradients off the plain step's: "
+                             f"{sorted(rels.items(), key=lambda i: -i[1])}")
+
+    model32 = tf.model_on(tf.init_params(0, **sizes), dev)
+    step32 = tf.make_train_step(mesh, lr=E.FLAGSHIP_LR)
+    ms = float(np.median(_events_ms(lambda: step(model, x, y),
+                                    BF16_FWD_REPS)))
+    ms32 = float(np.median(_events_ms(lambda: step32(model32, x, y),
+                                      BF16_FWD_REPS)))
+    phase("flagship bf16", f"(c) {BF16_TRAIN_STEPS} bf16 train steps at full "
+          f"width on a world-1 NCCL mesh: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; launches {launches} ({n_layers} + {n_layers} "
+          f"bf16 a step); step {ms:.3f} ms median of {BF16_FWD_REPS} on CUDA "
+          f"events, f32 step {ms32:.3f} ms [{power}]")
+    return {"launches": launches, "losses": losses, "step_ms": ms,
+            "step_f32_ms": ms32, "step_loss_rel": dloss,
+            "grad_rel": rels[worst], "grad_worst": worst}
+
+
+def _bf16_model(dev, power: str) -> dict:
+    """Phase 23 (b) and (c)."""
+    import torch.distributed as dist
+    from rabit_tpu_torch import entry as E
+    from rabit_tpu_torch.models import transformer as tf
+    from rabit_tpu_torch.parallel.mesh import make_mesh
+    x, _ = (torch.from_numpy(a).to(dev) for a in E.flagship_data(0))
+    model = tf.model_on(tf.init_params(0, dtype=torch.bfloat16,
+                                       **E.FLAGSHIP_SIZES), dev)
+    dtypes = {p.dtype for p in model.parameters()}
+    if dtypes != {torch.bfloat16}:
+        raise AssertionError(f"bf16 flagship parameters are {dtypes}")
+    out = _bf16_forward(dev, model, x, power)
     mesh = make_mesh((1, 1, 1), dev)
     try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"expected an NCCL group, got "
+                                 f"{dist.get_backend()}")
         with torch.no_grad():
             sharded = tf.make_forward(mesh)(model, x)
-        if not torch.equal(sharded, logits):
+        if not torch.equal(sharded, out.pop("logits")):
             raise AssertionError("bf16 make_forward at (1, 1, 1) differs "
                                  "from forward")
-        step = tf.make_train_step(mesh, lr=E.FLAGSHIP_LR)
-        try:
-            step(model, x, y)
-        except TypeError as e:
-            frames = [f.name for f in traceback.extract_tb(e.__traceback__)]
-            if "flash_block_bwd" not in frames or "bfloat16" not in str(e):
-                raise AssertionError(f"the bf16 step raised from {frames}: "
-                                     f"{e}") from e
-            boundary = str(e)
-        else:
-            raise AssertionError("a bf16 train step ran on the card: its "
-                                 "backward has no kernel")
+        phase("flagship bf16", "(b) make_forward at (1, 1, 1) equals forward "
+              "bit for bit")
+        out["train"] = _bf16_train(dev, mesh, power)
     finally:
         dist.destroy_process_group()
-    phase("flagship bf16", f"(b) make_forward at (1, 1, 1) equals forward "
-          f"bit for bit; (c) a bf16 train step raises TypeError from "
-          f"flash_block_bwd: {boundary}")
-    return {"launches": launches["flash_block_bf16"], "forward_ms": ms,
-            "forward_f32_ms": ms32, "logit_rel": diff / top}
+    return out
 
 
-def flash_bf16_bound(bh: int, t: int, s: int, d: int, mask):
-    """(bound ms, what bounds it, flops, bytes) of one bf16 forward call:
-    4 D flops for each (query, key) pair the mask leaves, at the dense
-    bf16 tensor-core rate, against q, k, v read once at 2 B, m, l, o read
-    and m', l', o' written at 4 B, and the mask, at the memory rate."""
+def flash_bf16_bound(bh: int, t: int, s: int, d: int, mask,
+                     backward: bool = False):
+    """(bound ms, what bounds it, flops, bytes) of one bf16 call: 4 D
+    flops forward and 10 D backward for each (query, key) pair the mask
+    leaves, at the dense bf16 tensor-core rate, against each input read
+    once and each output written once at the memory rate, and the mask:
+    forward q, k, v at 2 B, m, l, o read and m', l', o' written at 4 B;
+    backward also dq, dk, dv at 2 B and cm, cl, co read and dm, dl, do
+    written at 4 B, with no m', l', o'."""
     pairs = bh * (t * s if mask is None else int((~mask).sum()))
-    nbytes = 2 * (bh * t * d + 2 * bh * s * d) + 2 * 4 * bh * t * (2 + d) \
-        + (0 if mask is None else t * s)
-    flops = 4 * pairs * d
+    qkv = 2 * (bh * t * d + 2 * bh * s * d)
+    rows = 4 * bh * t * (2 + d)      # (m, l, o), its cotangents, ...
+    nbytes = 2 * qkv + 3 * rows if backward else qkv + 2 * rows
+    nbytes += 0 if mask is None else t * s
+    flops = (10 if backward else 4) * pairs * d
     by_ops, by_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(by_ops, by_bytes) * 1e3,
             "operations" if by_ops >= by_bytes else "bytes", flops, nbytes)
 
 
-def _bf16_timing(dev, power: str) -> list:
-    """Phase 23 (d): the bf16 kernel, its plain version and
+def _bf16_timing(dev, power: str) -> dict:
+    """Phase 23 (d): each bf16 kernel, its plain version and
     ``scaled_dot_product_attention`` at bf16 (the yardstick; the port
-    never calls it) with the same mask, at both shapes. SDPA gets the
-    heads as [1, B*H, T, D] and the causal mask as ``is_causal`` (the same
-    mask at T = S), which let it pick its fused kernels."""
+    never calls it) with the same mask, at both shapes: SDPA's forward
+    beside the forward kernel, its backward alone (one ``autograd.grad``
+    over a retained graph a call, from saved forward outputs, as phase 9)
+    beside the backward kernel. SDPA gets the heads as [1, B*H, T, D] and
+    the causal mask as ``is_causal`` (the same mask at T = S), which let
+    it pick its fused kernels."""
     import torch.nn.functional as TF
     from rabit_tpu_torch.ops import flash as F
-    rows = []
+    out = {"flash_block_bf16": [], "flash_block_bwd_bf16": []}
     for bh, t, s, d, causal in (FLASH_MAIN, FLASH_CHAIN):
-        ins = bf16_case(bh, t, s, d, "causal" if causal else None, 3, dev,
-                        first_step=True)
-        per_set = sum(x.numel() * x.element_size() for x in ins[:6])
+        ins, cts = bf16_case(bh, t, s, d, "causal" if causal else None, 3,
+                             dev, first_step=True)
+        per_set = sum(x.numel() * x.element_size() for x in (*ins[:6], *cts))
         copies = max(2, math.ceil(150e6 / per_set))
-        sets = [tuple(None if x is None else x.clone() for x in ins)
+        sets = [tuple(None if x is None else x.clone() for x in (*ins, *cts))
                 for _ in range(copies)]
         sm = d ** -0.5
-        ms = time_ms(lambda *a: F.flash_block(*a, sm), sets)
-        plain = time_ms(lambda *a: F.block_update_reference(*a, sm), sets)
-        lib_sets = [(q[None], k[None], v[None])
-                    for q, k, v, m, l, o, mask in sets]
+        fwd = time_ms(lambda *a: F.flash_block(*a[:7], sm), sets)
+        fwd_plain = time_ms(lambda *a: F.block_update_reference(*a[:7], sm),
+                            sets)
+        bwd = time_ms(lambda *a: F.flash_block_bwd(*a[:7], sm, *a[7:]),
+                      sets)
+        bwd_plain = time_ms(
+            lambda *a: F.block_update_bwd_reference(*a[:7], sm, *a[7:]),
+            sets)
+        lib_sets = [(q[None].clone().requires_grad_(),
+                     k[None].clone().requires_grad_(),
+                     v[None].clone().requires_grad_(),
+                     co[None].to(torch.bfloat16))
+                    for q, k, v, m, l, o, mask, cm, cl, co in sets]
+
+        def sdpa(q, k, v, co):
+            return TF.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                   scale=sm)
+
         with torch.no_grad():
-            library = time_ms(
-                lambda q, k, v: TF.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, scale=sm), lib_sets)
-        bound, bound_by, flops, nbytes = flash_bf16_bound(bh, t, s, d,
-                                                          ins[6])
-        rows.append(dict(shape=[bh, t, s, d], causal=causal, ms=ms,
-                         plain_ms=plain, library_ms=library, bound_ms=bound,
-                         bound_by=bound_by, flops=flops, bytes=nbytes))
-        phase("flagship bf16", f"(d) flash_block bf16 B*H {bh} T {t} S {s} "
-              f"D {d} {'causal' if causal else 'no mask'}: kernel "
-              f"{ms:.4f} ms, bound {bound:.4f} ms ({bound_by}, {nbytes} B, "
-              f"{flops} flop; {bound / ms:.1%} of it), plain {plain:.4f} ms,"
-              f" sdpa bf16 {library:.4f} ms [{power}]")
-    return rows
+            lib_fwd = time_ms(sdpa, lib_sets)
+        bwd_sets = [(sdpa(q, k, v, co), (q, k, v), co)
+                    for q, k, v, co in lib_sets]
+
+        def sdpa_bwd(o, inputs, co):
+            torch.autograd.grad(o, inputs, co, retain_graph=True)
+
+        lib_bwd = time_ms(sdpa_bwd, bwd_sets)
+        del bwd_sets
+        for name, ms, plain, lib, backward in (
+                ("flash_block_bf16", fwd, fwd_plain, lib_fwd, False),
+                ("flash_block_bwd_bf16", bwd, bwd_plain, lib_bwd, True)):
+            bound, bound_by, flops, nbytes = flash_bf16_bound(
+                bh, t, s, d, ins[6], backward)
+            row = dict(shape=[bh, t, s, d], causal=causal, ms=ms,
+                       plain_ms=plain, library_ms=lib, bound_ms=bound,
+                       bound_by=bound_by, flops=flops, bytes=nbytes)
+            if backward:
+                row["library_bwd_ms"] = lib
+            out[name].append(row)
+            phase("flagship bf16", f"(d) {name} B*H {bh} T {t} S {s} D {d} "
+                  f"{'causal' if causal else 'no mask'}: kernel {ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({bound_by}, {nbytes} B, {flops} "
+                  f"flop; {bound / ms:.1%} of it), plain {plain:.4f} ms, "
+                  f"sdpa bf16 {'bwd alone' if backward else 'fwd'} "
+                  f"{lib:.4f} ms [{power}]")
+    return out
 
 
 def phase_flagship_bf16(dev, power: str) -> dict:
-    """Phase 23: the bf16 forward kernel alone, the flagship's forward at
-    bf16 through it, the bf16 step's boundary, and the kernel's times."""
+    """Phase 23: both bf16 flash kernels alone, the flagship's forward and
+    train step at bf16 through them, and the kernels' times."""
     t0 = time.perf_counter()
-    worst = _bf16_kernel_checks(dev)
+    worst, worst_bwd = _bf16_kernel_checks(dev)
     model = _bf16_model(dev, power)
     timing = _bf16_timing(dev, power)
     phase("flagship bf16", f"done in {time.perf_counter() - t0:.1f} s")
-    return {"max_abs_err": worst, "timing": timing, **model}
+    return {"max_abs_err": {"flash_block_bf16": worst,
+                            "flash_block_bwd_bf16": worst_bwd},
+            "timing": timing, **model}
 
 
 CODEC_CASES = [("bf16", 1024), ("bf16", 512), ("int8", 1024), ("int8", 512)]
@@ -5851,9 +6056,10 @@ def main() -> int:
           f"{tf_run['step_ms']:.3f} ms median of steps 2-"
           f"{FLAGSHIP_STEPS} on CUDA events [{power}]")
     bf16 = phase_flagship_bf16(dev, power)
-    timing["flash_block_bf16"] = bf16["timing"]
-    launches["flash_block_bf16"] = bf16["launches"]
-    max_err["flash_block_bf16"] = bf16["max_abs_err"]
+    timing.update(bf16["timing"])
+    for name in ("flash_block_bf16", "flash_block_bwd_bf16"):
+        launches[name] = bf16["train"]["launches"][name]
+    max_err.update(bf16["max_abs_err"])
     phase_collectives(dev)
     phase_robust(dev, power)
     bucket = phase_bucket(dev, power)
@@ -5869,7 +6075,7 @@ def main() -> int:
     conn = phase_conn_plane(power)
     kernels = []
     for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only",
-                 "flash_block_bf16"):
+                 "flash_block_bf16", "flash_block_bwd_bf16"):
         head = timing[name][0]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -5901,6 +6107,10 @@ def main() -> int:
     kernels[3]["slope_ms"] = timing["mask_only"][0]["slope_ms"]
     kernels[2]["library_bwd_ms"] = timing["flash_block_bwd"][0][
         "library_bwd_ms"]
+    kernels[5]["library_bwd_ms"] = timing["flash_block_bwd_bf16"][0][
+        "library_bwd_ms"]
+    # phase 23 (b)'s forward alone
+    kernels[4]["forward_launches"] = bf16["forward_launches"]
     for k in kernels[1:3]:   # the chain block's row: the proof's chains
         k["by_shape"][1]["launches"] = proof["launches"][k["name"]]
         # phase 12's paths: each bucketed run, counted from 0
@@ -5918,8 +6128,10 @@ def main() -> int:
         "incidents": _failover_doc(incidents),
         "jobs": {k: jobs[k] for k in ("a_s", "launches")},
         "conn_plane": conn,
-        "flagship_bf16": {k: bf16[k] for k in (
-            "forward_ms", "forward_f32_ms", "logit_rel")}}), flush=True)
+        "flagship_bf16": {**{k: bf16[k] for k in (
+            "forward_ms", "forward_f32_ms", "logit_rel")},
+            "train": {k: v for k, v in bf16["train"].items()
+                      if k != "launches"}}}), flush=True)
     print(power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

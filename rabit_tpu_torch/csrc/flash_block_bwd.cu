@@ -53,8 +53,30 @@
 // training shape (BH 64, T = S = 512, D 32, causal) 2.69 GFLOP, 16.3 us;
 // at the ring chain's block (BH 8, T = S = 1024, D 128) 10.7 GFLOP, 65 us.
 //
-// The C entry point launches on the caller's stream, allocates nothing,
-// does not synchronise, and returns the first launch error.
+// The bf16 path (rabit_flash_block_bwd_bf16; the TPU kernel's bf16 q/k/v
+// contract, pallas_kernels.py:275-318): the same two kernels, their
+// bodies templated on q/k/v's element type. Every product of the
+// contract has at most one f32 operand (s: q, k; dp: co, v; dv: p, co;
+// dq: ds, k; dk: ds, q), and a bf16 value widened to f32 is exact in TF32
+// (split_tf32 gives it a small part of 0), so the 3xTF32 products form
+// each one at f32 accuracy as they stand. So bf16 q, K and V are widened
+// as they land in shared memory (plain loads: cp.async cannot convert),
+// and the shared memory, the products, score_tile, the skip and tie rules
+// and every sum are the f32 kernels'; only the TF32 products that take a
+// small part of 0 (exact zeros) are left out (mma3_tf32's flags): s takes
+// one, dp, dv, dq and dk two, 15 a pair where f32 takes 27, the same
+// sums. Two roundings are the contract's own: the column kernel rounds
+// p to bf16 to nearest even against the final m' of the scratch, for dv
+// = bf16(p)^T co alone (ds, and the row kernel's pass 1, take the f32
+// p), and dq, dk and dv round to bf16 at the store from their f32 sums.
+// dm, dl and do stay f32. Bound at bf16:
+// 10 D flops a pair at 989 TFLOP/s of dense bf16 against q, k, v and
+// their gradients at 2 B and m, l, o, the cotangents, dm, dl and do at 4
+// B: at the training shape about 26 MB, 7.8 us (bytes), against 2.7 us;
+// at the chain block 10.7 GFLOP, 10.9 us (operations), against 7.6 us.
+//
+// The C entry points launch on the caller's stream, allocate nothing, do
+// not synchronise, and return the first launch error.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -141,24 +163,26 @@ __device__ __forceinline__ void merge_rows(float& t, float& n, float& sum,
 template <int DP>
 constexpr int kMinBlocks = DP <= 32 ? 2 : 1;
 
-// kMasked (here and in flash_bwd_cols): whether mask is given; the
-// kernels without one read no mask.
-template <int DP, bool kMasked>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
-    flash_bwd_rows(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ m,
-                   const float* __restrict__ l, const float* __restrict__ o,
-                   const unsigned char* __restrict__ mask,
-                   const float* __restrict__ cm, const float* __restrict__ cl,
-                   const float* __restrict__ co, int T, int S, int D,
-                   float scale, float* __restrict__ dq,
-                   float* __restrict__ dm, float* __restrict__ dl,
-                   float* __restrict__ dO, float* __restrict__ mnew_out,
-                   float* __restrict__ trow_out,
-                   float* __restrict__ tie_out) {
+// The row kernel's work, for q/k/v (and dq) of element type E: f32, or
+// bf16 widened to f32 as it lands in shared memory (the products, the
+// scores and every sum as at f32; dq rounded to bf16 at the store).
+// kMasked (here and in bwd_cols): whether mask is given; the kernels
+// without one read no mask.
+template <typename E, int DP, bool kMasked>
+__device__ __forceinline__ void bwd_rows(
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const float* __restrict__ m,
+    const float* __restrict__ l, const float* __restrict__ o,
+    const unsigned char* __restrict__ mask, const float* __restrict__ cm,
+    const float* __restrict__ cl, const float* __restrict__ co, int T, int S,
+    int D, float scale, E* __restrict__ dq, float* __restrict__ dm,
+    float* __restrict__ dl, float* __restrict__ dO,
+    float* __restrict__ mnew_out, float* __restrict__ trow_out,
+    float* __restrict__ tie_out) {
   constexpr int kLd = MmaTile<DP>::kLd;
   constexpr int kTile = kRows * kLd;
   constexpr int kNq = DP / 16;  // 8-column C tiles of the warp's dq half
+  constexpr bool kExact = sizeof(E) == 2;  // q, k, v exact in TF32
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                      // [kRows, kLd]
   float* co_s = q_s + kTile;              // [kRows, kLd]
@@ -172,8 +196,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
   const int row0 = blockIdx.x * kRows;
   const long long hq = static_cast<long long>(blockIdx.y) * T;
   const long long hk = static_cast<long long>(blockIdx.y) * S;
-  const float* kh = k + hk * D;
-  const float* vh = v + hk * D;
+  const E* kh = k + hk * D;
+  const E* vh = v + hk * D;
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int slice = 16 * (w / 2), half = w % 2;  // rows slice.. + 16
   const int keys = 32 * half;                    // s, dp: keys keys.. + 32
@@ -198,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
   // (k_s, then v_s); returns the masked lanes' bits
   float s[kNt][4], dp[kNt][4];
   auto scores = [&](const float* k_s, Visit tile) {
-    return score_tile<DP, kNt, kMasked>(
+    return score_tile<DP, kNt, kMasked, kExact>(
         s, dp, q_s + slice * kLd, k_s + keys * kLd, co_s + slice * kLd,
         k_s + kTile + keys * kLd, kLd, scale, mask, !tile.unmasked,
         row0 + slice, tile.from + keys, T, S);
@@ -357,8 +381,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
         ds_s[(slice + c_row(e)) * kLdS + keys + c_col(nt, e)] = ds;
       }
     __syncthreads();
-    mma3_tf32<kCols / 8, kNq>(acc, ds_s + slice * kLdS, kLdS, 1, k_s + cols,
-                              kLd, 1);
+    mma3_tf32<kCols / 8, kNq, false, kExact>(acc, ds_s + slice * kLdS, kLdS,
+                                             1, k_s + cols, kLd, 1);
     __syncthreads();
     tile = next;
   }
@@ -367,24 +391,25 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = row0 + slice + c_row(e), c = cols + c_col(nt, e);
-      if (row < T && c < D) dq[(hq + row) * D + c] = acc[nt][e];
+      if (row < T && c < D) store_as(dq + (hq + row) * D + c, acc[nt][e]);
     }
 }
 
-template <int DP, bool kMasked>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
-    flash_bwd_cols(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
-                   const unsigned char* __restrict__ mask,
-                   const float* __restrict__ cl, const float* __restrict__ co,
-                   const float* __restrict__ mnew,
-                   const float* __restrict__ trow,
-                   const float* __restrict__ tie, int T, int S, int D,
-                   float scale, float* __restrict__ dk,
-                   float* __restrict__ dv) {
+// The column kernel's work, for q/k/v (and dk, dv) of element type E, as
+// bwd_rows; at bf16 also p rounds to bf16 for dv = p^T co alone (the
+// forward's p v takes p so), against the final m' of the scratch.
+template <typename E, int DP, bool kMasked>
+__device__ __forceinline__ void bwd_cols(
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const unsigned char* __restrict__ mask,
+    const float* __restrict__ cl, const float* __restrict__ co,
+    const float* __restrict__ mnew, const float* __restrict__ trow,
+    const float* __restrict__ tie, int T, int S, int D, float scale,
+    E* __restrict__ dk, E* __restrict__ dv) {
   constexpr int kLd = MmaTile<DP>::kLd;
   constexpr int kTile = kRows * kLd;
   constexpr int kNd = DP / 16;  // 8-column C tiles of the warp's dk, dv half
+  constexpr bool kExact = sizeof(E) == 2;  // q, k, v and the staged p
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;                  // [kCols, kLd], resident
   float* v_s = k_s + kTile;           // [kCols, kLd], resident
@@ -394,7 +419,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
   const int col0 = blockIdx.x * kCols;
   const long long hq = static_cast<long long>(blockIdx.y) * T;
   const long long hk = static_cast<long long>(blockIdx.y) * S;
-  const float* qh = q + hq * D;
+  const E* qh = q + hq * D;
   const float* coh = co + hq * D;
   const int w = threadIdx.x / 32;
   // s, dp: query rows slice.. + 16 x keys keys.. + 32; dk, dv: keys
@@ -440,7 +465,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
     const float* q_s = qc_s + 2 * stage * kTile;
     const float* co_s = q_s + kTile;
     float s[kNt][4], dp[kNt][4], ds[kNt][4];
-    const unsigned masked = score_tile<DP, kNt, kMasked>(
+    const unsigned masked = score_tile<DP, kNt, kMasked, kExact>(
         s, dp, q_s + slice * kLd, k_s + keys * kLd, co_s + slice * kLd,
         v_s + keys * kLd, kLd, scale, mask, !tile.unmasked, row0 + slice,
         col0 + keys, T, S);
@@ -454,16 +479,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
         float p = expf(x - mn[h]);
         float d = (dp[nt][e] + cl_r[h]) * p;
         if (x == tr[h]) d += ti[h];
-        // rows past T and keys past S add nothing; ds is 0 on a masked lane
+        // rows past T and keys past S add nothing; ds is 0 on a masked
+        // lane. ds has taken the f32 p; dv takes p in q/k/v's type.
         const bool out = row0 + r >= T || c_col(nt, e) >= lanes;
         p = out ? 0.f : p;
         ds[nt][e] = out || (masked >> (4 * nt + e) & 1u) ? 0.f : d * scale;
-        pd_s[r * kLdT + keys + c_col(nt, e)] = p;
+        pd_s[r * kLdT + keys + c_col(nt, e)] =
+            sizeof(E) == 2 ? round_bf16(p) : p;
       }
     __syncthreads();
     // dv += p^T co, dk += ds^T q
-    mma3_tf32<kRows / 8, kNd>(acc_v, pd_s + slice, 1, kLdT, co_s + cols, kLd,
-                              1);
+    mma3_tf32<kRows / 8, kNd, kExact>(acc_v, pd_s + slice, 1, kLdT,
+                                      co_s + cols, kLd, 1);
     __syncthreads();
 #pragma unroll
     for (int nt = 0; nt < kNt; ++nt)
@@ -471,8 +498,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
       for (int e = 0; e < 4; ++e)
         pd_s[(slice + c_row(e)) * kLdT + keys + c_col(nt, e)] = ds[nt][e];
     __syncthreads();
-    mma3_tf32<kRows / 8, kNd>(acc_k, pd_s + slice, 1, kLdT, q_s + cols, kLd,
-                              1);
+    mma3_tf32<kRows / 8, kNd, false, kExact>(acc_k, pd_s + slice, 1, kLdT,
+                                             q_s + cols, kLd, 1);
     __syncthreads();
     tile = next;
   }
@@ -482,10 +509,80 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
     for (int e = 0; e < 4; ++e) {
       const int key = col0 + slice + c_row(e), c = cols + c_col(nt, e);
       if (key < S && c < D) {
-        dk[(hk + key) * D + c] = acc_k[nt][e];
-        dv[(hk + key) * D + c] = acc_v[nt][e];
+        store_as(dk + (hk + key) * D + c, acc_k[nt][e]);
+        store_as(dv + (hk + key) * D + c, acc_v[nt][e]);
       }
     }
+}
+
+// The f32 kernels, and the bf16 ones (q/k/v and dq/dk/dv bf16). Each pass
+// keeps the "flash_bwd_" prefix that the build's checks look for.
+#define RABIT_BWD_ROWS_PARAMS(E)                                           \
+  const E *__restrict__ q, const E *__restrict__ k,                        \
+      const E *__restrict__ v, const float *__restrict__ m,                \
+      const float *__restrict__ l, const float *__restrict__ o,            \
+      const unsigned char *__restrict__ mask, const float *__restrict__ cm, \
+      const float *__restrict__ cl, const float *__restrict__ co, int T,    \
+      int S, int D, float scale, E *__restrict__ dq,                       \
+      float *__restrict__ dm, float *__restrict__ dl,                      \
+      float *__restrict__ dO, float *__restrict__ mnew_out,                \
+      float *__restrict__ trow_out, float *__restrict__ tie_out
+#define RABIT_BWD_ROWS_ARGS                                               \
+  q, k, v, m, l, o, mask, cm, cl, co, T, S, D, scale, dq, dm, dl, dO,     \
+      mnew_out, trow_out, tie_out
+#define RABIT_BWD_COLS_PARAMS(E)                                           \
+  const E *__restrict__ q, const E *__restrict__ k,                        \
+      const E *__restrict__ v, const unsigned char *__restrict__ mask,     \
+      const float *__restrict__ cl, const float *__restrict__ co,          \
+      const float *__restrict__ mnew, const float *__restrict__ trow,      \
+      const float *__restrict__ tie, int T, int S, int D, float scale,     \
+      E *__restrict__ dk, E *__restrict__ dv
+#define RABIT_BWD_COLS_ARGS \
+  q, k, v, mask, cl, co, mnew, trow, tie, T, S, D, scale, dk, dv
+
+template <int DP, bool kMasked>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
+    flash_bwd_rows(RABIT_BWD_ROWS_PARAMS(float)) {
+  bwd_rows<float, DP, kMasked>(RABIT_BWD_ROWS_ARGS);
+}
+
+template <int DP, bool kMasked>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
+    flash_bwd_bf16_rows(RABIT_BWD_ROWS_PARAMS(bf16)) {
+  bwd_rows<bf16, DP, kMasked>(RABIT_BWD_ROWS_ARGS);
+}
+
+template <int DP, bool kMasked>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
+    flash_bwd_cols(RABIT_BWD_COLS_PARAMS(float)) {
+  bwd_cols<float, DP, kMasked>(RABIT_BWD_COLS_ARGS);
+}
+
+template <int DP, bool kMasked>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<DP>)
+    flash_bwd_bf16_cols(RABIT_BWD_COLS_PARAMS(bf16)) {
+  bwd_cols<bf16, DP, kMasked>(RABIT_BWD_COLS_ARGS);
+}
+
+#undef RABIT_BWD_ROWS_PARAMS
+#undef RABIT_BWD_ROWS_ARGS
+#undef RABIT_BWD_COLS_PARAMS
+#undef RABIT_BWD_COLS_ARGS
+
+template <typename E, int DP, bool kMasked>
+constexpr auto rows_kernel() {
+  if constexpr (sizeof(E) == 2)
+    return flash_bwd_bf16_rows<DP, kMasked>;
+  else
+    return flash_bwd_rows<DP, kMasked>;
+}
+
+template <typename E, int DP, bool kMasked>
+constexpr auto cols_kernel() {
+  if constexpr (sizeof(E) == 2)
+    return flash_bwd_bf16_cols<DP, kMasked>;
+  else
+    return flash_bwd_cols<DP, kMasked>;
 }
 
 // One 64 x 64 tile out = a b^T of a, b [64, d] through score_tile (scale
@@ -516,12 +613,11 @@ __global__ void __launch_bounds__(kThreads)
       out[(slice + c_row(e)) * kCols + keys + c_col(nt, e)] = s[nt][e];
 }
 
-template <int DP>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* m, const float* l, const float* o,
-                   const unsigned char* mask, const float* cm,
-                   const float* cl, const float* co, int bh, int T, int S,
-                   int D, float scale, float* dq, float* dk, float* dv,
+template <typename E, int DP>
+cudaError_t launch(const E* q, const E* k, const E* v, const float* m,
+                   const float* l, const float* o, const unsigned char* mask,
+                   const float* cm, const float* cl, const float* co, int bh,
+                   int T, int S, int D, float scale, E* dq, E* dk, E* dv,
                    float* dm, float* dl, float* dO, float* scratch,
                    cudaStream_t stream) {
   constexpr int kTile = kRows * MmaTile<DP>::kLd;
@@ -531,8 +627,8 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 
   const size_t rows_smem =
       sizeof(float) * (6 * kTile + kRows * kLdS + 2 * kRows * 4 + 3 * kRows);
-  auto rows = mask != nullptr ? flash_bwd_rows<DP, true>
-                               : flash_bwd_rows<DP, false>;
+  auto rows = mask != nullptr ? rows_kernel<E, DP, true>()
+                               : rows_kernel<E, DP, false>();
   cudaError_t err = allow_smem(rows, rows_smem);
   if (err != cudaSuccess) return err;
   rows<<<dim3((T + kRows - 1) / kRows, bh), kThreads, rows_smem, stream>>>(
@@ -541,8 +637,8 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const size_t cols_smem = sizeof(float) * (6 * kTile + kRows * kLdT);
-  auto cols = mask != nullptr ? flash_bwd_cols<DP, true>
-                               : flash_bwd_cols<DP, false>;
+  auto cols = mask != nullptr ? cols_kernel<E, DP, true>()
+                               : cols_kernel<E, DP, false>();
   if ((err = allow_smem(cols, cols_smem)) != cudaSuccess) return err;
   cols<<<dim3((S + kCols - 1) / kCols, bh), kThreads, cols_smem, stream>>>(
       q, k, v, mask, cl, co, mnew, trow, tie, T, S, D, scale, dk, dv);
@@ -557,6 +653,34 @@ cudaError_t launch_check(const float* a, const float* b, int d, float* out,
   if (err != cudaSuccess) return err;
   mma_tile_check<DP><<<1, kThreads, smem, stream>>>(a, b, d, out);
   return cudaGetLastError();
+}
+
+// q/k/v of element type E: checks the sizes, then the launch of the D
+// bucket's instantiation.
+template <typename E>
+int dispatch(const void* q, const void* k, const void* v, const void* m,
+             const void* l, const void* o, const void* mask, const void* cm,
+             const void* cl, const void* co, int bh, int t, int s, int d,
+             float scale, void* dq, void* dk, void* dv, void* dm, void* dl,
+             void* dO, void* scratch, void* stream) {
+  if (bh < 1 || bh > 65535 || t < 1 || s < 1 || d < 1 || d > 128)
+    return cudaErrorInvalidValue;
+#define RABIT_FLASH_BWD_ARGS                                              \
+  static_cast<const E*>(q), static_cast<const E*>(k),                     \
+      static_cast<const E*>(v), static_cast<const float*>(m),             \
+      static_cast<const float*>(l), static_cast<const float*>(o),         \
+      static_cast<const unsigned char*>(mask),                            \
+      static_cast<const float*>(cm), static_cast<const float*>(cl),       \
+      static_cast<const float*>(co), bh, t, s, d, scale,                  \
+      static_cast<E*>(dq), static_cast<E*>(dk), static_cast<E*>(dv),      \
+      static_cast<float*>(dm), static_cast<float*>(dl),                   \
+      static_cast<float*>(dO), static_cast<float*>(scratch),              \
+      static_cast<cudaStream_t>(stream)
+  if (d <= 16) return launch<E, 16>(RABIT_FLASH_BWD_ARGS);
+  if (d <= 32) return launch<E, 32>(RABIT_FLASH_BWD_ARGS);
+  if (d <= 64) return launch<E, 64>(RABIT_FLASH_BWD_ARGS);
+  return launch<E, 128>(RABIT_FLASH_BWD_ARGS);
+#undef RABIT_FLASH_BWD_ARGS
 }
 
 }  // namespace
@@ -574,24 +698,22 @@ int rabit_flash_block_bwd_f32(const void* q, const void* k, const void* v,
                               int s, int d, float scale, void* dq, void* dk,
                               void* dv, void* dm, void* dl, void* dO,
                               void* scratch, void* stream) {
-  if (bh < 1 || bh > 65535 || t < 1 || s < 1 || d < 1 || d > 128)
-    return cudaErrorInvalidValue;
-#define RABIT_FLASH_BWD_ARGS                                              \
-  static_cast<const float*>(q), static_cast<const float*>(k),             \
-      static_cast<const float*>(v), static_cast<const float*>(m),         \
-      static_cast<const float*>(l), static_cast<const float*>(o),         \
-      static_cast<const unsigned char*>(mask),                            \
-      static_cast<const float*>(cm), static_cast<const float*>(cl),       \
-      static_cast<const float*>(co), bh, t, s, d, scale,                  \
-      static_cast<float*>(dq), static_cast<float*>(dk),                   \
-      static_cast<float*>(dv), static_cast<float*>(dm),                   \
-      static_cast<float*>(dl), static_cast<float*>(dO),                   \
-      static_cast<float*>(scratch), static_cast<cudaStream_t>(stream)
-  if (d <= 16) return launch<16>(RABIT_FLASH_BWD_ARGS);
-  if (d <= 32) return launch<32>(RABIT_FLASH_BWD_ARGS);
-  if (d <= 64) return launch<64>(RABIT_FLASH_BWD_ARGS);
-  return launch<128>(RABIT_FLASH_BWD_ARGS);
-#undef RABIT_FLASH_BWD_ARGS
+  return dispatch<float>(q, k, v, m, l, o, mask, cm, cl, co, bh, t, s, d,
+                         scale, dq, dk, dv, dm, dl, dO, scratch, stream);
+}
+
+// As rabit_flash_block_bwd_f32, with q [bh, t, d], k/v [bh, s, d] and
+// dq/dk/dv bf16; m, l, o, the cotangents, dm, dl, do and the scratch stay
+// f32.
+int rabit_flash_block_bwd_bf16(const void* q, const void* k, const void* v,
+                               const void* m, const void* l, const void* o,
+                               const void* mask, const void* cm,
+                               const void* cl, const void* co, int bh, int t,
+                               int s, int d, float scale, void* dq, void* dk,
+                               void* dv, void* dm, void* dl, void* dO,
+                               void* scratch, void* stream) {
+  return dispatch<bf16>(q, k, v, m, l, o, mask, cm, cl, co, bh, t, s, d,
+                        scale, dq, dk, dv, dm, dl, dO, scratch, stream);
 }
 
 // out [64, 64] = a b^T for a, b f32 [64, d] on the device, through the

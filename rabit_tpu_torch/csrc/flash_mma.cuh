@@ -1,8 +1,9 @@
 // Tensor-core pieces of the flash kernels (flash_block.cu and
 // flash_block_bwd.cu): f32 products at f32 accuracy from TF32 operands
 // (the 3xTF32 split), the one score-tile function, and asynchronous tile
-// loads; and their bf16 counterparts for the forward's bf16 path (at the
-// end of the file).
+// loads; and their bf16 counterparts for the forward's bf16 path, and the
+// backward's bf16 loads, widened to f32, and stores (at the end of the
+// file).
 //
 // 3xTF32 ("fast f32", CUTLASS's OpMultiplyAddFastF32): each f32 operand x
 // splits into big = tf32(x) and small = tf32(x - big), both rounded to
@@ -84,8 +85,11 @@ __device__ __forceinline__ void mma_tf32(float (&acc)[4],
 // acc[n] += A B_n over K = 8 KSTEPS, 3xTF32, for the calling warp: A is
 // 16 x K with A(m, k) at a[m * am + k * ak]; B_n is K x 8 with B_n(k, j)
 // at b[k * bk + (8 n + j) * bn]. acc[n] is the C fragment of the 16 x 8
-// tile n. Only this loop over k is unrolled.
-template <int KSTEPS, int NT>
+// tile n. Only this loop over k is unrolled. kAExact / kBExact: every
+// value of A / B is exact in TF32 (a widened bf16 value), so its small
+// part is 0 and the product that takes it, which adds exact zeros, is
+// left out: the same sums, one product fewer.
+template <int KSTEPS, int NT, bool kAExact = false, bool kBExact = false>
 __device__ __forceinline__ void mma3_tf32(float (&acc)[NT][4],
                                           const float* a, int am, int ak,
                                           const float* b, int bk, int bn) {
@@ -104,8 +108,8 @@ __device__ __forceinline__ void mma3_tf32(float (&acc)[NT][4],
       split_tf32(b[(k0 + t) * bk + (8 * n + g) * bn], b_big[0], b_small[0]);
       split_tf32(b[(k0 + t + 4) * bk + (8 * n + g) * bn], b_big[1],
                  b_small[1]);
-      mma_tf32(acc[n], a_small, b_big);
-      mma_tf32(acc[n], a_big, b_small);
+      if constexpr (!kAExact) mma_tf32(acc[n], a_small, b_big);
+      if constexpr (!kBExact) mma_tf32(acc[n], a_big, b_small);
       mma_tf32(acc[n], a_big, b_big);
     }
   }
@@ -114,8 +118,10 @@ __device__ __forceinline__ void mma3_tf32(float (&acc)[NT][4],
 // s[n] += Q K_n^T and dp[n] += CO V_n^T over K = DP: two products of
 // rows x rows (Q, CO: the warp's 16 rows of [., ld] tiles; K_n, V_n: 8
 // rows from 8 n), as mma3_tf32 would form each alone, interleaved k-step
-// by k-step so that two chains of mma are in flight.
-template <int DP, int NT>
+// by k-step so that two chains of mma are in flight. kExact: Q, K and V
+// are exact in TF32 (widened bf16; CO never is), so s takes one product
+// and dp two, as mma3_tf32 with its flags set would.
+template <int DP, int NT, bool kExact = false>
 __device__ __forceinline__ void mma3_tf32_pair(float (&s)[NT][4],
                                                float (&dp)[NT][4],
                                                const float* q_s,
@@ -142,10 +148,12 @@ __device__ __forceinline__ void mma3_tf32_pair(float (&s)[NT][4],
       split_tf32(k_s[b1], k_big[1], k_small[1]);
       split_tf32(v_s[b0], v_big[0], v_small[0]);
       split_tf32(v_s[b1], v_big[1], v_small[1]);
-      mma_tf32(s[n], q_small, k_big);
+      if constexpr (!kExact) mma_tf32(s[n], q_small, k_big);
       mma_tf32(dp[n], c_small, v_big);
-      mma_tf32(s[n], q_big, k_small);
-      mma_tf32(dp[n], c_big, v_small);
+      if constexpr (!kExact) {
+        mma_tf32(s[n], q_big, k_small);
+        mma_tf32(dp[n], c_big, v_small);
+      }
       mma_tf32(s[n], q_big, k_big);
       mma_tf32(dp[n], c_big, v_big);
     }
@@ -199,8 +207,9 @@ __device__ __forceinline__ unsigned scale_and_mask(
 // rows from row0) x 8 NT keys (k_s, keys from col0), and with it dp =
 // co . v (co_s, v_s), all [., ld] tiles of width DP padded with zeros.
 // Masked lanes as scale_and_mask; a caller that knows the tile holds no
-// masked pair passes check_mask false and reads no mask.
-template <int DP, int NT, bool kMasked>
+// masked pair passes check_mask false and reads no mask. kExact as
+// mma3_tf32_pair's.
+template <int DP, int NT, bool kMasked, bool kExact = false>
 __device__ __forceinline__ unsigned score_tile(
     float (&s)[NT][4], float (&dp)[NT][4], const float* q_s,
     const float* k_s, const float* co_s, const float* v_s, int ld,
@@ -210,7 +219,7 @@ __device__ __forceinline__ unsigned score_tile(
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-  mma3_tf32_pair<DP, NT>(s, dp, q_s, k_s, co_s, v_s, ld);
+  mma3_tf32_pair<DP, NT, kExact>(s, dp, q_s, k_s, co_s, v_s, ld);
   return scale_and_mask<NT, kMasked>(s, scale, mask, check_mask, row0, col0,
                                      T, S);
 }
@@ -443,6 +452,69 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
                              : static_cast<unsigned short>(0);
     }
   }
+}
+
+// ---- bf16 widened to f32 (the backward's bf16 path) ----
+//
+// A bf16 value is an f32 whose low 16 bits are zero: widening is exact,
+// and its 8-bit significand fits TF32's 11, so split_tf32 gives big = x
+// and small = 0, and the 3xTF32 products above form every product of a
+// widened bf16 operand at f32 accuracy, unchanged (their kAExact,
+// kBExact and kExact flags leave out the products of its zero small
+// part).
+
+// The f32 value of the bf16 bits b (in the low half)
+__device__ __forceinline__ float widen_bf16(unsigned b) {
+  return __uint_as_float(b << 16);
+}
+
+// x rounded to bf16 to nearest even, widened back to f32
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Rows [row0, row0 + 64) of a [n, d] bf16 array into the f32 tile dst
+// [64, kLd], each value widened; rows past n and columns past d become
+// zero. cp.async cannot convert, so these are plain loads and stores:
+// 16-byte loads of 8 values where every row starts 16-byte aligned (d % 8
+// == 0 and an aligned src), else 2-byte loads. They land at once, in the
+// stage the caller has freed, and the caller's barrier before the tile is
+// read makes them visible as it does the copies. The name is the copies':
+// a kernel templated on q/k/v's type calls one function for both. (The
+// caller's commit then closes an empty group, or its f32 copies'.)
+template <int DP, int kLd = MmaTile<DP>::kLd>
+__device__ __forceinline__ void load_tile_async(float* dst, const bf16* src,
+                                                int row0, int n, int d) {
+  if (d % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    constexpr int kChunks = DP / 8;
+    for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, c = (idx % kChunks) * 8, row = row0 + r;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (row < n && c < d)
+        x = *reinterpret_cast<const uint4*>(
+            src + static_cast<long long>(row) * d + c);
+      // kLd and c are multiples of 4: 16-byte aligned stores
+      float4* out = reinterpret_cast<float4*>(dst + r * kLd + c);
+      out[0] = make_float4(widen_bf16(x.x & 0xffffu), widen_bf16(x.x >> 16),
+                           widen_bf16(x.y & 0xffffu), widen_bf16(x.y >> 16));
+      out[1] = make_float4(widen_bf16(x.z & 0xffffu), widen_bf16(x.z >> 16),
+                           widen_bf16(x.w & 0xffffu), widen_bf16(x.w >> 16));
+    }
+  } else {
+    const auto* s16 = reinterpret_cast<const unsigned short*>(src);
+    for (int idx = threadIdx.x; idx < 64 * DP; idx += kThreads) {
+      const int r = idx / DP, c = idx % DP, row = row0 + r;
+      dst[r * kLd + c] = widen_bf16(
+          row < n && c < d ? s16[static_cast<long long>(row) * d + c] : 0u);
+    }
+  }
+}
+
+// A gradient stored in q/k/v's type from its f32 sum: as it is, or
+// rounded to bf16 to nearest even
+__device__ __forceinline__ void store_as(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void store_as(bf16* dst, float x) {
+  *dst = __float2bfloat16_rn(x);
 }
 
 }  // namespace rabit_mma

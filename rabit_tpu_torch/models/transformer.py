@@ -24,9 +24,10 @@ seed (it cannot reproduce ``jax.random``), so a test can hand the same
 weights to both packages. Its ``dtype`` knob (float32 or bfloat16, as
 the JAX package's) rounds the f32 draw to bf16 to nearest even; a bf16
 dict holds CPU ``torch.bfloat16`` tensors (numpy has no bf16 without
-``ml_dtypes``). A bf16 model runs its forward through the flash forward
-kernel's bf16 path on the card; its backward has no kernel yet, so a
-bf16 train step on the card raises ``TypeError`` at the backward.
+``ml_dtypes``). A bf16 model runs through the bf16 paths of both flash
+kernels on the card, its forward and its train step alike; the step's
+gradients come back bf16 and its SGD update stays in the parameters'
+dtype.
 """
 
 from __future__ import annotations

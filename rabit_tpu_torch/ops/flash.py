@@ -19,17 +19,19 @@ flash part of ``rabit_tpu/ops/pallas_kernels.py`` and of
   splits its cotangent evenly among the tied lanes);
 * ``flash_block`` / ``flash_block_bwd`` — launch ``csrc/flash_block.cu``
   and ``csrc/flash_block_bwd.cu`` for CUDA tensors (counted in
-  ``.launches``; the forward's bf16 path in ``flash_block.bf16_launches``)
-  and take the plain versions for CPU tensors;
+  ``.launches``; their bf16 paths in ``.bf16_launches``) and take the
+  plain versions for CPU tensors;
 * ``FlashBlock`` — the ``torch.autograd.Function`` over the pair; its
   forward saves the inputs and its backward recomputes (nothing of size
   [T, S] is kept). ``block_update`` applies it; ``plain_block_step`` makes
   it run the plain versions for a while.
 
-The forward kernel takes q/k/v all f32 or all bf16 (s and p v on the
-bf16 tensor cores with f32 sums; p rounded to bf16 to nearest even after
-l' has summed it in f32), the backward kernel f32 only, both D <= 128;
-anything else on a CUDA tensor raises (there is no quiet fallback).
+Both kernels take q/k/v all f32 or all bf16, D <= 128. At bf16 the
+forward runs s and p v on the bf16 tensor cores with f32 sums (p rounded
+to bf16 to nearest even after l' has summed it in f32); the backward
+widens q/k/v to f32 and runs its f32 products, rounds p to bf16 for dv
+alone and dq/dk/dv to bf16 at the store. Anything else on a CUDA tensor
+raises (there is no quiet fallback).
 """
 
 from __future__ import annotations
@@ -218,8 +220,10 @@ def flash_block_bwd(q: Tensor, k: Tensor, v: Tensor, m: Tensor, l: Tensor,
                     ) -> Tuple[Tensor, ...]:
     """The fused backward (dq, dk, dv, dm, dl, do):
     ``csrc/flash_block_bwd.cu`` for CUDA tensors (its row and column
-    kernels, counted once in ``flash_block_bwd.launches``), the plain
-    version for CPU tensors."""
+    kernels, counted once: f32 q/k/v in ``flash_block_bwd.launches``,
+    bf16 in ``flash_block_bwd.bf16_launches``), the plain version for CPU
+    tensors. dq, dk and dv come in q/k/v's dtype; dm, dl and do in
+    f32."""
     _check(q, k, v, m, l, o, mask)
     h, t, d = q.shape
     if cm.shape != (h, t) or cl.shape != (h, t) or co.shape != (h, t, d):
@@ -230,12 +234,11 @@ def flash_block_bwd(q: Tensor, k: Tensor, v: Tensor, m: Tensor, l: Tensor,
         return block_update_bwd_reference(q, k, v, m, l, o, mask, sm_scale,
                                           cm, cl, co)
     q, k, v, m, l, o, mask = _kernel_inputs(q, k, v, m, l, o, mask)
-    if q.dtype != torch.float32:
-        raise TypeError(f"the flash backward kernel takes float32 q, k, v; "
-                        f"its {q.dtype} path is not ported yet")
     cm, cl, co = (x.float().contiguous() for x in (cm, cl, co))
     s = k.shape[1]
-    fn = _entry("flash_block_bwd", "rabit_flash_block_bwd_f32", 10, 8)
+    bf16 = q.dtype == torch.bfloat16
+    fn = _entry("flash_block_bwd", "rabit_flash_block_bwd_bf16" if bf16
+                else "rabit_flash_block_bwd_f32", 10, 8)
     with torch.cuda.device(q.device):
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         dm, dl, do = (torch.empty_like(x) for x in (m, l, o))
@@ -249,11 +252,15 @@ def flash_block_bwd(q: Tensor, k: Tensor, v: Tensor, m: Tensor, l: Tensor,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dm.data_ptr(),
             dl.data_ptr(), do.data_ptr(), scratch.data_ptr(), stream)
     _build.check(err, "flash_block_bwd")
-    flash_block_bwd.launches += 1
+    if bf16:
+        flash_block_bwd.bf16_launches += 1
+    else:
+        flash_block_bwd.launches += 1
     return dq, dk, dv, dm, dl, do
 
 
 flash_block_bwd.launches = 0
+flash_block_bwd.bf16_launches = 0
 
 
 # the pair FlashBlock runs: the kernels' wrappers (which take the plain

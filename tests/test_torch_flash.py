@@ -196,14 +196,22 @@ def test_exact_tie_splits_as_jax_splits_it():
 
 def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
     arrays = _torch(*_inputs(8, "tie"))
-    before = (F.flash_block.launches, F.flash_block_bwd.launches)
+    def counts():
+        return tuple((f.launches, f.bf16_launches)
+                     for f in (F.flash_block, F.flash_block_bwd))
+
+    before = counts()
     got = F.flash_block(*arrays[:7], _scale())
     want = F.block_update_reference(*arrays[:7], _scale())
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     got = F.flash_block_bwd(*arrays[:7], _scale(), *arrays[7:])
     want = F.block_update_bwd_reference(*arrays[:7], _scale(), *arrays[7:])
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert (F.flash_block.launches, F.flash_block_bwd.launches) == before
+    bf16 = [x.to(BF16) for x in arrays[:3]] + arrays[3:]
+    got = F.flash_block_bwd(*bf16[:7], _scale(), *bf16[7:])
+    want = F.block_update_bwd_reference(*bf16[:7], _scale(), *bf16[7:])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert counts() == before
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():
@@ -281,7 +289,8 @@ def _schedule(tiles, skip, skipped):
         i = j
 
 
-def _tile_schedule_bwd(q, k, v, m, l, o, mask, scale, cm, cl, co):
+def _tile_schedule_bwd(q, k, v, m, l, o, mask, scale, cm, cl, co,
+                       p_dtype=None):
     """The backward as the CUDA kernels schedule it, head by head. A row
     block of 64 queries makes pass 1 over the 64-key tiles (s and dp a
     tile; the running max t, its tie count and sum_j (dp + cl) exp(s - m'),
@@ -291,8 +300,9 @@ def _tile_schedule_bwd(q, k, v, m, l, o, mask, scale, cm, cl, co):
     once every row of the block had a score above NEG_INF before the tile
     in hand (the kernels pick the next tile before they multiply the
     current one), pass 2 always (ds = 0 there), the column pass once every
-    row of the query tile has m' above NEG_INF. Returns the six gradients
-    and the count of tiles skipped."""
+    row of the query tile has m' above NEG_INF. ``p_dtype``: the column
+    pass rounds p to it for dv alone (ds keeps the f32 p). Returns the six
+    gradients and the count of tiles skipped."""
     h_n, t_n, _ = q.shape
     s_n = k.shape[1]
     dq, dk, dv, dm, dl, do = (torch.zeros_like(x) for x in (q, k, v, m, l, o))
@@ -361,6 +371,8 @@ def _tile_schedule_bwd(q, k, v, m, l, o, mask, scale, cm, cl, co):
 
             for rows in schedule(row_tiles, finite):
                 p = torch.exp(scores(h, rows, cols) - mnew[h, rows, None])
+                if p_dtype is not None:
+                    p = p.to(p_dtype).float()
                 dv[h, cols] += p.T @ co[h, rows]
                 dk[h, cols] += ds(h, rows, cols).T @ q[h, rows]
     return (dq, dk, dv, dm, dl, do), skipped[0]
@@ -755,3 +767,74 @@ def test_forward_bf16_tile_schedule_matches_plain_and_jax(kind, d):
         for name, g, w, rel in zip(("m'", "l'", "o'"), got, want,
                                    (BF16_ML_REL, BF16_ML_REL, BF16_O_REL)):
             _assert_rel(g.numpy(), w, rel, f"{name} vs {ref}")
+
+
+def _tile_schedule_bwd_bf16(q, k, v, m, l, o, mask, scale, cm, cl, co):
+    """The backward's bf16 path as ``csrc/flash_block_bwd.cu`` schedules
+    it: bf16 q, k and v widened to f32 (exactly), the f32 kernels'
+    schedule and sums, p rounded to bf16 in the column pass alone, for dv,
+    against the scratch m'; dq, dk and dv cast to bf16 at the stores."""
+    grads, skipped = _tile_schedule_bwd(
+        q.float(), k.float(), v.float(), m, l, o, mask, scale, cm, cl, co,
+        p_dtype=BF16)
+    return (*(g.to(BF16) for g in grads[:3]), *grads[3:]), skipped
+
+
+@pytest.mark.parametrize("kind,d", [("causal", D),
+                                    ("causal, row 0 masked", 16),
+                                    ("tie", D), ("ragged", 16),
+                                    ("ragged", 13), ("ragged", 1)])
+def test_backward_bf16_tile_schedule_matches_plain_and_pallas(monkeypatch,
+                                                              kind, d):
+    """The bf16 backward's algorithm (widened operands, p rounded to bf16
+    for dv alone against the scratch m', f32 sums, bf16 casts at the
+    stores, the skip rules, odd D) before it reaches the card: against
+    the plain bf16 backward and ``PK.flash_block_bwd`` in interpret mode.
+    dq, dk and dv within 1e-3 of their largest plus one bf16 step of the
+    value (an f32 sum cast to bf16 flips where two orders of summation
+    differ in the last bit); dm, dl and do within 1e-5 of their largest
+    against the plain backward, 1e-3 against Pallas (the frameworks' f32
+    sums in other orders)."""
+    monkeypatch.setenv("RABIT_PALLAS_INTERPRET", "1")
+    q, k, v, m, l, o, mask, cm, cl, co = _masked_inputs(26, kind)
+    q, k, v, o, co = (x[..., :d] for x in (q, k, v, o, co))
+    q, k = (np.clip(np.round(x * 16) / 16, -4, 4).astype(np.float32)
+            for x in (q, k))
+    tq, tk, tv = _bf16_torch(q, k, v)
+    tm, tl, to, tmask, tcm, tcl, tco = _torch(m, l, o, mask, cm, cl, co)
+    scale = _scale(d)
+    got, _ = _tile_schedule_bwd_bf16(tq, tk, tv, tm, tl, to, tmask, scale,
+                                     tcm, tcl, tco)
+    plain = F.block_update_bwd_reference(tq, tk, tv, tm, tl, to, tmask,
+                                         scale, tcm, tcl, tco)
+    pallas = PK.flash_block_bwd(
+        *_bf16_jax(q, k, v), *map(jnp.asarray, (m, l, o)),
+        None if mask is None else jnp.asarray(mask.astype(np.int8)), scale,
+        *map(jnp.asarray, (cm, cl, co)))
+    for ref, want, f32_rel in (("plain", plain, 1e-5),
+                               ("pallas", pallas, BF16_GRAD_REL)):
+        for name, g, w in zip(NAMES, got, want):
+            w = np.asarray(w.float() if isinstance(w, torch.Tensor)
+                           else w.astype(jnp.float32), np.float64)
+            bf16 = name in ("dq", "dk", "dv")
+            assert g.dtype == (BF16 if bf16 else torch.float32), name
+            err = np.abs(g.float().numpy() - w)
+            bound = (BF16_GRAD_REL if bf16 else f32_rel) * np.abs(w).max()
+            if bf16:
+                bound = bound + _bf16_steps(w)
+            assert (err <= bound).all(), \
+                f"{name} vs {ref}: {err.max():.3g} of max {np.abs(w).max():.3g}"
+
+
+def test_split_tf32_keeps_every_bf16_value_whole():
+    """What the backward's bf16 path rests on: every finite bf16 value,
+    widened to f32, splits by the kernels' TF32 rule (to nearest, ties
+    away, 10 mantissa bits) into itself and 0, so the 3xTF32 products
+    take it exactly. All 65536 bit patterns less the 256 inf and NaN."""
+    bits = np.arange(1 << 16, dtype=np.uint32) << np.uint32(16)
+    x = bits.view(np.float32)
+    x = x[np.isfinite(x)]
+    assert x.size == (1 << 16) - 256
+    big, small = _split_tf32(x)
+    np.testing.assert_array_equal(big.view(np.uint32), x.view(np.uint32))
+    assert not small.view(np.uint32).any()

@@ -46,6 +46,10 @@ ASYNC = [((2, 1, 2), "async"), ((1, 2, 2), "async")]
 BF16_LOGIT_REL = 2e-2
 # the bf16 forward run in the gloo world of 4, one sp shard a rank
 BF16_SHAPE, BF16_SEED = (1, 1, 4), 9
+# the bf16 train step against JAX's: the loss within 1e-3 relative, every
+# updated parameter within two bf16 steps of its tensor's largest |value|
+# (the frameworks round bf16 at other places: one step read at most)
+BF16_LOSS_REL, BF16_PARAM_STEPS = 1e-3, 2
 
 
 def _data(seed: int):
@@ -192,7 +196,9 @@ def _layout_rank(rank, p, params, x, y, lr, layouts, device,
     """One rank: for each layout, a mesh over the world, this rank's model
     shard and token block, one step; saves the loss and its parameters.
     With ``bf16_seed``, then the bf16 forward (``init_params(bf16_seed,
-    dtype=bfloat16)``) at ``BF16_SHAPE``: this rank's logits, as f32."""
+    dtype=bfloat16)``) at ``BF16_SHAPE``: this rank's logits, as f32; and
+    one bf16 train step of that model on the same mesh: its loss, and its
+    parameters' dtypes and values, as f32."""
     got = {}
     dev = torch.device(device, rank) if device == "cuda" else \
         torch.device(device)
@@ -218,6 +224,13 @@ def _layout_rank(rank, p, params, x, y, lr, layouts, device,
         logits = tf.make_forward(mesh)(model, tf.shard_tokens(x, mesh, dev))
         got["bf16|logits"] = logits.float().cpu().numpy()
         got["bf16|dtype"] = np.array(str(logits.dtype))
+        loss = tf.make_train_step(mesh, lr=lr)(
+            model, tf.shard_tokens(x, mesh, dev), tf.shard_tokens(y, mesh, dev))
+        got["bf16-step|loss"] = np.array(float(loss))
+        got["bf16-step|dtypes"] = np.array(sorted(
+            {str(t.dtype) for t in model.state_dict().values()}))
+        for name, t in model.state_dict().items():
+            got[f"bf16-step|{name}"] = t.float().cpu().numpy()
     return got
 
 
@@ -305,6 +318,96 @@ def test_world_of_four_bf16_forward_matches_jax(gloo_world):
     assert got.shape == want.shape == (BATCH, SEQ, VOCAB)
     err = np.abs(got - want).max()
     assert err <= BF16_LOGIT_REL * np.abs(want).max(), err
+
+
+def _jax_bf16_step(jparams, mesh, x, y, lr):
+    """JAX's bf16 ``make_train_step`` on ``mesh``: (loss, the updated
+    parameters as f32 numpy)."""
+    import jax.numpy as jnp
+    from rabit_tpu.models import transformer as jtf
+    new, loss = jtf.make_train_step(mesh, lr=lr)(
+        jparams, jnp.asarray(x, jnp.int32), jnp.asarray(y, jnp.int32))
+    assert {str(v.dtype) for v in new.values()} == {"bfloat16"}
+    return float(loss), {k: np.asarray(v.astype(jnp.float32))
+                         for k, v in new.items()}
+
+
+def _assert_bf16_step(loss, params, want_loss, want, before):
+    """The loss within ``BF16_LOSS_REL``; each parameter within
+    ``BF16_PARAM_STEPS`` bf16 steps of its tensor's largest |value|; and
+    the step moved the parameters that JAX's step moved."""
+    assert abs(loss - want_loss) <= BF16_LOSS_REL * abs(want_loss), \
+        (loss, want_loss)
+    assert params.keys() == want.keys()
+    for k, w in want.items():
+        top = np.abs(w).max()
+        step = 2.0 ** (np.floor(np.log2(top)) - 7)
+        err = np.abs(params[k] - w).max()
+        assert err <= BF16_PARAM_STEPS * step, (k, err, step)
+        if (w != before[k]).any():
+            assert (params[k] != before[k]).any(), k
+
+
+def test_world_of_four_bf16_step_matches_jax(gloo_world):
+    """One bf16 train step at (dp, tp, sp) = (1, 1, 4), the ring's
+    backward exchanging bf16 K/V over four gloo ranks and the bf16
+    gradients summed over sp, against JAX's bf16 step on a mesh of the
+    same shape and the same weights: the same loss and bf16 parameters
+    on every rank."""
+    import jax.numpy as jnp
+    from rabit_tpu.parallel import make_mesh as jax_make_mesh
+    ranks, _ = gloo_world
+    params = tf.init_params(BF16_SEED, vocab=VOCAB, max_t=128, **SIZES)
+    _, x, y = _data(5)
+    jparams = {k: jnp.asarray(v).astype(jnp.bfloat16)
+               for k, v in params.items()}
+    want_loss, want = _jax_bf16_step(
+        jparams, jax_make_mesh(4, ("dp", "tp", "sp"), BF16_SHAPE), x, y, 0.2)
+    before = {k: np.asarray(v.astype(jnp.float32))
+              for k, v in jparams.items()}
+    for r, got in enumerate(ranks):
+        assert list(got["bf16-step|dtypes"]) == ["torch.bfloat16"], r
+        state = {n.split("|", 1)[1]: a for n, a in got.items()
+                 if n.startswith("bf16-step|")
+                 and not n.endswith(("|loss", "|dtypes"))}
+        _assert_bf16_step(float(got["bf16-step|loss"]), state, want_loss,
+                          want, before)
+
+
+def test_bf16_step_matches_jax_bf16_step(world_of_one):
+    """At the entry's widths (vocab 256, 2 layers, d_model 128, 8 heads x
+    16, 2 x 128 tokens), JAX's bf16 weights carried across by
+    ``transformer_params_from_jax``: the port's bf16 train step on a
+    (1, 1, 1) mesh against JAX's on a (1, 1, 1) mesh. The gradients come
+    back bf16 and the parameters stay bf16."""
+    import jax
+    import jax.numpy as jnp
+    from rabit_tpu.models import transformer as jtf
+    from rabit_tpu.parallel import make_mesh as jax_make_mesh
+    sizes = dict(E.ENTRY_SIZES)
+    jparams = jtf.init_params(jax.random.PRNGKey(0), dtype=jnp.bfloat16,
+                              **sizes)
+    toks = np.random.default_rng(0).integers(0, sizes["vocab"],
+                                             size=(2, 129))
+    x, y = toks[:, :-1], toks[:, 1:]
+    lr = E.FLAGSHIP_LR
+    want_loss, want = _jax_bf16_step(
+        jparams, jax_make_mesh(1, ("dp", "tp", "sp"), (1, 1, 1)), x, y, lr)
+    model = tf.model_on({k: np.asarray(v) for k, v in jparams.items()},
+                        "cpu")
+    grads = {}
+    for name, p in model.named_parameters():
+        p.register_hook(lambda g, name=name: grads.update({name: g.dtype}))
+    loss = tf.make_train_step(world_of_one, lr=lr)(
+        model, torch.from_numpy(x), torch.from_numpy(y))
+    assert set(grads.values()) == {torch.bfloat16}
+    state = model.state_dict()
+    assert {t.dtype for t in state.values()} == {torch.bfloat16}
+    before = {k: np.asarray(v.astype(jnp.float32))
+              for k, v in jparams.items()}
+    _assert_bf16_step(float(loss), {k: t.float().numpy()
+                                    for k, t in state.items()},
+                      want_loss, want, before)
 
 
 @pytest.mark.parametrize("tp", [1, 2, 4])
