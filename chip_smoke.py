@@ -27,7 +27,11 @@ Phases (each prints a line; any failure exits non-zero):
                 kernel (a flash or binning kernel may spill none); the
                 tensor-core instructions (``HMMA``) of each flash forward
                 and backward kernel in its SASS (``cuobjdump -sass``),
-                which must be above 0.
+                which must be above 0; the bf16 backward's kernels
+                (``flash_bwd_bf16_rows``, ``flash_bwd_bf16_cols``) must
+                hold bf16 products (``HMMA.16816``) and no TF32 ones
+                (``HMMA.1688``), ``cp.async`` copies (``LDGSTS``) and
+                ``ldmatrix`` loads (``LDSM``).
 1b. tile        the 3xTF32 score-tile function alone
                 (``csrc/flash_mma.cuh``): one [64, DP] x [64, DP]^T tile
                 against a torch f64 product at each DP, before the
@@ -506,7 +510,8 @@ Phases (each prints a line; any failure exits non-zero):
                 for the backward kernel) and the bound (bytes: q/k/v and
                 their gradients at 2 B, m/l/o, the cotangents and the f32
                 outputs at 4 B; operations: 4 D and 10 D flops a pair at
-                989 TFLOP/s of dense bf16).
+                989 TFLOP/s of dense bf16); the backward's call split into
+                its row and column kernels by torch.profiler.
 24. kernels     one JSON line of every kernel with its main-path launches
                 (and, for the flash kernels, phase 12's and phase 13's; for
                 the histogram, phase 17 (b)'s, null where (b) did not run,
@@ -611,6 +616,9 @@ STEP_TOL = 5e-4
 FLAGSHIP_STEPS = 16
 # kernels that may not spill registers
 NO_SPILL = ("flash_bwd_", "flash_fwd_", "histogram_kernel", "mask_only_kernel")
+# SASS opcodes counted in the bf16 backward's kernels: bf16 products, TF32
+# products (none allowed), cp.async copies, ldmatrix loads
+BF16_BWD_SASS = ("HMMA.16816", "HMMA.1688", "LDGSTS", "LDSM")
 
 
 def phase(name: str, msg: str) -> None:
@@ -655,6 +663,10 @@ def phase_build() -> None:
           f"{ {k: round(v, 2) for k, v in built.items()} })")
     phase("build", f"native core {_native_build.library_path().name}: "
           f"g++ {native_s:.2f} s (0 = already built), beside the nvccs")
+    version = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
+                             text=True, check=True, timeout=60).stdout
+    phase("build", "nvcc: " + " ".join(
+        ln for ln in version.splitlines() if "release" in ln))
     for name in sorted(_build.sources()):
         summary = ptxas_summary(_build.ptxas_log(name).read_text())
         phase("build", f"ptxas {name}: " + "; ".join(summary))
@@ -665,35 +677,65 @@ def phase_build() -> None:
     # every instantiation: 4 DP x mask / no mask; the forward has an f32
     # and a bf16 kernel of each, the backward two kernels (rows, cols) of
     # each at f32 and two at bf16
+    sass = {name: sass_ops(_build.library_path(name))
+            for name in ("flash_block", "flash_block_bwd")}
     for name, prefix, expect in (("flash_block", "flash_fwd_", 16),
                                  ("flash_block_bwd", "flash_bwd_", 32)):
-        hmma = {k: n for k, n in sass_counts(
-            _build.library_path(name), "HMMA").items()
-            if k.startswith(prefix)}
+        hmma = {k: sum(n for op, n in ops.items() if op.startswith("HMMA"))
+                for k, ops in sass[name].items() if k.startswith(prefix)}
         phase("build", f"HMMA instructions in the SASS of {name}: {hmma}")
         if len(hmma) != expect or min(hmma.values()) == 0:
             raise AssertionError(f"a {prefix}* kernel runs no tensor-core "
                                  f"product (HMMA counts {hmma}; {expect} "
                                  f"kernels expected)")
+    # the bf16 backward: bf16 products, none of TF32, cp.async copies and
+    # ldmatrix loads in each of its 16 kernels
+    mix = {k: {op: sum(n for o, n in ops.items() if o.startswith(op))
+               for op in BF16_BWD_SASS}
+           for k, ops in sass["flash_block_bwd"].items()
+           if k.startswith(("flash_bwd_bf16_rows", "flash_bwd_bf16_cols"))}
+    phase("build", f"SASS of the bf16 backward's kernels "
+          f"({', '.join(BF16_BWD_SASS)}): {mix}")
+    bad = {k: c for k, c in mix.items() if c["HMMA.1688"] or not (
+        c["HMMA.16816"] and c["LDGSTS"] and c["LDSM"])}
+    if len(mix) != 16 or bad:
+        raise AssertionError(f"bf16 backward kernels without bf16 products, "
+                             f"cp.async or ldmatrix, or with TF32 products "
+                             f"(of {len(mix)} kernels): {bad}")
 
 
-def sass_counts(library: Path, opcode: str) -> dict:
-    """Kernel -> its count of ``opcode`` instructions, from the SASS that
-    ``cuobjdump -sass`` (beside nvcc) prints of the library."""
+def sass_listing(library: Path) -> str:
+    """``cuobjdump -sass`` of the library."""
     from rabit_tpu_torch.ops import _build
     tool = shutil.which("cuobjdump") or str(
         Path(_build.nvcc()).parent / "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+    return subprocess.run([tool, "-sass", str(library)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+
+
+def sass_ops(library: Path) -> dict:
+    """Kernel -> Counter of its SASS opcodes with their modifiers (as
+    ``HMMA.16816.F32.BF16``), from ``sass_listing``."""
+    from collections import Counter
     counts, kernel = {}, None
-    for line in sass.splitlines():
+    for line in sass_listing(library).splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
             kernel = demangled(fn.group(1))
-            counts[kernel] = 0
-        elif kernel and re.search(rf"\b{opcode}\b", line):
-            counts[kernel] += 1
+            counts[kernel] = Counter()
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_.]+)", line)
+        if kernel and op:
+            counts[kernel][op.group(1)] += 1
     return counts
+
+
+def sass_counts(library: Path, opcode: str) -> dict:
+    """Kernel -> its count of ``opcode`` instructions (any modifiers), from
+    ``sass_ops``."""
+    return {k: sum(n for op, n in ops.items() if op.split(".")[0] == opcode)
+            for k, ops in sass_ops(library).items()}
 
 
 def phase_tile(dev) -> None:
@@ -1320,6 +1362,30 @@ def time_ms(fn, args_sets) -> float:
     return float(np.median(times))
 
 
+def kernel_us(fn, args_sets, prefix: str, calls: int = 10) -> dict | None:
+    """Device us a launch of each kernel whose name holds ``prefix``, by
+    torch.profiler over ``calls`` calls of ``fn`` (kernel -> us). The
+    profiler now and then records no kernel of a window: up to three
+    windows, the first that records one; None (not measured) if none
+    does."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args_sets[0])
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for j in range(calls):
+                fn(*args_sets[j % len(args_sets)])
+            torch.cuda.synchronize()
+        us = {e.key.split("<")[0].split("::")[-1]:
+              round(e.self_device_time_total / e.count, 2)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and prefix in e.key}
+        if us:
+            return us
+    return None
+
+
 def phase_timing(dev, power: str):
     from rabit_tpu_torch.ops import histogram as K
     rows = []
@@ -1542,6 +1608,14 @@ def _bf16_bwd_check(ins, cts, sm: float, label: str) -> tuple:
     got = F.flash_block_bwd(*ins, sm, *cts)
     want = F.block_update_bwd_reference(*ins, sm, *cts)
     torch.cuda.synchronize()
+    return bf16_grads_check(got, want, label)
+
+
+def bf16_grads_check(got, want, label: str) -> tuple:
+    """(dq, dk, dv, dm, dl, do) of a bf16 backward against the plain
+    backward's: dq, dk, dv within BF16_GRAD_REL of their largest plus a
+    bf16 step, the f32 ones within BF16_GRAD_REL; raises on a value off.
+    Returns (largest |diff|, each gradient's max|diff|/max|ref|)."""
     worst, rels = 0.0, {}
     for name, g, w in zip(BF16_GRAD_NAMES, got, want):
         what = f"flash_block_bwd bf16 {label} {name}"
@@ -1848,6 +1922,11 @@ def _bf16_timing(dev, power: str) -> dict:
 
         lib_bwd = time_ms(sdpa_bwd, bwd_sets)
         del bwd_sets
+        split = kernel_us(lambda *a: F.flash_block_bwd(*a[:7], sm, *a[7:]),
+                          sets, "flash_bwd_bf16")
+        phase("flagship bf16", f"(d) flash_block_bwd_bf16 B*H {bh} T {t} D "
+              f"{d}: device us a launch by torch.profiler {split} "
+              f"[{power}]")
         for name, ms, plain, lib, backward in (
                 ("flash_block_bf16", fwd, fwd_plain, lib_fwd, False),
                 ("flash_block_bwd_bf16", bwd, bwd_plain, lib_bwd, True)):
@@ -1858,6 +1937,7 @@ def _bf16_timing(dev, power: str) -> dict:
                        bound_by=bound_by, flops=flops, bytes=nbytes)
             if backward:
                 row["library_bwd_ms"] = lib
+                row["kernel_us"] = split
             out[name].append(row)
             phase("flagship bf16", f"(d) {name} B*H {bh} T {t} S {s} D {d} "
                   f"{'causal' if causal else 'no mask'}: kernel {ms:.4f} ms, "

@@ -1,18 +1,23 @@
 """Variants of a kernel side by side on one card.
 
     python3 kernel_variants.py DIR [DIR ...]
-        [--kernel {bwd,fwd,hist,mask}] [--sass KERNEL]
+        [--kernel {bwd,bwd_bf16,fwd,hist,mask}] [--sass KERNEL]
 
 With ``--kernel bwd`` (the default) each DIR holds an edited copy of
 ``rabit_tpu_torch/csrc/flash_block_bwd.cu`` and of the headers it
-includes; with ``--kernel fwd`` a copy of ``flash_block.cu`` and its
+includes, whose f32 entry ``rabit_flash_block_bwd_f32`` is called; with
+``--kernel bwd_bf16`` the same copy, through its bf16 entry
+``rabit_flash_block_bwd_bf16``; with ``--kernel fwd`` a copy of
+``flash_block.cu`` and its
 headers; with ``--kernel hist`` a copy of ``histogram.cu``, with ``--kernel
 mask`` of ``mask_only.cu``, each with its headers. The script builds every
 variant with the package's nvcc flags (one nvcc each, all at once) into
 its DIR and prints ptxas's registers and spills of its kernels (and, with
 ``--sass``, the opcode counts of one kernel's SASS, atomics and
-reductions with their modifiers, e.g. ``--sass 'flash_bwd_rows<32, 1>'``,
-``--sass 'histogram_kernel<0>'`` or ``--sass mask_only_kernel``).
+reductions and tensor-core products with their modifiers, e.g. ``--sass
+'flash_bwd_rows<32, 1>'``, ``--sass 'flash_bwd_bf16_cols<32, 1>'``,
+``--sass 'histogram_kernel<0>'`` or ``--sass mask_only_kernel``, and the
+whole SASS of the variant's library in ``DIR/lib.sass``).
 
 Flash kernels: it holds each variant against the plain version at
 ``chip_smoke.py``'s ``FLASH_CASES`` (backward: the worst gradient's
@@ -20,7 +25,11 @@ max|diff| / max|ref|, limit ``FLASH_BWD_REL``; forward: m', l', o' within
 ``FLASH_FWD_TOL``), then times all of them at the training shape and the
 chain block: CUDA-event medians of ``chip_smoke.time_ms``, in the order
 A B ... B A, twice, and the device time of each kernel by
-``torch.profiler``.
+``torch.profiler``. The bf16 backward is held against the plain bf16
+backward at ``chip_smoke.py``'s ``BF16_CASES`` and tolerances (dq, dk, dv
+within ``BF16_GRAD_REL`` of their largest plus a bf16 step, dm, dl, do
+within ``BF16_GRAD_REL``) and timed on bf16 q/k/v (``bf16_case``) at the
+same two shapes.
 
 Binning kernels: a variant goes through the package's wrapper
 (``ops/histogram.py``) with its library in place of the package's; a
@@ -49,7 +58,6 @@ import collections
 import ctypes
 import math
 import re
-import shutil
 import subprocess
 import sys
 import time
@@ -81,24 +89,14 @@ def build(dirs, source: str):
 
 
 def sass_opcodes(library: Path, kernel: str) -> collections.Counter:
-    """Opcode (without modifiers) -> count in one kernel's SASS."""
-    from rabit_tpu_torch.ops import _build
-    tool = shutil.which("cuobjdump") or str(
-        Path(_build.nvcc()).parent / "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    counts, current = collections.Counter(), None
-    for line in sass.splitlines():
-        fn = re.search(r"Function : (\S+)", line)
-        if fn:
-            current = C.demangled(fn.group(1))
-            continue
-        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)",
-                       line)
-        if current == kernel and op:
-            name = op.group(1)   # atomics and reductions keep their kind
-            counts[name if name.startswith(("ATOM", "RED"))
-                   else name.split(".")[0]] += 1
+    """Opcode (without modifiers, but for atomics, reductions and
+    tensor-core products) -> count in one kernel's SASS. Writes the
+    library's whole SASS beside it (``lib.sass``), to read by hand."""
+    library.with_suffix(".sass").write_text(C.sass_listing(library))
+    counts = collections.Counter()
+    for name, n in C.sass_ops(library).get(kernel, {}).items():
+        counts[name if name.startswith(("ATOM", "RED", "HMMA"))
+               else name.split(".")[0]] += n
     return counts
 
 
@@ -106,6 +104,26 @@ def backward(lib, q, k, v, m, l, o, mask, scale, cm, cl, co):
     """One call of the variant's rabit_flash_block_bwd_f32, on the current
     stream; returns (dq, dk, dv, dm, dl, do)."""
     fn = lib.rabit_flash_block_bwd_f32
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 10 + [i, i, i, i, ctypes.c_float] + [p] * 8
+    h, t, d = q.shape
+    outs = [torch.empty_like(x) for x in (q, k, v, m, l, o)]
+    scratch = torch.empty((3, h, t), device=q.device)
+    err = fn(*(x.data_ptr() for x in (q, k, v, m, l, o)),
+             None if mask is None else mask.data_ptr(), cm.data_ptr(),
+             cl.data_ptr(), co.data_ptr(), h, t, k.shape[1], d, scale,
+             *(x.data_ptr() for x in outs), scratch.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"launch failed: cuda error {err}")
+    return outs
+
+
+def backward_bf16(lib, q, k, v, m, l, o, mask, scale, cm, cl, co):
+    """One call of the variant's rabit_flash_block_bwd_bf16 (bf16 q/k/v),
+    on the current stream; returns (dq, dk, dv) in bf16, (dm, dl, do) in
+    f32."""
+    fn = lib.rabit_flash_block_bwd_bf16
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p] * 10 + [i, i, i, i, ctypes.c_float] + [p] * 8
     h, t, d = q.shape
@@ -145,6 +163,19 @@ def check_bwd(label, name, got, want) -> bool:
     print(f"check {label}: {name} worst gradient {rel:.2g}"
           f"{'' if ok else ' FAILED'}")
     return ok
+
+
+def check_bwd_bf16(label, name, got, want) -> bool:
+    torch.cuda.synchronize()
+    try:
+        _, rels = C.bf16_grads_check(got, want, f"{label} {name}")
+    except AssertionError as e:
+        print(f"check {label}: {name} FAILED: {e}")
+        return False
+    print(f"check {label}: {name} max|diff|/max|ref| " + ", ".join(
+        f"{n} {r:.2g}" for n, r in rels.items()) + f" (limit "
+        f"{C.BF16_GRAD_REL}, dq dk dv plus a bf16 step)")
+    return True
 
 
 def check_fwd(label, name, got, want) -> bool:
@@ -340,7 +371,8 @@ def run_bins(args) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("dirs", nargs="+", type=Path)
-    ap.add_argument("--kernel", choices=("bwd", "fwd", "hist", "mask"),
+    ap.add_argument("--kernel",
+                    choices=("bwd", "bwd_bf16", "fwd", "hist", "mask"),
                     default="bwd")
     ap.add_argument("--sass", help="a kernel, as 'flash_bwd_rows<32, 1>'")
     args = ap.parse_args()
@@ -353,35 +385,45 @@ def main() -> int:
                               "--format=csv,noheader"], capture_output=True,
                              text=True, check=True, timeout=60).stdout.strip())
         return ok
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from rabit_tpu_torch.ops import flash as F
     dev = torch.device("cuda", 0)
     source, prefix, call, reference, check = {
         "bwd": ("flash_block_bwd.cu", "flash_bwd", backward,
                 F.block_update_bwd_reference, check_bwd),
+        "bwd_bf16": ("flash_block_bwd.cu", "flash_bwd_bf16", backward_bf16,
+                     F.block_update_bwd_reference, check_bwd_bf16),
         "fwd": ("flash_block.cu", "flash_fwd", forward,
                 lambda *a: F.block_update_reference(*a[:8]),
                 check_fwd)}[args.kernel]
+    bf16 = args.kernel == "bwd_bf16"
+    # (label, shape, mask, first step, wide range) as FLASH_CASES
+    cases = [(*c, False) for c in C.BF16_CASES] if bf16 else C.FLASH_CASES
+
+    def make(bh, t, s, d, kind, seed, first, spread=False):
+        if bf16:
+            return C.bf16_case(bh, t, s, d, kind, seed, dev, first)
+        return C.flash_case(bh, t, s, d, kind, seed, dev, first, spread)
     libs, logs = build(args.dirs, source)
     for d in libs:
         print(f"{d} ptxas: " + "; ".join(
-            s for s in C.ptxas_summary(logs[d]) if s.startswith(prefix)))
+            s for s in C.ptxas_summary(logs[d]) if s.startswith("flash_")))
+        print(f"{d} HMMA: " + ", ".join(
+            f"{k} {n}" for k, n in sorted(C.sass_counts(
+                d / "lib.so", "HMMA").items()) if k.startswith("flash_")))
         if args.sass:
             ops = sass_opcodes(d / "lib.so", args.sass)
             print(f"{d} {args.sass} SASS: {sum(ops.values())} instructions, "
                   f"{dict(ops.most_common(16))}")
     ok = True
-    for label, (bh, t, s, d), mask_kind, first, spread in C.FLASH_CASES:
-        ins, cts = C.flash_case(bh, t, s, d, mask_kind, 7, dev, first, spread)
+    for label, (bh, t, s, d), mask_kind, first, spread in cases:
+        ins, cts = make(bh, t, s, d, mask_kind, 7, first, spread)
         args_ = (*ins, d ** -0.5, *cts)
         want = reference(*args_)
         for name, lib in libs.items():
             ok = check(label, name, call(lib, *args_), want) and ok
     for bh, t, s, d, causal in (C.FLASH_MAIN, C.FLASH_CHAIN):
-        ins, cts = C.flash_case(bh, t, s, d, "causal" if causal else None, 3,
-                                dev, first_step=True)
-        per_set = sum(x.numel() * 4 for x in (*ins[:6], *cts))
+        ins, cts = make(bh, t, s, d, "causal" if causal else None, 3, True)
+        per_set = sum(x.numel() * x.element_size() for x in (*ins[:6], *cts))
         sets = [tuple(None if x is None else x.clone() for x in (*ins, *cts))
                 for _ in range(max(2, int(150e6 / per_set) + 1))]
         sm = d ** -0.5
@@ -389,21 +431,18 @@ def main() -> int:
         for name in (list(libs) + list(libs)[::-1]) * 2:
             ms[name].append(C.time_ms(lambda *a, lib=libs[name]: call(
                 lib, *a[:7], sm, *a[7:]), sets))
+        bound, bound_by = (C.flash_bf16_bound(bh, t, s, d, ins[6], True)
+                           if bf16 else C.flash_bound(
+                               bh, t, s, d, ins[6], args.kernel == "bwd"))[:2]
         for name, lib in libs.items():
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for j in range(10):
-                    a = sets[j % len(sets)]
-                    call(lib, *a[:7], sm, *a[7:])
-                torch.cuda.synchronize()
-            by_kernel = {e.key.split("<")[0].split("::")[-1]:
-                         round(e.self_device_time_total / e.count, 1)
-                         for e in prof.key_averages()
-                         if e.device_type == DeviceType.CUDA
-                         and prefix in e.key}
+            by_kernel = C.kernel_us(lambda *a, lib=lib: call(
+                lib, *a[:7], sm, *a[7:]), sets, prefix)
+            med = float(np.median(ms[name]))
             print(f"time B*H {bh} T {t} D {d} "
                   f"{'causal' if causal else 'no mask'} {name}: ms "
-                  f"{[round(x, 4) for x in ms[name]]}, median "
-                  f"{np.median(ms[name]):.4f}; us a launch {by_kernel}")
+                  f"{[round(x, 4) for x in ms[name]]}, median {med:.4f} "
+                  f"(bound {bound:.4f} ms, {bound_by}: {bound / med:.1%}); "
+                  f"us a launch {by_kernel}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())

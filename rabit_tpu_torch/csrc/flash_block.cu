@@ -52,11 +52,12 @@
 // skips the tiles above the diagonal. Each query tile first reads its
 // rows of the mask once, every thread 16 bytes of each key tile, all the
 // loads in flight together, into two bits a key tile in shared memory
-// (some pair unmasked, some pair masked); the lookahead then reads only
-// those, and the rows' condition rides on the stage barrier. (Read tile
-// by tile, as the backward reads it, the mask cost about a quarter of the
-// time at the training shape: a global round trip and two barriers a
-// tile.) A tile that the mask leaves whole is multiplied without reading
+// (some pair unmasked, some pair masked; mask_bits, flash_common.cuh,
+// shared with the bf16 backward); the lookahead then reads only those, and
+// the rows' condition rides on the stage barrier. (Read tile by tile, as
+// the f32 backward reads it, the mask cost about a quarter of the time at
+// the training shape: a global round trip and two barriers a tile.) A
+// tile that the mask leaves whole is multiplied without reading
 // the mask. Keys past S get -inf, with no branch: they neither set the
 // max nor add to the sum.
 //
@@ -86,10 +87,12 @@
 // rows 16-byte aligned and fragments free of bank conflicts), about half
 // the f32 path's bytes (35.6 KB at D 32, 97 KB at D 128). s = q k^T runs
 // on mma.sync.m16n8k16 .bf16 with f32 sums (a bf16 x bf16 product is
-// exact in f32, so no split), scaled and masked as above; m', alpha and
+// exact in f32, so no split; fragments by ldmatrix, score_tile's, which
+// the bf16 backward shares), scaled and masked as above; m', alpha and
 // p are f32 and l' sums the f32 p; then p is rounded to bf16 to nearest
 // even (__floats2bfloat162_rn), as the TPU kernel's p.astype(v.dtype),
-// and p v runs on the same bf16 product into the f32 o. A row of an odd
+// and p v runs on the same bf16 product into the f32 o (mma_bf16_sum,
+// V's k down its columns by ldmatrix.trans). A row of an odd
 // D is only 2-byte aligned, so such tiles load through plain loads
 // (load_tile_async's third branch). Bound: bytes. q, k, v at 2 B and o
 // read and written at 4 B: at the training shape about 15 MB, 4.5 us at
@@ -112,8 +115,6 @@ using namespace rabit_flash;
 using namespace rabit_mma;
 
 constexpr int kNt = 4;            // 8-key C tiles of a warp's 32 keys
-constexpr int kChunk = 64;        // key tiles whose mask bits a pass reads
-constexpr unsigned kSomeUnmasked = 1, kSomeMasked = 2;
 
 // Shared memory of a block: q, two stages of (K, V) and p in elements of
 // E (f32 or bf16), then the pair exchange and the mask bits.
@@ -139,65 +140,6 @@ struct Smem {
 template <int DP>
 constexpr int kMinBlocks = DP <= 64 ? 2 : 1;
 constexpr int kMinBlocksBf16 = 1;
-
-__device__ __forceinline__ bool has_zero_byte(unsigned x) {
-  return ((x - 0x01010101u) & ~x & 0x80808080u) != 0;
-}
-
-// bits_s[i] = kSomeUnmasked | kSomeMasked as the pairs of rows [row0,
-// row0 + 64) x key tile j0 + i (i < kChunk) that exist (row < T, key < S)
-// hold an unmasked or a masked one. Thread tid reads keys 16 (tid % 4)..
-// + 16 of each tile in row tid / 4: one 16-byte load where the mask's
-// rows are 16-byte aligned, four tiles' loads in flight at once.
-// Barriers first (a scan may still be reading the bits it replaces) and
-// last.
-__device__ __forceinline__ void mask_bits(unsigned* bits_s,
-                                          const unsigned char* mask,
-                                          int row0, int j0, int T, int S) {
-  const int n = min(kChunk, (S + kCols - 1) / kCols - j0);
-  __syncthreads();
-  if (threadIdx.x < kChunk) bits_s[threadIdx.x] = 0;
-  __syncthreads();
-  const int row = row0 + threadIdx.x / 4, c16 = 16 * (threadIdx.x % 4);
-  const unsigned char* mrow =
-      mask + static_cast<long long>(min(row, T - 1)) * S;
-  const bool wide =
-      S % 16 == 0 && reinterpret_cast<uintptr_t>(mask) % 16 == 0;
-  for (int i0 = 0; i0 < n; i0 += 4) {
-    bool some_unmasked[4] = {}, some_masked[4] = {};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = (j0 + i0 + i) * kCols + c16;
-      if (i0 + i >= n || row >= T || col >= S) continue;
-      if (wide) {  // col + 16 <= S
-        const uint4 x = *reinterpret_cast<const uint4*>(mrow + col);
-        some_masked[i] = (x.x | x.y | x.z | x.w) != 0;
-        some_unmasked[i] = has_zero_byte(x.x) || has_zero_byte(x.y) ||
-                           has_zero_byte(x.z) || has_zero_byte(x.w);
-      } else {
-        for (int b = 0; b < 16 && col + b < S; ++b) {
-          const bool masked = mrow[col + b] != 0;
-          some_masked[i] = some_masked[i] || masked;
-          some_unmasked[i] = some_unmasked[i] || !masked;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const unsigned b =
-          (__any_sync(0xffffffffu, some_unmasked[i]) ? kSomeUnmasked : 0u) |
-          (__any_sync(0xffffffffu, some_masked[i]) ? kSomeMasked : 0u);
-      if (threadIdx.x % 32 == 0 && b != 0) atomicOr(&bits_s[i0 + i], b);
-    }
-  }
-  __syncthreads();
-}
-
-// The two warps of pair `pair` (threads 64 pair .. + 64) wait for each
-// other; barrier 0 is __syncthreads'.
-__device__ __forceinline__ void pair_sync(int pair) {
-  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
-}
 
 // The block's work, for q/k/v of element type E (f32: 3xTF32 products;
 // bf16: bf16 products, p rounded to bf16). kMasked: whether mask is
@@ -382,10 +324,11 @@ __device__ __forceinline__ void flash_fwd(
           for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e / 2];
         pair_sync(pair);
         // o += p v over the tile's 64 keys (p is 0 and v is 0 past S)
-        if constexpr (L::kBf16)
-          mma_bf16_cols<kCols, kNo>(acc, p_s + slice * kLdP, kLdP, v_s + cols,
-                                    L::kLdV);
-        else
+        if constexpr (L::kBf16) {
+          const E* const a[1] = {p_s + slice * kLdP};
+          const E* const b[1] = {v_s + cols};
+          mma_bf16_sum<kCols, kNo, false, true, 1, 1>(acc, a, kLdP, b, L::kLdV);
+        } else
           mma3_tf32<kCols / 8, kNo>(acc, p_s + slice * kLdP, kLdP, 1,
                                     v_s + cols, L::kLdV, 1);
         tile = next;

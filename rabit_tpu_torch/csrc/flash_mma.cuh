@@ -1,9 +1,9 @@
 // Tensor-core pieces of the flash kernels (flash_block.cu and
 // flash_block_bwd.cu): f32 products at f32 accuracy from TF32 operands
 // (the 3xTF32 split), the one score-tile function, and asynchronous tile
-// loads; and their bf16 counterparts for the forward's bf16 path, and the
-// backward's bf16 loads, widened to f32, and stores (at the end of the
-// file).
+// loads; then their bf16 counterparts (at the end of the file): bf16
+// products with f32 sums, the split of an f32 operand into two bf16
+// halves, fragments by ldmatrix, the bf16 score tile and bf16 tile loads.
 //
 // 3xTF32 ("fast f32", CUTLASS's OpMultiplyAddFastF32): each f32 operand x
 // splits into big = tf32(x) and small = tf32(x - big), both rounded to
@@ -23,17 +23,18 @@
 // product's result goes through shared memory.
 //
 // The score s = (q . k) * scale is computed by score_tile alone, with the
-// query rows as A, the keys as B, k stepped 0, 8, ..., DP - 8 and the
-// three products in the order above, then a multiply that is never
-// contracted (__fmul_rn). (The backward's overload forms dp = co . v
-// beside s, interleaved, which leaves each accumulator's sequence as it
-// would be alone; the forward's forms s alone.) Every kernel tiles
-// queries and keys from multiples of 64 and gives a warp 16-row slices
-// and 8-key groups from multiples of 8, so a (query, key) pair sits at
-// the same place of the same mma sequence on the same operand values in
-// the forward and in both backward kernels, and gets the same bits: the
-// backward tests s == rowmax(s) to find the lanes that carry reduce_max's
-// cotangent, and the forward's m' is that row max.
+// query rows as A, the keys as B, then a multiply that is never
+// contracted (__fmul_rn): at f32 k stepped 0, 8, ..., DP - 8 and the
+// three products in the order above (the f32 backward's overload forms
+// dp = co . v beside s, interleaved, which leaves each accumulator's
+// sequence as it would be alone); at bf16 one m16n8k16 product a k-step
+// of 16. Every kernel tiles queries and keys from multiples of 64 and
+// gives a warp 16-row slices and 8-key groups from multiples of 8, so a
+// (query, key) pair sits at the same place of the same mma sequence on
+// the same operand values in the forward and in both backward kernels of
+// its type, and gets the same bits: the backward tests s == rowmax(s) to
+// find the lanes that carry reduce_max's cotangent, and the forward's m'
+// is that row max.
 
 #pragma once
 
@@ -85,11 +86,8 @@ __device__ __forceinline__ void mma_tf32(float (&acc)[4],
 // acc[n] += A B_n over K = 8 KSTEPS, 3xTF32, for the calling warp: A is
 // 16 x K with A(m, k) at a[m * am + k * ak]; B_n is K x 8 with B_n(k, j)
 // at b[k * bk + (8 n + j) * bn]. acc[n] is the C fragment of the 16 x 8
-// tile n. Only this loop over k is unrolled. kAExact / kBExact: every
-// value of A / B is exact in TF32 (a widened bf16 value), so its small
-// part is 0 and the product that takes it, which adds exact zeros, is
-// left out: the same sums, one product fewer.
-template <int KSTEPS, int NT, bool kAExact = false, bool kBExact = false>
+// tile n. Only this loop over k is unrolled.
+template <int KSTEPS, int NT>
 __device__ __forceinline__ void mma3_tf32(float (&acc)[NT][4],
                                           const float* a, int am, int ak,
                                           const float* b, int bk, int bn) {
@@ -108,8 +106,8 @@ __device__ __forceinline__ void mma3_tf32(float (&acc)[NT][4],
       split_tf32(b[(k0 + t) * bk + (8 * n + g) * bn], b_big[0], b_small[0]);
       split_tf32(b[(k0 + t + 4) * bk + (8 * n + g) * bn], b_big[1],
                  b_small[1]);
-      if constexpr (!kAExact) mma_tf32(acc[n], a_small, b_big);
-      if constexpr (!kBExact) mma_tf32(acc[n], a_big, b_small);
+      mma_tf32(acc[n], a_small, b_big);
+      mma_tf32(acc[n], a_big, b_small);
       mma_tf32(acc[n], a_big, b_big);
     }
   }
@@ -118,10 +116,8 @@ __device__ __forceinline__ void mma3_tf32(float (&acc)[NT][4],
 // s[n] += Q K_n^T and dp[n] += CO V_n^T over K = DP: two products of
 // rows x rows (Q, CO: the warp's 16 rows of [., ld] tiles; K_n, V_n: 8
 // rows from 8 n), as mma3_tf32 would form each alone, interleaved k-step
-// by k-step so that two chains of mma are in flight. kExact: Q, K and V
-// are exact in TF32 (widened bf16; CO never is), so s takes one product
-// and dp two, as mma3_tf32 with its flags set would.
-template <int DP, int NT, bool kExact = false>
+// by k-step so that two chains of mma are in flight.
+template <int DP, int NT>
 __device__ __forceinline__ void mma3_tf32_pair(float (&s)[NT][4],
                                                float (&dp)[NT][4],
                                                const float* q_s,
@@ -148,12 +144,10 @@ __device__ __forceinline__ void mma3_tf32_pair(float (&s)[NT][4],
       split_tf32(k_s[b1], k_big[1], k_small[1]);
       split_tf32(v_s[b0], v_big[0], v_small[0]);
       split_tf32(v_s[b1], v_big[1], v_small[1]);
-      if constexpr (!kExact) mma_tf32(s[n], q_small, k_big);
+      mma_tf32(s[n], q_small, k_big);
       mma_tf32(dp[n], c_small, v_big);
-      if constexpr (!kExact) {
-        mma_tf32(s[n], q_big, k_small);
-        mma_tf32(dp[n], c_big, v_small);
-      }
+      mma_tf32(s[n], q_big, k_small);
+      mma_tf32(dp[n], c_big, v_small);
       mma_tf32(s[n], q_big, k_big);
       mma_tf32(dp[n], c_big, v_big);
     }
@@ -207,9 +201,8 @@ __device__ __forceinline__ unsigned scale_and_mask(
 // rows from row0) x 8 NT keys (k_s, keys from col0), and with it dp =
 // co . v (co_s, v_s), all [., ld] tiles of width DP padded with zeros.
 // Masked lanes as scale_and_mask; a caller that knows the tile holds no
-// masked pair passes check_mask false and reads no mask. kExact as
-// mma3_tf32_pair's.
-template <int DP, int NT, bool kMasked, bool kExact = false>
+// masked pair passes check_mask false and reads no mask.
+template <int DP, int NT, bool kMasked>
 __device__ __forceinline__ unsigned score_tile(
     float (&s)[NT][4], float (&dp)[NT][4], const float* q_s,
     const float* k_s, const float* co_s, const float* v_s, int ld,
@@ -219,7 +212,7 @@ __device__ __forceinline__ unsigned score_tile(
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-  mma3_tf32_pair<DP, NT, kExact>(s, dp, q_s, k_s, co_s, v_s, ld);
+  mma3_tf32_pair<DP, NT>(s, dp, q_s, k_s, co_s, v_s, ld);
   return scale_and_mask<NT, kMasked>(s, scale, mask, check_mask, row0, col0,
                                      T, S);
 }
@@ -294,7 +287,7 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* src,
   }
 }
 
-// ---- bf16 (the forward's bf16 path) ----
+// ---- bf16 ----
 //
 // A product of two bf16 values is exact in f32, so one
 // mma.sync.m16n8k16 .bf16 with f32 accumulation gives what a dot with
@@ -306,19 +299,28 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* src,
 //                     (g, 2t+8..2t+9), (g + 8, 2t+8..2t+9)
 //   B (16 x 8, col):  (k = 2t..2t+1, n = g), (k = 2t+8..2t+9, n = g)
 //   C (16 x 8):       as the TF32 product's above.
-// So an A fragment, and a B fragment whose k runs along a row (K in
-// q k^T), is four or two 32-bit loads; a B fragment whose k runs down
-// the columns (V in p v) packs two rows' 16-bit values a register.
+// Each register is one 8 x 8 matrix of ldmatrix, which gives lane 4 g + t
+// row g, columns 2t and 2t + 1 of a matrix in shared memory, and with
+// .trans rows 2t and 2t + 1 of column g. So a fragment whose k runs along
+// the rows of its tile (q and K in q k^T, co and V in co v^T, ds in ds k)
+// is one ldmatrix.x4 (A, or B of two 8-column tiles), and one whose k
+// runs down the columns (K in ds k; p^T and ds^T as A, co and q as B in
+// p^T co and ds^T q) one ldmatrix.x4.trans.
+//
+// An f32 operand x (the backward's co and ds) is split into two bf16
+// halves, hi = bf16_rn(x) and lo = bf16_rn(x - hi): x - hi is exact in
+// f32 and at most 2^-8 |x|, so |x - hi - lo| <= 2^-16 |x|, and a bf16
+// value splits into itself and 0. x b is then lo b + hi b, two bf16
+// products into one f32 accumulator, the small term first: a tile product
+// of width 16 to 128 within about 4e-6 of f64 (one bf16 rounding of x:
+// about 2e-3).
 
 using bf16 = __nv_bfloat16;
 
 // Row stride, in bf16, of a [64, DP] bf16 tile: a multiple of 8 (rows
-// start 16-byte aligned, for cp.async), and kLd / 2 words = 4 mod 8, so
-// that the 8 rows x 4 words of a fragment whose k runs along the rows
-// fall in 32 different banks. A B operand whose k runs down the columns
-// reads rows 2t (and 2t + 1), kLd words apart (8 or 24 mod 32 at these
-// DP): its 4 rows x 4 words (8 columns, two a word) fall in 16 different
-// banks, so that too is free of conflicts.
+// start 16-byte aligned, for cp.async and ldmatrix), and kLd / 2 words =
+// 4 mod 8, so that the 8 rows x 16 bytes of an 8 x 8 matrix that
+// ldmatrix reads fall in 32 different banks.
 template <int DP>
 struct MmaTileBf16 {
   static constexpr int kLd = DP + 8;
@@ -334,69 +336,138 @@ __device__ __forceinline__ void mma_bf16(float (&acc)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Two bf16 at x (4-byte aligned) as one register, x[0] in the low half
-__device__ __forceinline__ unsigned ld_pair(const bf16* x) {
-  return *reinterpret_cast<const unsigned*>(x);
+// Four (.x4) or two (.x2) 8 x 8 bf16 matrices from shared memory into
+// r[i], lane 8 i + j giving the 16-byte aligned address of row j of
+// matrix i (with .x2 lanes 16-31 give none); kTrans: .trans.
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if constexpr (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
 }
 
-// The A fragment of k0.. k0 + 15 of the warp's 16 rows of a [., ld] tile
-__device__ __forceinline__ void a_frag_bf16(unsigned (&a)[4], const bf16* x,
-                                            int ld, int k0) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  a[0] = ld_pair(x + g * ld + k0 + 2 * t);
-  a[1] = ld_pair(x + (g + 8) * ld + k0 + 2 * t);
-  a[2] = ld_pair(x + g * ld + k0 + 2 * t + 8);
-  a[3] = ld_pair(x + (g + 8) * ld + k0 + 2 * t + 8);
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if constexpr (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+        : "=r"(r[0]), "=r"(r[1])
+        : "r"(a));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(a));
 }
 
-// acc[n] += A B_n^T over K = DP: A the warp's 16 rows of a [., ld] tile,
-// B_n rows 8 n .. 8 n + 7 of another; k runs along the rows of both.
-template <int DP, int NT>
-__device__ __forceinline__ void mma_bf16_rows(float (&acc)[NT][4],
-                                              const bf16* a, const bf16* b,
-                                              int ld) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int k0 = 0; k0 < DP; k0 += 16) {
-    unsigned af[4];
-    a_frag_bf16(af, a, ld, k0);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const bf16* row = b + (8 * n + g) * ld + k0 + 2 * t;
-      const unsigned bf[2] = {ld_pair(row), ld_pair(row + 8)};
-      mma_bf16(acc[n], af, bf);
-    }
-  }
+// The A fragment of k0 .. k0 + 15 of a 16-row operand at x: A(m, k) at
+// x[m * ld + k] (k along the rows), or with kT at x[k * ld + m] (k down
+// the columns).
+template <bool kT>
+__device__ __forceinline__ void a_frag(unsigned (&a)[4], const bf16* x,
+                                       int ld, int k0) {
+  const int lane = threadIdx.x % 32;
+  if constexpr (kT)
+    ldsm_x4<true>(a, x + (k0 + lane % 8 + lane / 16 * 8) * ld +
+                         lane / 8 % 2 * 8);
+  else
+    ldsm_x4<false>(a, x + lane % 16 * ld + k0 + lane / 16 * 8);
 }
 
-// acc[n] += A B_n over K = KS: A the warp's 16 rows of a [., lda] tile
-// (k along its rows), B_n columns 8 n .. 8 n + 7 of a [KS, ldb] tile (k
-// down its columns).
-template <int KS, int NT>
-__device__ __forceinline__ void mma_bf16_cols(float (&acc)[NT][4],
-                                              const bf16* a, int lda,
-                                              const bf16* b, int ldb) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const auto* bu = reinterpret_cast<const unsigned short*>(b);
+// The B fragments of k0 .. k0 + 15 of the 8-column tiles from n0 and n0 +
+// 8 (b[0..1] and b[2..3]): B(k, n) at x[n * ld + k] (k along the rows),
+// or with kT at x[k * ld + n] (k down the columns).
+template <bool kT>
+__device__ __forceinline__ void b_frags2(unsigned (&b)[4], const bf16* x,
+                                         int ld, int k0, int n0) {
+  const int lane = threadIdx.x % 32;
+  if constexpr (kT)
+    ldsm_x4<true>(b, x + (k0 + lane % 8 + lane / 8 % 2 * 8) * ld + n0 +
+                         lane / 16 * 8);
+  else
+    ldsm_x4<false>(b, x + (n0 + lane % 8 + lane / 16 * 8) * ld + k0 +
+                          lane / 8 % 2 * 8);
+}
+
+// The B fragment of k0 .. k0 + 15 of the 8-column tile from n0 alone
+template <bool kT>
+__device__ __forceinline__ void b_frag1(unsigned (&b)[2], const bf16* x,
+                                        int ld, int k0, int n0) {
+  const int l = threadIdx.x % 16;
+  if constexpr (kT)
+    ldsm_x2<true>(b, x + (k0 + l) * ld + n0);
+  else
+    ldsm_x2<false>(b, x + (n0 + l % 8) * ld + k0 + l / 8 * 8);
+}
+
+// acc[n] += sum of the terms A_i B_j over K = KS for the warp's 16 rows x
+// 8 NT columns (tile n: columns 8 n .. 8 n + 7): the A operands a[0 ..
+// NA) and the B operands b[0 .. NB) (one of NA, NB is 1) as a_frag and
+// b_frags2 read them (kAT, kBT). A k-step of 16 at a time, one mma a term
+// in the order of the terms: a split operand lists its lo half first.
+template <int KS, int NT, bool kAT, bool kBT, int NA, int NB>
+__device__ __forceinline__ void mma_bf16_sum(float (&acc)[NT][4],
+                                             const bf16* const* a, int lda,
+                                             const bf16* const* b,
+                                             int ldb) {
+  static_assert(NA == 1 || NB == 1, "one operand is split, not both");
 #pragma unroll
   for (int k0 = 0; k0 < KS; k0 += 16) {
-    unsigned af[4];
-    a_frag_bf16(af, a, lda, k0);
+    unsigned af[NA][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const unsigned short* col = bu + (k0 + 2 * t) * ldb + 8 * n + g;
-      const unsigned bf[2] = {
-          col[0] | static_cast<unsigned>(col[ldb]) << 16,
-          col[8 * ldb] | static_cast<unsigned>(col[9 * ldb]) << 16};
-      mma_bf16(acc[n], af, bf);
+    for (int i = 0; i < NA; ++i) a_frag<kAT>(af[i], a[i], lda, k0);
+#pragma unroll
+    for (int n = 0; n + 1 < NT; n += 2) {
+      unsigned bf[NB][4];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) b_frags2<kBT>(bf[j], b[j], ldb, k0, 8 * n);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < NA; ++i)
+#pragma unroll
+          for (int j = 0; j < NB; ++j) {
+            const unsigned bh[2] = {bf[j][2 * h], bf[j][2 * h + 1]};
+            mma_bf16(acc[n + h], af[i], bh);
+          }
+    }
+    if constexpr (NT % 2 != 0) {
+      unsigned bf[NB][2];
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        b_frag1<kBT>(bf[j], b[j], ldb, k0, 8 * (NT - 1));
+#pragma unroll
+      for (int i = 0; i < NA; ++i)
+#pragma unroll
+        for (int j = 0; j < NB; ++j) mma_bf16(acc[NT - 1], af[i], bf[j]);
     }
   }
+}
+
+// (x0, x1) -> hi = bf16_rn(x0, x1) and lo = bf16_rn(x - hi), each pair
+// one register (x0 in the low half)
+__device__ __forceinline__ void split_bf16(float x0, float x1,
+                                           __nv_bfloat162& hi,
+                                           __nv_bfloat162& lo) {
+  hi = __floats2bfloat162_rn(x0, x1);
+  lo = __floats2bfloat162_rn(__fsub_rn(x0, __low2float(hi)),
+                             __fsub_rn(x1, __high2float(hi)));
 }
 
 // The score tile of bf16 q and k: s = (q . k) * scale with f32 sums, for
 // the warp's 16 query rows (q_s, rows from row0) x 8 NT keys (k_s, keys
-// from col0) of [., ld] tiles of width DP padded with zeros; masked lanes
-// as scale_and_mask.
+// from col0) of [., ld] tiles of width DP padded with zeros, one
+// m16n8k16 product a k-step from k = 0 up; masked lanes as
+// scale_and_mask.
 template <int DP, int NT, bool kMasked>
 __device__ __forceinline__ unsigned score_tile(
     float (&s)[NT][4], const bf16* q_s, const bf16* k_s, int ld,
@@ -406,7 +477,9 @@ __device__ __forceinline__ unsigned score_tile(
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-  mma_bf16_rows<DP, NT>(s, q_s, k_s, ld);
+  const bf16* const a[1] = {q_s};
+  const bf16* const b[1] = {k_s};
+  mma_bf16_sum<DP, NT, false, false, 1, 1>(s, a, ld, b, ld);
   return scale_and_mask<NT, kMasked>(s, scale, mask, check_mask, row0, col0,
                                      T, S);
 }
@@ -452,69 +525,6 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
                              : static_cast<unsigned short>(0);
     }
   }
-}
-
-// ---- bf16 widened to f32 (the backward's bf16 path) ----
-//
-// A bf16 value is an f32 whose low 16 bits are zero: widening is exact,
-// and its 8-bit significand fits TF32's 11, so split_tf32 gives big = x
-// and small = 0, and the 3xTF32 products above form every product of a
-// widened bf16 operand at f32 accuracy, unchanged (their kAExact,
-// kBExact and kExact flags leave out the products of its zero small
-// part).
-
-// The f32 value of the bf16 bits b (in the low half)
-__device__ __forceinline__ float widen_bf16(unsigned b) {
-  return __uint_as_float(b << 16);
-}
-
-// x rounded to bf16 to nearest even, widened back to f32
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Rows [row0, row0 + 64) of a [n, d] bf16 array into the f32 tile dst
-// [64, kLd], each value widened; rows past n and columns past d become
-// zero. cp.async cannot convert, so these are plain loads and stores:
-// 16-byte loads of 8 values where every row starts 16-byte aligned (d % 8
-// == 0 and an aligned src), else 2-byte loads. They land at once, in the
-// stage the caller has freed, and the caller's barrier before the tile is
-// read makes them visible as it does the copies. The name is the copies':
-// a kernel templated on q/k/v's type calls one function for both. (The
-// caller's commit then closes an empty group, or its f32 copies'.)
-template <int DP, int kLd = MmaTile<DP>::kLd>
-__device__ __forceinline__ void load_tile_async(float* dst, const bf16* src,
-                                                int row0, int n, int d) {
-  if (d % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
-    constexpr int kChunks = DP / 8;
-    for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
-      const int r = idx / kChunks, c = (idx % kChunks) * 8, row = row0 + r;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (row < n && c < d)
-        x = *reinterpret_cast<const uint4*>(
-            src + static_cast<long long>(row) * d + c);
-      // kLd and c are multiples of 4: 16-byte aligned stores
-      float4* out = reinterpret_cast<float4*>(dst + r * kLd + c);
-      out[0] = make_float4(widen_bf16(x.x & 0xffffu), widen_bf16(x.x >> 16),
-                           widen_bf16(x.y & 0xffffu), widen_bf16(x.y >> 16));
-      out[1] = make_float4(widen_bf16(x.z & 0xffffu), widen_bf16(x.z >> 16),
-                           widen_bf16(x.w & 0xffffu), widen_bf16(x.w >> 16));
-    }
-  } else {
-    const auto* s16 = reinterpret_cast<const unsigned short*>(src);
-    for (int idx = threadIdx.x; idx < 64 * DP; idx += kThreads) {
-      const int r = idx / DP, c = idx % DP, row = row0 + r;
-      dst[r * kLd + c] = widen_bf16(
-          row < n && c < d ? s16[static_cast<long long>(row) * d + c] : 0u);
-    }
-  }
-}
-
-// A gradient stored in q/k/v's type from its f32 sum: as it is, or
-// rounded to bf16 to nearest even
-__device__ __forceinline__ void store_as(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store_as(bf16* dst, float x) {
-  *dst = __float2bfloat16_rn(x);
 }
 
 }  // namespace rabit_mma

@@ -28,10 +28,12 @@ flash part of ``rabit_tpu/ops/pallas_kernels.py`` and of
 
 Both kernels take q/k/v all f32 or all bf16, D <= 128. At bf16 the
 forward runs s and p v on the bf16 tensor cores with f32 sums (p rounded
-to bf16 to nearest even after l' has summed it in f32); the backward
-widens q/k/v to f32 and runs its f32 products, rounds p to bf16 for dv
-alone and dq/dk/dv to bf16 at the store. Anything else on a CUDA tensor
-raises (there is no quiet fallback).
+to bf16 to nearest even after l' has summed it in f32); the backward keeps
+q/k/v in bf16, forms s from them, splits its f32 operands co and ds into
+two bf16 halves (hi + lo, within 2^-16) so that every other product is two
+bf16 products with f32 sums, rounds p to bf16 for dv alone and dq/dk/dv to
+bf16 at the store. Anything else on a CUDA tensor raises (there is no
+quiet fallback).
 """
 
 from __future__ import annotations

@@ -289,8 +289,7 @@ def _schedule(tiles, skip, skipped):
         i = j
 
 
-def _tile_schedule_bwd(q, k, v, m, l, o, mask, scale, cm, cl, co,
-                       p_dtype=None):
+def _tile_schedule_bwd(q, k, v, m, l, o, mask, scale, cm, cl, co):
     """The backward as the CUDA kernels schedule it, head by head. A row
     block of 64 queries makes pass 1 over the 64-key tiles (s and dp a
     tile; the running max t, its tie count and sum_j (dp + cl) exp(s - m'),
@@ -300,9 +299,8 @@ def _tile_schedule_bwd(q, k, v, m, l, o, mask, scale, cm, cl, co,
     once every row of the block had a score above NEG_INF before the tile
     in hand (the kernels pick the next tile before they multiply the
     current one), pass 2 always (ds = 0 there), the column pass once every
-    row of the query tile has m' above NEG_INF. ``p_dtype``: the column
-    pass rounds p to it for dv alone (ds keeps the f32 p). Returns the six
-    gradients and the count of tiles skipped."""
+    row of the query tile has m' above NEG_INF. Returns the six gradients
+    and the count of tiles skipped."""
     h_n, t_n, _ = q.shape
     s_n = k.shape[1]
     dq, dk, dv, dm, dl, do = (torch.zeros_like(x) for x in (q, k, v, m, l, o))
@@ -371,8 +369,6 @@ def _tile_schedule_bwd(q, k, v, m, l, o, mask, scale, cm, cl, co,
 
             for rows in schedule(row_tiles, finite):
                 p = torch.exp(scores(h, rows, cols) - mnew[h, rows, None])
-                if p_dtype is not None:
-                    p = p.to(p_dtype).float()
                 dv[h, cols] += p.T @ co[h, rows]
                 dk[h, cols] += ds(h, rows, cols).T @ q[h, rows]
     return (dq, dk, dv, dm, dl, do), skipped[0]
@@ -769,15 +765,138 @@ def test_forward_bf16_tile_schedule_matches_plain_and_jax(kind, d):
             _assert_rel(g.numpy(), w, rel, f"{name} vs {ref}")
 
 
+def _split_bf16(x):
+    """x (f32 torch) -> (hi, lo) as the bf16 kernels split an f32 operand:
+    hi = bf16_rn(x), lo = bf16_rn(x - hi), both as f32."""
+    hi = x.to(BF16).float()
+    return hi, (x - hi).to(BF16).float()
+
+
+def _mma16(acc, terms):
+    """acc (f32) += the sum of the products a @ b in ``terms``, as the
+    kernels' bf16 ``mma.sync.m16n8k16`` form it: k in steps of 16, each
+    step's product of bf16 values exact (f64 here) and added to the f32
+    sums, one term after another in the order given (a split operand's lo
+    half first)."""
+    k_n = terms[0][0].shape[1]
+    for k0 in range(0, k_n, 16):
+        for a, b in terms:
+            acc = (acc.double() + a[:, k0:k0 + 16].double()
+                   @ b[k0:k0 + 16].double()).float()
+    return acc
+
+
+def _mask_bits(mask, rows, cols):
+    """The kernels' flags of a tile: 1 if a pair of it is unmasked, 2 if a
+    pair is masked (no mask: every pair unmasked)."""
+    if mask is None:
+        return 1
+    tile = mask[rows][:, cols]
+    return (1 if not bool(tile.all()) else 0) | (2 if bool(tile.any())
+                                                 else 0)
+
+
 def _tile_schedule_bwd_bf16(q, k, v, m, l, o, mask, scale, cm, cl, co):
-    """The backward's bf16 path as ``csrc/flash_block_bwd.cu`` schedules
-    it: bf16 q, k and v widened to f32 (exactly), the f32 kernels'
-    schedule and sums, p rounded to bf16 in the column pass alone, for dv,
-    against the scratch m'; dq, dk and dv cast to bf16 at the stores."""
-    grads, skipped = _tile_schedule_bwd(
-        q.float(), k.float(), v.float(), m, l, o, mask, scale, cm, cl, co,
-        p_dtype=BF16)
-    return (*(g.to(BF16) for g in grads[:3]), *grads[3:]), skipped
+    """The backward's bf16 path as ``csrc/flash_block_bwd.cu`` computes it,
+    head by head, with bf16 q, k and v. s = q k^T from the bf16 operands;
+    co and ds split into bf16 halves (hi + lo); every product a bf16 one
+    in k-steps of 16 with f32 sums, the small term first: dp = co_lo v^T +
+    co_hi v^T, dq = ds_lo k + ds_hi k, dv = bf16(p)^T co_lo + bf16(p)^T
+    co_hi (p rounded to bf16 against the scratch m'), dk = ds_lo^T q +
+    ds_hi^T q; dq, dk and dv cast to bf16 at the stores. The tiles each
+    pass visits are read from the mask's bits a tile (``mask_bits``, and
+    for the column pass the m' of the scratch), by the f32 kernels' rules:
+    pass 1 skips a tile with no unmasked pair once every row had a score
+    above NEG_INF before the tile in hand, pass 2 every such tile, the
+    column pass every such tile whose rows all have m' above NEG_INF.
+    Returns the six gradients and the count of tiles skipped."""
+    h_n, t_n, d_n = q.shape
+    s_n = k.shape[1]
+    q, k, v = (x.float() for x in (q, k, v))
+    dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
+    dm, dl, do = (torch.zeros_like(x) for x in (m, l, o))
+    mnew, trow, tie = (torch.zeros_like(m) for _ in range(3))
+    skipped = [0]
+    key_tiles = [slice(c, min(c + TILE, s_n)) for c in range(0, s_n, TILE)]
+    row_tiles = [slice(r, min(r + TILE, t_n)) for r in range(0, t_n, TILE)]
+    co_hi, co_lo = _split_bf16(co)
+
+    def scores(h, rows, cols):
+        s = _mma16(torch.zeros(rows.stop - rows.start, cols.stop - cols.start),
+                   [(q[h, rows], k[h, cols].T)]) * scale
+        return s if mask is None else s.masked_fill(mask[rows][:, cols],
+                                                    NEG_INF)
+
+    def dprod(h, rows, cols):
+        zero = torch.zeros(rows.stop - rows.start, cols.stop - cols.start)
+        return _mma16(zero, [(co_lo[h, rows], v[h, cols].T),
+                             (co_hi[h, rows], v[h, cols].T)]) \
+            + cl[h, rows, None]
+
+    def ds(h, rows, cols):
+        s = scores(h, rows, cols)
+        g = dprod(h, rows, cols) * torch.exp(s - mnew[h, rows, None]) + \
+            tie[h, rows, None] * (s == trow[h, rows, None])
+        if mask is not None:
+            g = g.masked_fill(mask[rows][:, cols], 0.0)
+        return g * scale
+
+    for h in range(h_n):
+        for rows in row_tiles:
+            bits = [_mask_bits(mask, rows, cols) for cols in key_tiles]
+            m_in, cl_r = m[h, rows], cl[h, rows]
+            t_run = torch.full_like(m_in, -float("inf"))
+            n_run, sum_run, m_run = (torch.zeros_like(m_in),
+                                     torch.zeros_like(m_in), m_in.clone())
+
+            def seen(i, bits=bits):
+                return not bits[i] & 1 and bool((t_run > NEG_INF).all())
+
+            for cols in _schedule(key_tiles, seen, skipped):
+                s = scores(h, rows, cols)
+                dp = dprod(h, rows, cols)
+                tmax = s.amax(dim=1)
+                cnt = (s == tmax[:, None]).sum(dim=1).to(m.dtype)
+                n_run = torch.where(t_run > tmax, n_run, torch.where(
+                    t_run < tmax, cnt, n_run + cnt))
+                t_run = torch.maximum(t_run, tmax)
+                m_new = torch.maximum(m_in, t_run)
+                sum_run = sum_run * torch.exp(m_run - m_new) + (
+                    dp * torch.exp(s - m_new[:, None])).sum(dim=1)
+                m_run = m_new
+            alpha = torch.exp(m_in - m_run)
+            dalpha = cl_r * l[h, rows] + (co[h, rows] * o[h, rows]).sum(1)
+            dm_new = cm[h, rows] - dalpha * alpha - sum_run
+            sel = torch.where(m_in > t_run, 1.0,
+                              torch.where(m_in < t_run, 0.0, 0.5))
+            dm[h, rows] = dalpha * alpha + dm_new * sel
+            dl[h, rows] = cl_r * alpha
+            do[h, rows] = co[h, rows] * alpha[:, None]
+            mnew[h, rows], trow[h, rows] = m_run, t_run
+            tie[h, rows] = dm_new * (1.0 - sel) / n_run
+            acc = torch.zeros(rows.stop - rows.start, d_n)
+            for cols in _schedule(key_tiles, lambda i, bits=bits:
+                                  not bits[i] & 1, skipped):
+                ds_hi, ds_lo = _split_bf16(ds(h, rows, cols))
+                acc = _mma16(acc, [(ds_lo, k[h, cols]), (ds_hi, k[h, cols])])
+            dq[h, rows] = acc
+        for cols in key_tiles:
+            bits = [_mask_bits(mask, rows, cols)
+                    | (4 if bool((mnew[h, rows] <= NEG_INF).any()) else 0)
+                    for rows in row_tiles]
+            acc_k = torch.zeros(cols.stop - cols.start, d_n)
+            acc_v = torch.zeros(cols.stop - cols.start, d_n)
+            for rows in _schedule(row_tiles, lambda i, bits=bits:
+                                  not bits[i] & 5, skipped):
+                p = torch.exp(scores(h, rows, cols) - mnew[h, rows, None])
+                acc_v = _mma16(acc_v, [(p.to(BF16).float().T, co_lo[h, rows]),
+                                       (p.to(BF16).float().T, co_hi[h, rows])])
+                ds_hi, ds_lo = _split_bf16(ds(h, rows, cols))
+                acc_k = _mma16(acc_k, [(ds_lo.T, q[h, rows]),
+                                       (ds_hi.T, q[h, rows])])
+            dk[h, cols], dv[h, cols] = acc_k, acc_v
+    return ((dq.to(BF16), dk.to(BF16), dv.to(BF16), dm, dl, do),
+            skipped[0])
 
 
 @pytest.mark.parametrize("kind,d", [("causal", D),
@@ -786,10 +905,11 @@ def _tile_schedule_bwd_bf16(q, k, v, m, l, o, mask, scale, cm, cl, co):
                                     ("ragged", 13), ("ragged", 1)])
 def test_backward_bf16_tile_schedule_matches_plain_and_pallas(monkeypatch,
                                                               kind, d):
-    """The bf16 backward's algorithm (widened operands, p rounded to bf16
-    for dv alone against the scratch m', f32 sums, bf16 casts at the
-    stores, the skip rules, odd D) before it reaches the card: against
-    the plain bf16 backward and ``PK.flash_block_bwd`` in interpret mode.
+    """The bf16 backward's algorithm (bf16 products of k 16 with co and ds
+    split into bf16 halves, p rounded to bf16 for dv alone against the
+    scratch m', f32 sums, bf16 casts at the stores, the skip rules read
+    from the mask's bits, odd D) before it reaches the card: against the
+    plain bf16 backward and ``PK.flash_block_bwd`` in interpret mode.
     dq, dk and dv within 1e-3 of their largest plus one bf16 step of the
     value (an f32 sum cast to bf16 flips where two orders of summation
     differ in the last bit); dm, dl and do within 1e-5 of their largest
@@ -803,8 +923,12 @@ def test_backward_bf16_tile_schedule_matches_plain_and_pallas(monkeypatch,
     tq, tk, tv = _bf16_torch(q, k, v)
     tm, tl, to, tmask, tcm, tcl, tco = _torch(m, l, o, mask, cm, cl, co)
     scale = _scale(d)
-    got, _ = _tile_schedule_bwd_bf16(tq, tk, tv, tm, tl, to, tmask, scale,
-                                     tcm, tcl, tco)
+    got, skipped = _tile_schedule_bwd_bf16(tq, tk, tv, tm, tl, to, tmask,
+                                           scale, tcm, tcl, tco)
+    # the mask's bits pick the tiles the f32 kernels' rules pick
+    assert skipped == _tile_schedule_bwd(
+        tq.float(), tk.float(), tv.float(), tm, tl, to, tmask, scale, tcm,
+        tcl, tco)[1]
     plain = F.block_update_bwd_reference(tq, tk, tv, tm, tl, to, tmask,
                                          scale, tcm, tcl, tco)
     pallas = PK.flash_block_bwd(
@@ -827,10 +951,10 @@ def test_backward_bf16_tile_schedule_matches_plain_and_pallas(monkeypatch,
 
 
 def test_split_tf32_keeps_every_bf16_value_whole():
-    """What the backward's bf16 path rests on: every finite bf16 value,
-    widened to f32, splits by the kernels' TF32 rule (to nearest, ties
-    away, 10 mantissa bits) into itself and 0, so the 3xTF32 products
-    take it exactly. All 65536 bit patterns less the 256 inf and NaN."""
+    """Every finite bf16 value, widened to f32, splits by the f32
+    kernels' TF32 rule (to nearest, ties away, 10 mantissa bits) into
+    itself and 0, so the 3xTF32 products take a bf16 operand exactly. All
+    65536 bit patterns less the 256 inf and NaN."""
     bits = np.arange(1 << 16, dtype=np.uint32) << np.uint32(16)
     x = bits.view(np.float32)
     x = x[np.isfinite(x)]
@@ -838,3 +962,44 @@ def test_split_tf32_keeps_every_bf16_value_whole():
     big, small = _split_tf32(x)
     np.testing.assert_array_equal(big.view(np.uint32), x.view(np.uint32))
     assert not small.view(np.uint32).any()
+
+
+def test_bf16_split_reconstructs_within_2_to_minus_16():
+    """The bf16 backward's split of an f32 operand (co, ds): hi and lo are
+    bf16 values, hi + lo holds x within 2^-16 |x| over f32 values spread
+    across 1e-30 to 1e30, and every finite bf16 value splits into itself
+    and 0."""
+    rng = np.random.default_rng(14)
+    n = 200_000
+    x = (rng.choice([-1.0, 1.0], n)
+         * 10.0 ** rng.uniform(-30, 30, n)).astype(np.float32)
+    hi, lo = (t.numpy() for t in _split_bf16(torch.from_numpy(x)))
+    for part in (hi, lo):
+        assert not (part.view(np.uint32) & np.uint32(0xFFFF)).any()
+    err = np.abs(x.astype(np.float64) - hi.astype(np.float64) - lo)
+    assert (err <= 2.0 ** -16 * np.abs(x.astype(np.float64))).all()
+    bits = np.arange(1 << 16, dtype=np.uint32) << np.uint32(16)
+    y = bits.view(np.float32)
+    y = y[np.isfinite(y)]
+    hi, lo = (t.numpy() for t in _split_bf16(torch.from_numpy(y)))
+    np.testing.assert_array_equal(hi.view(np.uint32), y.view(np.uint32))
+    assert not lo.view(np.uint32).any()
+
+
+@pytest.mark.parametrize("width", [16, 32, 64, 128])
+def test_bf16_split_dot_is_within_1e5_of_f64(width):
+    """The tolerance of the split: a 64 x 64 tile product of a split f32
+    operand and a bf16 operand, k in steps of 16 (lo then hi), within
+    1e-5 of f64 (max|diff| / max|ref|), where rounding the f32 operand
+    once to bf16 is off by about 2e-3."""
+    rng = np.random.default_rng(width)
+    a = torch.from_numpy(rng.standard_normal((64, width)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((64, width)).astype(
+        np.float32)).to(BF16).float()
+    ref = a.double() @ b.double().T
+    hi, lo = _split_bf16(a)
+    got = _mma16(torch.zeros(64, 64), [(lo, b.T), (hi, b.T)])
+    rel = float((got.double() - ref).abs().max() / ref.abs().max())
+    one = a.to(BF16).double() @ b.double().T
+    assert rel <= 1e-5
+    assert float((one - ref).abs().max() / ref.abs().max()) > 1e-3
