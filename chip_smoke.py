@@ -27,11 +27,12 @@ Phases (each prints a line; any failure exits non-zero):
                 kernel (a flash or binning kernel may spill none); the
                 tensor-core instructions (``HMMA``) of each flash forward
                 and backward kernel in its SASS (``cuobjdump -sass``),
-                which must be above 0; the bf16 backward's kernels
-                (``flash_bwd_bf16_rows``, ``flash_bwd_bf16_cols``) must
-                hold bf16 products (``HMMA.16816``) and no TF32 ones
-                (``HMMA.1688``), ``cp.async`` copies (``LDGSTS``) and
-                ``ldmatrix`` loads (``LDSM``).
+                which must be above 0; the bf16 kernels
+                (``flash_fwd_bf16_kernel``, ``flash_bwd_bf16_rows``,
+                ``flash_bwd_bf16_cols``) must hold bf16 products
+                (``HMMA.16816``) and no TF32 ones (``HMMA.1688``),
+                ``cp.async`` copies (``LDGSTS``) and ``ldmatrix`` loads
+                (``LDSM``).
 1b. tile        the 3xTF32 score-tile function alone
                 (``csrc/flash_mma.cuh``): one [64, DP] x [64, DP]^T tile
                 against a torch f64 product at each DP, before the
@@ -480,11 +481,13 @@ Phases (each prints a line; any failure exits non-zero):
                 and the flagship at bf16: (a) each kernel alone at bf16
                 q/k/v against its plain version on the same inputs, at the
                 training shape, the chain block, a causal mask with a fully
-                masked first row (the first step) and D 1, 13, 100 and 128
+                masked first row (the first step), D 1, 13, 100 and 128
                 (odd D loads through plain loads, D 100 through 4-byte
-                copies); the forward's m' and l' within the f32 forward's
-                tolerance, o' within 2^-9 of max|o'| (p's rounding to bf16
-                flips where the f32 scores differ in their last bit); the
+                copies) and 4224 keys (more than 64 key tiles: the
+                forward lists its tiles a chunk of 64 at a time); the
+                forward's m' and l' within the f32 forward's tolerance, o'
+                within 2^-9 of max|o'| (p's rounding to bf16 flips where
+                the f32 scores differ in their last bit); the
                 backward's dq, dk and dv (bf16) within 1e-3 of their
                 largest plus one bf16 step of the value, dm, dl and do
                 within 1e-3 of their largest; mixed dtypes raise in both;
@@ -510,9 +513,12 @@ Phases (each prints a line; any failure exits non-zero):
                 for the backward kernel) and the bound (bytes: q/k/v and
                 their gradients at 2 B, m/l/o, the cotangents and the f32
                 outputs at 4 B; operations: 4 D and 10 D flops a pair at
-                989 TFLOP/s of dense bf16); the backward's call split into
-                its row and column kernels by torch.profiler.
-24. kernels     one JSON line of every kernel with its main-path launches
+                989 TFLOP/s of dense bf16); each kernel's device us a
+                launch by torch.profiler (the backward's row and column
+                kernels apart) and the forward's blocks an SM.
+24. walls       the host wall seconds of each phase (the time before each
+                phase line goes to that line's phase), and their sum.
+25. kernels     one JSON line of every kernel with its main-path launches
                 (and, for the flash kernels, phase 12's and phase 13's; for
                 the histogram, phase 17 (b)'s, null where (b) did not run,
                 phase 18's killed runs', (b)'s null where it did not run,
@@ -616,12 +622,21 @@ STEP_TOL = 5e-4
 FLAGSHIP_STEPS = 16
 # kernels that may not spill registers
 NO_SPILL = ("flash_bwd_", "flash_fwd_", "histogram_kernel", "mask_only_kernel")
-# SASS opcodes counted in the bf16 backward's kernels: bf16 products, TF32
+# SASS opcodes counted in the bf16 kernels: bf16 products, TF32
 # products (none allowed), cp.async copies, ldmatrix loads
-BF16_BWD_SASS = ("HMMA.16816", "HMMA.1688", "LDGSTS", "LDSM")
+BF16_SASS = ("HMMA.16816", "HMMA.1688", "LDGSTS", "LDSM")
+
+
+# host wall seconds by phase: the time since the previous phase line goes
+# to the phase whose line ends it (the work that produced the line)
+PHASE_WALLS: dict = {}
+_last_line = [time.perf_counter()]
 
 
 def phase(name: str, msg: str) -> None:
+    now = time.perf_counter()
+    PHASE_WALLS[name] = PHASE_WALLS.get(name, 0.0) + now - _last_line[0]
+    _last_line[0] = now
     print(f"[{name}] {msg}", flush=True)
 
 
@@ -688,20 +703,22 @@ def phase_build() -> None:
             raise AssertionError(f"a {prefix}* kernel runs no tensor-core "
                                  f"product (HMMA counts {hmma}; {expect} "
                                  f"kernels expected)")
-    # the bf16 backward: bf16 products, none of TF32, cp.async copies and
-    # ldmatrix loads in each of its 16 kernels
+    # the bf16 kernels: bf16 products, none of TF32, cp.async copies and
+    # ldmatrix loads in each of the forward's 8 and the backward's 16
     mix = {k: {op: sum(n for o, n in ops.items() if o.startswith(op))
-               for op in BF16_BWD_SASS}
-           for k, ops in sass["flash_block_bwd"].items()
-           if k.startswith(("flash_bwd_bf16_rows", "flash_bwd_bf16_cols"))}
-    phase("build", f"SASS of the bf16 backward's kernels "
-          f"({', '.join(BF16_BWD_SASS)}): {mix}")
+               for op in BF16_SASS}
+           for k, ops in {**sass["flash_block"],
+                          **sass["flash_block_bwd"]}.items()
+           if k.startswith(("flash_fwd_bf16_kernel", "flash_bwd_bf16_rows",
+                            "flash_bwd_bf16_cols"))}
+    phase("build", f"SASS of the bf16 kernels ({', '.join(BF16_SASS)}): "
+          f"{mix}")
     bad = {k: c for k, c in mix.items() if c["HMMA.1688"] or not (
         c["HMMA.16816"] and c["LDGSTS"] and c["LDSM"])}
-    if len(mix) != 16 or bad:
-        raise AssertionError(f"bf16 backward kernels without bf16 products, "
-                             f"cp.async or ldmatrix, or with TF32 products "
-                             f"(of {len(mix)} kernels): {bad}")
+    if len(mix) != 24 or bad:
+        raise AssertionError(f"bf16 kernels without bf16 products, cp.async "
+                             f"or ldmatrix, or with TF32 products (of "
+                             f"{len(mix)} kernels): {bad}")
 
 
 def sass_listing(library: Path) -> str:
@@ -1583,6 +1600,12 @@ BF16_CASES = [
     ("D 13", (3, 100, 72, 13), "tie", False),
     ("D 100", (2, 256, 320, 100), "causal", True),
     ("D 128", (2, 256, 256, 128), None, False),
+    # more than kChunk = 64 key tiles (4096 keys): the bf16 forward lists
+    # and deals the visited tiles a chunk at a time in both passes; query
+    # tile 0 (row 0 masked) visits every tile in pass 1, its pair 65 the
+    # tiles of both chunks up to the diagonal
+    ("two mask chunks", (1, 4224, 4224, 32), "causal, row 0 masked",
+     True),
 ]
 
 
@@ -1641,6 +1664,27 @@ def bf16_grads_check(got, want, label: str) -> tuple:
     return worst, rels
 
 
+def bf16_fwd_check(got, want, label: str) -> tuple:
+    """(m', l', o') of the bf16 forward against the plain step's: m' and
+    l' within FLASH_FWD_TOL, o' finite and within BF16_O_REL of max|o'|;
+    raises on a value off. Returns (each output's max|diff|, o''s
+    max|diff| / max|o'|)."""
+    errs = {}
+    for name, g, w in zip(("m'", "l'"), got, want):
+        errs[name] = assert_close(g.cpu(), w.cpu(),
+                                  f"flash_block bf16 {label} {name}",
+                                  **FLASH_FWD_TOL)
+    if not torch.isfinite(got[2]).all():
+        raise AssertionError(f"flash_block bf16 {label} o': non-finite")
+    errs["o'"] = float((got[2] - want[2]).abs().max())
+    rel = errs["o'"] / max(float(want[2].abs().max()), 1e-30)
+    if rel > BF16_O_REL:
+        raise AssertionError(f"flash_block bf16 {label} o': "
+                             f"max|diff|/max|o'| {rel:.3g} > "
+                             f"{BF16_O_REL:.3g}")
+    return errs, rel
+
+
 def _bf16_kernel_checks(dev) -> tuple:
     """Phase 23 (a): both bf16 kernels against their plain versions;
     returns the largest absolute difference of the forward and of the
@@ -1653,21 +1697,9 @@ def _bf16_kernel_checks(dev) -> tuple:
         got = F.flash_block(*ins, sm)
         want = F.block_update_reference(*ins, sm)
         torch.cuda.synchronize()
-        errs = {}
-        for name, g, w in zip(("m'", "l'"), got, want):
-            errs[name] = assert_close(g.cpu(), w.cpu(),
-                                      f"flash_block bf16 {label} {name}",
-                                      **FLASH_FWD_TOL)
-        if not torch.isfinite(got[2]).all():
-            raise AssertionError(f"flash_block bf16 {label} o': non-finite")
-        errs["o'"] = float((got[2] - want[2]).abs().max())
-        rel = errs["o'"] / max(float(want[2].abs().max()), 1e-30)
+        errs, rel = bf16_fwd_check(got, want, label)
         worst = max(worst, *errs.values())
         diffs = ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
-        if rel > BF16_O_REL:
-            raise AssertionError(f"flash_block bf16 {label} o': "
-                                 f"max|diff|/max|o'| {rel:.3g} > "
-                                 f"{BF16_O_REL:.3g}")
         err_bwd, rels = _bf16_bwd_check(ins, cts, sm, label)
         worst_bwd = max(worst_bwd, err_bwd)
         phase("flagship bf16", f"(a) bf16 {label} (B*H {bh}, T {t}, S {s}, "
@@ -1874,6 +1906,18 @@ def flash_bf16_bound(bh: int, t: int, s: int, d: int, mask,
             "operations" if by_ops >= by_bytes else "bytes", flops, nbytes)
 
 
+def occupancy(d: int, masked: bool) -> int:
+    """Blocks an SM of the bf16 forward kernel at head width d, by the
+    CUDA occupancy calculator (``rabit_flash_block_bf16_occupancy``)."""
+    from rabit_tpu_torch.ops import _build
+    fn = _build.entry("flash_block", "rabit_flash_block_bf16_occupancy",
+                      [ctypes.c_int] * 2)
+    blocks = fn(d, int(masked))
+    if blocks < 1:
+        raise AssertionError(f"bf16 forward occupancy at D {d}: {blocks}")
+    return blocks
+
+
 def _bf16_timing(dev, power: str) -> dict:
     """Phase 23 (d): each bf16 kernel, its plain version and
     ``scaled_dot_product_attention`` at bf16 (the yardstick; the port
@@ -1922,22 +1966,27 @@ def _bf16_timing(dev, power: str) -> dict:
 
         lib_bwd = time_ms(sdpa_bwd, bwd_sets)
         del bwd_sets
+        split_fwd = kernel_us(lambda *a: F.flash_block(*a[:7], sm), sets,
+                              "flash_fwd_bf16")
         split = kernel_us(lambda *a: F.flash_block_bwd(*a[:7], sm, *a[7:]),
                           sets, "flash_bwd_bf16")
-        phase("flagship bf16", f"(d) flash_block_bwd_bf16 B*H {bh} T {t} D "
-              f"{d}: device us a launch by torch.profiler {split} "
-              f"[{power}]")
-        for name, ms, plain, lib, backward in (
-                ("flash_block_bf16", fwd, fwd_plain, lib_fwd, False),
-                ("flash_block_bwd_bf16", bwd, bwd_plain, lib_bwd, True)):
+        phase("flagship bf16", f"(d) B*H {bh} T {t} D {d}: device us a "
+              f"launch by torch.profiler, flash_block_bf16 {split_fwd} "
+              f"({occupancy(d, causal)} blocks an SM), flash_block_bwd_bf16 "
+              f"{split} [{power}]")
+        for name, ms, plain, lib, backward, us in (
+                ("flash_block_bf16", fwd, fwd_plain, lib_fwd, False,
+                 split_fwd),
+                ("flash_block_bwd_bf16", bwd, bwd_plain, lib_bwd, True,
+                 split)):
             bound, bound_by, flops, nbytes = flash_bf16_bound(
                 bh, t, s, d, ins[6], backward)
             row = dict(shape=[bh, t, s, d], causal=causal, ms=ms,
                        plain_ms=plain, library_ms=lib, bound_ms=bound,
-                       bound_by=bound_by, flops=flops, bytes=nbytes)
+                       bound_by=bound_by, flops=flops, bytes=nbytes,
+                       kernel_us=us)
             if backward:
                 row["library_bwd_ms"] = lib
-                row["kernel_us"] = split
             out[name].append(row)
             phase("flagship bf16", f"(d) {name} B*H {bh} T {t} S {s} D {d} "
                   f"{'causal' if causal else 'no mask'}: kernel {ms:.4f} ms, "
@@ -6153,6 +6202,9 @@ def main() -> int:
     incidents = phase_incidents(power, bases)
     jobs = phase_jobs(power)
     conn = phase_conn_plane(power)
+    phase("walls", "host wall seconds by phase, in all "
+          f"{sum(PHASE_WALLS.values()):.1f}: " + ", ".join(
+              f"{n} {w:.1f}" for n, w in PHASE_WALLS.items()))
     kernels = []
     for name in ("histogram", "flash_block", "flash_block_bwd", "mask_only",
                  "flash_block_bf16", "flash_block_bwd_bf16"):

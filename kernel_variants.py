@@ -1,23 +1,27 @@
 """Variants of a kernel side by side on one card.
 
     python3 kernel_variants.py DIR [DIR ...]
-        [--kernel {bwd,bwd_bf16,fwd,hist,mask}] [--sass KERNEL]
+        [--kernel {bwd,bwd_bf16,fwd,fwd_bf16,hist,mask}] [--sass KERNEL]
 
 With ``--kernel bwd`` (the default) each DIR holds an edited copy of
 ``rabit_tpu_torch/csrc/flash_block_bwd.cu`` and of the headers it
 includes, whose f32 entry ``rabit_flash_block_bwd_f32`` is called; with
 ``--kernel bwd_bf16`` the same copy, through its bf16 entry
 ``rabit_flash_block_bwd_bf16``; with ``--kernel fwd`` a copy of
-``flash_block.cu`` and its
-headers; with ``--kernel hist`` a copy of ``histogram.cu``, with ``--kernel
-mask`` of ``mask_only.cu``, each with its headers. The script builds every
+``flash_block.cu`` and its headers, whose f32 entry
+``rabit_flash_block_f32`` is called; with ``--kernel fwd_bf16`` the same
+copy, through its bf16 entry ``rabit_flash_block_bf16``; with ``--kernel
+hist`` a copy of ``histogram.cu``, with ``--kernel mask`` of
+``mask_only.cu``, each with its headers. The script builds every
 variant with the package's nvcc flags (one nvcc each, all at once) into
 its DIR and prints ptxas's registers and spills of its kernels (and, with
 ``--sass``, the opcode counts of one kernel's SASS, atomics and
 reductions and tensor-core products with their modifiers, e.g. ``--sass
 'flash_bwd_rows<32, 1>'``, ``--sass 'flash_bwd_bf16_cols<32, 1>'``,
 ``--sass 'histogram_kernel<0>'`` or ``--sass mask_only_kernel``, and the
-whole SASS of the variant's library in ``DIR/lib.sass``).
+whole SASS of the variant's library in ``DIR/lib.sass``). The forward's
+copies also print the blocks an SM of each bf16 kernel, from
+``rabit_flash_block_bf16_occupancy`` where the copy exports it.
 
 Flash kernels: it holds each variant against the plain version at
 ``chip_smoke.py``'s ``FLASH_CASES`` (backward: the worst gradient's
@@ -29,7 +33,13 @@ A B ... B A, twice, and the device time of each kernel by
 backward at ``chip_smoke.py``'s ``BF16_CASES`` and tolerances (dq, dk, dv
 within ``BF16_GRAD_REL`` of their largest plus a bf16 step, dm, dl, do
 within ``BF16_GRAD_REL``) and timed on bf16 q/k/v (``bf16_case``) at the
-same two shapes.
+same two shapes. The bf16 forward is held against the plain step at
+``BF16_CASES`` with phase 23 (a)'s limits (m' and l' within
+``FLASH_FWD_TOL``, o' within ``BF16_O_REL`` of max|o'|); beside that each
+variant's m' is compared with the first DIR's at every case (the value,
+as ``torch.equal``: the score tile's bits decide it), and the variants
+are timed on bf16 q/k/v at the same two shapes against
+``flash_bf16_bound``.
 
 Binning kernels: a variant goes through the package's wrapper
 (``ops/histogram.py``) with its library in place of the package's; a
@@ -156,6 +166,23 @@ def forward(lib, q, k, v, m, l, o, mask, scale, *_):
     return outs
 
 
+def forward_bf16(lib, q, k, v, m, l, o, mask, scale, *_):
+    """One call of the variant's rabit_flash_block_bf16 (bf16 q/k/v), on
+    the current stream; returns (m', l', o') in f32."""
+    fn = lib.rabit_flash_block_bf16
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_float] + [p] * 4
+    h, t, d = q.shape
+    outs = [torch.empty_like(x) for x in (m, l, o)]
+    err = fn(*(x.data_ptr() for x in (q, k, v, m, l, o)),
+             None if mask is None else mask.data_ptr(), h, t, k.shape[1], d,
+             scale, *(x.data_ptr() for x in outs),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"launch failed: cuda error {err}")
+    return outs
+
+
 def check_bwd(label, name, got, want) -> bool:
     rel = max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
               for g, w in zip(got, want))
@@ -189,6 +216,30 @@ def check_fwd(label, name, got, want) -> bool:
     print(f"check {label}: {name} max|diff| of m', l', o' {err:.2g} (rtol "
           f"= atol = {C.FLASH_FWD_TOL['rtol']})")
     return True
+
+
+def check_fwd_bf16(label, name, got, want) -> bool:
+    torch.cuda.synchronize()
+    try:
+        errs, rel = C.bf16_fwd_check(got, want, f"{label} {name}")
+    except AssertionError as e:
+        print(f"check {label}: {name} FAILED: {e}")
+        return False
+    print(f"check {label}: {name} max|diff| " + ", ".join(
+        f"{n} {x:.3g}" for n, x in errs.items()) + f"; o' {rel:.3g} of "
+        f"max|o'| (limit {C.BF16_O_REL:.3g})")
+    return True
+
+
+def blocks_an_sm(lib) -> str:
+    """The bf16 forward kernels' blocks an SM at each D bucket, masked /
+    unmasked, where the copy exports rabit_flash_block_bf16_occupancy."""
+    if not hasattr(lib, "rabit_flash_block_bf16_occupancy"):
+        return "not exported"
+    fn = lib.rabit_flash_block_bf16_occupancy
+    fn.argtypes = [ctypes.c_int] * 2
+    return ", ".join(f"D {d}: {fn(d, 1)} / {fn(d, 0)}"
+                     for d in (16, 32, 64, 128))
 
 
 # half the rows of the headline shape (2^21 x 1024): the two give the
@@ -372,7 +423,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("dirs", nargs="+", type=Path)
     ap.add_argument("--kernel",
-                    choices=("bwd", "bwd_bf16", "fwd", "hist", "mask"),
+                    choices=("bwd", "bwd_bf16", "fwd", "fwd_bf16", "hist",
+                             "mask"),
                     default="bwd")
     ap.add_argument("--sass", help="a kernel, as 'flash_bwd_rows<32, 1>'")
     args = ap.parse_args()
@@ -394,8 +446,11 @@ def main() -> int:
                      F.block_update_bwd_reference, check_bwd_bf16),
         "fwd": ("flash_block.cu", "flash_fwd", forward,
                 lambda *a: F.block_update_reference(*a[:8]),
-                check_fwd)}[args.kernel]
-    bf16 = args.kernel == "bwd_bf16"
+                check_fwd),
+        "fwd_bf16": ("flash_block.cu", "flash_fwd_bf16", forward_bf16,
+                     lambda *a: F.block_update_reference(*a[:8]),
+                     check_fwd_bf16)}[args.kernel]
+    bf16 = args.kernel in ("bwd_bf16", "fwd_bf16")
     # (label, shape, mask, first step, wide range) as FLASH_CASES
     cases = [(*c, False) for c in C.BF16_CASES] if bf16 else C.FLASH_CASES
 
@@ -414,27 +469,56 @@ def main() -> int:
             ops = sass_opcodes(d / "lib.so", args.sass)
             print(f"{d} {args.sass} SASS: {sum(ops.values())} instructions, "
                   f"{dict(ops.most_common(16))}")
+        if args.kernel == "fwd_bf16":
+            print(f"{d} blocks an SM (masked / unmasked): "
+                  f"{blocks_an_sm(libs[d])}")
     ok = True
     for label, (bh, t, s, d), mask_kind, first, spread in cases:
         ins, cts = make(bh, t, s, d, mask_kind, 7, first, spread)
         args_ = (*ins, d ** -0.5, *cts)
         want = reference(*args_)
+        m_first = None
         for name, lib in libs.items():
-            ok = check(label, name, call(lib, *args_), want) and ok
+            try:
+                got = call(lib, *args_)
+            except RuntimeError as e:  # e.g. more shared memory than it has
+                print(f"check {label}: {name} FAILED: {e}")
+                ok = False
+                continue
+            ok = check(label, name, got, want) and ok
+            if args.kernel == "fwd_bf16":
+                if m_first is None:
+                    m_first = got[0]
+                    continue
+                same = torch.equal(got[0], m_first)
+                ok = ok and same
+                print(f"check {label}: {name} m' "
+                      f"{'equals' if same else 'DIFFERS from'} "
+                      f"{next(iter(libs))}'s at every row")
     for bh, t, s, d, causal in (C.FLASH_MAIN, C.FLASH_CHAIN):
         ins, cts = make(bh, t, s, d, "causal" if causal else None, 3, True)
         per_set = sum(x.numel() * x.element_size() for x in (*ins[:6], *cts))
         sets = [tuple(None if x is None else x.clone() for x in (*ins, *cts))
                 for _ in range(max(2, int(150e6 / per_set) + 1))]
         sm = d ** -0.5
-        ms = {name: [] for name in libs}
-        for name in (list(libs) + list(libs)[::-1]) * 2:
-            ms[name].append(C.time_ms(lambda *a, lib=libs[name]: call(
-                lib, *a[:7], sm, *a[7:]), sets))
-        bound, bound_by = (C.flash_bf16_bound(bh, t, s, d, ins[6], True)
-                           if bf16 else C.flash_bound(
-                               bh, t, s, d, ins[6], args.kernel == "bwd"))[:2]
+        runs = {}   # the variants that launch at this shape
         for name, lib in libs.items():
+            try:
+                call(lib, *sets[0][:7], sm, *sets[0][7:])
+                runs[name] = lib
+            except RuntimeError as e:
+                print(f"time B*H {bh} T {t} D {d}: {name} does not run: {e}")
+        ms = {name: [] for name in runs}
+        for name in (list(runs) + list(runs)[::-1]) * 2:
+            ms[name].append(C.time_ms(lambda *a, lib=runs[name]: call(
+                lib, *a[:7], sm, *a[7:]), sets))
+        if bf16:
+            bound, bound_by = C.flash_bf16_bound(
+                bh, t, s, d, ins[6], args.kernel == "bwd_bf16")[:2]
+        else:
+            bound, bound_by = C.flash_bound(bh, t, s, d, ins[6],
+                                            args.kernel == "bwd")[:2]
+        for name, lib in runs.items():
             by_kernel = C.kernel_us(lambda *a, lib=lib: call(
                 lib, *a[:7], sm, *a[7:]), sets, prefix)
             med = float(np.median(ms[name]))

@@ -28,7 +28,13 @@ flash part of ``rabit_tpu/ops/pallas_kernels.py`` and of
 
 Both kernels take q/k/v all f32 or all bf16, D <= 128. At bf16 the
 forward runs s and p v on the bf16 tensor cores with f32 sums (p rounded
-to bf16 to nearest even after l' has summed it in f32); the backward keeps
+to bf16 to nearest even after l' has summed it in f32). Its own design
+(``flash_fwd_bf16``): a max pre-pass, then a pass at the final max; a
+warp owns 16 query rows by all 64 keys of a tile and all D columns of o,
+so p goes from the score's C fragments into the A fragments of p v
+without leaving the registers; two groups of 4 warps split a 64-row query
+tile's key tiles and meet once a pass, each streaming its tiles through
+three ``cp.async`` stages of its own. The backward keeps
 q/k/v in bf16, forms s from them, splits its f32 operands co and ds into
 two bf16 halves (hi + lo, within 2^-16) so that every other product is two
 bf16 products with f32 sums, rounds p to bf16 for dv alone and dq/dk/dv to

@@ -8,6 +8,8 @@ exact tie. Inputs are made with numpy from a seed and handed to both.
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
 them against these plain versions there."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -699,53 +701,123 @@ def test_flash_block_autograd_keeps_bf16_gradients_on_cpu():
     assert [g.dtype for g in grads[:3]] == [BF16] * 3
 
 
-def _tile_schedule_fwd_bf16(q, k, v, m, l, o, mask, scale):
+# key tiles whose mask bits the bf16 forward reads at once (flash_common.cuh)
+CHUNK = 64
+
+
+def _tile_schedule_fwd_bf16(q, k, v, m, l, o, mask, scale, groups=2,
+                            chunk=CHUNK):
     """The forward's bf16 path as ``csrc/flash_block.cu`` schedules it, a
-    query tile of 64 rows at a time: pass 0 walks the 64-key tiles for
-    each row's max m' alone (skipping a fully masked tile once every row
-    of the query tile had a max above NEG_INF), pass 1 walks them again
-    with m' final: p = exp(s - m') in f32, l' sums it in f32, p rounds to
-    bf16 and p v sums in f32 into o scaled once by exp(m - m'). Returns
-    (m', l', o')."""
+    query tile of 64 rows at a time with ``groups`` warp groups. Each pass
+    lists the 64-key tiles it visits, a chunk of ``chunk`` tiles at a time
+    (the kernel's CHUNK; a smaller one here crosses chunks at a test's
+    size, as the kernel does past CHUNK x 64 keys), and
+    deals them out, the chunk's v-th visited tile to group v % groups.
+    Pass 0 skips a tile with no unmasked pair where every row has m at or
+    above NEG_INF (its lanes add exactly NEG_INF to a max that starts at
+    m); each group takes the max of m and its tiles' scores, and m' is the
+    max of the groups'. Pass 1 skips such a tile where every row's m' is
+    above NEG_INF (p = 0 on it); each group sums p = exp(s - m') in f32
+    into its l and bf16(p) v in f32 into its o, group 0 from l and o
+    scaled by exp(m - m'); l' and o' are the groups' parts added in group
+    order. Returns (m', l', o') and the count of tiles skipped."""
     h_n, t_n, _ = q.shape
     s_n = k.shape[1]
     key_tiles = [slice(c, min(c + TILE, s_n)) for c in range(0, s_n, TILE)]
     mo, lo, oo = m.clone(), l.clone(), o.clone()
+    skipped = 0
     for h in range(h_n):
         for r in range(0, t_n, TILE):
             rows = slice(r, min(r + TILE, t_n))
-            m_run = m[h, rows].clone()
-
-            def skip(i, rows=rows):
-                return _tile_masked(mask, rows, key_tiles[i]) and bool(
-                    (m_run > NEG_INF).all())
+            m_in = m[h, rows]
 
             def scores(cols, rows=rows):
                 s = (q[h, rows].float() @ k[h, cols].float().T) * scale
                 return s if mask is None else s.masked_fill(
                     mask[rows][:, cols], NEG_INF)
 
-            for cols in _schedule(key_tiles, skip, [0]):
-                m_run = torch.maximum(m_run, scores(cols).amax(dim=1))
-            alpha = torch.exp(m[h, rows] - m_run)
-            l_run, o_run = l[h, rows] * alpha, o[h, rows] * alpha[:, None]
-            for cols in _schedule(key_tiles, skip, [0]):
-                p = torch.exp(scores(cols) - m_run[:, None])
-                l_run = l_run + p.sum(dim=1)
-                o_run = o_run + p.to(BF16).float() @ v[h, cols].float()
-            mo[h, rows], lo[h, rows], oo[h, rows] = m_run, l_run, o_run
-    return mo, lo, oo
+            def dealt(rows_ok, rows=rows):
+                """Each group's tiles of the pass, in the order it takes
+                them."""
+                nonlocal skipped
+                out = [[] for _ in range(groups)]
+                for c0 in range(0, len(key_tiles), chunk):
+                    visit = [cols for cols in key_tiles[c0:c0 + chunk]
+                             if not (rows_ok and _tile_masked(mask, rows,
+                                                              cols))]
+                    skipped += min(chunk, len(key_tiles) - c0) - len(visit)
+                    for g in range(groups):
+                        out[g] += visit[g::groups]
+                return out
+
+            parts = []
+            for mine in dealt(bool((m_in >= NEG_INF).all())):
+                m_g = m_in
+                for cols in mine:
+                    m_g = torch.maximum(m_g, scores(cols).amax(dim=1))
+                parts.append(m_g)
+            m_new = functools.reduce(torch.maximum, parts)
+            alpha = torch.exp(m_in - m_new)
+            l_sum = o_sum = 0
+            for g, mine in enumerate(dealt(bool((m_new > NEG_INF).all()))):
+                l_g = l[h, rows] * alpha if g == 0 else torch.zeros_like(m_in)
+                o_g = (o[h, rows] * alpha[:, None] if g == 0
+                       else torch.zeros_like(o[h, rows]))
+                for cols in mine:
+                    p = torch.exp(scores(cols) - m_new[:, None])
+                    l_g = l_g + p.sum(dim=1)
+                    o_g = o_g + p.to(BF16).float() @ v[h, cols].float()
+                l_sum, o_sum = l_sum + l_g, o_sum + o_g
+            mo[h, rows], lo[h, rows], oo[h, rows] = m_new, l_sum, o_sum
+    return (mo, lo, oo), skipped
 
 
-@pytest.mark.parametrize("kind,d", [("causal", D),
-                                    ("causal, row 0 masked", 16),
-                                    ("tie", D), ("ragged", 16),
-                                    ("ragged", 13), ("ragged", 1)])
-def test_forward_bf16_tile_schedule_matches_plain_and_jax(kind, d):
-    """The bf16 path's algorithm (the max pre-pass, p rounded to bf16
+_PALLAS_FWD_BF16 = {}
+
+
+def _pallas_fwd_bf16(key, q, k, v, m, l, o, mask, scale):
+    """The Pallas ``flash_block`` in interpret mode on bf16 q/k/v, once
+    for each case (it does not depend on the schedule's groups)."""
+    if key not in _PALLAS_FWD_BF16:
+        _PALLAS_FWD_BF16[key] = PK.flash_block(
+            *_bf16_jax(q, k, v), *map(jnp.asarray, (m, l, o)),
+            None if mask is None else jnp.asarray(mask), scale)
+    return _PALLAS_FWD_BF16[key]
+
+
+BF16_SCHEDULE_KINDS = [("causal", D), ("causal, row 0 masked", 16),
+                       ("tie", D), ("ragged", 16), ("ragged", 13),
+                       ("ragged", 1)]
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4])
+@pytest.mark.parametrize("kind,d", BF16_SCHEDULE_KINDS)
+def test_forward_bf16_tile_schedule_matches_plain_and_jax(monkeypatch, kind,
+                                                          d, groups):
+    """The bf16 path's algorithm (the max pre-pass, the key tiles dealt to
+    warp groups and their parts combined once a pass, p rounded to bf16
     against the final max, f32 sums, the skip rule, odd D) before it
-    reaches the card: the plain bf16 step's and JAX's (m', l', o') within
-    the tolerances above."""
+    reaches the card: the plain bf16 step's, JAX's and the Pallas
+    kernel's (interpret mode) (m', l', o') within the tolerances above."""
+    _check_fwd_bf16_schedule(monkeypatch, kind, d, groups, CHUNK)
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 3])
+@pytest.mark.parametrize("kind,d", BF16_SCHEDULE_KINDS)
+def test_forward_bf16_tile_schedule_across_mask_chunks(monkeypatch, kind, d,
+                                                       chunk):
+    """As above with two groups, and the key tiles listed and dealt a
+    chunk of 1, 2 or 3 tiles at a time, so that a pass crosses chunks (the
+    kernel's branch for more than CHUNK key tiles): each chunk's tiles
+    are dealt from group 0 again, and the skip rule and the sums hold."""
+    _check_fwd_bf16_schedule(monkeypatch, kind, d, 2, chunk)
+
+
+def _check_fwd_bf16_schedule(monkeypatch, kind, d, groups, chunk):
+    """``_tile_schedule_fwd_bf16`` with ``groups`` and ``chunk`` against the
+    plain bf16 step, JAX and the Pallas kernel in interpret mode, and its
+    count of skipped tiles."""
+    monkeypatch.setenv("RABIT_PALLAS_INTERPRET", "1")
     q, k, v, m, l, o, mask, *_ = _masked_inputs(25, kind)
     q, k, v, o = (x[..., :d] for x in (q, k, v, o))
     q, k = (np.clip(np.round(x * 16) / 16, -4, 4).astype(np.float32)
@@ -753,16 +825,71 @@ def test_forward_bf16_tile_schedule_matches_plain_and_jax(kind, d):
     tq, tk, tv = _bf16_torch(q, k, v)
     tm, tl, to, tmask = _torch(m, l, o, mask)
     scale = _scale(d)
-    got = _tile_schedule_fwd_bf16(tq, tk, tv, tm, tl, to, tmask, scale)
+    got, skipped = _tile_schedule_fwd_bf16(tq, tk, tv, tm, tl, to, tmask,
+                                           scale, groups, chunk)
     jmask = None if mask is None else jnp.asarray(mask)
     refs = {"plain": F.block_update_reference(tq, tk, tv, tm, tl, to, tmask,
                                               scale),
             "jax": _block_update(*_bf16_jax(q, k, v),
-                                 *map(jnp.asarray, (m, l, o)), jmask, scale)}
+                                 *map(jnp.asarray, (m, l, o)), jmask, scale),
+            "pallas": _pallas_fwd_bf16((kind, d), q, k, v, m, l, o, mask,
+                                       scale)}
     for ref, want in refs.items():
         for name, g, w, rel in zip(("m'", "l'", "o'"), got, want,
                                    (BF16_ML_REL, BF16_ML_REL, BF16_O_REL)):
             _assert_rel(g.numpy(), w, rel, f"{name} vs {ref}")
+    # tiles skipped a head in both passes. Causal (a running state), 3 x 3
+    # tiles: the 3 above the diagonal in each pass. Row 0 masked (the first
+    # step, m = NEG_INF), 3 x 4 tiles, 6 above the diagonal: pass 0 skips
+    # them all, pass 1 none of row tile 0's, where row 0 keeps m' = NEG_INF.
+    assert skipped == {"causal": 2 * (3 + 3), "causal, row 0 masked":
+                       2 * (6 + 3), "tie": 0, "ragged": 0}[kind]
+
+
+def _c_frag(lane, n, e):
+    """(row, column) of element e of the 16 x 8 C tile n that a lane of
+    mma.m16n8k16 holds."""
+    g, t = divmod(lane, 4)
+    return g + 8 * (e // 2), 8 * n + 2 * t + e % 2
+
+
+def _a_frag(lane, r, half):
+    """(row, k) of the low (0) or high (1) bf16 half of register r of the
+    16 x 16 A fragment that a lane of mma.m16n8k16 holds."""
+    g, t = divmod(lane, 4)
+    return g + 8 * (r % 2), 2 * t + 8 * (r // 2) + half
+
+
+@pytest.mark.parametrize("d", [13, 1])
+def test_forward_bf16_p_stays_in_registers(d):
+    """The bf16 forward's p from its C fragments straight into A
+    fragments: for the 16-key k-step kk, A register 2 j + h of a lane packs
+    elements 2 h (low half) and 2 h + 1 of C tile 2 kk + j, rounded to
+    bf16. That puts each p of the warp's 16 rows x 64 keys where the A
+    layout wants it, so the product over the four k-steps (bf16 mma, f32
+    sums) is p.to(bf16) @ v in f32, here at odd D (V padded to 16
+    columns with zeros)."""
+    rng = np.random.default_rng(d)
+    p = torch.from_numpy(rng.random((16, TILE)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((TILE, d)).astype(
+        np.float32)).to(BF16).float()
+    a = torch.full((16, TILE), float("nan"))
+    for kk in range(TILE // 16):
+        for lane in range(32):
+            for j in range(2):
+                for h in range(2):
+                    for half in range(2):
+                        row, col = _c_frag(lane, 2 * kk + j, 2 * h + half)
+                        a_row, a_k = _a_frag(lane, 2 * j + h, half)
+                        a[a_row, 16 * kk + a_k] = p[row, col].to(BF16).float()
+    assert torch.equal(a, p.to(BF16).float())
+    v16 = torch.zeros(TILE, 16)
+    v16[:, :d] = v
+    pv = _mma16(torch.zeros(16, 16), [(a, v16)])
+    np.testing.assert_array_equal(pv[:, d:].numpy(), 0)
+    np.testing.assert_allclose(pv[:, :d].numpy(),
+                               (p.to(BF16).float() @ v).numpy(), rtol=1e-6,
+                               atol=1e-6)
 
 
 def _split_bf16(x):
