@@ -13,9 +13,11 @@ chaos front proxy, through which a world computes across the loss of
 its leader with no respawn, the causal incident plane with the
 post-mortem tools, which attribute that loss and a link reset to their
 injected causes, the multi-job control plane, on which two jobs
-share one tracker and keep their fault domains apart, and the tracker's
+share one tracker and keep their fault domains apart, the tracker's
 connection plane, one event loop on which a world computes beside
-thousands of held connections.
+thousands of held connections, and the fault-injection tooling with the
+self-healing data plane, whose framed links heal corrupted and torn
+frames in place while the kernel's histograms cross them.
 
     python3 chip_smoke.py
 
@@ -516,18 +518,50 @@ Phases (each prints a line; any failure exits non-zero):
                 989 TFLOP/s of dense bf16); each kernel's device us a
                 launch by torch.profiler (the backward's row and column
                 kernels apart) and the forward's blocks an SM.
-24. walls       the host wall seconds of each phase (the time before each
+24. selfheal    the fault-injection tooling (``chaos/__main__.py``,
+                ``tools/soak.py``, ``tools/capture_status.py``) and the
+                native core's self-healing data plane (no new kernel):
+                (a) ``python -m rabit_tpu_torch.chaos --smoke`` and
+                ``python -m rabit_tpu_torch.tools.soak --smoke --duration
+                20 --qps 0.8 --quiet --no-history --strict-attribution``
+                (four SLOs evaluated, exit 0), each in a fresh
+                interpreter that must end with neither ``jax`` nor
+                ``rabit_tpu`` in ``sys.modules``; (b) the JAX package's
+                self-healing cluster test under the port's launcher:
+                ``tests/workers/torch_selfheal_worker.py`` as 4
+                native-engine processes (whatever the cards; task i's
+                histogram on card i mod cards) with ``rabit_frame_crc=1``,
+                ``RABIT_TELEMETRY=1``, a metrics endpoint a rank and a
+                tracker metrics port: 6 int64 sums of 512 KiB, 2
+                broadcasts of 256 KiB, then 2 histograms of 2^21 x 1024 a
+                rank by the kernel (seed 17) allreduced through the framed
+                core; once fault-free, once under the test's seed-23
+                schedule on the link proxies (bitflip after 65536 bytes
+                at most twice, reset after 131072 once): no exit, no
+                respawn, no eviction, the fault-free run's epoch, at least
+                one fault fired and one ``recovery.frame_reject`` or
+                ``recovery.link_resurrect`` in ``stats["fleet"]``, every
+                rank's sum, bcast and hist streams bit for bit the
+                fault-free run's and the formulas' (the JAX worker's for
+                sum and bcast, numpy's exact histogram for hist), the
+                kernel launched once a histogram round on every process;
+                while the faulted run's ranks wait before ``finalize``,
+                ``capture_status.live_status`` scrapes rank 0's endpoint
+                (ok, ``collectives_total`` above 0) and the tracker's (ok).
+                Prints each run's seconds, the faults, the rejects and the
+                resurrections, and the launches by task.
+25. walls       the host wall seconds of each phase (the time before each
                 phase line goes to that line's phase), and their sum.
-25. kernels     one JSON line of every kernel with its main-path launches
+26. kernels     one JSON line of every kernel with its main-path launches
                 (and, for the flash kernels, phase 12's and phase 13's; for
                 the histogram, phase 17 (b)'s, null where (b) did not run,
                 phase 18's killed runs', (b)'s null where it did not run,
                 phase 19's runs, (b)'s null where it did not run,
-                phase 20's (b) and (c), phase 21's (b), (c) and (d), and
-                phase 22 (c)'s two runs); the bf16 paths of the flash
-                kernels are entries of their own, ``flash_block_bf16`` and
-                ``flash_block_bwd_bf16``, with phase 23 (c)'s launches (and
-                the forward's of (b)).
+                phase 20's (b) and (c), phase 21's (b), (c) and (d),
+                phase 22 (c)'s two runs and phase 24 (b)'s two runs); the
+                bf16 paths of the flash kernels are entries of their own,
+                ``flash_block_bf16`` and ``flash_block_bwd_bf16``, with
+                phase 23 (c)'s launches (and the forward's of (b)).
 
 Launch counters are set to 0 just before each path (phases 3-4, phase 5,
 phase 6, each run of phase 12, each ring call of phase 13, in its rank's
@@ -537,8 +571,8 @@ just after it, so a kernel's count is its own path's alone: mask_only's
 is the sweep's. Phase 11's
 histogram launches are counted in its workers, each a fresh process (so
 from 0), and printed there; phases 17's, 18's and 19's in their
-workers, a launch a round a member, and phases 20's, 21's and 22's
-likewise.
+workers, a launch a round a member, and phases 20's, 21's, 22's and
+24's likewise.
 The last line is the device JSON.
 Without CUDA, or without the package beside this file, the script exits
 non-zero and prints no result.
@@ -5075,11 +5109,12 @@ INCIDENT_SMOKES = (("rabit_tpu_torch.telemetry.incident", "incident smoke ok"),
                     "bench sentinel smoke ok"))
 
 
-def _smoke_without_jax(module: str, marker: str) -> None:
-    """``python -m <module> --smoke`` in a fresh interpreter, which must
-    end with neither ``jax`` nor ``rabit_tpu`` in ``sys.modules``."""
+def _smoke_without_jax(module: str, marker: str, extra: tuple = ()) -> None:
+    """``python -m <module> --smoke [extra...]`` in a fresh interpreter,
+    which must end with neither ``jax`` nor ``rabit_tpu`` in
+    ``sys.modules``."""
     code = ("import runpy, sys\n"
-            "sys.argv = ['smoke', '--smoke']\n"
+            f"sys.argv = ['smoke', '--smoke', *{list(extra)!r}]\n"
             "try:\n"
             f"    runpy.run_module({module!r}, run_name='__main__')\n"
             "except SystemExit as e:\n"
@@ -6129,6 +6164,215 @@ def phase_conn_plane(power: str) -> dict:
             "launches": {"unloaded": ub, "held": launches}}
 
 
+# phase 24: the fault-injection tooling and the self-healing data plane.
+# (a) the chaos and soak smokes without JAX; (b) the JAX package's
+# self-healing cluster test (tests/test_selfheal_cluster.py) under the
+# port's launcher, with bench.py's histogram by the kernel each round
+SELFHEAL_WORKER = Path(__file__).resolve().parent / "tests" / "workers" / \
+    "torch_selfheal_worker.py"
+SELFHEAL_P = 4                     # the JAX test's N, whatever the cards
+SELFHEAL_HIST_ROUNDS = 2
+SELFHEAL_ROUNDS = {"sum": 6, "bcast": 2}   # the JAX worker's N_SUM, N_BCAST
+SELFHEAL_CHAOS = {"seed": 23, "rules": [   # test_selfheal_cluster.py:146-163
+    {"kind": "bitflip", "after_bytes": 65536, "max_times": 2,
+     "target": "link"},
+    {"kind": "reset", "after_bytes": 131072, "max_times": 1,
+     "target": "link"}]}
+SELFHEAL_HEALS = ("recovery.frame_reject", "recovery.link_resurrect")
+SELFHEAL_SMOKES = (("rabit_tpu_torch.chaos", "chaos smoke ok", ()),
+                   ("rabit_tpu_torch.tools.soak", "soak smoke ok",
+                    ("--duration", "20", "--qps", "0.8", "--quiet",
+                     "--no-history", "--strict-attribution")))
+SELFHEAL_TIMEOUT_S = 300
+SELFHEAL_DEVICE = "cuda"           # the workers' rabit_device
+
+
+def _selfheal_formulas() -> dict:
+    """The sum and bcast streams by the JAX worker's formulas, and the
+    hist stream by numpy's exact histogram: (round, world, crc) a round."""
+    import zlib
+    p = SELFHEAL_P
+    want = {"sum": [], "bcast": []}
+    for rnd in range(SELFHEAL_ROUNDS["sum"]):
+        v = np.arange(65536, dtype=np.int64) * (p * (p + 1) // 2) + rnd * p
+        want["sum"].append((rnd, p, f"{zlib.crc32(v.tobytes()):08x}"))
+    for rnd in range(SELFHEAL_ROUNDS["bcast"]):
+        blob = (np.arange(32768, dtype=np.int64) + rnd).tobytes()
+        want["bcast"].append((rnd, p, f"{zlib.crc32(blob):08x}"))
+    rows, nbins = RESIZE_HIST
+    hist = np.zeros((nbins, 2))
+    for r in range(p):
+        rng = np.random.default_rng([RESIZE_SEED, r])
+        bins = rng.integers(0, nbins, rows, dtype=np.int32)
+        grad = rng.integers(-8, 9, rows).astype(np.float64)
+        hess = rng.integers(-8, 9, rows).astype(np.float64)
+        hist += np.stack([np.bincount(bins, grad, nbins),
+                          np.bincount(bins, hess, nbins)], 1)
+    crc = f"{zlib.crc32(hist.astype(np.float32).tobytes()):08x}"
+    want["hist"] = [(rnd, p, crc) for rnd in range(SELFHEAL_HIST_ROUNDS)]
+    return want
+
+
+def _selfheal_streams(out: Path, t: int) -> tuple:
+    """Task ``t``'s log lines and its sum, bcast and hist streams."""
+    lines = (out / f"r{t}.log").read_text().splitlines()
+    streams = {k: [] for k in ("sum", "bcast", "hist")}
+    for ln in lines:
+        m = re.match(r"(sum|bcast|hist) round=(\d+) world=(\d+) "
+                     r"crc=([0-9a-f]{8})$", ln)
+        if m:
+            streams[m.group(1)].append((int(m.group(2)), int(m.group(3)),
+                                        m.group(4)))
+    return lines, streams
+
+
+def _selfheal_run(tmp: Path, tag: str, chaos) -> dict:
+    """The self-healing worker as ``SELFHEAL_P`` native-engine processes
+    with ``rabit_frame_crc=1`` under the port's launcher (a tracker
+    metrics port, each rank's endpoint); ``chaos`` on the link proxies.
+    Once every rank has logged ``done`` the tick scrapes rank 0's endpoint
+    and the tracker's with the port's ``capture_status.live_status``, then
+    lets the ranks finalize."""
+    from rabit_tpu_torch.tools.capture_status import live_status
+    from rabit_tpu_torch.tracker.launch import launch
+    out = tmp / tag
+    out.mkdir()
+    release = out / "release"
+    rows, nbins = RESIZE_HIST
+    env = {"SELFHEAL_OUT": str(out), "SELFHEAL_AWAIT": str(release),
+           "RABIT_TELEMETRY": "1",
+           "HIST_ROUNDS": str(SELFHEAL_HIST_ROUNDS), "HIST_ROWS": str(rows),
+           "HIST_BINS": str(nbins),
+           "PYTHONPATH": _stall_env()["PYTHONPATH"]}
+    scraped = {}
+
+    def done(t):
+        log = out / f"r{t}.log"
+        return log.exists() and log.read_text().endswith("done\n")
+
+    def tick(sup):
+        if release.exists() or not all(done(t) for t in range(SELFHEAL_P)):
+            return
+        live = sup.tracker.live_stats()
+        rank0 = [e for e in live["endpoints"].values() if e["rank"] == 0]
+        if not rank0:
+            return
+        scraped["rank0"] = live_status(f"{rank0[0]['host']}:"
+                                       f"{rank0[0]['port']}")
+        host, port = live["metrics_addr"]
+        scraped["tracker"] = live_status(f"{host}:{port}")
+        release.write_text("1")
+
+    stats = {}
+    t0 = time.perf_counter()
+    rc = launch(SELFHEAL_P, [sys.executable, str(SELFHEAL_WORKER),
+                             "rabit_frame_crc=1", "rabit_metrics_port=0",
+                             f"rabit_device={SELFHEAL_DEVICE}"],
+                max_attempts=0, timeout=SELFHEAL_TIMEOUT_S, quiet=True,
+                stats=stats, env=env, chaos=chaos, metrics_port=0,
+                tick=tick)
+    secs = round(time.perf_counter() - t0, 2)
+    if rc != 0 or stats["total_attempts"] != 0 or \
+            stats["membership"]["evicted"]:
+        raise AssertionError(f"selfheal {tag}: rc {rc}, attempts "
+                             f"{stats['total_attempts']}, membership "
+                             f"{stats['membership']}")
+    for what in ("rank0", "tracker"):
+        doc, ok = scraped.get(what, ({}, False))
+        if not ok:
+            raise AssertionError(f"selfheal {tag}: live_status of {what}: "
+                                 f"{doc}")
+    if scraped["rank0"][0]["collectives_total"] < 1:
+        raise AssertionError(f"selfheal {tag}: rank 0's endpoint "
+                             f"{scraped['rank0'][0]}")
+    heals = {n: 0 for n in SELFHEAL_HEALS}
+    for c in (stats.get("fleet") or {}).get("counters", []):
+        if c["name"] in heals and c.get("provenance") == "recovery":
+            heals[c["name"]] += int(c.get("count", 0))
+    docs, streams = {}, {}
+    for t in range(SELFHEAL_P):
+        lines, streams[t] = _selfheal_streams(out, t)
+        if lines[-1] != "done":
+            raise AssertionError(f"selfheal {tag}: task {t}'s log {lines}")
+        docs[t] = json.loads((out / f"r{t}.json").read_text())
+    return {"s": secs, "stats": stats, "scraped": scraped, "heals": heals,
+            "docs": docs, "streams": streams}
+
+
+def phase_selfheal(power: str) -> dict:
+    """The fault-injection tooling and the self-healing data plane (see the
+    module's phase 24)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SELFHEAL_SMOKES)) as pool:
+        for f in [pool.submit(_smoke_without_jax, *m)
+                  for m in SELFHEAL_SMOKES]:
+            f.result()
+    smoke_s = round(time.perf_counter() - t0, 2)
+    phase("selfheal", f"(a) chaos --smoke and soak --smoke --duration 20 "
+          f"--qps 0.8 --strict-attribution ok (four SLOs evaluated, none "
+          f"violating, no unattributed incident), each in a fresh "
+          f"interpreter without jax or rabit_tpu ({smoke_s} s, both at "
+          f"once)")
+    cards = torch.cuda.device_count()
+    want = _selfheal_formulas()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        base = _selfheal_run(tmp, "fault_free", None)
+        fault = _selfheal_run(tmp, "faulted", SELFHEAL_CHAOS)
+    epochs = [r["stats"]["membership"]["epoch"] for r in (base, fault)]
+    if epochs[0] != epochs[1]:
+        raise AssertionError(f"selfheal: epochs {epochs}")
+    fired = fault["stats"]["chaos"]["events"]
+    if fired < 1 or not any(fault["heals"].values()):
+        raise AssertionError(f"selfheal: chaos {fault['stats']['chaos']}, "
+                             f"heals {fault['heals']}")
+    launches = {}
+    for t in range(SELFHEAL_P):
+        for tag, w in want.items():
+            got, ref = fault["streams"][t][tag], base["streams"][t][tag]
+            if not got == ref == w:
+                raise AssertionError(f"selfheal: task {t}'s {tag} stream "
+                                     f"{got}, fault-free {ref}, formulas "
+                                     f"{w}")
+        card = f"cuda:{t % cards}" if SELFHEAL_DEVICE == "cuda" else "cpu"
+        for r in (base, fault):
+            d = r["docs"][t]
+            if d["device"] != card or d["launches"] != \
+                    [int(SELFHEAL_DEVICE == "cuda")] * SELFHEAL_HIST_ROUNDS:
+                raise AssertionError(f"selfheal: task {t}: {d}")
+        launches[t] = sum(fault["docs"][t]["launches"])
+    rank0 = fault["scraped"]["rank0"][0]
+    trk = fault["scraped"]["tracker"][0]
+    phase("selfheal", f"(b) {SELFHEAL_P} native-engine processes on {cards} "
+          f"card(s), rabit_frame_crc=1, {SELFHEAL_ROUNDS['sum']} sums of "
+          f"512 KiB, {SELFHEAL_ROUNDS['bcast']} broadcasts of 256 KiB and "
+          f"{SELFHEAL_HIST_ROUNDS} histograms of {RESIZE_HIST[0]} x "
+          f"{RESIZE_HIST[1]} a rank by the kernel: fault-free in "
+          f"{base['s']} s, under seed 23's bitflip + reset schedule in "
+          f"{fault['s']} s; {fired} fault(s) fired, frame rejects "
+          f"{fault['heals']['recovery.frame_reject']}, resurrections "
+          f"{fault['heals']['recovery.link_resurrect']} (fault-free: "
+          f"{base['heals']}); 0 exits, 0 evictions, epoch {epochs[1]} in "
+          f"both; every rank's sum, bcast and hist streams bit for bit the "
+          f"fault-free run's and the formulas'; the kernel's launches by "
+          f"task {launches} [{power}]")
+    phase("selfheal", f"(b) capture_status.live_status during the faulted "
+          f"run: rank 0 ok, collectives_total "
+          f"{rank0['collectives_total']}, {rank0['samples']} samples; the "
+          f"tracker ok, open_conns {trk.get('open_conns')}, loop lag "
+          f"{trk.get('loop_lag_ms')} ms, straggler "
+          f"{trk.get('straggler', {}).get('verdict')}")
+    return {"a_s": smoke_s, "s": {"fault_free": base["s"],
+                                  "faulted": fault["s"]},
+            "faults": fired, "heals": fault["heals"],
+            "rank0_collectives": rank0["collectives_total"],
+            "launches": {"fault_free": sum(sum(d["launches"]) for d in
+                                           base["docs"].values()),
+                         "faulted": sum(launches.values())}}
+
+
 def card_power() -> str:
     """The first card's name and power limit, as ``nvidia-smi`` gives
     them."""
@@ -6202,6 +6446,7 @@ def main() -> int:
     incidents = phase_incidents(power, bases)
     jobs = phase_jobs(power)
     conn = phase_conn_plane(power)
+    selfheal = phase_selfheal(power)
     phase("walls", "host wall seconds by phase, in all "
           f"{sum(PHASE_WALLS.values()):.1f}: " + ", ".join(
               f"{n} {w:.1f}" for n, w in PHASE_WALLS.items()))
@@ -6236,6 +6481,9 @@ def main() -> int:
     # phase 22 (c)'s runs: the unloaded one and the one beside the held
     # clients, a launch a round a process
     kernels[0]["conn_plane_launches"] = conn["launches"]
+    # phase 24 (b)'s runs: the fault-free one and the faulted one, a
+    # launch a histogram round a process
+    kernels[0]["selfheal_launches"] = selfheal["launches"]
     kernels[3]["slope_ms"] = timing["mask_only"][0]["slope_ms"]
     kernels[2]["library_bwd_ms"] = timing["flash_block_bwd"][0][
         "library_bwd_ms"]
@@ -6260,6 +6508,7 @@ def main() -> int:
         "incidents": _failover_doc(incidents),
         "jobs": {k: jobs[k] for k in ("a_s", "launches")},
         "conn_plane": conn,
+        "selfheal": selfheal,
         "flagship_bf16": {**{k: bf16[k] for k in (
             "forward_ms", "forward_f32_ms", "logit_rel")},
             "train": {k: v for k, v in bf16["train"].items()

@@ -17,8 +17,10 @@ through the launcher's supervisor, and ``retarget`` repoints it at a
 promoted hot standby (``tracker/standby.py``).
 
 A ``job_storm`` rule fires its rogue ``submit`` connections at the
-multi-job tracker's front (``proxy.run_job_storm``). Not ported:
-``python -m rabit_tpu.chaos``'s command line. Stdlib-only.
+multi-job tracker's front (``proxy.run_job_storm``). ``python -m
+rabit_tpu_torch.chaos --smoke`` runs one round of each of the reset,
+tracker_kill, tracker_partition, bitflip and job_storm rules
+(``__main__.py``). Stdlib-only.
 """
 
 from .schedule import Rule, Schedule  # noqa: F401  (re-export)

@@ -272,7 +272,9 @@ def test_import_leaves_out_jax_and_rabit_tpu():
         "'rabit_tpu_torch.tools.trace_report', "
         "'rabit_tpu_torch.tools.bench_sentinel', "
         "'rabit_tpu_torch.tracker.jobs', "
-        "'rabit_tpu_torch.tracker.autoscaler'}\n"
+        "'rabit_tpu_torch.tracker.autoscaler', "
+        "'rabit_tpu_torch.chaos.__main__', 'rabit_tpu_torch.tools.soak', "
+        "'rabit_tpu_torch.tools.capture_status'}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -322,8 +324,9 @@ def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
     (``telemetry/incident.py``, ``tools/trace_report.py``,
     ``tools/bench_sentinel.py``) and of the multi-job control plane
     (``tracker/jobs.py``, ``tracker/autoscaler.py``) and of the
-    connection plane (``tracker/evloop.py``, ``tools/tracker_bench.py``),
-    by name (the package scan above covers the package too), and the
+    connection plane (``tracker/evloop.py``, ``tools/tracker_bench.py``)
+    and of the fault-injection tooling (``chaos/__main__.py``,
+    ``tools/soak.py``, ``tools/capture_status.py``), by name (the package scan above covers the package too), and the
     port's own test workers."""
     new = [PKG / "utils" / "log.py", PKG / "utils" / "retry.py",
            PKG / "engine" / "ckpt_store.py", PKG / "engine" / "_native_build.py",
@@ -353,5 +356,8 @@ def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
     new += [PKG / "tracker" / "jobs.py", PKG / "tracker" / "autoscaler.py",
             ROOT / "tests" / "workers" / "torch_multijob_worker.py"]
     new += [PKG / "tracker" / "evloop.py", PKG / "tools" / "tracker_bench.py"]
+    new += [PKG / "chaos" / "__main__.py", PKG / "tools" / "soak.py",
+            PKG / "tools" / "capture_status.py",
+            ROOT / "tests" / "workers" / "torch_selfheal_worker.py"]
     assert all(p.is_file() for p in new)
     assert _jax_imports(new) == []
