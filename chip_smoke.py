@@ -15,9 +15,10 @@ post-mortem tools, which attribute that loss and a link reset to their
 injected causes, the multi-job control plane, on which two jobs
 share one tracker and keep their fault domains apart, the tracker's
 connection plane, one event loop on which a world computes beside
-thousands of held connections, and the fault-injection tooling with the
+thousands of held connections, the fault-injection tooling with the
 self-healing data plane, whose framed links heal corrupted and torn
-frames in place while the kernel's histograms cross them.
+frames in place while the kernel's histograms cross them, and the MPI
+engine with the card phases of the wire and boosting benches.
 
     python3 chip_smoke.py
 
@@ -550,15 +551,37 @@ Phases (each prints a line; any failure exits non-zero):
                 (ok, ``collectives_total`` above 0) and the tracker's (ok).
                 Prints each run's seconds, the faults, the rejects and the
                 resurrections, and the launches by task.
-25. walls       the host wall seconds of each phase (the time before each
+25. mpi         the MPI engine (``rabit_engine=mpi``: the native core's
+                MPI build, ``engine/_native_build.py``), its launchers
+                (``tools/mpi_launch.py``) and the device phases of the last
+                JAX tools (no new kernel): (a) the MPI runtime, mpirun and
+                orted found and the MPI core built, or, where the machine
+                has no MPI runtime, a line saying so with every path
+                searched, and then (b) and (c) do not run; (b)
+                ``tools.boosted_trees`` at phase 11's headline shape (2^21
+                x 1024 a rank, 6 rounds) with ``rabit_engine=mpi`` as 2
+                ranks under ``mpirun`` (rank r on card r mod cards, the
+                histogram kernel launched once a round in each), its
+                digest bit for bit that of the same run with
+                ``rabit_engine=base`` under the port's launcher; (c)
+                ``tools.socket_vs_mpi``'s quick grid (world 2, 100,000
+                floats) through both engines; (d) ``tools.wire_bench``'s
+                card phase: the codec's ns an element a step at 2^22 floats
+                beside the f32 pass, by slope on CUDA events; (e)
+                ``tools.boosted_bench``: phase A (8 host workers at its
+                default size) and phase B (the kernel's build of 2^21 x
+                1024 a round by slope, the round with phase A's
+                allreduce, its launches).
+26. walls       the host wall seconds of each phase (the time before each
                 phase line goes to that line's phase), and their sum.
-26. kernels     one JSON line of every kernel with its main-path launches
+27. kernels     one JSON line of every kernel with its main-path launches
                 (and, for the flash kernels, phase 12's and phase 13's; for
                 the histogram, phase 17 (b)'s, null where (b) did not run,
                 phase 18's killed runs', (b)'s null where it did not run,
                 phase 19's runs, (b)'s null where it did not run,
                 phase 20's (b) and (c), phase 21's (b), (c) and (d),
-                phase 22 (c)'s two runs and phase 24 (b)'s two runs); the
+                phase 22 (c)'s two runs, phase 24 (b)'s two runs and
+                phase 25's (b) (null without MPI) and (e)); the
                 bf16 paths of the flash kernels are entries of their own,
                 ``flash_block_bf16`` and ``flash_block_bwd_bf16``, with
                 phase 23 (c)'s launches (and the forward's of (b)).
@@ -571,8 +594,8 @@ just after it, so a kernel's count is its own path's alone: mask_only's
 is the sweep's. Phase 11's
 histogram launches are counted in its workers, each a fresh process (so
 from 0), and printed there; phases 17's, 18's and 19's in their
-workers, a launch a round a member, and phases 20's, 21's, 22's and
-24's likewise.
+workers, a launch a round a member, and phases 20's, 21's, 22's, 24's
+and 25 (b)'s likewise; 25 (e)'s is counted from 0 in phase B.
 The last line is the device JSON.
 Without CUDA, or without the package beside this file, the script exits
 non-zero and prints no result.
@@ -6373,6 +6396,139 @@ def phase_selfheal(power: str) -> dict:
                          "faulted": sum(launches.values())}}
 
 
+# phase 25: the MPI engine and the device phases of the last JAX tools
+# (no new kernel). (b) runs phase 11's headline shape at world 2.
+MPI_WORLD = 2
+MPI_TIMEOUT_S = 300
+MPI_DEVICE = "cuda"                # (b)'s rabit_device; "cpu": a dry run
+
+
+def _mpi_boost(mpi, out: Path) -> dict:
+    """``tools.boosted_trees`` with ``rabit_engine=mpi`` as ``MPI_WORLD``
+    ranks under ``mpirun``: each rank's result document."""
+    import os
+    from rabit_tpu_torch.tools.mpi_launch import mpirun_cmd
+    env, mpirun = mpi
+    root = Path(__file__).resolve().parent
+    env = dict(env, N_ROUNDS=str(BOOST_ROUNDS), RABIT_RESULT_DIR=str(out),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (str(root), env.get("PYTHONPATH")) if p))
+    res = subprocess.run(
+        mpirun_cmd(mpirun, MPI_WORLD, [
+            sys.executable, "-m", "rabit_tpu_torch.tools.boosted_trees",
+            *BOOST_SHAPE, "rabit_engine=mpi", f"rabit_device={MPI_DEVICE}"]),
+        capture_output=True, text=True, timeout=MPI_TIMEOUT_S, env=env,
+        cwd=root)
+    if res.returncode != 0:
+        raise AssertionError(f"mpi: boosted_trees under mpirun failed (rc "
+                             f"{res.returncode}):\n{res.stdout[-2000:]}\n"
+                             f"{res.stderr[-4000:]}")
+    docs = {}
+    for path in out.glob("rank*.json"):
+        doc = json.loads(path.read_text())
+        docs[doc["rank"]] = doc
+    if sorted(docs) != list(range(MPI_WORLD)):
+        raise AssertionError(f"mpi: documents of ranks {sorted(docs)}")
+    return docs
+
+
+def _mpi_engine_runs(power: str) -> dict | None:
+    """(a)-(c) of the phase; None where the machine has no MPI runtime."""
+    import tempfile
+    from rabit_tpu_torch.engine import _native_build
+    from rabit_tpu_torch.tools import mpi_launch, socket_vs_mpi
+    t0 = time.perf_counter()
+    ok, why = mpi_launch.have_mpi()
+    if not ok:
+        phase("mpi", f"(a) this machine has no MPI runtime, so (b) and (c) "
+              f"do not run: {why}")
+        return None
+    built = _native_build.build("mpi")
+    phase("mpi", f"(a) {why}; the MPI core "
+          f"{_native_build.library_path('mpi').name} (g++ {built:.2f} s) "
+          f"and the launchers ready in {time.perf_counter() - t0:.2f} s")
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        mpi = _mpi_boost(mpi_launch.scaffold_mpi(str(tmp)), tmp / "out")
+        mpi_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    base, _ = _launch_boost(MPI_WORLD, ["rabit_engine=base",
+                                        f"rabit_device={MPI_DEVICE}"], {})
+    base_s = time.perf_counter() - t0
+    _same_model(mpi, base[0], "mpi against base")
+    want_launches = BOOST_ROUNDS if MPI_DEVICE == "cuda" else 0
+    for r, d in mpi.items():
+        card = f"cuda:{r % cards}" if MPI_DEVICE == "cuda" else "cpu"
+        if d["device"] != card or d["launches"] != want_launches:
+            raise AssertionError(f"mpi: rank {r} built on {d['device']} "
+                                 f"with {d['launches']} launches, want "
+                                 f"{card} and {want_launches}")
+    ms = [float(np.median(d["allreduce_ms"])) for d in (mpi[0], base[0])]
+    phase("mpi", f"(b) boosted_trees at world {MPI_WORLD} ({BOOST_ROUNDS} "
+          f"rounds, 2^21 x 1024 a rank) with rabit_engine=mpi under mpirun "
+          f"in {mpi_s:.2f} s: ranks on "
+          f"{[mpi[r]['device'] for r in sorted(mpi)]}, the kernel launched "
+          f"{[mpi[r]['launches'] for r in sorted(mpi)]} times; digest "
+          f"{mpi[0]['digest']} bit for bit the socket run's "
+          f"(rabit_engine=base under the port's launcher, {base_s:.2f} s); "
+          f"the histogram's allreduce {ms[0]:.4f} ms (mpi) and {ms[1]:.4f} "
+          f"ms (base) a round, host-paced medians [{power}]")
+    rows = socket_vs_mpi.run(socket_vs_mpi.QUICK_GRID,
+                             emit=lambda line: phase("mpi", f"(c) {line}"))
+    return {"b": {"mpi_s": mpi_s, "base_s": base_s, "allreduce_ms": ms,
+                  "digest": mpi[0]["digest"]},
+            "c": rows,
+            "launches": {"b_mpi": sum(d["launches"] for d in mpi.values()),
+                         "b_base": sum(d["launches"]
+                                       for d in base.values())}}
+
+
+def phase_mpi(dev, power: str) -> dict:
+    """The MPI engine and the device phases of the last JAX tools (see the
+    module's phase 25)."""
+    from rabit_tpu_torch.ops import histogram as K
+    from rabit_tpu_torch.tools import boosted_bench, wire_bench
+    out = _mpi_engine_runs(power) or {"b": None, "c": None, "launches": {
+        "b_mpi": None, "b_base": None}}
+    dry = MPI_DEVICE == "cpu"
+    t0 = time.perf_counter()
+    codec = wire_bench.run_card(dev, smoke=dry)
+    for r in codec:
+        if r["device"] != ("cpu" if dry else torch.cuda.get_device_name(dev)) \
+                or not r["ns_per_elem"] > 0:
+            raise AssertionError(f"mpi: wire_bench's card phase {r}")
+    over = {r["wire"]: r["overhead_ns_per_elem"] for r in codec[1:]}
+    phase("mpi", f"(d) wire_bench's card phase at n = {codec[0]['n']} "
+          f"({time.perf_counter() - t0:.2f} s): ns an element a step "
+          f"{ {r['wire']: round(r['ns_per_elem'], 4) for r in codec} }, "
+          f"over the f32 pass { {k: round(v, 4) for k, v in over.items()} } "
+          f"(device slopes; host-paced "
+          f"{ {r['wire']: round(r['host_s_per_iter'] / r['n'] * 1e9, 4) for r in codec} }) "
+          f"[{power}]")
+    t0 = time.perf_counter()
+    host = boosted_bench.phase_a(False)
+    a_s = time.perf_counter() - t0
+    card = boosted_bench.phase_b(host, dev, smoke=dry)
+    if card["launches"] < (0 if dry else 1):
+        raise AssertionError(f"mpi: boosted_bench's phase B launched the "
+                             f"kernel {card['launches']} times")
+    phase("mpi", f"(e) boosted_bench: phase A (8 host workers, "
+          f"{host['rows_per_worker']} rows x {host['n_feat']} features into "
+          f"{host['nbins']} bins, {a_s:.2f} s) {host['host_round_ms']} ms a "
+          f"round = build {host['host_hist_ms_per_round']} + allreduce "
+          f"{host['allreduce_ms_per_round']}; phase B "
+          f"({card['contributions']} x {card['nbins']} on "
+          f"{card['device']}) the kernel "
+          f"{card['card_kernel_ms_per_round']:.4f} ms a round (host-paced "
+          f"{card['card_kernel_host_ms_per_round']:.4f}), the round "
+          f"{card['card_round_ms']:.4f} ms, {card['speedup_vs_host_round']:.2f}x "
+          f"phase A's; {card['launches']} launches [{power}]")
+    out["launches"]["e"] = card["launches"]
+    return dict(out, d=codec, e={"host": host, "card": card, "a_s": a_s})
+
+
 def card_power() -> str:
     """The first card's name and power limit, as ``nvidia-smi`` gives
     them."""
@@ -6447,6 +6603,7 @@ def main() -> int:
     jobs = phase_jobs(power)
     conn = phase_conn_plane(power)
     selfheal = phase_selfheal(power)
+    mpi = phase_mpi(dev, power)
     phase("walls", "host wall seconds by phase, in all "
           f"{sum(PHASE_WALLS.values()):.1f}: " + ", ".join(
               f"{n} {w:.1f}" for n, w in PHASE_WALLS.items()))
@@ -6484,6 +6641,10 @@ def main() -> int:
     # phase 24 (b)'s runs: the fault-free one and the faulted one, a
     # launch a histogram round a process
     kernels[0]["selfheal_launches"] = selfheal["launches"]
+    # phase 25's runs: (b)'s boosted trees under mpirun and under the
+    # port's launcher, all ranks (null where the machine has no MPI), and
+    # (e)'s phase B
+    kernels[0]["mpi_launches"] = mpi["launches"]
     kernels[3]["slope_ms"] = timing["mask_only"][0]["slope_ms"]
     kernels[2]["library_bwd_ms"] = timing["flash_block_bwd"][0][
         "library_bwd_ms"]
@@ -6509,6 +6670,7 @@ def main() -> int:
         "jobs": {k: jobs[k] for k in ("a_s", "launches")},
         "conn_plane": conn,
         "selfheal": selfheal,
+        "mpi": {k: mpi[k] for k in ("b", "c", "d", "e")},
         "flagship_bf16": {**{k: bf16[k] for k in (
             "forward_ms", "forward_f32_ms", "logit_rel")},
             "train": {k: v for k, v in bf16["train"].items()

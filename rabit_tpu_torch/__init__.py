@@ -37,7 +37,7 @@ __version__ = "0.1.0"
 
 _engine: Optional[Engine] = None
 
-ENGINES = ("empty", "torch", "native", "base", "robust", "mock",
+ENGINES = ("empty", "torch", "native", "base", "robust", "mock", "mpi",
            "robust_torch")
 
 
@@ -63,10 +63,15 @@ def init(args: Optional[list] = None, engine: str = "auto", **kwargs) -> None:
       - ``"native"``/``"base"``, ``"robust"``, ``"mock"``: the native
         core's socket engine, its fault-tolerant engine, and the latter
         with scripted kills (``engine/native.py``);
+      - ``"mpi"``: collectives on ``MPI_COMM_WORLD`` (the native core's
+        ``MpiComm``), the independent second implementation, not fault
+        tolerant: checkpoints only count versions. Run under ``mpirun``
+        (``tools/mpi_launch.py``); it loads the core's MPI build, which
+        needs an MPI runtime on the machine and raises where there is
+        none;
       - ``"robust_torch"``: the fault-tolerant engine with its
         allreduces on a torch data plane (``rabit_dataplane=torch``,
-        ``engine/dataplane.py``), the counterpart of ``"robust_xla"``.
-    ``"mpi"`` is not ported yet."""
+        ``engine/dataplane.py``), the counterpart of ``"robust_xla"``."""
     global _engine
     if _engine is not None:
         import warnings
@@ -93,14 +98,14 @@ def init(args: Optional[list] = None, engine: str = "auto", **kwargs) -> None:
     elif engine == "torch":
         from .engine.torch_engine import TorchEngine
         eng = TorchEngine()
-    elif engine in ("native", "base", "robust", "mock"):
+    elif engine in ("native", "base", "robust", "mock", "mpi"):
         from .engine.native import NativeEngine
         eng = NativeEngine(variant=engine)
     elif engine == "robust_torch":
         from .engine.native import NativeEngine
         eng = NativeEngine(variant="robust", dataplane="torch")
     else:
-        raise ValueError(f"unknown or not yet ported engine {engine!r} "
+        raise ValueError(f"unknown engine {engine!r} "
                          f"(rabit_tpu_torch has {ENGINES})")
     eng.init(args)
     _engine = eng

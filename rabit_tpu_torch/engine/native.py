@@ -3,7 +3,12 @@
 The port's copy of ``rabit_tpu/engine/native.py``. The library is built
 from ``native/src`` by ``engine/_native_build.py`` (never the JAX
 package's ``native/build/`` copy). The engine variant (``base`` /
-``robust`` / ``mock``) is chosen at run time through ``rabit_engine``.
+``robust`` / ``mock``) is chosen at run time through ``rabit_engine``;
+``mpi`` (``MpiComm``, ``native/src/engine_mpi.h``: the world of
+``MPI_COMM_WORLD``, every reducer through one custom ``MPI_Op``,
+checkpoints that only count versions, and ``MPI_Finalize`` only where the
+engine called ``MPI_Init``) loads the core's MPI build instead, a library
+of its own (``_native_build.library("mpi")``).
 With ``rabit_dataplane=torch`` the robust engine hands each allreduce of
 at least ``rabit_dataplane_minbytes`` bytes to a
 :class:`~rabit_tpu_torch.engine.dataplane.TorchDataPlane`, which reduces
@@ -97,8 +102,8 @@ DATAPLANE_CB = ctypes.CFUNCTYPE(
     ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p)
 
 
-def _load() -> ctypes.CDLL:
-    lib = ctypes.cdll.LoadLibrary(library())
+def _load(variant: str = "plain") -> ctypes.CDLL:
+    lib = ctypes.cdll.LoadLibrary(library(variant))
     lib.RbtInit.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p)]
     lib.RbtGetRank.restype = ctypes.c_int
     lib.RbtGetWorldSize.restype = ctypes.c_int
@@ -154,7 +159,7 @@ def _caller_site(depth: int = 2) -> str:
 class NativeEngine(Engine):
     def __init__(self, variant: str = "robust",
                  dataplane: Optional[str] = None) -> None:
-        self._lib = _load()
+        self._lib = _load("mpi" if variant == "mpi" else "plain")
         self._variant = variant
         self._key_counts: dict = {}
         self._loaded = False

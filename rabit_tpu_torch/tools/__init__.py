@@ -22,6 +22,14 @@ and ``python -m rabit_tpu_torch.tools.tracker_bench``, which needs no card
 either, measures the tracker's connection plane on a ladder of held
 idle connections.
 
+Beside them, the last of the JAX tools: ``python -m
+rabit_tpu_torch.tools.socket_vs_mpi`` (the socket engine against the MPI
+engine on host buffers, under the port's launcher and ``mpirun``:
+``mpi_launch.py``), ``python -m rabit_tpu_torch.tools.wire_bench`` (the
+wire by mode over the torch data plane, and the codec's cost on the
+card) and ``python -m rabit_tpu_torch.tools.boosted_bench`` (a boosting
+round on 8 host workers, and its histogram build on the card).
+
 Each runs on the card unless given ``--device cpu``, and raises where
 there is none. ``--smoke`` shrinks every size and writes nothing; a full
 run writes its JSON artifact into ``--out``, by default ``build/artifacts/``
@@ -60,6 +68,13 @@ def card(device: torch.device) -> dict:
     ).stdout.strip()
     return {"name": torch.cuda.get_device_name(device),
             "power_limit": smi.rsplit(",", 1)[-1].strip(), "nvidia_smi": smi}
+
+
+def worker_env() -> dict:
+    """The workers' ``PYTHONPATH``: this checkout first."""
+    root = str(Path(__file__).resolve().parents[2])
+    return {"PYTHONPATH": os.pathsep.join(
+        filter(None, [root, os.environ.get("PYTHONPATH")]))}
 
 
 def write_json(path: Path, doc: dict) -> None:

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import socket
 import sys
 import tempfile
@@ -37,7 +36,8 @@ from typing import Optional
 
 import torch
 
-from . import ARTIFACTS, card, device_from_arg, timestamp, write_json
+from . import ARTIFACTS, card, device_from_arg, timestamp, worker_env, \
+    write_json
 
 SMOKE_ENV = {"PAYLOAD": str(1 << 16), "LAG_MS": "20", "N_ROUNDS": "3",
              "N_WARMUP": "1"}
@@ -48,13 +48,6 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
-
-
-def worker_env() -> dict:
-    """The workers' ``PYTHONPATH``: this checkout first."""
-    root = str(Path(__file__).resolve().parents[2])
-    return {"PYTHONPATH": os.pathsep.join(
-        filter(None, [root, os.environ.get("PYTHONPATH")]))}
 
 
 def run_fleet(world: int, device: torch.device, smoke: bool,

@@ -104,16 +104,24 @@ def test_checkpoint_bytes_from_rabit_tpu_load_unchanged(both_empty):
     assert rabit_tpu_torch.version_number() == 3
 
 
-def test_uninitialized_and_unknown_engines_raise():
-    """``mpi`` is not ported: asked for by name, or by ``rabit_engine``
-    under ``auto`` with a tracker URI, init raises before it dials any
-    tracker (none listens at the URI below)."""
+def test_uninitialized_and_unknown_engines_raise(monkeypatch, tmp_path):
+    """An unknown engine raises, and so does ``mpi`` on a machine without
+    an MPI runtime: asked for by name, or by ``rabit_engine`` under
+    ``auto`` with a tracker URI, init raises before it dials any tracker
+    (none listens at the URI below)."""
+    from rabit_tpu_torch.engine import _native_build as NB
     rabit_tpu_torch.finalize()
     with pytest.raises(RuntimeError, match="not initialized"):
         rabit_tpu_torch.get_rank()
     with pytest.raises(ValueError, match="engine"):
+        rabit_tpu_torch.init([], engine="xla")
+    monkeypatch.delenv(NB.LIB_ENV, raising=False)
+    monkeypatch.setattr(NB, "MPI_PREFIXES", (str(tmp_path),))
+    monkeypatch.setattr(NB, "MPI_RUNTIME_DIRS", (str(tmp_path),))
+    monkeypatch.setattr(NB.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="MPI runtime"):
         rabit_tpu_torch.init([], engine="mpi")
-    with pytest.raises(ValueError, match="engine"):
+    with pytest.raises(RuntimeError, match="MPI runtime"):
         rabit_tpu_torch.init(["rabit_tracker_uri=127.0.0.1",
                               "rabit_tracker_port=9", "rabit_engine=mpi"],
                              engine="auto")
@@ -274,7 +282,14 @@ def test_import_leaves_out_jax_and_rabit_tpu():
         "'rabit_tpu_torch.tracker.jobs', "
         "'rabit_tpu_torch.tracker.autoscaler', "
         "'rabit_tpu_torch.chaos.__main__', 'rabit_tpu_torch.tools.soak', "
-        "'rabit_tpu_torch.tools.capture_status'}\n"
+        "'rabit_tpu_torch.tools.capture_status', "
+        "'rabit_tpu_torch.tools.mpi_launch', "
+        "'rabit_tpu_torch.tools.speed_worker', "
+        "'rabit_tpu_torch.tools.socket_vs_mpi', "
+        "'rabit_tpu_torch.tools.wire_bench', "
+        "'rabit_tpu_torch.tools.wire_bench_worker', "
+        "'rabit_tpu_torch.tools.boosted_bench', "
+        "'rabit_tpu_torch.tools.boosted_round_worker'}\n"
         "print(len(names), bad, need - set(names))\n"
         "sys.exit(1 if bad or need - set(names) else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -326,8 +341,11 @@ def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
     (``tracker/jobs.py``, ``tracker/autoscaler.py``) and of the
     connection plane (``tracker/evloop.py``, ``tools/tracker_bench.py``)
     and of the fault-injection tooling (``chaos/__main__.py``,
-    ``tools/soak.py``, ``tools/capture_status.py``), by name (the package scan above covers the package too), and the
-    port's own test workers."""
+    ``tools/soak.py``, ``tools/capture_status.py``) and of the MPI engine
+    and the last tools (``tools/mpi_launch.py``, ``speed_worker.py``,
+    ``socket_vs_mpi.py``, ``wire_bench.py`` and its worker,
+    ``boosted_bench.py`` and its worker), by name (the package scan above
+    covers the package too), and the port's own test workers."""
     new = [PKG / "utils" / "log.py", PKG / "utils" / "retry.py",
            PKG / "engine" / "ckpt_store.py", PKG / "engine" / "_native_build.py",
            PKG / "engine" / "native.py", PKG / "engine" / "dataplane.py",
@@ -359,5 +377,9 @@ def test_no_jax_or_rabit_tpu_import_in_the_new_modules_and_workers():
     new += [PKG / "chaos" / "__main__.py", PKG / "tools" / "soak.py",
             PKG / "tools" / "capture_status.py",
             ROOT / "tests" / "workers" / "torch_selfheal_worker.py"]
+    new += [PKG / "tools" / f"{m}.py"
+            for m in ("mpi_launch", "speed_worker", "socket_vs_mpi",
+                      "wire_bench", "wire_bench_worker", "boosted_bench",
+                      "boosted_round_worker")]
     assert all(p.is_file() for p in new)
     assert _jax_imports(new) == []

@@ -212,3 +212,146 @@ def test_tracker_bench_smoke_is_bounded_renders_and_writes_nothing_else(
     assert "threads bounded" in text and "| 150 |" in text
     assert [p.name for p in tmp_path.iterdir()] == ["bench.json"]
     assert elsewhere() == before
+
+
+def _new_artifacts():
+    """Where the MPI, wire and boosted tools could leave an artifact."""
+    names = ("SOCKET_VS_MPI_*", "WIRE_BENCH_*", "BOOSTED_BENCH_*")
+    return {p for n in names
+            for p in [*ROOT.glob(n), *ARTIFACTS.rglob(n),
+                      *(ROOT / "benchmarks").rglob(n)]}
+
+
+def test_socket_vs_mpi_smoke_contract():
+    """Both engines run the speed worker at world 2 (the socket engine
+    under the port's launcher, the MPI engine under ``mpirun``); each
+    row has both engines' MB/s of the three collectives; nothing is
+    written. Skips only where the machine has no MPI runtime."""
+    from rabit_tpu_torch.tools import mpi_launch
+    ok, why = mpi_launch.have_mpi()
+    if not ok:
+        pytest.skip(why)
+    before = _new_artifacts()
+    res = _run("rabit_tpu_torch.tools.socket_vs_mpi", "--smoke",
+               timeout=900)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    lines = res.stdout.strip().splitlines()
+    assert lines[-1] == "smoke ok"
+    rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    assert [(r["world"], r["ndata"], r["nrep"]) for r in rows] == \
+        [(2, 1024, 3)]
+    for key in ("socket_mbs", "mpi_mbs"):
+        assert set(rows[0][key]) == {"sum", "max", "bcast"}
+        assert all(v > 0 for v in rows[0][key].values())
+    assert "MPI runtime" in res.stderr
+    assert _new_artifacts() == before
+
+
+def test_socket_vs_mpi_without_mpi_exits_2_naming_the_search(
+        monkeypatch, tmp_path, capsys):
+    from rabit_tpu_torch.engine import _native_build as NB
+    from rabit_tpu_torch.tools import socket_vs_mpi
+    monkeypatch.setattr(NB, "MPI_PREFIXES", (str(tmp_path / "mpi"),))
+    monkeypatch.setattr(NB, "MPI_RUNTIME_DIRS", (str(tmp_path / "lib"),))
+    monkeypatch.setattr(NB.shutil, "which", lambda name: None)
+    assert socket_vs_mpi.main(["--smoke"]) == 2
+    out, err = capsys.readouterr()
+    assert out == ""
+    assert "no MPI runtime" in err and str(tmp_path / "lib") in err
+
+
+def test_speed_worker_lines_read_by_both_parsers():
+    """The port's speed worker prints ``speed_test.cc``'s lines: the JAX
+    tool's parser and the port's read the same MB/s from them."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    try:
+        import socket_vs_mpi as jax_tool
+    finally:
+        sys.path.pop(0)
+    from rabit_tpu_torch.tools import socket_vs_mpi
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run(
+        [sys.executable, "-m", "rabit_tpu_torch.tracker.launch", "-n", "2",
+         "--timeout", "600", *socket_vs_mpi.WORKER, "ndata=4096", "nrep=2",
+         "rabit_engine=base"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    assert "== speed_test: 4096 floats (16384 bytes) x 2 reps, world=2 ==" \
+        in res.stdout
+    got = socket_vs_mpi.parse_speed(res.stdout)
+    assert got == jax_tool.parse_speed(res.stdout)
+    assert set(got) == {"sum", "max", "bcast"}
+
+
+def test_wire_bench_smoke_contract():
+    """The host phase at world 4 and n = 4096 through the port's
+    launcher, each wire's sum checked by the worker, its hop bytes the
+    JAX tool's; the card phase's codec rows on the CPU at n = 4096 (no
+    key names a TPU); nothing written."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    try:
+        import wire_bench as jax_tool
+    finally:
+        sys.path.pop(0)
+    before = _new_artifacts()
+    res = _run("rabit_tpu_torch.tools.wire_bench", "--smoke", "--device",
+               "cpu", timeout=900)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    lines = res.stdout.strip().splitlines()
+    assert lines[-1] == "smoke ok"
+    rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    host = [r for r in rows if "world" in r]
+    codec = [r for r in rows if "ns_per_elem" in r]
+    assert [(r["wire"], r["world"], r["n"]) for r in host] == \
+        [(w, 4, 4096) for w in ("none", "bf16", "int8")]
+    for r in host:
+        assert r["s_per_op"] > 0
+        assert r["hop_bytes"] == jax_tool.hop_bytes(4096, 4, r["wire"])
+    assert [(r["wire"], r["n"], r["device"]) for r in codec] == \
+        [(w, 4096, "cpu") for w in ("none", "bf16", "int8")]
+    for r in codec:
+        assert r["ns_per_elem"] > 0 and "tpu" not in json.dumps(r)
+    assert all("overhead_vs_f32" in r for r in codec[1:])
+    assert _new_artifacts() == before
+
+
+def test_boosted_bench_smoke_contract():
+    """Phase A's 8 launched host workers and phase B's build of the same
+    per-worker workload (the plain version on the CPU), with the launch
+    count and the derived round; nothing written."""
+    before = _new_artifacts()
+    res = _run("rabit_tpu_torch.tools.boosted_bench", "--smoke", "--device",
+               "cpu", timeout=900)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    lines = res.stdout.strip().splitlines()
+    assert lines[-1] == "smoke ok"
+    host, dev = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    assert host["phase"] == "host_8_workers" and host["world"] == 8
+    assert host["contributions_per_worker"] == 4096 * 16
+    assert host["nbins"] == 1024 and host["rounds_timed"] == 2
+    assert dev["phase"] == "card_kernel" and dev["device"] == "cpu"
+    assert dev["launches"] == 0     # the plain version launches nothing
+    assert dev["contributions"] == 4096 * 16 and dev["nbins"] == 1024
+    assert dev["card_round_ms"] == pytest.approx(
+        dev["card_kernel_ms_per_round"] + host["allreduce_ms_per_round"])
+    assert dev["speedup_vs_host_round"] == pytest.approx(
+        host["host_round_ms"] / dev["card_round_ms"])
+    assert _new_artifacts() == before
+
+
+@pytest.mark.parametrize("module", ["rabit_tpu_torch.tools.wire_bench",
+                                    "rabit_tpu_torch.tools.boosted_bench"])
+@pytest.mark.parametrize("args,env_extra", [
+    (("--device", "cpu"), None),
+    (("--smoke",), {"CUDA_VISIBLE_DEVICES": ""})])
+def test_card_phases_refuse_to_run_without_a_card(module, args, env_extra):
+    """At full size on the CPU, or with no card visible, the card phases
+    exit non-zero before anything runs and print no result."""
+    before = _new_artifacts()
+    res = _run(module, *args, env_extra=env_extra, timeout=120)
+    assert res.returncode != 0
+    assert res.stdout == ""
+    assert "needs a CUDA device" in res.stderr or \
+        "torch.cuda.is_available() is False" in res.stderr
+    assert _new_artifacts() == before
